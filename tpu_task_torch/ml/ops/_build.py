@@ -1,0 +1,90 @@
+"""Build and bind the port's CUDA kernels: nvcc into a shared library with
+a plain C interface, loaded with ctypes.
+
+Each source under ``tpu_task_torch/csrc/`` compiles on first use, for
+``sm_90a``, into ``build/tpu_task_torch/`` at the repository root. The
+library's file name carries a hash of its source and flags, so an edited
+source rebuilds and an unchanged one is reused. A failed build raises with
+the compiler's output; nothing falls back."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+_PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE.parent / "build" / "tpu_task_torch"
+
+#: ``-Xptxas -v`` makes ptxas report registers, shared memory and spills.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: C entry points of each library: name -> (restype, argtypes).
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "paged_decode": {
+        "tt_paged_decode": (_I, [_I, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P]),
+        "tt_paged_decode_smem_bytes": (_I, [_I, _I, _I, _I, _I]),
+        "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+#: The compiler's output for each library this process built.
+compiler_output: Dict[str, str] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
+        "port's CUDA kernels build on first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _build(name: str, target: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    done = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if done.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
+                           f"{done.returncode}\n{done.stdout}")
+    os.replace(tmp, target)
+    compiler_output[name] = done.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The named kernel library, built if needed, with every entry point's
+    ``argtypes``/``restype`` declared."""
+    lib = _loaded.get(name)
+    if lib is None:
+        target = library_path(name)
+        if not target.exists():
+            _build(name, target)
+        lib = ctypes.CDLL(str(target))
+        for fn, (restype, argtypes) in SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,97 @@
+"""The paged-cache decode step and its samplers — the counterpart of
+``tpu_task/ml/serving/model.py`` (``paged_decode_step``,
+``greedy_decode_step``, ``decode_and_sample``, ``sample_tokens``).
+
+The step runs the model's own ``_block`` with an attention closure over
+the paged pools: scatter the new k/v into their flat pool slots (in place,
+``index_copy_``), then attend through :func:`paged_attention` — the CUDA
+kernel or its plain version, chosen by ``attn_impl``. Chunked prefill uses
+this same step at a batch of ``slots + chunk_tokens`` rows (the engine's
+token-packed chunk step)."""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from tpu_task_torch.ml import random as jrandom
+from tpu_task_torch.ml.models.decoding import _top_p_filter
+from tpu_task_torch.ml.models.transformer import (
+    Params,
+    TransformerConfig,
+    _block,
+    _rmsnorm,
+    embed_lookup,
+)
+from tpu_task_torch.ml.ops.paged_attention import paged_attention
+from tpu_task_torch.ml.serving.cache import flat_pool, token_slots
+
+Pools = List[Dict[str, torch.Tensor]]
+
+
+def paged_decode_step(params: Params, cfg: TransformerConfig,
+                      tokens: torch.Tensor, positions: torch.Tensor,
+                      block_tables: torch.Tensor, active: torch.Tensor,
+                      pools: Pools, *,
+                      attn_impl: str = "reference") -> torch.Tensor:
+    """ONE decode step across every row: each row's token in, its
+    next-token logits (rows, vocab) float32 out. ``tokens`` (rows,);
+    ``positions`` (rows,) int32, the absolute position each token takes;
+    ``block_tables`` (rows, max_blocks) int32; ``active`` (rows,) bool —
+    inactive rows still compute but write only the scratch block, and the
+    host discards their outputs. Updates ``pools`` in place."""
+    block_size = pools[0]["k"].shape[1]
+    write_idx = torch.where(active, token_slots(block_tables, positions,
+                                                block_size), 0)
+    pos2d = positions[:, None]
+    x = embed_lookup(params["embed"], tokens[:, None])
+    for layer, pool in zip(params["layers"], pools):
+        def attn_fn(q, k, v, pool=pool):
+            # Scatter this step's k/v, THEN attend: the new token attends
+            # itself, and a chunk's rows attend their in-chunk predecessors.
+            flat_pool(pool["k"]).index_copy_(0, write_idx, k[:, 0])
+            flat_pool(pool["v"]).index_copy_(0, write_idx, v[:, 0])
+            return paged_attention(q, pool["k"], pool["v"], block_tables,
+                                   pos2d, impl=attn_impl)
+
+        x = _block(x, layer, cfg, attn_fn, positions=pos2d)
+    x = _rmsnorm(x, params["final_norm"])
+    return (x[:, -1] @ params["unembed"]).to(torch.float32)
+
+
+def greedy_decode_step(params: Params, cfg: TransformerConfig, tokens,
+                       positions, block_tables, active, pools: Pools, *,
+                       attn_impl: str = "reference") -> torch.Tensor:
+    """Decode step + argmax: (rows,) next tokens."""
+    logits = paged_decode_step(params, cfg, tokens, positions, block_tables,
+                               active, pools, attn_impl=attn_impl)
+    return torch.argmax(logits, dim=-1)
+
+
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_p: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling with per-row params: row i is greedy when
+    ``temperature[i] == 0``, else Gumbel-max sampled at its temperature
+    through its nucleus (``top_p[i]``; 1.0 disables) with its own key
+    ``keys[i]`` — so a stream depends only on its own key, never on the
+    rows it shares a step with."""
+    greedy = torch.argmax(logits, dim=-1)
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))
+    filtered = _top_p_filter(logits / safe_t[:, None], top_p)
+    sampled = jrandom.categorical(keys, filtered)
+    return torch.where(temperature > 0, sampled, greedy)
+
+
+def decode_and_sample(params: Params, cfg: TransformerConfig, tokens,
+                      positions, block_tables, active, temperature, top_p,
+                      slot_keys, n_generated, pools: Pools, *,
+                      attn_impl: str = "reference") -> torch.Tensor:
+    """Decode step + sampler. Each row's key is ``fold_in(slot_keys[i],
+    n_generated[i])``: a request's stream depends only on its key and the
+    token's index."""
+    logits = paged_decode_step(params, cfg, tokens, positions, block_tables,
+                               active, pools, attn_impl=attn_impl)
+    keys = jrandom.fold_in(slot_keys, n_generated)
+    return sample_tokens(logits, temperature, top_p, keys)
