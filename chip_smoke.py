@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tpu_task_torch``) on one NVIDIA
 card: builds the port's CUDA kernels from this checkout, holds each against
-its plain PyTorch version, times it, and drives the paged serving engine at
-the flagship model's full width.
+its plain PyTorch version, times it, drives the paged serving engine at the
+flagship model's full width, and trains the flagship for a few steps.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ Phases, each printing one JSON line; any failed check raises and the
 script exits non-zero:
 
 1. device  — the card's name and power limit; TF32 off for the fp32 phases.
-2. build   — nvcc for every kernel source, with ptxas's report.
+2. build   — nvcc for every kernel source, all started together, with
+             ptxas's report.
 3. kernel  — the paged-decode kernel against its plain version at the
              flagship geometry (kv 2, group 4, d 128, block 16): fragmented
              shuffled tables, ragged depths, inactive rows, fp32 and bf16;
@@ -36,6 +37,32 @@ script exits non-zero:
              kernel. Layer 0's attention in the first decode step and the
              last chunk step of the first wave is held against the plain
              version on the same inputs.
+7. flash kernel — the forward, dq and dk/dv kernels against their plain
+             versions: fp32 (2e-5 forward, 5e-5 backward) and bf16 (against
+             the plain version in fp32 on the same bf16 values, within
+             2^-8 of each element and of the tensor's largest), the flagship
+             train shape (b 8, s 1024, h 8, d 128, causal), causal and not,
+             sq = sk, sq < sk, q_offset 0 with sq != sk, a negative
+             q_offset with rows that see no key, a ragged length, d 64 and
+             128, lengths 128 to 2048. Each case also launches every kernel
+             into NaN-guarded buffers.
+8. flash timing — each kernel at the flagship train shape (bf16, held
+             against its plain version in phase 7): kernel, plain and bound
+             ms, and SDPA's forward and backward (``library_ms``, a
+             yardstick the port never calls).
+9. train parity — small GQA configs with a 256-token sequence, fp32 at d 32
+             (the fp32-core kernels) and bf16 at d 128 (the tensor-core
+             kernels): three ``make_train_step`` steps through the kernels
+             and through the plain versions, from the same weights and
+             tokens.
+10. train  — the flagship train step (vocab 32768, d_model 1024, 8 layers,
+             8 heads of 128, MHA, d_ff 4096, bf16 over fp32 master weights,
+             batch 8 x 1024 tokens, random weights from a torch Generator):
+             two warm-up steps, the first recorded so that layer 0's
+             forward and the last layer's backward are held against the
+             plain versions in fp32, then ten timed steps on one batch:
+             step ms, tokens/s, MFU, peak memory, one profiled step, and
+             launch counts that prove every layer ran the three kernels.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -44,9 +71,11 @@ a checkout of the repository, it exits non-zero before any result."""
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -61,6 +90,13 @@ BF16_FLOPS = 989e12
 FLAGSHIP = dict(vocab_size=32768, d_model=1024, n_layers=8, n_heads=8,
                 d_head=128, d_ff=4096, n_kv_heads=2)
 FP32_ATOL = 2e-5
+
+#: The repository's training flagship (``bench.py``'s ``bench_train_mfu``):
+#: MHA, trained at batch 8 on 1025-token rows (a 1024-token sequence).
+TRAIN_FLAGSHIP = dict(vocab_size=32768, d_model=1024, n_layers=8, n_heads=8,
+                      d_head=128, d_ff=4096)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+FLASH_FWD_ATOL, FLASH_BWD_ATOL = 2e-5, 5e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -175,8 +211,8 @@ def phase_build() -> None:
     from tpu_task_torch.ml.ops import _build
 
     t0 = time.perf_counter()
-    for name in _build.SIGNATURES:
-        _build.load(name)
+    with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
+        list(pool.map(_build.load, _build.SIGNATURES))
     report = {name: [line.strip() for line in output.splitlines()
                      if "registers" in line or "spill" in line]
               for name, output in _build.compiler_output.items()}
@@ -555,6 +591,517 @@ def phase_serve(device, smi: str) -> int:
     return launches
 
 
+# -- flash attention ------------------------------------------------------------
+
+#: (b, h, sq, sk, d, causal, q_offset): the flagship train step's own shape
+#: first, then sq = sk, sq < sk, ring attention's q_offset 0 with sq != sk,
+#: a negative offset whose first 96 rows see no key, ragged lengths the
+#: 64-row tiles mask, and non-causal pairs.
+FLASH_CASES = (
+    (8, 8, 1024, 1024, 128, True, None),
+    (2, 4, 128, 128, 64, True, None),
+    (2, 4, 128, 128, 128, False, None),
+    (1, 8, 512, 2048, 128, True, None),
+    (1, 8, 2048, 2048, 128, True, None),
+    (2, 2, 256, 512, 64, True, 0),
+    (2, 2, 256, 256, 128, True, -96),
+    (1, 4, 200, 328, 128, False, None),
+    (1, 4, 200, 328, 64, True, None),
+)
+
+
+def nan_guarded(launch, wants) -> bool:
+    """Run an uncounted ``launch(*outs)`` whose outputs are views into the
+    middle of NaN-filled buffers: True if it wrote exactly ``wants`` there
+    and nothing on either side."""
+    pad = 1 << 16
+    bufs, outs = [], []
+    for want in wants:
+        buf = torch.full((want.numel() + 2 * pad,), float("nan"),
+                         dtype=want.dtype, device=want.device)
+        bufs.append(buf)
+        outs.append(buf[pad:pad + want.numel()].view(want.shape))
+    launch(*outs)
+    torch.cuda.synchronize()
+    return all(bool(torch.isnan(buf[:pad]).all())
+               and bool(torch.isnan(buf[-pad:]).all())
+               and torch.equal(out, want)
+               for buf, out, want in zip(bufs, outs, wants))
+
+
+def flash_gate(got, exact, atol: float) -> bool:
+    """fp32: within ``atol`` of the plain version (sums in another order).
+    bf16: within 2^-8 |ref| + 2^-8 max|ref| + ``atol`` of the plain version
+    run in fp32 on the same bf16 values: the output's bf16 rounding, plus
+    the bf16 rounding of the weights (p, and ds in the backward) before the
+    tensor-core products, which the TPU kernels round too; each such
+    rounding moves a sum by at most 2^-9 of its terms' magnitude, bounded
+    by the tensor's scale."""
+    err = (got.float() - exact.float()).abs()
+    if got.dtype == torch.float32:
+        return bool(err.max() <= atol)
+    scale = exact.float().abs()
+    return bool((err <= 2.0 ** -8 * (scale + scale.max()) + atol).all())
+
+
+def phase_flash_kernel(device) -> dict:
+    """The three flash kernels against their plain versions; returns each
+    kernel's largest error against the plain version at its own type."""
+    from tpu_task_torch.ml.ops import attention as fa
+
+    gen = torch.Generator().manual_seed(3)
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for b, h, sq, sk, d, causal, q_offset in FLASH_CASES:
+        off = sk - sq if q_offset is None else q_offset
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(shape, generator=gen).to(dtype)
+                           .to(device) for shape in
+                           ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d),
+                            (b, sq, h, d)))
+            before = [t.clone() for t in (q, k, v, do)]
+            o, lse = fa.flash_attention(q, k, v, causal, q_offset=q_offset,
+                                        return_lse=True)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                 q_offset=q_offset)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                      q_offset=q_offset)
+            torch.cuda.synchronize()
+            unchanged = all(torch.equal(x, y)
+                            for x, y in zip(before, (q, k, v, do)))
+            guarded = (
+                nan_guarded(lambda o_, l_: fa._launch_fwd(
+                    q, k, v, causal, off, o_, l_), (o, lse))
+                and nan_guarded(lambda dq_: fa._launch_dq(
+                    q, k, v, do, lse, delta, causal, off, dq_), (dq,))
+                and nan_guarded(lambda dk_, dv_: fa._launch_dkv(
+                    q, k, v, do, lse, delta, causal, off, dk_, dv_),
+                    (dk, dv)))
+            same_o, same_lse = fa.flash_attention_reference(q, k, v, causal,
+                                                            q_offset)
+            same = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal,
+                                          q_offset)
+            wide = [t.float() for t in (q, k, v, do)]
+            ex_o, ex_lse = fa.flash_attention_reference(*wide[:3], causal,
+                                                        q_offset)
+            exact = fa.flash_bwd_reference(*wide, lse, delta, causal,
+                                           q_offset)
+            errs, ok = {}, unchanged and guarded
+            for name, got, plain, ref, atol in (
+                    ("o", o, same_o, ex_o, FLASH_FWD_ATOL),
+                    ("lse", lse, same_lse, ex_lse, FLASH_FWD_ATOL),
+                    ("dq", dq, same[0], exact[0], FLASH_BWD_ATOL),
+                    ("dk", dk, same[1], exact[1], FLASH_BWD_ATOL),
+                    ("dv", dv, same[2], exact[2], FLASH_BWD_ATOL)):
+                errs[name] = (got.float() - plain.float()).abs().max().item()
+                errs[name + "_vs_fp32"] = (got.float() - ref).abs().max() \
+                    .item()
+                ok = ok and flash_gate(got, ref, atol)
+            hidden = max(0, -off) if causal else 0
+            if hidden:                 # rows that see no key: JAX's values
+                ok = ok and bool((o[:, :hidden] == 0).all()) and bool(
+                    (lse[:, :, :hidden] == fa.NEG_INF).all())
+            worst["flash_fwd"] = max(worst["flash_fwd"], errs["o"],
+                                     errs["lse"])
+            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"],
+                                         errs["dv"])
+            line = dict(b=b, h=h, sq=sq, sk=sk, d=d, causal=causal,
+                        q_offset=off, rows_seeing_no_key=hidden,
+                        dtype=str(dtype).replace("torch.", ""),
+                        inputs_unchanged=unchanged,
+                        writes_only_out_and_repeats=guarded,
+                        max_abs_err=errs,
+                        tolerance=(f"fp32: {FLASH_FWD_ATOL} forward, "
+                                   f"{FLASH_BWD_ATOL} backward"
+                                   if dtype == torch.float32 else
+                                   "bf16: 2^-8*(|fp32 ref| + max|fp32 "
+                                   "ref|) + the fp32 tolerance"))
+            emit("flash_kernel", ok=ok, **line)
+            if not ok:
+                raise AssertionError(f"flash kernels disagree: {line}")
+    return worst
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs the mask lets through: the score entries a kernel
+    that skips masked tiles must still compute."""
+    if not causal:
+        return sq * sk
+    return sum(max(0, min(sk, q_offset + i + 1)) for i in range(sq))
+
+
+def phase_flash_timing(device, smi: str) -> dict:
+    """Each flash kernel, its plain version and SDPA at the flagship train
+    shape; returns one row per kernel."""
+    from tpu_task_torch.ml.ops import attention as fa
+
+    F = torch.nn.functional
+    timer = DeviceTimer(device)
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, TRAIN_FLAGSHIP["n_heads"], \
+        TRAIN_FLAGSHIP["d_head"]
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    # SDPA wants (b, h, s, d): the yardstick's own layout, made once.
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lq, lk, lv = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_err = (lib_out.detach().transpose(1, 2).float()
+               - o.float()).abs().max().item()
+    if lib_err > 2e-2:
+        raise AssertionError(f"SDPA yardstick disagrees with the kernel: "
+                             f"{lib_err}")
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (lq, lk, lv), dot,
+                                   retain_graph=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        return torch.autograd.grad(out, (lq, lk, lv), dot)
+
+    sdpa = dict(fwd=timer(sdpa_fwd), bwd=timer(sdpa_bwd),
+                fwd_bwd=timer(sdpa_fwd_bwd))
+    pairs = visible_pairs(s, s, True, 0) * b * h
+    tensor = b * s * h * d * q.element_size()     # one (b, s, h, d) tensor
+    stats = b * h * s * 4                         # one (b, h, s) f32 array
+    kernels = {
+        # name: (kernel, plain, FLOPs, bytes). Products of the executed
+        # (visible) score entries; each input read once, each output
+        # written once.
+        "flash_fwd": (
+            lambda: fa.flash_attention(q, k, v, True, return_lse=True),
+            lambda: fa.flash_attention_reference(q, k, v, True),
+            2 * 2 * pairs * d, 4 * tensor + stats, sdpa["fwd"]),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, True),
+            3 * 2 * pairs * d, 5 * tensor + 2 * stats, sdpa["bwd"]),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, True),
+            4 * 2 * pairs * d, 6 * tensor + 2 * stats, sdpa["bwd"]),
+    }
+    rows = {}
+    for name, (kernel, plain, flops, n_bytes, lib_ms) in kernels.items():
+        t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
+        row = dict(kernel=name, b=b, s=s, h=h, d=d, dtype="bfloat16",
+                   causal=True, ms=timer(kernel), plain_ms=timer(plain),
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   flops=flops, bytes=n_bytes, library_ms=lib_ms, gpu=smi)
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflops"] = flops / row["ms"] / 1e9
+        emit("flash_timing", **row)
+        rows[name] = row
+    emit("flash_timing_sdpa", sdpa_fwd_ms=sdpa["fwd"],
+         sdpa_bwd_ms=sdpa["bwd"], sdpa_fwd_bwd_ms=sdpa["fwd_bwd"],
+         kernels_fwd_bwd_ms=sum(r["ms"] for r in rows.values()),
+         sdpa_max_abs_diff=lib_err, gpu=smi,
+         note="library_ms of dq and dk/dv is SDPA's one backward call, "
+              "which computes dq, dk and dv together")
+    return rows
+
+
+def flash_counts() -> dict:
+    from tpu_task_torch.ml.ops import attention as fa
+
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "plain_fwd": fa.flash_attention_reference.launches,
+            "plain_bwd": fa.flash_bwd_reference.launches,
+            "plain_mha": fa.mha_reference.launches}
+
+
+class PlainFlash(torch.autograd.Function):
+    """``FlashAttention``'s wiring over the plain versions, on any device:
+    the reference path of the train-parity phase."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        from tpu_task_torch.ml.ops import attention as fa
+
+        o, lse = fa.flash_attention_reference(q, k, v, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from tpu_task_torch.ml.ops import attention as fa
+
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return fa.flash_bwd_reference(q, k, v, do, lse, delta, True)
+
+
+#: (dtype, config, params' abs tolerance, loss and grad norm's relative
+#: tolerance). fp32 at d 32 takes the fp32-core kernels: after three AdamW
+#: steps (lr 3e-4) the parameters may differ by the last-bit gradient
+#: differences of fp32 sums in another order, scaled by lr: 2e-5, as in the
+#: CPU tests against JAX. bf16 at d 128 takes the tensor-core kernels, which
+#: round p and ds to bf16 where the plain version keeps fp32: loss and grad
+#: norm within 2^-10 relative (an all-bf16 attention and an fp32 one differ
+#: by 3.3e-5 at this config on the CPU). Its parameters are not held element
+#: by element: AdamW's first steps move a parameter whose gradient is near 0
+#: by about lr whichever way that gradient's sign falls, so two right paths
+#: differ there by up to 2 lr a step.
+PARITY_TRAIN = (
+    (torch.float32, dict(vocab_size=1024, d_model=256, n_layers=2,
+                         n_heads=8, d_head=32, d_ff=512, n_kv_heads=4),
+     2e-5, 1e-5),
+    (torch.bfloat16, dict(vocab_size=1024, d_model=512, n_layers=2,
+                          n_heads=4, d_head=128, d_ff=1024, n_kv_heads=2),
+     None, 2.0 ** -10),
+)
+
+
+def phase_train_parity(device) -> None:
+    from tpu_task_torch.ml import train
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.ops import attention as fa
+
+    for dtype, config, param_atol, rtol in PARITY_TRAIN:
+        cfg = transformer.TransformerConfig(dtype=dtype, **config)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 257),
+                               generator=torch.Generator().manual_seed(5))
+        tokens = tokens.to(device)
+
+        def plain_attn(q, k, v):
+            return PlainFlash.apply(q, transformer.expand_kv(k, cfg.n_heads),
+                                    transformer.expand_kv(v, cfg.n_heads))
+
+        runs = {}
+        for path, attn_fn in (("kernels", None), ("plain", plain_attn)):
+            state = train.init_state(torch.Generator().manual_seed(6), cfg,
+                                     device=device)
+            step = train.make_train_step(cfg, attn_fn=attn_fn)
+            fa.reset_launch_counts()
+            metrics = []
+            for _ in range(3):
+                state, m = step(state, tokens)
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            runs[path] = dict(metrics=metrics, counts=flash_counts(),
+                              params=[p.detach().clone() for p in
+                                      train._leaves(state.params)])
+        kern, plain = runs["kernels"], runs["plain"]
+        n = 3 * cfg.n_layers
+        param_err = max((a - b).abs().max().item()
+                        for a, b in zip(kern["params"], plain["params"]))
+        rel = max(abs(a - b) / abs(b) for x, y in zip(kern["metrics"],
+                                                      plain["metrics"])
+                  for a, b in zip(x, y))
+        ok = ((param_atol is None or param_err <= param_atol)
+              and rel <= rtol
+              and all(kern["counts"][name] == n for name in
+                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+              and kern["counts"]["plain_fwd"] == kern["counts"]["plain_bwd"]
+              == kern["counts"]["plain_mha"] == 0
+              and plain["counts"]["flash_fwd"] == 0)
+        emit("train_parity", ok=ok, config=config, tokens=[4, 257],
+             dtype=str(dtype).replace("torch.", ""), steps=3,
+             kernels_metrics=kern["metrics"], plain_metrics=plain["metrics"],
+             max_param_abs_diff=param_err, max_metric_rel_diff=rel,
+             kernel_counts=kern["counts"], plain_counts=plain["counts"],
+             tolerance=(f"loss and grad norm {rtol} rel"
+                        + ("" if param_atol is None
+                           else f", params {param_atol} abs")))
+        if not ok:
+            raise AssertionError(f"{dtype} train step through the kernels "
+                                 "differs from the plain versions")
+
+
+class FlashRecorder:
+    """Stands in for the flash kernels' uncounted launchers in
+    ``tpu_task_torch.ml.ops.attention`` for one train step: passes every
+    launch through and keeps a copy of the first launch's arguments of
+    each kernel, outputs included (the forward of layer 0, the backward of
+    the last layer), so the kernels' work in the step can be held against
+    the plain versions after it."""
+
+    NAMES = ("_launch_fwd", "_launch_dq", "_launch_dkv")
+
+    def __init__(self, fa):
+        self.fa, self.calls = fa, {}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.fa, name) for name in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(self.fa, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.fa, name, fn)
+
+    def _wrap(self, name, fn):
+        def recorded(*args):
+            fn(*args)
+            if name not in self.calls:
+                self.calls[name] = [a.clone() if torch.is_tensor(a) else a
+                                    for a in args]
+        return recorded
+
+
+def check_recorded(calls) -> dict:
+    """Each recorded kernel output against the plain version run in fp32 on
+    the same inputs, under phase 7's bf16 gate with its fp32 term scaled
+    down to a tensor whose largest value is below 1 (the gradients of a
+    token-mean loss are far below 1; at unit scale the term would pass
+    anything)."""
+    from tpu_task_torch.ml.ops import attention as fa
+
+    q, k, v, causal, off, o, lse = calls["_launch_fwd"]
+    ex_o, ex_lse = fa.flash_attention_reference(q.float(), k.float(),
+                                                v.float(), causal, off)
+    q, k, v, do, blse, delta, causal, off, dq = calls["_launch_dq"]
+    dk, dv = calls["_launch_dkv"][-2:]
+    exact = fa.flash_bwd_reference(q.float(), k.float(), v.float(),
+                                   do.float(), blse, delta, causal, off)
+    out = {}
+    for name, got, ref, atol in (
+            ("o", o, ex_o, FLASH_FWD_ATOL),
+            ("lse", lse, ex_lse, FLASH_FWD_ATOL),
+            ("dq", dq, exact[0], FLASH_BWD_ATOL),
+            ("dk", dk, exact[1], FLASH_BWD_ATOL),
+            ("dv", dv, exact[2], FLASH_BWD_ATOL)):
+        big = ref.float().abs().max().item()
+        out[name] = dict(ok=flash_gate(got, ref, atol * min(big, 1.0)),
+                         max_abs_err_vs_fp32=(got.float() - ref)
+                         .abs().max().item(),
+                         max_abs_fp32=big)
+    return out
+
+
+def train_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one optimizer step with the attention term
+    causal-halved: the first convention of ``bench.py``'s
+    ``_train_flops_per_step``, copied (matmuls forward x3; attention
+    scaled by (s + 1) / 2s, the score entries a causal kernel executes)."""
+    n_mm_layer = (2 * cfg.d_model * cfg.d_attn + 2 * cfg.d_model * cfg.d_kv
+                  + 3 * cfg.d_model * cfg.d_ff)
+    n_mm = cfg.n_layers * n_mm_layer + cfg.d_model * cfg.vocab_size
+    mm_fwd = 2.0 * batch * seq * n_mm
+    attn_fwd = cfg.n_layers * 4.0 * batch * seq * seq * cfg.d_attn
+    return 3.0 * (mm_fwd + attn_fwd * (seq + 1) / (2.0 * seq))
+
+
+def profile_step(step, state, tokens, wall_ms: float) -> dict:
+    """One step under ``torch.profiler``: device time by kernel name (the
+    top ten) and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
+    busy, last = 0.0, -math.inf
+    for start, end in sorted(spans):            # union of kernel intervals
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(profiled_step_wall_ms=wall, device_events=len(spans),
+                device_busy_ms=busy / 1e3,
+                device_idle_share=(1 - busy / 1e3 / wall) if spans else None,
+                top_kernels_ms=[(name[:90], ms) for name, ms in top],
+                timed_step_median_ms=wall_ms)
+
+
+def phase_train(device, smi: str) -> dict:
+    """The train path: the flagship at full width and depth, two warm-up
+    steps, then ten timed steps on one batch, the flash launch counts set
+    to 0 just before them and read just after."""
+    from tpu_task_torch.ml import train
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.ops import attention as fa
+
+    cfg = transformer.TransformerConfig(dtype=torch.bfloat16,
+                                        **TRAIN_FLAGSHIP)
+    state = train.init_state(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    n_params = sum(p.numel() for p in train._leaves(state.params))
+    tokens = torch.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), device=device,
+        generator=torch.Generator(device=device).manual_seed(1))
+    step = train.make_train_step(cfg)
+    losses = []
+    # The first warm-up step is recorded: layer 0's forward and the last
+    # layer's backward are held against the plain versions after it.
+    with FlashRecorder(fa) as recorder:
+        state, m = step(state, tokens)
+    losses.append(m["loss"])
+    state, m = step(state, tokens)                            # warm-up
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    recorded = check_recorded(recorder.calls)
+    recorder.calls.clear()                 # its copies stay out of the peak
+    emit("train_step_check", ok=all(c["ok"] for c in recorded.values()),
+         step=1, forward_layer=0, backward_layer=cfg.n_layers - 1,
+         outputs=recorded,
+         tolerance="2^-8*(|fp32 ref| + max|fp32 ref|) + the fp32 tolerance "
+                   "x min(1, max|fp32 ref|)")
+    if not all(c["ok"] for c in recorded.values()):
+        raise AssertionError(f"flash kernels in the flagship train step "
+                             f"disagree with the plain versions: {recorded}")
+    step_ms, per_step = [], []
+    # Peak memory of the timed steps, not of the check above.
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    for _ in range(10):
+        before = flash_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = flash_counts()
+        per_step.append({key: after[key] - before[key] for key in after})
+        losses.append(m["loss"])
+    counts = flash_counts()
+    losses = [x.item() for x in losses]
+    median_ms = float(np.median(step_ms))
+    flops = train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "plain_fwd": 0, "plain_bwd": 0,
+            "plain_mha": 0}
+    line = dict(
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bfloat16",
+        master_weights="float32", warmup_steps=2, timed_steps=len(step_ms),
+        step_ms=step_ms, step_ms_median=median_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
+        flops_per_step=flops,
+        mfu=flops / (median_ms / 1e3) / BF16_FLOPS,
+        mfu_peak="989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+        losses=losses, launches_per_step=per_step[0],
+        launches_every_step_as_expected=all(p == want for p in per_step),
+        launches=counts,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
+    emit("train", **line)
+    finite = all(math.isfinite(x) for x in losses)
+    if not (finite and losses[-1] < losses[0]
+            and line["launches_every_step_as_expected"]):
+        raise AssertionError(f"flagship train run failed its gates: {line}")
+    emit("train_profile", **profile_step(step, state, tokens, median_ms),
+         gpu=smi)
+    return counts
+
+
 def main() -> int:
     smi = phase_device()
     import_port()
@@ -564,14 +1111,30 @@ def main() -> int:
     timing = phase_timing(device, smi)
     phase_parity(device)
     launches = phase_serve(device, smi)
-    print(json.dumps({"kernels": [{
+    flash_err = phase_flash_kernel(device)
+    flash_times = phase_flash_timing(device, smi)
+    phase_train_parity(device)
+    train_counts = phase_train(device, smi)
+    kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "tpu_task_torch/csrc/paged_decode.cu",
         "replaces": "tpu_task/ml/ops/paged_attention.py:175",
         "launches": launches, "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]}), flush=True)
+        "library_ms": timing["library_ms"]}]
+    for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
+                       ("flash_bwd_dkv", 394)):
+        row = flash_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_task_torch/csrc/flash_attention.cu",
+            "replaces": f"tpu_task/ml/ops/attention.py:{line}",
+            "launches": train_counts[name], "max_abs_err": flash_err[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

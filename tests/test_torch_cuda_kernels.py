@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions: the
+paged-decode kernel and the three flash-attention kernels of training.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -6,15 +7,20 @@ installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
 
-fp32 is held to the 2e-5 accumulation-order pin of the CPU tests. bf16 is
-held to the plain version run in fp32 on the same bf16 values: the kernel
-works in fp32 and rounds only its output, so it stays within half a bf16
-ulp (2^-8 relative) of that."""
+fp32 is held to the accumulation-order pins of the CPU tests (2e-5; 5e-5
+for the flash backward). bf16 is held to the plain version run in fp32 on
+the same bf16 values: the paged kernel works in fp32 and rounds only its
+output, so it stays within a bf16 rounding (2^-8 relative) of that; the
+flash kernels also round their weights to bf16 before the tensor-core
+products, so they get 2^-8 of the tensor's largest value on top."""
 
 import numpy as np
 import pytest
 import torch
 
+from tpu_task_torch.ml import train
+from tpu_task_torch.ml.models import transformer
+from tpu_task_torch.ml.ops import attention as fa
 from tpu_task_torch.ml.ops import paged_attention as tpa
 from tpu_task_torch.serve.replica import build_engine
 
@@ -116,3 +122,159 @@ def test_engine_runs_the_kernel(cuda_device, preset):
                 engine.cfg.n_layers * fused
             assert tpa.paged_reference_attention.launches == 0
     assert outs["auto"] == outs["reference"]
+
+
+def _flash_inputs(device, dtype, b, h, sq, sk, d, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dtype).to(device)
+            for shape in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d),
+                          (b, sq, h, d))]
+
+
+def _flash_close(got, exact, atol):
+    """bf16 also allows 2^-8 of the tensor's largest value: the kernels
+    round p and ds to bf16 before their tensor-core products, as the TPU
+    kernels do."""
+    err = (got.float() - exact).abs()
+    if got.dtype == torch.float32:
+        assert err.max().item() <= atol
+    else:
+        scale = exact.abs()
+        assert (err <= 2.0 ** -8 * (scale + scale.max()) + atol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,q_offset", [
+    (2, 4, 128, 128, 64, True, None),         # self-attention
+    (1, 2, 128, 512, 128, True, None),        # sq < sk
+    (2, 2, 128, 256, 64, True, 0),            # ring's off-diagonal offset
+    (2, 2, 256, 256, 128, True, -96),         # rows that see no key
+    (1, 2, 200, 328, 40, False, None),        # ragged tiles, d 40
+    (1, 2, 64, 64, 8, True, None),            # the smallest head dim
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda_device, b, h, sq, sk, d, causal,
+                                   q_offset, dtype):
+    q, k, v, do = _flash_inputs(cuda_device, dtype, b, h, sq, sk, d)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention(q, k, v, causal, q_offset=q_offset,
+                                return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, q_offset=q_offset)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (1, 1, 1)
+    assert fa.flash_attention_reference.launches == 0
+    wide = [t.float() for t in (q, k, v, do)]
+    ex_o, ex_lse = fa.flash_attention_reference(*wide[:3], causal, q_offset)
+    exact = fa.flash_bwd_reference(*wide, lse, delta, causal, q_offset)
+    _flash_close(o, ex_o, 2e-5)
+    assert (lse - ex_lse).abs().max().item() <= 2e-5
+    for got, ref in zip((dq, dk, dv), exact):
+        _flash_close(got, ref, 5e-5)
+    off = sk - sq if q_offset is None else q_offset
+    if causal and off < 0:
+        assert (o[:, :-off] == 0).all()
+        assert (lse[:, :, :-off] == fa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
+    q, k, v, _ = _flash_inputs(cuda_device, torch.float32, 1, 2, 64, 64, 64)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fa.flash_attention(q.half(), k.half(), v.half(), True)
+    wide = torch.zeros((1, 64, 1, 136), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(wide, wide, wide, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), True)
+    # Nothing launched, and nothing fell back to the plain version.
+    assert fa.flash_attention.launches == 0
+    assert fa.flash_attention_reference.launches == 0
+
+
+@pytest.mark.cuda
+def test_train_step_runs_the_kernels(cuda_device):
+    """Every layer's attention goes through the three kernels, never the
+    plain versions, and three steps on the card equal three on the CPU
+    (the plain versions) within the CPU tests' 2e-5."""
+    cfg = transformer.TransformerConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_head=16,
+        d_ff=128, n_kv_heads=2, dtype=torch.float32)
+    tokens = torch.randint(0, 256, (2, 129),
+                           generator=torch.Generator().manual_seed(0))
+    out = {}
+    for device in ("cpu", cuda_device):
+        state = train.init_state(torch.Generator().manual_seed(1), cfg,
+                                 device=device)
+        step = train.make_train_step(cfg)
+        fa.reset_launch_counts()
+        for _ in range(3):
+            state, m = step(state, tokens.to(device))
+        out[str(device)] = [p.detach().cpu()
+                            for p in train._leaves(state.params)]
+        if device != "cpu":
+            assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+                    fa.flash_bwd_dkv.launches) == (6, 6, 6)
+            assert fa.flash_attention_reference.launches == 0
+            assert fa.flash_bwd_reference.launches == 0
+            assert fa.mha_reference.launches == 0
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert (a - b).abs().max().item() <= 2e-5
+
+
+class _PlainFlash(torch.autograd.Function):
+    """FlashAttention's wiring over the plain versions, on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = fa.flash_attention_reference(q, k, v, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return fa.flash_bwd_reference(q, k, v, do, lse, delta, True)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_runs_the_tensor_core_kernels(cuda_device):
+    """bf16 at d 128 takes the tensor-core kernels, through GQA expansion
+    and the autograd Function: three steps on the card equal three through
+    the plain versions on the card in loss and grad norm within 2^-10
+    relative (the kernels round p and ds to bf16 where the plain versions
+    keep fp32)."""
+    cfg = transformer.TransformerConfig(
+        vocab_size=512, d_model=256, n_layers=2, n_heads=2, d_head=128,
+        d_ff=512, n_kv_heads=1, dtype=torch.bfloat16)
+    tokens = torch.randint(0, 512, (2, 257),
+                           generator=torch.Generator().manual_seed(0))
+
+    def plain_attn(q, k, v):
+        return _PlainFlash.apply(q, transformer.expand_kv(k, cfg.n_heads),
+                                 transformer.expand_kv(v, cfg.n_heads))
+
+    metrics = {}
+    for path, attn_fn in (("kernels", None), ("plain", plain_attn)):
+        state = train.init_state(torch.Generator().manual_seed(1), cfg,
+                                 device=cuda_device)
+        step = train.make_train_step(cfg, attn_fn=attn_fn)
+        fa.reset_launch_counts()
+        metrics[path] = []
+        for _ in range(3):
+            state, m = step(state, tokens.to(cuda_device))
+            metrics[path] += [m["loss"].item(), m["grad_norm"].item()]
+        if path == "kernels":
+            assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+                    fa.flash_bwd_dkv.launches) == (6, 6, 6)
+            assert fa.flash_attention_reference.launches == 0
+            assert fa.flash_bwd_reference.launches == 0
+            assert fa.mha_reference.launches == 0
+    for a, b in zip(metrics["kernels"], metrics["plain"]):
+        assert abs(a - b) <= 2.0 ** -10 * abs(b)

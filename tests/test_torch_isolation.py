@@ -43,6 +43,8 @@ def test_scan_covers_the_package_and_chip_smoke():
     assert "chip_smoke.py" in names
     assert "tpu_task_torch/ml/ops/paged_attention.py" in names
     assert "tpu_task_torch/ml/serving/engine.py" in names
+    assert "tpu_task_torch/ml/ops/attention.py" in names
+    assert "tpu_task_torch/ml/train.py" in names
     assert all((ROOT / n).exists() for n in names)
 
 

@@ -1,15 +1,19 @@
 """The flagship decoder-only transformer in torch — the counterpart of
-``tpu_task/ml/models/transformer.py`` (forward only).
+``tpu_task/ml/models/transformer.py``: the forward, the training loss
+(:func:`loss_fn` with the fused vocab-streaming cross-entropy) and the
+gradients of both.
 
 Parameters are a plain nested dict with the JAX package's layout and key
 names (``embed``, ``unembed``, ``final_norm``, ``layers[i][wq|wk|...]``),
 so a JAX checkpoint crosses over as numpy through :func:`params_from_jax`.
-The JAX model keeps float32 parameters and casts each one to ``cfg.dtype``
-where it is used; the port stores every parameter in ``cfg.dtype`` once at
-load, which yields exactly the values of that cast.
+As in the JAX model, every weight is cast to ``cfg.dtype`` where it is
+used. The stored type is ``param_dtype``: ``cfg.dtype`` by default (the
+serving path, where the cast is then a no-op), float32 master weights for
+training (``train.init_state`` asks for them).
 
-Mixture-of-experts layers (``moe_every > 0``) are not ported yet (ROADMAP
-A13) and raise."""
+Mixture-of-experts layers (``moe_every > 0``, ROADMAP A13) and the sharded
+loss (``activation_spec``, ``token_shards > 1``, ROADMAP A14) are not
+ported yet and raise."""
 
 from __future__ import annotations
 
@@ -20,7 +24,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_task_torch.ml.ops.attention import expand_kv_heads, mha_reference
+from tpu_task_torch.ml.ops.attention import (
+    dot_product_attention,
+    expand_kv_heads,
+)
 
 Params = Dict[str, Any]
 
@@ -83,22 +90,25 @@ def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     }
 
 
-def init(generator: torch.Generator, cfg: TransformerConfig) -> Params:
+def init(generator: torch.Generator, cfg: TransformerConfig,
+         param_dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights with the JAX ``init``'s shapes and scales (normal
     draws times d_model^-0.5, d_ff^-0.5 for ``w_down``, 1.0 for the
     embedding; norms at 1), drawn on the generator's device and stored in
-    ``cfg.dtype``. The values differ from JAX's: tests that compare the two
-    load JAX's weights through :func:`params_from_jax` instead."""
+    ``param_dtype`` (default ``cfg.dtype``). The values differ from JAX's:
+    tests that compare the two load JAX's weights through
+    :func:`params_from_jax` instead."""
     device = generator.device
     scale = cfg.d_model ** -0.5
+    dtype = cfg.dtype if param_dtype is None else param_dtype
 
     def dense(shape, s):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * s).to(cfg.dtype)
+        return (w * s).to(dtype)
 
     def ones(shape):
-        return torch.ones(shape, device=device, dtype=cfg.dtype)
+        return torch.ones(shape, device=device, dtype=dtype)
 
     params: Params = {
         "embed": dense((cfg.vocab_size, cfg.d_model), 1.0),
@@ -119,16 +129,19 @@ def init(generator: torch.Generator, cfg: TransformerConfig) -> Params:
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: TransformerConfig,
-                    device=None) -> Params:
+                    device=None,
+                    param_dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX param tree (leaves as numpy arrays — ``jax.tree.map(
     np.asarray, params)``) as the port's params, each leaf stored in
-    ``cfg.dtype`` on ``device``. Shapes are checked against ``cfg``."""
+    ``param_dtype`` (default ``cfg.dtype``) on ``device``. Shapes are
+    checked against ``cfg``."""
+    dtype = cfg.dtype if param_dtype is None else param_dtype
+
     def leaf(value, shape, name):
         arr = np.asarray(value)
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, config wants {shape}")
-        return torch.tensor(arr.astype(np.float32), device=device).to(
-            cfg.dtype)
+        return torch.tensor(arr.astype(np.float32), device=device).to(dtype)
 
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
@@ -171,9 +184,30 @@ def params_to(params: Params, device) -> Params:
 
 # -- forward -------------------------------------------------------------------
 
+class _EmbedLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        ctx.table_dtype = table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        d_table = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                              device=g.device)
+        d_table.index_add_(0, tokens.reshape(-1),
+                           g.reshape(-1, g.shape[-1]).to(torch.float32))
+        return d_table.to(ctx.table_dtype), None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding gather (the forward of the JAX custom-VJP lookup)."""
-    return table[tokens]
+    """Embedding gather whose table gradient accumulates in float32 and
+    rounds once to the table's type — the JAX custom-VJP lookup, whose
+    one-hot contraction sums in f32 (``preferred_element_type``); here an
+    ``index_add_`` into f32 zeros."""
+    return _EmbedLookup.apply(table, tokens)
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -207,37 +241,48 @@ def _rope(x: torch.Tensor, theta: float,
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(b, s, kv_heads, d) → (b, s, n_heads, d); the shared GQA expansion
+    rule — see :func:`tpu_task_torch.ml.ops.attention.expand_kv_heads`."""
+    return expand_kv_heads(kv, n_heads)
+
+
 def _block(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
            attn_fn: AttnFn,
            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One transformer block (dense FFN). ``attn_fn(q, k, v)`` receives k/v
     at kv-head width; the cached decode paths pass a closure that writes
     the cache and attends it, so every projection, norm and residual is
-    this one function on every path."""
+    this one function on every path. Each weight is cast to ``cfg.dtype``
+    where it is used."""
     b, s, _ = x.shape
+    dt = cfg.dtype
     h = _rmsnorm(x, layer["attn_norm"])
-    q = (h @ layer["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (h @ layer["wk"]).reshape(b, s, cfg.kv_heads, cfg.d_head)
-    v = (h @ layer["wv"]).reshape(b, s, cfg.kv_heads, cfg.d_head)
+    q = (h @ layer["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = (h @ layer["wk"].to(dt)).reshape(b, s, cfg.kv_heads, cfg.d_head)
+    v = (h @ layer["wv"].to(dt)).reshape(b, s, cfg.kv_heads, cfg.d_head)
     q = _rope(q, cfg.rope_theta, positions)
     k = _rope(k, cfg.rope_theta, positions)
     attn = attn_fn(q, k, v)
-    x = x + attn.reshape(b, s, cfg.d_attn) @ layer["wo"]
+    x = x + attn.reshape(b, s, cfg.d_attn) @ layer["wo"].to(dt)
     h = _rmsnorm(x, layer["mlp_norm"])
-    gate = F.silu(h @ layer["w_gate"])
-    up = h @ layer["w_up"]
-    return x + (gate * up) @ layer["w_down"]
+    gate = F.silu(h @ layer["w_gate"].to(dt))
+    up = h @ layer["w_up"].to(dt)
+    return x + (gate * up) @ layer["w_down"].to(dt)
 
 
 def apply_features(params: Params, cfg: TransformerConfig,
                    tokens: torch.Tensor,
                    attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
-    """tokens (batch, seq) → final-norm features (batch, seq, d_model)."""
+    """tokens (batch, seq) → final-norm features (batch, seq, d_model).
+    The default attention is :func:`dot_product_attention` over expanded
+    kv heads: the flash kernels wherever its routing rule admits the
+    shape."""
     if attn_fn is None:
         def attn_fn(q, k, v):
-            return mha_reference(q, expand_kv_heads(k, cfg.n_heads),
-                                 expand_kv_heads(v, cfg.n_heads), True)
-    x = embed_lookup(params["embed"], tokens)
+            return dot_product_attention(q, expand_kv(k, cfg.n_heads),
+                                         expand_kv(v, cfg.n_heads), True)
+    x = embed_lookup(params["embed"].to(cfg.dtype), tokens)
     for layer in params["layers"]:
         x = _block(x, layer, cfg, attn_fn)
     return _rmsnorm(x, params["final_norm"])
@@ -247,4 +292,167 @@ def apply(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
           attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
     """tokens (batch, seq) → logits (batch, seq, vocab) float32."""
     x = apply_features(params, cfg, tokens, attn_fn=attn_fn)
-    return (x @ params["unembed"]).to(torch.float32)
+    return (x @ params["unembed"].to(cfg.dtype)).to(torch.float32)
+
+
+# -- loss ----------------------------------------------------------------------
+
+#: Vocab-block floor for the fused cross-entropy: each step of its loop holds
+#: one (tokens, block) logit tile instead of the full (tokens, vocab) matrix.
+XENT_VOCAB_BLOCK = 4096
+
+#: Auto-block budget: the largest f32 logit tile one step may hold. The
+#: block grows to this budget (fewer, larger steps) and shrinks at long
+#: context, where bounding the tile is the point.
+XENT_TILE_BYTES = 1 << 30
+
+
+def _auto_xent_block(n_tokens: int, vocab: int) -> int:
+    """Largest 4096-multiple block whose (n_tokens, block) f32 tile fits
+    the budget, clamped to [XENT_VOCAB_BLOCK, padded vocab]."""
+    block = (XENT_TILE_BYTES // (4 * max(1, n_tokens))) // 4096 * 4096
+    vocab_ceil = -(-vocab // 4096) * 4096
+    return max(XENT_VOCAB_BLOCK, min(block, vocab_ceil))
+
+
+def _pad_vocab(unembed: torch.Tensor, block: int):
+    """Pad the vocab axis up to a block multiple (pad columns are masked
+    to -inf, so they never contribute)."""
+    vocab = unembed.shape[1]
+    pad = (-vocab) % block
+    if pad:
+        unembed = F.pad(unembed, (0, pad))
+    return unembed, vocab
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a float32 result, as JAX's ``preferred_element_type``:
+    bf16 operands multiply exactly and sum in f32. On the card that is one
+    bf16 product with an f32 output (``torch.mm``'s ``out_dtype``); on the
+    CPU, where that overload does not exist, the operands widen first,
+    which is exact."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _masked_logits(features: torch.Tensor, u_block: torch.Tensor,
+                   start: int, block: int, vocab: int) -> torch.Tensor:
+    """One (T, block) f32 logit tile with pad columns at -inf."""
+    z = _mm_f32(features, u_block)
+    if start + block > vocab:
+        col = start + torch.arange(block, device=z.device)
+        z = z.masked_fill(col[None, :] >= vocab, float("-inf"))
+    return z
+
+
+def _target_slot(targets: torch.Tensor, start: int, block: int):
+    in_block = (targets >= start) & (targets < start + block)
+    return in_block, (targets - start).clamp(0, block - 1)
+
+
+class _FusedXent(torch.autograd.Function):
+    """Mean next-token cross-entropy streamed over vocab blocks: the
+    forward keeps an online logsumexp and the target logit, the backward
+    recomputes each block's softmax tile from the saved lse."""
+
+    @staticmethod
+    def forward(ctx, features, unembed, targets, block: int):
+        n = features.shape[0]
+        padded, vocab = _pad_vocab(unembed, block)
+        dev = features.device
+        m = torch.full((n,), float("-inf"), device=dev)
+        l = torch.zeros((n,), device=dev)
+        t_logit = torch.zeros((n,), device=dev)
+        for start in range(0, padded.shape[1], block):
+            z = _masked_logits(features, padded[:, start:start + block],
+                               start, block, vocab)
+            m_new = torch.maximum(m, z.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + torch.exp(
+                z - m_new[:, None]).sum(dim=-1)
+            in_block, local = _target_slot(targets, start, block)
+            t_logit = torch.where(in_block, z.gather(1, local[:, None])[:, 0],
+                                  t_logit)
+            m = m_new
+        lse = m + torch.log(l)
+        ctx.save_for_backward(features, unembed, targets, lse)
+        ctx.block = block
+        return (lse - t_logit).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        features, unembed, targets, lse = ctx.saved_tensors
+        block = ctx.block
+        n = features.shape[0]
+        padded, vocab = _pad_vocab(unembed, block)
+        scale = g.to(torch.float32) / n
+        # Operands go in the features' type (bf16 on the train path, one
+        # tensor-core pass); the sums stay f32, as in the JAX backward.
+        operand = features.dtype
+        rows = torch.arange(n, device=features.device)
+        d_features = torch.zeros(features.shape, dtype=torch.float32,
+                                 device=features.device)
+        d_blocks = []
+        for start in range(0, padded.shape[1], block):
+            u_block = padded[:, start:start + block]
+            z = _masked_logits(features, u_block, start, block, vocab)
+            p = torch.exp(z - lse[:, None])   # pad columns: exp(-inf) = 0
+            in_block, local = _target_slot(targets, start, block)
+            p.index_put_((rows, local), -in_block.to(p.dtype),
+                         accumulate=True)     # p - onehot
+            ds = (p * scale).to(operand)
+            d_features += _mm_f32(ds, u_block.t().to(operand))
+            d_blocks.append(_mm_f32(features.t().to(operand), ds))
+        d_unembed = torch.cat(d_blocks, dim=1)[:, :unembed.shape[1]]
+        return (d_features.to(features.dtype), d_unembed.to(unembed.dtype),
+                None, None)
+
+
+def fused_xent(features: torch.Tensor, unembed: torch.Tensor,
+               targets: torch.Tensor, block: Optional[int] = None,
+               token_shards: int = 1) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing (tokens,
+    vocab) logits beyond one tile. features (T, d), unembed (d, V),
+    targets (T,) int64. ``block=None`` sizes the tile to XENT_TILE_BYTES
+    (the whole vocab at the flagship's 8192 tokens)."""
+    if token_shards != 1:
+        raise NotImplementedError(
+            "token-sharded loss (token_shards > 1) is not ported yet: "
+            "ROADMAP A14")
+    if block is None:
+        block = _auto_xent_block(features.shape[0], unembed.shape[1])
+    return _FusedXent.apply(features, unembed, targets, block)
+
+
+def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
+            attn_fn: Optional[AttnFn] = None, fused: bool = True,
+            activation_spec=None, moe_fn=None,
+            token_shards: int = 1) -> torch.Tensor:
+    """Next-token cross-entropy over tokens (batch, seq). ``fused=True``
+    streams the unembed and softmax over vocab blocks (:func:`fused_xent`);
+    ``fused=False`` is the monolithic reference path. A dense config has no
+    router loss, so the JAX package's aux term is 0 here."""
+    if activation_spec is not None:
+        raise NotImplementedError(
+            "activation_spec (sequence-parallel sharding) is not ported "
+            "yet: ROADMAP A14")
+    if moe_fn is not None:
+        raise NotImplementedError(
+            "mixture-of-experts layers are not ported yet: ROADMAP A13")
+    tokens = tokens.long()
+    targets = tokens[:, 1:]
+    features = apply_features(params, cfg, tokens[:, :-1], attn_fn=attn_fn)
+    b, s, d = features.shape
+    unembed = params["unembed"].to(cfg.dtype)
+    if fused:
+        return fused_xent(features.reshape(b * s, d), unembed,
+                          targets.reshape(-1), token_shards=token_shards)
+    if token_shards != 1:
+        raise NotImplementedError(
+            "token-sharded loss (token_shards > 1) is not ported yet: "
+            "ROADMAP A14")
+    logits = (features @ unembed).to(torch.float32)
+    logp = F.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()

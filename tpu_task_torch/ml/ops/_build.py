@@ -35,6 +35,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tt_paged_decode_smem_bytes": (_I, [_I, _I, _I, _I, _I]),
         "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_attention": {
+        # dtype, q, k, v, o, lse, batch, sq, sk, heads, d, causal,
+        # q_offset, stream
+        "tt_flash_fwd": (_I, [_I, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _P]),
+        # dtype, q, k, v, do, lse, delta, dq, batch, ..., q_offset, stream
+        "tt_flash_bwd_dq": (_I, [_I, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P]),
+        # dtype, q, k, v, do, lse, delta, dk, dv, batch, ..., stream
+        "tt_flash_bwd_dkv": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _P]),
+        "tt_flash_tensor_cores": (_I, [_I, _I]),
+        "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

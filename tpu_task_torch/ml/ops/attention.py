@@ -1,19 +1,42 @@
-"""Plain attention cores in torch — the counterparts of
-``tpu_task/ml/ops/attention.py``'s ``expand_kv_heads``,
-``gqa_cached_attention`` and ``mha_reference``.
+"""Attention in torch — the counterpart of ``tpu_task/ml/ops/attention.py``.
 
-The flash kernels of that module (forward and the dq / dk-dv backward)
-serve training and ring attention, not the serving path, and are ported
-with the training slice (ROADMAP B1–B3). Shapes follow (batch, seq, heads,
-head_dim) throughout, as in the JAX package."""
+The plain cores (``expand_kv_heads``, ``reduce_kv_heads``,
+``gqa_cached_attention``, ``mha_reference``) and the flash path of
+training: :func:`dot_product_attention` routes by the JAX package's
+``_pallas_ok`` rule to :class:`FlashAttention`, an autograd Function over
+three hand-written Hopper kernels in ``csrc/flash_attention.cu`` (the ports
+of ``_flash_fwd_kernel``, ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``), and otherwise to ``mha_reference`` under
+activation checkpointing.
+
+Beside the kernels stand their plain versions,
+:func:`flash_attention_reference` and :func:`flash_bwd_reference` (the JAX
+``block_attention_fwd``/``_bwd`` with ``impl="xla"``). Each counted
+wrapper (:func:`flash_attention`, :func:`flash_bwd_dq`,
+:func:`flash_bwd_dkv`) takes the plain version only for tensors on the
+CPU; on a CUDA tensor it launches its kernel or raises. Every wrapper and
+plain version counts its calls in a ``.launches`` attribute, which
+:func:`reset_launch_counts` sets to 0.
+
+Shapes follow (batch, seq, heads, head_dim) throughout, as in the JAX
+package; ``lse`` and ``delta`` are (batch, heads, sq) float32."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
+
+from tpu_task_torch.ml.ops import _build
 
 NEG_INF = -1e30
+
+#: The element types the flash kernels take, by their dtype code.
+FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+IMPLS = ("reference", "cuda")
 
 
 def expand_kv_heads(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -21,6 +44,15 @@ def expand_kv_heads(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
     its contiguous query group (head ``h`` reads kv head ``h // group``)."""
     group = n_heads // kv.shape[2]
     return kv if group == 1 else torch.repeat_interleave(kv, group, dim=2)
+
+
+def reduce_kv_heads(d_expanded: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """Transpose of :func:`expand_kv_heads`: sum the expanded-width
+    gradient over each query group back to kv_heads width."""
+    b, s, h, d = d_expanded.shape
+    if h == kv_heads:
+        return d_expanded
+    return d_expanded.reshape(b, s, kv_heads, h // kv_heads, d).sum(dim=3)
 
 
 def gqa_cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -53,6 +85,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True) -> torch.Tensor:
     """Plain attention over (b, s, h, d) — causal with the diagonal offset
     sk - sq, as the JAX reference."""
+    mha_reference.launches += 1
     d = q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
     if causal:
@@ -62,3 +95,384 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s.to(torch.float32), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+mha_reference.launches = 0
+
+
+# -- the flash kernels' plain versions ------------------------------------------
+
+def _visible(sq: int, sk: int, q_offset: int, device) -> torch.Tensor:
+    """(sq, sk): query row i (global position q_offset + i) sees key j."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    return q_pos >= torch.arange(sk, device=device)[None, :]
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool,
+                              q_offset: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward: (o, lse) in fp32 arithmetic — JAX's
+    ``block_attention_fwd(impl="xla")``. o (b, sq, h, d) in q's type, lse
+    (b, h, sq) float32; a row that sees no key gives o = 0 and lse = -1e30.
+    ``q_offset`` (the global position of q row 0 relative to k col 0)
+    defaults to sk - sq."""
+    flash_attention_reference.launches += 1
+    _, sq, _, d = q.shape
+    sk = k.shape[1]
+    if q_offset is None:
+        q_offset = sk - sq
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    hidden = ~_visible(sq, sk, q_offset, q.device) if causal else None
+    if causal:
+        s = s.masked_fill(hidden, NEG_INF)
+    m = s.amax(dim=-1)
+    shift = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.exp(s - shift[..., None])
+    if causal:
+        p = p.masked_fill(hidden, 0.0)
+    l = p.sum(dim=-1)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bkhd->bqhd", p / l_safe[..., None], v.float())
+    lse = torch.where(l == 0.0, torch.full_like(l, NEG_INF),
+                      shift + torch.log(l_safe))
+    return o.to(q.dtype), lse
+
+
+flash_attention_reference.launches = 0
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, causal: bool,
+                        q_offset: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward: (dq, dk, dv) for one block pair given the global
+    lse and delta = rowsum(dO * O), in fp32 arithmetic — JAX's
+    ``block_attention_bwd(impl="xla")``. Summing the results over the kv
+    blocks of a row gives the full gradient."""
+    flash_bwd_reference.launches += 1
+    _, sq, _, d = q.shape
+    sk = k.shape[1]
+    if q_offset is None:
+        q_offset = sk - sq
+    scale = 1.0 / math.sqrt(d)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    lse_safe = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), lse)
+    p = torch.exp(s - lse_safe[..., None])
+    if causal:
+        p = p.masked_fill(~_visible(sq, sk, q_offset, q.device), 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_bwd_reference.launches = 0
+
+
+# -- the kernels' wrappers ------------------------------------------------------
+
+def check_flash_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: Optional[torch.Tensor] = None,
+                     lse: Optional[torch.Tensor] = None,
+                     delta: Optional[torch.Tensor] = None) -> None:
+    """Raise on anything the flash kernels do not take, before any pointer
+    reaches them: q (b, sq, h, d) and k/v (b, sk, h, d) of one type, fp32
+    or bf16, d a multiple of 8 up to 128, k/v already at q's head count;
+    do like q; lse and delta (b, h, sq) float32; all contiguous on one
+    device."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"q must be (b, sq, h, d) and k, v (b, sk, h, d) alike, got q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+        raise ValueError(
+            f"k/v {tuple(k.shape)} must match q {tuple(q.shape)} in batch, "
+            "heads and head dim (expand grouped kv heads first)")
+    if q.dtype not in FLASH_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(
+            f"the flash kernels take fp32 or bf16 with q, k, v of one type, "
+            f"got q {q.dtype}, k {k.dtype}, v {v.dtype}")
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(
+            f"the flash kernels take a head dim that is a multiple of 8 up "
+            f"to 128, got {d}")
+    if b * h > 65535:
+        raise ValueError(f"batch x heads {b * h} exceeds the grid's 65535")
+    tensors = [q, k, v]
+    if do is not None:
+        if do.shape != q.shape or do.dtype != q.dtype:
+            raise ValueError(f"do must be like q, got {tuple(do.shape)} "
+                             f"{do.dtype}")
+        tensors.append(do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq):
+            raise ValueError(f"{name} must be float32 ({b}, {h}, {sq}), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        tensors.append(t)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all flash inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the flash kernels take contiguous tensors only")
+
+
+def _q_offset(q_offset: Optional[int], sq: int, sk: int) -> int:
+    q_offset = sk - sq if q_offset is None else int(q_offset)
+    reach = max(sq, sk)
+    if q_offset - reach <= -2 ** 31 or q_offset + reach >= 2 ** 31:
+        raise ValueError(f"q_offset {q_offset} out of the kernels' int range")
+    return q_offset
+
+
+def _require_cuda(q: torch.Tensor, what: str) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {q.device}")
+
+
+def _check_alignment(q: torch.Tensor, tensors) -> None:
+    """Raise if the tensor-core kernels (bf16 at d 64 and 128, which move
+    16-byte vectors) would get a pointer off a 16-byte boundary. Shared
+    memory needs no check here: the source asserts at compile time that
+    every kernel fits at the largest head dim."""
+    lib = _build.load("flash_attention")
+    if lib.tt_flash_tensor_cores(FLASH_DTYPES[q.dtype], q.shape[3]) and any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 tensor-core flash kernels take 16-byte "
+                         "aligned tensors only")
+
+
+def _check_out(out: torch.Tensor, like: torch.Tensor, name: str) -> None:
+    if out.shape != like.shape or out.dtype != like.dtype \
+            or out.device != like.device or not out.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous tensor like its input")
+
+
+def _run(what: str, fn, *args) -> None:
+    """Call a kernel entry on the current stream; raise on a CUDA error."""
+    lib = _build.load("flash_attention")
+    rc = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {rc} "
+            f"({lib.tt_cuda_error_string(rc).decode()})")
+
+
+def _geometry(q, k, causal, q_offset):
+    b, sq, h, d = q.shape
+    return (b, sq, k.shape[1], h, d, int(bool(causal)), q_offset)
+
+
+def _launch_fwd(q, k, v, causal: bool, q_offset: int, o: torch.Tensor,
+                lse: torch.Tensor) -> None:
+    """Launch the forward kernel into ``o`` and ``lse``; counts nothing
+    (:func:`flash_attention` is the counted entry)."""
+    check_flash_args(q, k, v, lse=lse)
+    _check_out(o, q, "o")
+    _check_alignment(q, (q, k, v, o))
+    with torch.cuda.device(q.device):
+        _run("flash forward", "tt_flash_fwd", FLASH_DTYPES[q.dtype],
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), *_geometry(q, k, causal, q_offset))
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+               dq: torch.Tensor) -> None:
+    check_flash_args(q, k, v, do, lse, delta)
+    _check_out(dq, q, "dq")
+    _check_alignment(q, (q, k, v, do, dq))
+    with torch.cuda.device(q.device):
+        _run("flash dq", "tt_flash_bwd_dq", FLASH_DTYPES[q.dtype],
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             *_geometry(q, k, causal, q_offset))
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                dk: torch.Tensor, dv: torch.Tensor) -> None:
+    check_flash_args(q, k, v, do, lse, delta)
+    _check_out(dk, k, "dk")
+    _check_out(dv, v, "dv")
+    _check_alignment(q, (q, k, v, do, dk, dv))
+    with torch.cuda.device(q.device):
+        _run("flash dk/dv", "tt_flash_bwd_dkv", FLASH_DTYPES[q.dtype],
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             *_geometry(q, k, causal, q_offset))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, *, q_offset: Optional[int] = None,
+                    return_lse: bool = False):
+    """Flash attention forward through ``csrc/flash_attention.cu``. q (b,
+    sq, h, d), k/v (b, sk, h, d); ``q_offset`` defaults to sk - sq. With
+    ``return_lse`` also the (b, h, sq) float32 logsumexp. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel, or
+    raises."""
+    if q.device.type == "cpu":
+        o, lse = flash_attention_reference(q, k, v, causal, q_offset)
+        return (o, lse) if return_lse else o
+    _require_cuda(q, "flash forward")
+    b, sq, h, _ = q.shape
+    q_offset = _q_offset(q_offset, sq, k.shape[1])
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch_fwd(q, k, v, causal, q_offset, o, lse)
+    flash_attention.launches += 1
+    return (o, lse) if return_lse else o
+
+
+flash_attention.launches = 0
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool, *, q_offset: Optional[int] = None
+                 ) -> torch.Tensor:
+    """dq through the dq kernel (the plain version's dq on the CPU)."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal,
+                                   q_offset)[0]
+    _require_cuda(q, "flash dq")
+    q_offset = _q_offset(q_offset, q.shape[1], k.shape[1])
+    dq = torch.empty_like(q)
+    _launch_dq(q, k, v, do, lse, delta, causal, q_offset, dq)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool, *, q_offset: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) through the dk/dv kernel (the plain version's on the
+    CPU)."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal,
+                                   q_offset)[1:]
+    _require_cuda(q, "flash dk/dv")
+    q_offset = _q_offset(q_offset, q.shape[1], k.shape[1])
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_dkv(q, k, v, do, lse, delta, causal, q_offset, dk, dv)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv,
+               flash_attention_reference, flash_bwd_reference,
+               mha_reference):
+        fn.launches = 0
+
+
+def _flash_bwd_with_stats(q, k, v, do, lse, delta, causal: bool, *,
+                          q_offset: Optional[int] = None):
+    """(dq, dk, dv) given an lse and delta from outside (ring attention
+    passes global ones): the dq and dk/dv kernels on the card, the plain
+    version once on the CPU."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, q_offset=q_offset)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                           q_offset=q_offset)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, *,
+                        q_offset: Optional[int] = None):
+    """(dq, dk, dv) from the forward's o and lse: delta = rowsum(dO * O)
+    in plain torch, then :func:`_flash_bwd_with_stats`."""
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    return _flash_bwd_with_stats(q, k, v, do, lse, delta, causal,
+                                 q_offset=q_offset)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown block-attention impl {impl!r}; have "
+                         f"{IMPLS}")
+
+
+def block_attention_fwd(q, k, v, causal: bool, *,
+                        q_offset: Optional[int] = None,
+                        impl: str = "reference"):
+    """(o, lse) for one attention block pair — the primitive ring attention
+    folds over. ``impl``: ``"reference"`` = the plain version, ``"cuda"`` =
+    the forward kernel (:func:`flash_attention`)."""
+    _check_impl(impl)
+    if impl == "reference":
+        return flash_attention_reference(q, k, v, causal, q_offset)
+    return flash_attention(q, k, v, causal, q_offset=q_offset,
+                           return_lse=True)
+
+
+def block_attention_bwd(q, k, v, do, lse, delta, causal: bool, *,
+                        q_offset: Optional[int] = None,
+                        impl: str = "reference"):
+    """(dq, dk, dv) for one block pair given the global lse and delta."""
+    _check_impl(impl)
+    if impl == "reference":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset)
+    return _flash_bwd_with_stats(q, k, v, do, lse, delta, causal,
+                                 q_offset=q_offset)
+
+
+# -- the fused op ------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward and backward are the flash kernels (the
+    plain versions on the CPU) — the JAX ``_pallas_attention`` custom VJP.
+    Forward saves q, k, v, o and lse; backward computes delta and calls
+    the dq and dk/dv wrappers. k and v are at q's head count."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention(q, k, v, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def _pallas_ok(q: torch.Tensor, k: torch.Tensor, causal: bool,
+               block: int = 128) -> bool:
+    """The JAX package's routing rule: lengths a multiple of 128, and not
+    causal with sq > sk (leading rows would see no key; the plain path
+    keeps one semantics per call there)."""
+    if q.shape[1] % block or k.shape[1] % block:
+        return False
+    return not causal or q.shape[1] <= k.shape[1]
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """Attention over (b, s, h, d) with k/v at q's head count: the flash
+    kernels (:class:`FlashAttention`) where :func:`_pallas_ok` admits the
+    shape, else :func:`mha_reference` under activation checkpointing, so
+    its backward recomputes rather than saving the (s, s) weights. A shape
+    the rule admits and the kernels cannot take raises; nothing falls
+    back."""
+    if _pallas_ok(q, k, causal):
+        return FlashAttention.apply(q, k, v, causal)
+    return torch.utils.checkpoint.checkpoint(
+        mha_reference, q, k, v, causal, use_reentrant=False)
