@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``tpu_task_torch``) on one NVIDIA
 card: builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version, times it, drives the paged serving engine at the
-flagship model's full width, and trains the flagship for a few steps.
+flagship model's full width (model-dtype and quantized KV pools), and
+trains the flagship for a few steps.
 
     python3 chip_smoke.py
 
@@ -64,14 +65,43 @@ script exits non-zero:
              step ms, tokens/s, MFU, peak memory, one profiled step, and
              launch counts that prove every layer ran the three kernels.
 
-Then the kernel table as one JSON line, the ``nvidia-smi`` name and power
-limit, and last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
+11. kernel quant — both paged kernels (``paged_decode.cu``'s int8, fp8 and
+             int4 variants; ``paged_decode_pipelined.cu`` over all five
+             storage types) against the plain version in fp32 on the same
+             codes: the flagship geometry (kv 2, group 4, d 128, block 16),
+             d 16 at block 8 and d 8 at block 4, widths 1 and 3, 24 rows of
+             ragged depths up to 2048 with inactive rows, and the serve
+             run's 16-row decode and 144-row chunk steps; fp32 and bf16
+             queries, phase 3's gates, NaN-guarded, inputs unchanged.
+12. timing quant — both kernels, the plain version and SDPA over the view
+             dequantized to bf16 ahead of time (``library_ms``; the
+             dequantization is not timed) for each storage type at batch
+             1, 16 and 32, depth 1024, beside the bytes bound.
+13. parity quant — the engine on ``tiny``, ``micro`` and the INT8_PIN
+             geometry of ``tests/test_paged_attention.py`` at fp32, for
+             each kv_dtype: greedy and keyed-sampled streams through
+             ``"cuda"``, ``"pipelined"`` and ``"reference"`` are equal, with
+             the prefix cache, copy-on-write and a pool small enough to
+             force preemption.
+14. serve quant — the flagship at the serve phase's configuration with
+             ``kv_dtype="int8", decode_impl="pipelined"``: a warm-up wave and
+             three timed waves of phase 6's traffic (launches must be
+             n_layers per fused step through the pipelined kernel, 0 through
+             the tile kernel and the plain version; layer 0's attention in
+             the first decode and last chunk step held against the plain
+             version), then one shorter wave each of fp8 and int4 through
+             the pipelined kernel and of int8 through the tile kernel, under
+             the same gates.
+
+Then the kernel table as one JSON line (five kernels), the ``nvidia-smi``
+name and power limit, and last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -207,14 +237,34 @@ def phase_device() -> str:
     return smi
 
 
+def ptxas_report(output: str) -> dict:
+    """ptxas's ``-v`` report as {kernel: "registers; stack and spills"},
+    the kernel's mangled name cut to its name and template arguments."""
+    report, name = {}, None
+    for line in output.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+            name = re.sub(r"^_ZN\d+_GLOBAL__N_.*?_cu_[0-9a-f]{8}\d+", "",
+                          name)
+            name = name[:name.find("EEv") + 2] if "EEv" in name else name
+            report[name] = ""
+        elif name and "stack frame" in line:
+            report[name] = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            report[name] = f"{regs.group(1) if regs else '?'} registers; " \
+                           f"{report[name]}"
+            name = None
+    return report
+
+
 def phase_build() -> None:
     from tpu_task_torch.ml.ops import _build
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
         list(pool.map(_build.load, _build.SIGNATURES))
-    report = {name: [line.strip() for line in output.splitlines()
-                     if "registers" in line or "spill" in line]
+    report = {name: ptxas_report(output)
               for name, output in _build.compiler_output.items()}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(_build.SIGNATURES), ptxas=report)
@@ -227,8 +277,9 @@ def against_fp32_plain(got, args) -> dict:
     of that, plus 1e-5 for fp32 summation order."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
-    exact = pa.paged_reference_attention(
-        args[0].float(), args[1].float(), args[2].float(), *args[3:])
+    q = args[0]
+    pools = [p.float() if p.dtype == q.dtype else p for p in args[1:3]]
+    exact = pa.paged_reference_attention(q.float(), *pools, *args[3:])
     err = (got.float() - exact).abs()
     excess = (err - 2.0 ** -8 * exact.abs() - 1e-5).max().item()
     return dict(ok=excess <= 0, max_abs_err_vs_fp32=err.max().item(),
@@ -236,17 +287,17 @@ def against_fp32_plain(got, args) -> dict:
                                   "rounding")
 
 
-def guarded_launch(args, want) -> bool:
-    """Launch the kernel (uncounted) into the middle of a NaN-filled
+def guarded_launch(args, want, pipelined: bool = False) -> bool:
+    """Launch a paged kernel (uncounted) into the middle of a NaN-filled
     buffer: True if it wrote exactly ``want`` there and nothing on either
-    side."""
+    side. ``args`` are the wrapper's, scales last when given."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     q, n, pad = args[0], args[0].numel(), 1 << 18
     buf = torch.full((n + 2 * pad,), float("nan"), dtype=q.dtype,
                      device=q.device)
     out = buf[pad:pad + n].view(q.shape)
-    pa._launch(*args, out)
+    pa._launch(*args[:5], out, *args[5:], pipelined=pipelined)
     torch.cuda.synchronize()
     return bool(torch.isnan(buf[:pad]).all() and torch.isnan(buf[-pad:]).all()
                 and torch.equal(out, want))
@@ -455,9 +506,9 @@ class StepRecorder:
         return out
 
 
-def _submit_wave(engine, seed: int):
-    """16 requests of 256-1024 prompt tokens and 64 new tokens: 12
-    greedy, 4 sampled at temperature 0.8 / top_p 0.9 with raw keys."""
+def _submit_wave(engine, seed: int, max_new: int = 64):
+    """16 requests of 256-1024 prompt tokens and ``max_new`` new tokens:
+    12 greedy, 4 sampled at temperature 0.8 / top_p 0.9 with raw keys."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(256, 1025, size=16)
     rids = []
@@ -466,16 +517,17 @@ def _submit_wave(engine, seed: int):
         kw = ({"temperature": 0.8, "top_p": 0.9,
                "key": np.array([1000 + 100 * seed + i, i], np.uint32)}
               if i % 4 == 3 else {})
-        rids.append(engine.submit(prompt, 64, **kw))
+        rids.append(engine.submit(prompt, max_new, **kw))
     return rids, int(lengths.sum())
 
 
-def _timed_drain(engine, seed: int) -> dict:
+def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
     """One wave through the engine, its launch counts set to 0 just before
-    and read just after."""
+    and read just after. ``kernel_launches`` counts the kernel the engine
+    resolved (``decode_impl``); ``other_kernel_launches`` the other one."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
-    rids, prompt_tokens = _submit_wave(engine, seed)
+    rids, prompt_tokens = _submit_wave(engine, seed, max_new)
     chunk0, decode0 = engine.chunk_steps, engine.decode_steps
     preempt0 = engine.preemption_count
     decode_ms, chunk_ms = [], []
@@ -489,7 +541,9 @@ def _timed_drain(engine, seed: int) -> dict:
             (time.perf_counter() - s0) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa.paged_decode_attention.launches
+    kernels = {"cuda": pa.paged_decode_attention.launches,
+               "pipelined": pa.paged_decode_pipelined_attention.launches}
+    launches = kernels.pop(engine.decode_impl)
     plain = pa.paged_reference_attention.launches
     results = [engine.request(rid) for rid in rids]
     generated = sum(len(r.tokens) for r in results)
@@ -503,29 +557,42 @@ def _timed_drain(engine, seed: int) -> dict:
         chunk_steps=engine.chunk_steps - chunk0,
         mean_decode_step_ms=float(np.mean(decode_ms)) if decode_ms else None,
         mean_chunk_step_ms=float(np.mean(chunk_ms)),
-        kernel_launches=launches, plain_launches=plain,
+        kernel=engine.decode_impl, kernel_launches=launches,
+        other_kernel_launches=sum(kernels.values()), plain_launches=plain,
         expected_launches=engine.cfg.n_layers * fused,
-        all_finished=all(r.status == "done" and len(r.tokens) == 64
+        all_finished=all(r.status == "done" and len(r.tokens) == max_new
                          for r in results),
         preemptions=engine.preemption_count - preempt0)
 
 
-def phase_serve(device, smi: str) -> int:
-    """The main path: a warm-up wave, then three timed waves of fresh
-    prompts. Returns the kernel's launch count over the timed waves."""
+#: The flagship serve engine's configuration (phases 6 and 14).
+SERVE_KNOBS = dict(slots=16, block_size=16, chunk_tokens=128, max_len=1152,
+                   n_blocks=16 * 72 + 1)
+
+
+def flagship_model(device):
     from tpu_task_torch.ml.models import transformer
-    from tpu_task_torch.ml.serving import model as serving_model
-    from tpu_task_torch.ml.serving.cache import ServingConfig
-    from tpu_task_torch.ml.serving.engine import ServingEngine
 
     cfg = transformer.TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
     params = transformer.init(
         torch.Generator(device=device).manual_seed(0), cfg)
+    return cfg, params
+
+
+def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
+    """A flagship engine with ``serving`` over SERVE_KNOBS: a warm-up wave,
+    then three timed waves of fresh prompts, gated. Returns (the engine,
+    its kernel's launch count over the timed waves, the phase line)."""
+    from tpu_task_torch.ml.serving import model as serving_model
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    cfg, params = flagship_model(device)
     n_params = sum(p.numel() for p in params.values() if torch.is_tensor(p))
     n_params += sum(p.numel() for layer in params["layers"]
                     for p in layer.values())
-    scfg = ServingConfig(slots=16, block_size=16, chunk_tokens=128,
-                         max_len=1152, n_blocks=16 * 72 + 1)
+    scfg = ServingConfig(**SERVE_KNOBS, **serving)
+    torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(params, cfg, scfg, device=device)
     # Warm-up: bf16 GEMMs at the chunk and decode row counts, the sampler,
     # and the allocator's growth, outside the timed waves.
@@ -543,9 +610,10 @@ def phase_serve(device, smi: str) -> int:
     recorder = StepRecorder(attn_fn, cfg.n_layers, scfg.slots)
 
     def checked_step(*args, **kwargs):
-        logits = step_fn(*args, **kwargs)
+        out = step_fn(*args, **kwargs)
+        logits = out[0] if isinstance(out, tuple) else out
         finite.logical_and_(torch.isfinite(logits).all())
-        return logits
+        return out
 
     serving_model.paged_decode_step = checked_step
     serving_model.paged_attention = recorder
@@ -558,7 +626,7 @@ def phase_serve(device, smi: str) -> int:
         serving_model.paged_decode_step = step_fn
         serving_model.paged_attention = attn_fn
     for run in runs:
-        emit("serve_wave", **run, gpu=smi)
+        emit(f"{phase}_wave", **run, gpu=smi)
 
     # The kernel's output in the run against the plain version.
     steps_ok = True
@@ -566,11 +634,14 @@ def phase_serve(device, smi: str) -> int:
         pos = args[4]
         check = against_fp32_plain(out, args)
         steps_ok = steps_ok and check["ok"]
-        emit("serve_step_check", step=kind, layer=0, rows=int(pos.shape[0]),
-             deepest_position=int(pos.max()), **check)
+        emit(f"{phase}_step_check", step=kind, layer=0,
+             rows=int(pos.shape[0]), deepest_position=int(pos.max()), **check)
+    checked = sorted(recorder.steps)
+    recorder.steps.clear()               # its copies stay out of later peaks
     launches = sum(r["kernel_launches"] for r in runs)
     line = dict(
-        params=n_params, waves=len(runs),
+        params=n_params, waves=len(runs), kv_dtype=scfg.kv_dtype or "bfloat16",
+        decode_impl=engine.decode_impl,
         tokens_per_s_median=float(np.median(
             [r["tokens_per_s"] for r in runs])),
         tokens_per_s_runs=[r["tokens_per_s"] for r in runs],
@@ -579,16 +650,73 @@ def phase_serve(device, smi: str) -> int:
         mean_chunk_step_ms_median=float(np.median(
             [r["mean_chunk_step_ms"] for r in runs])),
         kernel_launches=launches,
+        other_kernel_launches=sum(r["other_kernel_launches"] for r in runs),
         plain_launches=sum(r["plain_launches"] for r in runs),
-        steps_checked=sorted(recorder.steps), logits_finite=bool(finite),
+        kv_pool_bytes=engine.stats()["kv_pool_bytes"],
+        steps_checked=checked, logits_finite=bool(finite),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
-    emit("serve", **line)
-    if not (bool(finite) and steps_ok and len(recorder.steps) == 2
-            and all(r["all_finished"] and r["plain_launches"] == 0
-                    and r["kernel_launches"] == r["expected_launches"] > 0
-                    for r in runs)):
-        raise AssertionError(f"flagship serving run failed its gates: {line}")
+    emit(phase, **line)
+    if not (bool(finite) and steps_ok and len(checked) == 2
+            and all(wave_ok(r) for r in runs)):
+        raise AssertionError(f"flagship serving run ({phase}) failed its "
+                             f"gates: {line}")
+    return engine, launches, line
+
+
+def phase_serve(device, smi: str) -> int:
+    """The main path: the flagship with bf16 pools through the tile
+    kernel. Returns the kernel's launch count over the timed waves."""
+    _, launches, _ = serve_flagship(device, smi, "serve")
     return launches
+
+
+def phase_serve_quant(device, smi: str) -> int:
+    """The quantized path: the flagship with int8 pools through the
+    pipelined kernel (three timed waves), then one shorter wave each of
+    fp8 and int4 through the pipelined kernel and int8 through the tile
+    kernel. Returns the pipelined kernel's launch count over the three
+    timed int8 waves."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig, \
+        paged_cache_bytes
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    engine, launches, line = serve_flagship(
+        device, smi, "serve_quant", kv_dtype="int8", decode_impl="pipelined")
+    bf16_pool = paged_cache_bytes(engine.cfg, ServingConfig(**SERVE_KNOBS),
+                                  SERVE_KNOBS["n_blocks"])
+    params, cfg = engine.params, engine.cfg
+    del engine
+    short = []
+    for kv_dtype, impl in (("fp8", "pipelined"), ("int4", "pipelined"),
+                           ("int8", "cuda")):
+        engine = ServingEngine(params, cfg,
+                               ServingConfig(**SERVE_KNOBS, kv_dtype=kv_dtype,
+                                             decode_impl=impl),
+                               device=device)
+        run = _timed_drain(engine, 3, max_new=16)
+        run.update(kv_dtype=kv_dtype,
+                   kv_pool_bytes=engine.stats()["kv_pool_bytes"])
+        emit("serve_quant_short_wave", **run, gpu=smi)
+        short.append(run)
+        del engine
+    emit("serve_quant_pool", bf16_kv_pool_bytes=bf16_pool,
+         int8_kv_pool_bytes=line["kv_pool_bytes"],
+         int8_over_bf16=line["kv_pool_bytes"] / bf16_pool,
+         short_waves={f"{r['kv_dtype']}/{r['kernel']}": r["kv_pool_bytes"]
+                      for r in short})
+    if not all(wave_ok(r) for r in short):
+        raise AssertionError(f"a short quantized wave failed its gates: "
+                             f"{short}")
+    return launches
+
+
+def wave_ok(run: dict) -> bool:
+    """A serve wave's gates: every request done, every fused step through
+    the engine's kernel once per layer, nothing through the other kernel or
+    the plain version."""
+    return (run["all_finished"] and run["plain_launches"] == 0
+            and run["other_kernel_launches"] == 0
+            and run["kernel_launches"] == run["expected_launches"] > 0)
 
 
 # -- flash attention ------------------------------------------------------------
@@ -1102,6 +1230,289 @@ def phase_train(device, smi: str) -> dict:
     return counts
 
 
+# -- quantized KV: both paged kernels ------------------------------------------
+
+#: (name, geometry) of the kernel_quant cases: the flagship's, and the head
+#: dims and block sizes of the tiny and micro presets.
+QUANT_GEOMETRIES = (("flagship", dict(h=8, kv=2, d=128, bs=16)),
+                    ("d16", dict(h=8, kv=4, d=16, bs=8)),
+                    ("d8", dict(h=4, kv=2, d=8, bs=4)))
+#: Pool storage types; None is the model dtype (q's own).
+KV_STORAGE = (None, "int8", "fp8", "int4")
+PAGED_KERNELS = ("paged_decode", "paged_decode_pipelined")
+
+
+def quant_args(gen, depths, *, w, h, kv, d, bs, max_blocks, q_dtype,
+               kv_dtype, device) -> list:
+    """``paged_case``'s inputs in fp32, the pools turned into ``kv_dtype``
+    codes and scales by the port's ``quantize_blocks`` (None: pools in q's
+    dtype, no scales), q in ``q_dtype``."""
+    from tpu_task_torch.ml.serving import cache
+
+    q, kp, vp, tables, pos = paged_case(
+        gen, depths, w=w, h=h, kv=kv, d=d, bs=bs, max_blocks=max_blocks,
+        dtype=torch.float32, device=device)
+    if kv_dtype is None:
+        return [q.to(q_dtype), kp.to(q_dtype), vp.to(q_dtype), tables, pos]
+    code = cache.kv_code_dtype(kv_dtype)
+    (kc, ks), (vc, vs) = (cache.quantize_blocks(p, code) for p in (kp, vp))
+    return [q.to(q_dtype), kc, vc, tables, pos, ks, vs]
+
+
+def paged_kernel(name: str):
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    return {"paged_decode": pa.paged_decode_attention,
+            "paged_decode_pipelined": pa.paged_decode_pipelined_attention}[name]
+
+
+def same_bytes(a, b) -> bool:
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def storage_name(kv_dtype, q_dtype) -> str:
+    return kv_dtype or str(q_dtype).replace("torch.", "")
+
+
+def phase_kernel_quant(device) -> dict:
+    """Both paged kernels against the plain version on the same codes:
+    the tile kernel's quantized variants (its model-dtype ones are phase
+    3's) and the pipelined kernel over every storage type. One line per
+    (kernel, storage, q dtype); returns each kernel's largest fp32
+    error."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    gen = torch.Generator().manual_seed(5)
+    rng = np.random.default_rng(5)
+    flagship = QUANT_GEOMETRIES[0][1]
+    cases = [(name, geo, 24, w, 2048, 2048 // geo["bs"])
+             for name, geo in QUANT_GEOMETRIES for w in (1, 3)]
+    cases += [(case, flagship, rows, w, depth, max_blocks)
+              for case, rows, w, depth, max_blocks in KERNEL_CASES
+              if case != "deep"]
+    worst = {name: 0.0 for name in PAGED_KERNELS}
+    summary = {}
+    for case, geo, rows, w, depth, max_blocks in cases:
+        depths = [None if r % 6 == 5 else int(rng.integers(0, depth - w))
+                  for r in range(rows)]
+        depths[0] = depth - w                     # the deepest row
+        for q_dtype in (torch.float32, torch.bfloat16):
+            for kv_dtype in KV_STORAGE:
+                args = quant_args(gen, depths, w=w, max_blocks=max_blocks,
+                                  q_dtype=q_dtype, kv_dtype=kv_dtype,
+                                  device=device, **geo)
+                before = [a.clone() for a in args]
+                same = pa.paged_reference_attention(*args)
+                for kernel in PAGED_KERNELS:
+                    if kernel == "paged_decode" and kv_dtype is None:
+                        continue                  # phase 3's cases
+                    got = paged_kernel(kernel)(*args)
+                    torch.cuda.synchronize()
+                    unchanged = all(same_bytes(a, b)
+                                    for a, b in zip(before, args))
+                    guarded = guarded_launch(
+                        args, got, pipelined=kernel != "paged_decode")
+                    err = (got.float() - same.float()).abs().max().item()
+                    line = dict(kernel=kernel, case=case, w=w, rows=rows,
+                                storage=storage_name(kv_dtype, q_dtype),
+                                q_dtype=str(q_dtype).replace("torch.", ""),
+                                max_abs_err=err, inputs_unchanged=unchanged,
+                                writes_only_out_and_repeats=guarded)
+                    if q_dtype == torch.float32:
+                        ok = err <= FP32_ATOL
+                        worst[kernel] = max(worst[kernel], err)
+                    else:
+                        line.update(against_fp32_plain(got, args))
+                        ok = line.pop("ok") and err <= 2e-2
+                    ok = ok and unchanged and guarded
+                    if not ok:
+                        emit("kernel_quant", ok=False, **line)
+                        raise AssertionError(f"{kernel} disagrees: {line}")
+                    key = (kernel, line["storage"], line["q_dtype"])
+                    agg = summary.setdefault(key, dict(
+                        cases=0, max_abs_err=0.0, max_abs_err_vs_fp32=0.0))
+                    agg["cases"] += 1
+                    agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                    agg["max_abs_err_vs_fp32"] = max(
+                        agg["max_abs_err_vs_fp32"],
+                        line.get("max_abs_err_vs_fp32", err))
+    for (kernel, storage, q_dtype), agg in summary.items():
+        emit("kernel_quant", ok=True, kernel=kernel, storage=storage,
+             q_dtype=q_dtype, **agg,
+             geometries=[name for name, _ in QUANT_GEOMETRIES],
+             widths=[1, 3], serve_steps=["decode step", "chunk step"],
+             tolerance=(f"{FP32_ATOL} vs the fp32 plain version"
+                        if q_dtype == "float32" else
+                        "2^-8*|fp32 ref| + 1e-5, and 2e-2 vs the bf16 plain "
+                        "version"),
+             writes_only_out_and_repeats=True, inputs_unchanged=True)
+    return worst
+
+
+def phase_timing_quant(device, smi: str) -> dict:
+    """Both paged kernels over each storage type at the flagship decode
+    shape (bf16 queries, depth 1024, tables 72 wide) at batch 1, 16 and 32,
+    beside the plain version, SDPA over the view dequantized to bf16 ahead
+    of time (the dequantization is not in ``library_ms``) and the bytes
+    bound. Returns {kernel: {storage: the batch-16 row}}."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import flat_pool, gather_kv
+
+    F = torch.nn.functional
+    timer = DeviceTimer(device)
+    gen = torch.Generator().manual_seed(6)
+    depth, bs, h, kv, d = 1024, 16, 8, 2, 128
+    out = {name: {} for name in PAGED_KERNELS}
+    for kv_dtype in KV_STORAGE:
+        storage = storage_name(kv_dtype, torch.bfloat16)
+        for batch in (1, 16, 32):
+            args = quant_args(gen, [depth - 1] * batch, w=1, h=h, kv=kv, d=d,
+                              bs=bs, max_blocks=72, q_dtype=torch.bfloat16,
+                              kv_dtype=kv_dtype, device=device)
+            q, kp, vp, tables, pos = args[:5]
+            live = tables[:, :depth // bs]
+            if kv_dtype is None:
+                kd, vd = (gather_kv(flat_pool(p), live, bs) for p in (kp, vp))
+            else:
+                kd, vd = (pa.dequantize_view(
+                    gather_kv(flat_pool(p.view(torch.uint8)), live, bs)
+                    .view(p.dtype), s, live, bs, torch.bfloat16)
+                    for p, s in ((kp, args[5]), (vp, args[6])))
+            kd, vd = (t.transpose(1, 2).contiguous() for t in (kd, vd))
+            qd = q.transpose(1, 2).contiguous()          # (b, h, 1, d)
+
+            def library():
+                return F.scaled_dot_product_attention(qd, kd, vd,
+                                                      enable_gqa=True)
+
+            def plain():
+                return pa.paged_reference_attention(*args)
+
+            # Each live K and V row once in its storage type, the live
+            # blocks' scales, q in and out, the live table entries and the
+            # positions.
+            n_bytes = (batch * depth * kv * kp.shape[-1]
+                       * kp.element_size() * 2
+                       + (batch * (depth // bs) * kv * 4 * 2
+                          if kv_dtype else 0)
+                       + 2 * q.numel() * q.element_size()
+                       + batch * (depth // bs) * 4 + pos.numel() * 4)
+            flops = 4 * batch * h * depth * d
+            bound_ms = max(n_bytes / HBM_BYTES_PER_S,
+                           flops / BF16_FLOPS) * 1e3
+            plain_ms, library_ms = timer(plain), timer(library)
+            row_common = dict(
+                batch=batch, depth=depth, q_dtype="bfloat16",
+                storage=storage, plain_ms=plain_ms, library_ms=library_ms,
+                library_note="SDPA over the gathered view already "
+                             "dequantized to bf16; the dequantization is "
+                             "not timed",
+                bound_ms=bound_ms,
+                bound_by="bytes" if n_bytes / HBM_BYTES_PER_S
+                >= flops / BF16_FLOPS else "operations",
+                bytes=n_bytes, flops=flops, gpu=smi)
+            for kernel in PAGED_KERNELS:
+                fn = paged_kernel(kernel)
+                got = fn(*args)
+                check = against_fp32_plain(got, args)
+                lib_err = (library().transpose(1, 2).float()
+                           - got.float()).abs().max().item()
+                if not check.pop("ok") or lib_err > 2e-2:
+                    raise AssertionError(
+                        f"{kernel} or SDPA yardstick disagrees at {storage} "
+                        f"batch {batch}: {check}, SDPA {lib_err}")
+                row = dict(kernel=kernel, ms=timer(lambda: fn(*args)),
+                           host_ms=host_ms(lambda: fn(*args)),
+                           library_max_abs_diff=lib_err, **check,
+                           **row_common)
+                row["fraction_of_bound"] = bound_ms / row["ms"]
+                emit("timing_quant", **row)
+                if batch == 16:
+                    out[kernel][storage] = row
+    return out
+
+
+#: The INT8_PIN geometry of ``tests/test_paged_attention.py``: its model
+#: and engine configuration.
+INT8_PIN = dict(vocab_size=128, d_model=128, n_layers=2, n_heads=4,
+                d_head=16, d_ff=256, n_kv_heads=2)
+INT8_PIN_SERVING = dict(slots=3, block_size=4, n_blocks=32, max_len=48,
+                        chunk_tokens=6)
+
+
+def parity_engines(preset: str, serving: dict, device):
+    """An fp32 engine of a preset (``build_engine``) or of the INT8_PIN
+    geometry (random weights from a seeded torch Generator)."""
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.serve.replica import build_engine
+
+    if preset != "int8_pin":
+        return build_engine(preset, serving=serving, device=device)
+    cfg = transformer.TransformerConfig(dtype=torch.float32, **INT8_PIN)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    return ServingEngine(params, cfg,
+                         ServingConfig(**{**INT8_PIN_SERVING, **serving}),
+                         device=device)
+
+
+def phase_parity_quant(device) -> None:
+    """For each kv_dtype, the engine's streams through both kernels and
+    the plain version are equal, with the prefix cache, copy-on-write and
+    (with the small pool) preemption; each fused step launches its
+    kernel once per layer and nothing else."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    for preset, small in (("micro", 14), ("tiny", 8), ("int8_pin", 12)):
+        for kv_dtype in ("int8", "fp8", "int4"):
+            for n_blocks in (None, small):
+                outs, stats = {}, {}
+                for impl in ("cuda", "pipelined", "reference"):
+                    serving = {"decode_impl": impl, "kv_dtype": kv_dtype}
+                    if n_blocks:
+                        serving["n_blocks"] = n_blocks
+                    engine = parity_engines(preset, serving, device)
+                    waves = _parity_waves(engine.cfg.vocab_size,
+                                          engine.scfg.block_size)
+                    pa.reset_launch_counts()
+                    for wave in waves:
+                        for prompt, max_new, kw in wave:
+                            engine.submit(prompt, max_new, **kw)
+                        outs[impl] = engine.drain(max_steps=5000)
+                    stats[impl] = s = engine.stats()
+                    fused = engine.chunk_steps + engine.decode_steps
+                    want = {name: 0 for name in s["attention_launches"]}
+                    want[impl] = engine.cfg.n_layers * fused
+                    if s["attention_launches"] != want:
+                        raise AssertionError(
+                            f"{preset}/{kv_dtype}/{impl}: launches "
+                            f"{s['attention_launches']}, expected {want}")
+                if not outs["cuda"] == outs["pipelined"] == outs["reference"]:
+                    raise AssertionError(f"{preset}/{kv_dtype}: streams differ "
+                                         "between the kernels and the plain "
+                                         "version")
+                s = stats["pipelined"]
+                if n_blocks and not s["recompute_preemptions"]:
+                    raise AssertionError(f"{preset}/{kv_dtype}: the small "
+                                         "pool never preempted")
+                if not n_blocks and not s["prefix_cache"]["cow_copies"]:
+                    raise AssertionError(f"{preset}/{kv_dtype}: no "
+                                         "copy-on-write")
+                emit("parity_quant", ok=True, preset=preset,
+                     kv_dtype=kv_dtype,
+                     n_blocks=n_blocks or engine.scfg.n_blocks,
+                     requests=len(outs["cuda"]),
+                     impls=["cuda", "pipelined", "reference"],
+                     preemptions=s["recompute_preemptions"],
+                     prefix_hit_requests=s["prefix_cache"]["hit_requests"],
+                     cow_copies=s["prefix_cache"]["cow_copies"],
+                     quantized_block_writes=s["kv_quant"][
+                         "quantized_block_writes"],
+                     chunk_steps=s["chunk_steps"],
+                     decode_steps=s["decode_steps"])
+
+
 def main() -> int:
     smi = phase_device()
     import_port()
@@ -1115,14 +1526,27 @@ def main() -> int:
     flash_times = phase_flash_timing(device, smi)
     phase_train_parity(device)
     train_counts = phase_train(device, smi)
+    quant_err = phase_kernel_quant(device)
+    quant_times = phase_timing_quant(device, smi)
+    phase_parity_quant(device)
+    pipelined_launches = phase_serve_quant(device, smi)
+
+    def by_storage(kernel: str) -> dict:
+        return {storage: {key: row[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")}
+                for storage, row in quant_times[kernel].items()}
+
+    int8 = quant_times["paged_decode_pipelined"]["int8"]
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "tpu_task_torch/csrc/paged_decode.cu",
         "replaces": "tpu_task/ml/ops/paged_attention.py:175",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches,
+        "max_abs_err": max(max_err, quant_err["paged_decode"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]
+        "library_ms": timing["library_ms"],
+        "by_storage_batch16": by_storage("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
         row = flash_times[name]
@@ -1134,6 +1558,16 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": "paged_decode_pipelined", "route": "cuda",
+        "source": "tpu_task_torch/csrc/paged_decode_pipelined.cu",
+        "replaces": "tpu_task/ml/ops/paged_attention.py:339",
+        "launches": pipelined_launches,
+        "max_abs_err": quant_err["paged_decode_pipelined"],
+        "ms": int8["ms"], "plain_ms": int8["plain_ms"],
+        "bound_ms": int8["bound_ms"], "bound_by": int8["bound_by"],
+        "library_ms": int8["library_ms"], "storage": "int8",
+        "by_storage_batch16": by_storage("paged_decode_pipelined")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

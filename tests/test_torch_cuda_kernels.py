@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-paged-decode kernel and the three flash-attention kernels of training.
+two paged-decode kernels (over model-dtype and quantized pools) and the
+three flash-attention kernels of training.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -22,6 +23,7 @@ from tpu_task_torch.ml import train
 from tpu_task_torch.ml.models import transformer
 from tpu_task_torch.ml.ops import attention as fa
 from tpu_task_torch.ml.ops import paged_attention as tpa
+from tpu_task_torch.ml.serving import cache as tc
 from tpu_task_torch.serve.replica import build_engine
 
 ATOL = 2e-5
@@ -89,13 +91,19 @@ def test_kernel_matches_plain(cuda_device, geometry, w, dtype):
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
     q, kp, vp, tables, pos = _case(np.random.default_rng(0), cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.paged_decode_attention(q, kp.to(torch.int8), vp.to(torch.int8),
-                                   tables, pos)
-    with pytest.raises(ValueError, match="one type"):
-        tpa.paged_decode_attention(q, kp.to(torch.bfloat16), vp, tables, pos)
-    with pytest.raises(ValueError, match="int32"):
-        tpa.paged_decode_attention(q, kp, vp, tables.long(), pos)
+    tpa.reset_launch_counts()
+    for kernel in (tpa.paged_decode_attention,
+                   tpa.paged_decode_pipelined_attention):
+        with pytest.raises(ValueError, match="needs k_scale"):
+            kernel(q, kp.to(torch.int8), vp.to(torch.int8), tables, pos)
+        with pytest.raises(ValueError, match="share one storage type"):
+            kernel(q, kp.to(torch.bfloat16), vp, tables, pos)
+        with pytest.raises(ValueError, match="int32"):
+            kernel(q, kp, vp, tables.long(), pos)
+    # Nothing launched, and nothing fell back to the plain version.
+    assert tpa.paged_decode_attention.launches == 0
+    assert tpa.paged_decode_pipelined_attention.launches == 0
+    assert tpa.paged_reference_attention.launches == 0
 
 
 @pytest.mark.cuda
@@ -122,6 +130,82 @@ def test_engine_runs_the_kernel(cuda_device, preset):
                 engine.cfg.n_layers * fused
             assert tpa.paged_reference_attention.launches == 0
     assert outs["auto"] == outs["reference"]
+
+
+#: (kernel, kv_dtype): the tile kernel's quantized variants and the
+#: pipelined kernel over every storage type.
+QUANT_KERNELS = [("cuda", "int8"), ("cuda", "fp8"), ("cuda", "int4"),
+                 ("pipelined", None), ("pipelined", "int8"),
+                 ("pipelined", "fp8"), ("pipelined", "int4")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [
+    dict(h=8, kv=2, d=128, bs=16),            # the flagship
+    dict(h=8, kv=2, d=128, bs=16, rows=144, max_blocks=72),
+    dict(h=8, kv=4, d=16, bs=8),              # the tiny preset
+    dict(h=4, kv=2, d=8, bs=4)])              # the micro preset
+@pytest.mark.parametrize("w", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl,kv_dtype", QUANT_KERNELS)
+def test_quantized_kernels_match_plain(cuda_device, impl, kv_dtype, geometry,
+                                       w, dtype):
+    """Both kernels on the same codes and scales as the plain version run
+    in fp32: fp32 within ATOL, bf16 within its output's rounding."""
+    rng = np.random.default_rng(w + geometry["d"])
+    q, kp, vp, tables, pos = _case(rng, cuda_device, w=w, **geometry)
+    q = q.to(dtype)
+    scales = ()
+    if kv_dtype is None:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        code = tc.kv_code_dtype(kv_dtype)
+        (kp, ks), (vp, vs) = (tc.quantize_blocks(a, code) for a in (kp, vp))
+        scales = (ks, vs)
+    args = (q, kp, vp, tables, pos, *scales)
+    tpa.reset_launch_counts()
+    got = tpa.paged_attention(*args[:5], *scales, impl=impl)
+    torch.cuda.synchronize()
+    counted = (tpa.paged_decode_pipelined_attention if impl == "pipelined"
+               else tpa.paged_decode_attention)
+    assert counted.launches == 1 and tpa.paged_reference_attention.launches \
+        == 0
+    assert got.dtype == dtype and got.shape == q.shape
+    pools = [p.float() if p.dtype == dtype else p for p in (kp, vp)]
+    exact = tpa.paged_reference_attention(q.float(), *pools, tables, pos,
+                                          *scales)
+    err = (got.float() - exact).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= ATOL
+    else:
+        assert (err <= 2.0 ** -8 * exact.abs() + 1e-5).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("preset", ["micro", "tiny"])
+def test_quantized_engine_runs_both_kernels(cuda_device, preset, kv_dtype):
+    """A quantized engine serves through either kernel, once per layer per
+    fused step and never through the plain version, with the streams of a
+    forced-plain engine."""
+    rng = np.random.default_rng(2)
+    vocab = build_engine(preset, device="cpu").cfg.vocab_size
+    prompts = [rng.integers(0, vocab, size=n) for n in (3, 13, 7, 1)]
+    outs = {}
+    for impl in ("cuda", "pipelined", "reference"):
+        engine = build_engine(preset, serving={"decode_impl": impl,
+                                               "kv_dtype": kv_dtype},
+                              device=cuda_device)
+        tpa.reset_launch_counts()
+        for prompt in prompts:
+            engine.submit(prompt, 8)
+        outs[impl] = engine.drain()
+        fused = engine.chunk_steps + engine.decode_steps
+        launches = engine.stats()["attention_launches"]
+        want = {name: 0 for name in launches}
+        want[impl] = engine.cfg.n_layers * fused
+        assert launches == want
+    assert outs["cuda"] == outs["pipelined"] == outs["reference"]
 
 
 def _flash_inputs(device, dtype, b, h, sq, sk, d, seed=0):

@@ -165,8 +165,9 @@ def _leaves(params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("spec_k", 2), ("micro_k", 4), ("overlap", True), ("kv_dtype", "int8"),
-    ("prefill", "bucketed"), ("host_offload_blocks", 8), ("lora_rank", 4)])
+    ("spec_k", 2), ("micro_k", 4), ("overlap", True),
+    ("n_adapter_blocks", 4), ("prefill", "bucketed"),
+    ("host_offload_blocks", 8), ("lora_rank", 4)])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(**{knob: value})

@@ -3,8 +3,9 @@ a plain C interface, loaded with ctypes.
 
 Each source under ``tpu_task_torch/csrc/`` compiles on first use, for
 ``sm_90a``, into ``build/tpu_task_torch/`` at the repository root. The
-library's file name carries a hash of its source and flags, so an edited
-source rebuilds and an unchanged one is reused. A failed build raises with
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused. A failed build raises with
 the compiler's output; nothing falls back."""
 
 from __future__ import annotations
@@ -30,9 +31,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points of each library: name -> (restype, argtypes).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_decode": {
-        "tt_paged_decode": (_I, [_I, _P, _P, _P, _P, _P, _P,
+        # q_type, kv_type, q, k_pool, v_pool, k_scale, v_scale, tables,
+        # positions, out, rows, w, heads, kv_heads, d, bs, max_blocks, stream
+        "tt_paged_decode": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P]),
         "tt_paged_decode_smem_bytes": (_I, [_I, _I, _I, _I, _I]),
+        "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "paged_decode_pipelined": {
+        # the arguments of tt_paged_decode
+        "tt_paged_decode_pipelined": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
+                                           _P, _P, _I, _I, _I, _I, _I, _I,
+                                           _I, _P]),
+        # kv_type, w, heads, kv_heads, d, bs
+        "tt_paged_decode_pipelined_smem_bytes": (_I, [_I, _I, _I, _I, _I,
+                                                      _I]),
         "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
@@ -70,6 +83,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC / f"{name}.cu").read_bytes()
+    source += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -1,85 +1,159 @@
-"""Paged decode attention: the CUDA kernel's wrapper, its plain version, and
-the one dispatch the serving model calls — the counterpart of
+"""Paged decode attention: the CUDA kernels' wrappers, their plain version,
+and the one dispatch the serving model calls — the counterpart of
 ``tpu_task/ml/ops/paged_attention.py``.
 
-:func:`paged_decode_attention` launches ``csrc/paged_decode.cu``, the
-hand-written Hopper port of the TPU kernel ``_paged_decode_kernel``: it
-walks each row's block table over the physical KV pools, so the gathered
-dense view never exists. :func:`paged_reference_attention` is the plain
-version (gather through the tables, then the shared dense core); the CPU
-tests compare it with the JAX package and ``chip_smoke.py`` compares the
-kernel with it on the card. The wrapper takes the plain version only for
-tensors that lie on the CPU; for a CUDA tensor it launches the kernel or
-raises.
+Two hand-written Hopper kernels compute one function, as their TPU
+originals do:
+
+- :func:`paged_decode_attention` launches ``csrc/paged_decode.cu``, the
+  port of ``_paged_decode_kernel``: it walks each row's block table over
+  the physical KV pools in 64-token tiles, so the gathered dense view never
+  exists.
+- :func:`paged_decode_pipelined_attention` launches
+  ``csrc/paged_decode_pipelined.cu``, the port of
+  ``_paged_decode_pipelined_kernel``: the same walk over a double-buffered
+  shared-memory ring that ``cp.async`` fills with the pool's own bytes, the
+  next stage's copy issued before the current stage is computed.
+
+Both take model-dtype pools (fp32, bf16) and quantized ones: int8 or fp8
+e4m3 codes, or int4 pairs packed in uint8 (trailing dim ``d / 2``), with
+``k_scale``/``v_scale`` (n_blocks, kv) fp32 sidecars; codes are converted
+in registers and the scales applied to each block's scores and p·v.
+:func:`paged_reference_attention` is the plain version of both (gather
+through the tables, dequantize, then the shared dense core); the CPU tests
+compare it with the JAX package and ``chip_smoke.py`` compares the kernels
+with it on the card. A wrapper takes the plain version only for tensors
+that lie on the CPU; for a CUDA tensor it launches its kernel or raises.
 
 Each function counts its launches in a plain integer attribute
-(``paged_decode_attention.launches``, ``paged_reference_attention.launches``)
-so a run can show which one the serving path went through.
-
-Quantized pools (int8 / fp8 / int4 codes with scale sidecars) come with the
-quantized-KV slice (ROADMAP A6) and raise here."""
+(``paged_decode_attention.launches``,
+``paged_decode_pipelined_attention.launches``,
+``paged_reference_attention.launches``) so a run can show which one the
+serving path went through."""
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
 from tpu_task_torch.ml.ops import _build
 from tpu_task_torch.ml.ops.attention import gqa_cached_attention
-from tpu_task_torch.ml.serving.cache import flat_pool, gather_kv
+from tpu_task_torch.ml.serving.cache import flat_pool, gather_kv, unpack_int4
 
-#: The pool element types the kernel takes, by its dtype code.
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The query (and output) types the kernels take, by their code.
+Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The pool storage types the kernels take, by their code
+#: (``csrc/paged_kv.cuh``); uint8 is int4 packed two codes per byte.
+KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+            torch.float8_e4m3fn: 3, torch.uint8: 4}
+QUANT_TYPES = (torch.int8, torch.float8_e4m3fn, torch.uint8)
 
 #: Dynamic shared memory one CTA may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232_448
 
-IMPLS = ("reference", "cuda")
+IMPLS = ("reference", "cuda", "pipelined")
+
+
+def dequantize_view(view: torch.Tensor, scale: torch.Tensor,
+                    block_tables: torch.Tensor, block_size: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """(rows, L, kv, d) gathered codes × their per-(block, kv-head) scales
+    → values in ``dtype``. The scales gather through the same tables and
+    broadcast over each block's tokens; a uint8 view is int4-packed and
+    unpacks to the full head dim first."""
+    if view.dtype == torch.uint8:
+        view = unpack_int4(view)
+    s_view = scale[block_tables.to(torch.int64)].repeat_interleave(
+        block_size, dim=1)
+    return (view.to(torch.float32) * s_view[..., None]).to(dtype)
 
 
 def paged_reference_attention(q: torch.Tensor, k_pool: torch.Tensor,
                               v_pool: torch.Tensor,
                               block_tables: torch.Tensor,
-                              q_positions: torch.Tensor) -> torch.Tensor:
+                              q_positions: torch.Tensor,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The plain version: gather each row's logical (rows, L, kv, d) view
-    through its block table and run the shared dense core. q (rows, w, h,
-    d); pools (n_blocks, bs, kv, d); tables (rows, max_blocks); positions
-    (rows, w). Returns (rows, w, h, d) in q's dtype."""
+    through its block table (dequantized to q's dtype when scales are
+    given) and run the shared dense core. q (rows, w, h, d); pools
+    (n_blocks, bs, kv, d), or (…, d/2) uint8 for int4; tables (rows,
+    max_blocks); positions (rows, w); scales (n_blocks, kv). Returns
+    (rows, w, h, d) in q's dtype."""
     paged_reference_attention.launches += 1
     bs = k_pool.shape[1]
-    k_view = gather_kv(flat_pool(k_pool), block_tables, bs)
-    v_view = gather_kv(flat_pool(v_pool), block_tables, bs)
+
+    def gather(pool):
+        if k_scale is None:
+            return gather_kv(flat_pool(pool), block_tables, bs)
+        # One-byte codes are gathered as bytes, so no indexing kernel has
+        # to know float8.
+        raw = gather_kv(flat_pool(pool.view(torch.uint8)), block_tables, bs)
+        return raw.view(pool.dtype)
+
+    k_view, v_view = gather(k_pool), gather(v_pool)
+    if k_scale is not None:
+        k_view = dequantize_view(k_view, k_scale, block_tables, bs, q.dtype)
+        v_view = dequantize_view(v_view, v_scale, block_tables, bs, q.dtype)
     return gqa_cached_attention(q, k_view, v_view, q_positions)
 
 
 paged_reference_attention.launches = 0
 
 
-def _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions):
-    """Raise on anything the kernel does not take, before any pointer
-    reaches it."""
+def _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions,
+                       k_scale, v_scale, *, pipelined: bool) -> None:
+    """Raise on anything the kernels do not take, before any pointer
+    reaches them."""
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(
             f"q must be (rows, w, h, d) and the pools (n_blocks, bs, kv, d) "
             f"alike, got q {tuple(q.shape)}, k {tuple(k_pool.shape)}, "
             f"v {tuple(v_pool.shape)}")
     rows, w, h, d = q.shape
-    _, _, kv, dp = k_pool.shape
-    if k_pool.dtype in (torch.int8, torch.uint8) or \
-            k_pool.dtype.is_floating_point and k_pool.dtype.itemsize == 1:
-        raise NotImplementedError(
-            f"quantized KV pools ({k_pool.dtype}) are not ported yet: "
-            "ROADMAP A6 (the kernel's int8/fp8/int4 variants)")
-    if q.dtype not in KERNEL_DTYPES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
+    n_blocks, _, kv, dp = k_pool.shape
+    if q.dtype not in Q_TYPES:
+        raise ValueError(f"the kernels take fp32 or bf16 queries, got "
+                         f"{q.dtype}")
+    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in KV_TYPES:
         raise ValueError(
-            f"the kernel takes fp32 or bf16 with q and the pools of one "
-            f"type, got q {q.dtype}, k {k_pool.dtype}, v {v_pool.dtype}")
-    if dp != d or h % kv:
+            f"the pools must share one storage type of {list(KV_TYPES)}, "
+            f"got k {k_pool.dtype}, v {v_pool.dtype}")
+    quantized = k_pool.dtype in QUANT_TYPES
+    if not quantized and k_pool.dtype != q.dtype:
         raise ValueError(
-            f"head dim {d} vs pool {dp}, or n_heads {h} not divisible by "
-            f"kv_heads {kv}")
+            f"a model-dtype pool must have q's one type, got q {q.dtype}, "
+            f"pools {k_pool.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if quantized != (k_scale is not None):
+        raise ValueError(
+            f"a quantized pool needs k_scale and v_scale and a "
+            f"{k_pool.dtype} pool takes none")
+    if quantized and any(
+            s.dtype != torch.float32 or tuple(s.shape) != (n_blocks, kv)
+            for s in (k_scale, v_scale)):
+        raise ValueError(
+            f"scales must be float32 of shape (n_blocks, kv) = "
+            f"({n_blocks}, {kv}), got {k_scale.dtype} "
+            f"{tuple(k_scale.shape)} and {v_scale.dtype} "
+            f"{tuple(v_scale.shape)}")
+    if k_pool.dtype == torch.uint8 and (d % 2 or dp * 2 != d):
+        raise ValueError(
+            f"an int4 pool packs head-dim pairs: it needs an even head dim "
+            f"{d} and a pool width of d/2, got {dp}")
+    if k_pool.dtype != torch.uint8 and dp != d:
+        raise ValueError(f"head dim {d} vs pool {dp}")
+    if h % kv:
+        raise ValueError(f"n_heads {h} not divisible by kv_heads {kv}")
+    if pipelined and dp * k_pool.element_size() % 4:
+        raise ValueError(
+            f"the pipelined kernel copies pool rows in 4-byte units; a row "
+            f"of this pool is {dp * k_pool.element_size()} bytes")
     if block_tables.dtype != torch.int32 or q_positions.dtype != torch.int32:
         raise ValueError(
             f"block tables and positions must be int32, got "
@@ -90,95 +164,139 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions):
             f"tables must be (rows, max_blocks) and positions (rows, w) = "
             f"({rows}, {w}), got {tuple(block_tables.shape)} and "
             f"{tuple(q_positions.shape)}")
-    tensors = (q, k_pool, v_pool, block_tables, q_positions)
+    tensors = (q, k_pool, v_pool, block_tables, q_positions) + (
+        (k_scale, v_scale) if quantized else ())
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must be on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the kernel takes contiguous tensors only")
+        raise ValueError("the kernels take contiguous tensors only")
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("q and the pools must be 16-byte aligned")
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_bytes(w: int, h: int, kv: int, d: int, bs: int) -> int:
+def _smem_bytes(pipelined: bool, kv_type: int, w: int, h: int, kv: int,
+                d: int, bs: int) -> int:
     """Shared memory one CTA needs at this geometry; raises past the
     card's limit."""
-    smem = _build.load("paged_decode").tt_paged_decode_smem_bytes(
-        w, h, kv, d, bs)
+    if pipelined:
+        smem = _build.load("paged_decode_pipelined") \
+            .tt_paged_decode_pipelined_smem_bytes(kv_type, w, h, kv, d, bs)
+    else:
+        smem = _build.load("paged_decode").tt_paged_decode_smem_bytes(
+            w, h, kv, d, bs)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"paged decode needs {smem} bytes of shared memory per CTA at "
-            f"w={w}, group={h // kv}, d={d}, block_size={bs}; the card "
-            f"offers {MAX_SMEM_BYTES}")
+            f"paged decode{' (pipelined)' if pipelined else ''} needs {smem} "
+            f"bytes of shared memory per CTA at w={w}, group={h // kv}, "
+            f"d={d}, block_size={bs}; the card offers {MAX_SMEM_BYTES}")
     return smem
 
 
 def _launch(q, k_pool, v_pool, block_tables, q_positions,
-            out: torch.Tensor) -> None:
-    """Launch the kernel into ``out`` (q's shape and type) on the current
+            out: torch.Tensor, k_scale=None, v_scale=None, *,
+            pipelined: bool = False) -> None:
+    """Launch one kernel into ``out`` (q's shape and type) on the current
     stream after checking its arguments; raises on any CUDA error. Counts
-    nothing: :func:`paged_decode_attention` is the counted entry."""
-    _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions)
+    nothing: the wrappers are the counted entries."""
+    _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions,
+                       k_scale, v_scale, pipelined=pipelined)
     if out.shape != q.shape or out.dtype != q.dtype \
             or out.device != q.device or not out.is_contiguous():
         raise ValueError("out must be a contiguous tensor like q")
     rows, w, h, d = q.shape
     _, bs, kv, _ = k_pool.shape
-    _smem_bytes(w, h, kv, d, bs)
-    lib = _build.load("paged_decode")
+    kv_type = KV_TYPES[k_pool.dtype]
+    _smem_bytes(pipelined, kv_type, w, h, kv, d, bs)
+    name = "paged_decode_pipelined" if pipelined else "paged_decode"
+    lib = _build.load(name)
+    entry = getattr(lib, f"tt_{name}")
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr())
+              if k_scale is not None else (None, None))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tt_paged_decode(
-            KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), block_tables.data_ptr(),
-            q_positions.data_ptr(), out.data_ptr(), rows, w, h, kv, d, bs,
-            block_tables.shape[1], stream)
+        rc = entry(Q_TYPES[q.dtype], kv_type, q.data_ptr(),
+                   k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+                   block_tables.data_ptr(), q_positions.data_ptr(),
+                   out.data_ptr(), rows, w, h, kv, d, bs,
+                   block_tables.shape[1], stream)
     if rc:
         raise RuntimeError(
-            f"paged_decode kernel launch failed: CUDA error {rc} "
+            f"{name} kernel launch failed: CUDA error {rc} "
             f"({lib.tt_cuda_error_string(rc).decode()})")
+
+
+def _kernel_call(wrapper, pipelined: bool, q, k_pool, v_pool, block_tables,
+                 q_positions, k_scale, v_scale) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return paged_reference_attention(q, k_pool, v_pool, block_tables,
+                                         q_positions, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged-decode kernel for device {q.device}")
+    out = torch.empty_like(q)
+    _launch(q, k_pool, v_pool, block_tables, q_positions, out, k_scale,
+            v_scale, pipelined=pipelined)
+    wrapper.launches += 1
+    return out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
-                           q_positions: torch.Tensor) -> torch.Tensor:
-    """Paged GQA decode attention through the CUDA kernel — the arguments
-    and result of :func:`paged_reference_attention`. A CPU tensor takes
-    the plain version (there is no CUDA there); a CUDA tensor launches the
-    kernel on the current stream, or raises."""
-    if q.device.type == "cpu":
-        return paged_reference_attention(q, k_pool, v_pool, block_tables,
-                                          q_positions)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged-decode kernel for device {q.device}")
-    out = torch.empty_like(q)
-    _launch(q, k_pool, v_pool, block_tables, q_positions, out)
-    paged_decode_attention.launches += 1
-    return out
+                           q_positions: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Paged GQA decode attention through ``csrc/paged_decode.cu`` — the
+    arguments and result of :func:`paged_reference_attention`. A CPU tensor
+    takes the plain version (there is no CUDA there); a CUDA tensor
+    launches the kernel on the current stream, or raises."""
+    return _kernel_call(paged_decode_attention, False, q, k_pool, v_pool,
+                        block_tables, q_positions, k_scale, v_scale)
 
 
 paged_decode_attention.launches = 0
 
 
+def paged_decode_pipelined_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     q_positions: torch.Tensor,
+                                     k_scale: Optional[torch.Tensor] = None,
+                                     v_scale: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
+    """The same function through ``csrc/paged_decode_pipelined.cu`` (the
+    double-buffered ``cp.async`` walk of the pool's own bytes); same
+    arguments, same CPU and CUDA rules as :func:`paged_decode_attention`.
+    Pool rows must be a multiple of 4 bytes."""
+    return _kernel_call(paged_decode_pipelined_attention, True, q, k_pool,
+                        v_pool, block_tables, q_positions, k_scale, v_scale)
+
+
+paged_decode_pipelined_attention.launches = 0
+
+
 def reset_launch_counts() -> None:
     paged_decode_attention.launches = 0
+    paged_decode_pipelined_attention.launches = 0
     paged_reference_attention.launches = 0
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
-                    q_positions: torch.Tensor, *,
+                    q_positions: torch.Tensor,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None, *,
                     impl: str = "reference") -> torch.Tensor:
     """The one paged-attention entry the serving model calls. ``impl``:
-    ``"reference"`` = the plain gather + dense version, ``"cuda"`` = the
-    kernel (:func:`paged_decode_attention`). ``q_positions`` may be (rows,)
-    for width-1 queries."""
+    ``"reference"`` = the plain gather + dense version, ``"cuda"`` =
+    :func:`paged_decode_attention`, ``"pipelined"`` =
+    :func:`paged_decode_pipelined_attention`. ``q_positions`` may be
+    (rows,) for width-1 queries; the scales come with a quantized pool."""
     if impl not in IMPLS:
         raise ValueError(f"unknown paged-attention impl {impl!r}")
     if q_positions.dim() == 1:
         q_positions = q_positions[:, None]
-    if impl == "reference":
-        return paged_reference_attention(q, k_pool, v_pool, block_tables,
-                                         q_positions)
-    return paged_decode_attention(q, k_pool, v_pool, block_tables,
-                                  q_positions)
+    fn = {"reference": paged_reference_attention,
+          "cuda": paged_decode_attention,
+          "pipelined": paged_decode_pipelined_attention}[impl]
+    return fn(q, k_pool, v_pool, block_tables, q_positions, k_scale, v_scale)

@@ -8,9 +8,17 @@ Physical block 0 is the SCRATCH block: never allocated, ``0`` in a table
 means "unallocated", and every masked write lands there, where the
 position mask keeps it out of every output.
 
+A quantized pool (``ServingConfig.kv_dtype`` ``"int8"``, ``"fp8"`` or
+``"int4"``) stores codes (int8, float8 e4m3, or two int4 codes per uint8
+byte, so ``d_head / 2`` wide) plus ``k_scale``/``v_scale`` sidecars of one
+fp32 scale per (block, kv head). Writes requantize whole blocks
+(:func:`quantized_append`); the codes and scales are bit-identical to the
+JAX package's.
+
 Where the JAX package rebuilt donated pool arrays each step, the port
-writes the pools IN PLACE (``index_copy_`` on a flat view, a block copy by
-indexed assignment), so a step costs only the bytes it writes.
+writes the pools IN PLACE (``index_copy_`` on a flat view, indexed
+assignment for a block copy and for quantized blocks), so a step costs
+only the bytes it writes.
 
 The host-side :class:`BlockAllocator`, :func:`chain_block_hashes` and
 :class:`PrefixCache` are this package's own copies of the JAX package's
@@ -33,8 +41,50 @@ from tpu_task_torch.ml.models.transformer import TransformerConfig
 SCRATCH_BLOCK = 0
 
 #: ServingConfig.decode_impl values: "auto" picks the kernel on a CUDA
-#: device and the plain version on the CPU.
-DECODE_IMPLS = ("auto", "reference", "cuda")
+#: device and the plain version on the CPU; "pipelined" is the
+#: double-buffered kernel (CUDA only).
+DECODE_IMPLS = ("auto", "reference", "cuda", "pipelined")
+
+#: Floor for the per-(block, kv-head) quantization scale: an all-zero
+#: block quantizes to zero codes at this scale and dequantizes back to
+#: exact zeros, so a fresh quantized pool reads as zeros.
+INT8_SCALE_EPS = 1e-8
+
+#: Largest finite float8 e4m3 value: the scale maps a block's amax to it.
+FP8_MAX = 448.0
+
+#: The quantized ``ServingConfig.kv_dtype`` values (scale sidecars, writes
+#: through :func:`quantized_append`).
+QUANT_DTYPES = ("int8", "fp8", "int4")
+
+#: Largest int4 code magnitude: the symmetric grid is ±7 so the amax
+#: element maps to exactly ±7 and nothing clips.
+INT4_MAX = 7
+
+
+def kv_code_dtype(kv_dtype: str) -> torch.dtype:
+    """Storage dtype of a quantized pool's codes. ``torch.uint8`` marks
+    int4 (two codes per byte): int8 pools are ``torch.int8`` and fp8 pools
+    ``torch.float8_e4m3fn``, so a pool's dtype alone says how to read it."""
+    if kv_dtype == "int8":
+        return torch.int8
+    if kv_dtype == "fp8":
+        return torch.float8_e4m3fn
+    if kv_dtype == "int4":
+        return torch.uint8
+    raise ValueError(f"not a quantized kv_dtype: {kv_dtype!r}")
+
+
+def fp8_supported() -> bool:
+    """Whether this torch build stores and converts float8 e4m3: the
+    construction-time gate for ``kv_dtype="fp8"``."""
+    if not hasattr(torch, "float8_e4m3fn"):
+        return False
+    try:
+        x = torch.tensor([1.5]).to(torch.float8_e4m3fn).to(torch.float32)
+    except (RuntimeError, TypeError):
+        return False
+    return float(x[0]) == 1.5
 
 
 def _not_ported(knob: str, item: str) -> NotImplementedError:
@@ -52,12 +102,15 @@ class ServingConfig:
     prompt positions one fused step ingests; ``prefix_cache``: share full
     KV blocks across requests by content hash; ``prefill_slots``: admitting
     slots that share one step's chunk budget; ``decode_impl``: the paged
-    attention of every fused step (see :data:`DECODE_IMPLS`).
+    attention of every fused step (see :data:`DECODE_IMPLS`); ``kv_dtype``:
+    None keeps the pools in the model dtype, ``"int8"``/``"fp8"``/``"int4"``
+    store codes with per-(block, kv-head) scales (int4 needs an even
+    ``d_head``).
 
     Knobs of later slices (bucketed prefill, speculative decoding,
-    micro-steps, the async loop, quantized KV, the host tier, LoRA) keep
-    their fields so configs carry over, and raise NotImplementedError
-    naming their ROADMAP item when set."""
+    micro-steps, the async loop, the host tier, LoRA) keep their fields so
+    configs carry over, and raise NotImplementedError naming their ROADMAP
+    item when set."""
 
     slots: int = 8
     block_size: int = 16
@@ -105,6 +158,10 @@ class ServingConfig:
             raise ValueError(
                 f"decode_impl must be one of {DECODE_IMPLS}, got "
                 f"{self.decode_impl!r}")
+        if self.kv_dtype not in (None,) + QUANT_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be None (model dtype), 'int8', 'fp8', or "
+                f"'int4', got {self.kv_dtype!r}")
         if self.micro_k < 1:
             raise ValueError(f"micro_k must be >= 1, got {self.micro_k}")
         if self.prefill_slots < 1:
@@ -132,9 +189,6 @@ class ServingConfig:
             raise _not_ported("micro_k > 1", "A4 (micro-steps)")
         if self.overlap:
             raise _not_ported("overlap=True", "A5 (the async loop)")
-        if self.kv_dtype is not None:
-            raise _not_ported(f"kv_dtype={self.kv_dtype!r}",
-                              "A6 (quantized KV)")
         if self.host_offload_blocks:
             raise _not_ported("host_offload_blocks", "A9 (the host tier)")
         if self.lora_rank or self.n_adapter_blocks:
@@ -149,24 +203,76 @@ class ServingConfig:
         return -(-n_tokens // self.block_size)
 
 
-def kv_token_bytes(cfg: TransformerConfig) -> int:
-    """KV bytes one token occupies across all layers (k + v)."""
-    return (2 * cfg.n_layers * cfg.kv_heads * cfg.d_head
-            * torch.empty((), dtype=cfg.dtype).element_size())
+def kv_token_bytes(cfg: TransformerConfig,
+                   scfg: Optional[ServingConfig] = None) -> int:
+    """KV bytes one token occupies across all layers (k + v). Without
+    ``scfg`` (or with ``kv_dtype=None``) each element is one model-dtype
+    value; a quantized pool stores one byte (int8/fp8) or half a byte
+    (int4) per element plus the per-(block, kv-head) fp32 scales amortized
+    over the block's tokens."""
+    per_channel = 2 * cfg.n_layers * cfg.kv_heads
+    if scfg is None or scfg.kv_dtype is None:
+        return per_channel * cfg.d_head * _itemsize(cfg.dtype)
+    d_bytes = cfg.d_head // 2 if scfg.kv_dtype == "int4" else cfg.d_head
+    return per_channel * d_bytes + -(-per_channel * 4 // scfg.block_size)
+
+
+def kv_block_bytes(cfg: TransformerConfig, scfg: ServingConfig) -> int:
+    """Exact bytes of ONE physical block across all layers (codes and
+    scales): the unit :func:`blocks_in_budget` divides a budget by."""
+    per_channel = 2 * cfg.n_layers * cfg.kv_heads
+    if scfg.kv_dtype in QUANT_DTYPES:
+        d_bytes = (cfg.d_head // 2 if scfg.kv_dtype == "int4"
+                   else cfg.d_head)
+        return per_channel * (scfg.block_size * d_bytes + 4)
+    return per_channel * scfg.block_size * cfg.d_head * _itemsize(cfg.dtype)
+
+
+def blocks_in_budget(cfg: TransformerConfig, scfg: ServingConfig,
+                     budget_bytes: int) -> int:
+    """Physical blocks (scratch included) that fit ``budget_bytes`` under
+    this config's KV dtype."""
+    return budget_bytes // kv_block_bytes(cfg, scfg)
 
 
 def paged_cache_bytes(cfg: TransformerConfig, scfg: ServingConfig,
                       n_blocks: int) -> int:
-    """Bytes of ``n_blocks`` physical blocks."""
-    return n_blocks * scfg.block_size * kv_token_bytes(cfg)
+    """Bytes of ``n_blocks`` physical blocks, scales included when the pool
+    is quantized."""
+    return n_blocks * kv_block_bytes(cfg, scfg)
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def init_pools(cfg: TransformerConfig, scfg: ServingConfig,
                device) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer zeroed k/v pools in the model dtype on ``device``."""
+    """Per-layer zeroed k/v pools on ``device``: in the model dtype, or,
+    with a quantized ``kv_dtype``, zero codes (int4: ``d_head / 2`` packed
+    bytes) plus ``k_scale``/``v_scale`` (n_blocks, kv_heads) fp32 sidecars
+    at :data:`INT8_SCALE_EPS`, so a fresh pool dequantizes to exact
+    zeros."""
     shape = (scfg.n_blocks, scfg.block_size, cfg.kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if scfg.kv_dtype not in QUANT_DTYPES:
+        return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+                for _ in range(cfg.n_layers)]
+    if scfg.kv_dtype == "int4":
+        if cfg.d_head % 2:
+            raise ValueError(
+                f"kv_dtype='int4' packs adjacent d_head pairs and needs an "
+                f"even d_head, got {cfg.d_head}")
+        shape = shape[:-1] + (cfg.d_head // 2,)
+    code = kv_code_dtype(scfg.kv_dtype)
+
+    def scale():
+        return torch.full((scfg.n_blocks, cfg.kv_heads), INT8_SCALE_EPS,
+                          dtype=torch.float32, device=device)
+
+    return [{"k": torch.zeros(shape, dtype=code, device=device),
+             "v": torch.zeros(shape, dtype=code, device=device),
+             "k_scale": scale(), "v_scale": scale()}
             for _ in range(cfg.n_layers)]
 
 
@@ -188,8 +294,9 @@ def token_slots(block_tables: torch.Tensor, positions: torch.Tensor,
 
 def copy_block(pools: List[Dict[str, torch.Tensor]], src: int,
                dst: int) -> None:
-    """Copy physical block ``src`` to ``dst`` in every layer's k/v pool, in
-    place — the device half of copy-on-write."""
+    """Copy physical block ``src`` to ``dst`` in every layer's pools, in
+    place — the device half of copy-on-write. Generic over the layer's
+    leaves, so a quantized block's scales copy with its codes."""
     for pool in pools:
         for arr in pool.values():
             arr[dst] = arr[src]
@@ -203,6 +310,107 @@ def gather_kv(pool_flat: torch.Tensor, block_tables: torch.Tensor,
     idx = (block_tables.to(torch.int64)[:, :, None] * block_size
            + torch.arange(block_size, device=block_tables.device))
     return pool_flat[idx.reshape(block_tables.shape[0], -1)]
+
+
+# -- int8 / fp8 / int4 KV block quantization ---------------------------------
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """(..., d) int8 codes in [-7, 7] → (..., d/2) uint8: adjacent channel
+    pairs share a byte, even channel in the low nibble. The int8 → uint8
+    cast wraps (-7 → 249), so ``& 15`` is the two's-complement nibble."""
+    pairs = codes.reshape(codes.shape[:-1] + (codes.shape[-1] // 2, 2))
+    lo = pairs[..., 0].to(torch.uint8) & 15
+    hi = pairs[..., 1].to(torch.uint8) & 15
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: (..., d/2) uint8 → (..., d) int8, by
+    the branch-free sign extension ``(n ^ 8) - 8`` (9 → -7, 0 → 0)."""
+    nibbles = torch.stack([packed & 15, (packed >> 4) & 15], dim=-1)
+    signed = (nibbles.to(torch.int8) ^ 8) - 8
+    return signed.reshape(packed.shape[:-1] + (packed.shape[-1] * 2,))
+
+
+def quantize_blocks(x: torch.Tensor, code_dtype: torch.dtype = torch.int8):
+    """(n, block_size, kv, d) values → (codes, (n, kv) float32 scales):
+    symmetric per-(block, kv-head) quantization, the JAX package's
+    arithmetic step for step (so codes and scales are bit-identical).
+
+    int8: ``scale = amax / 127`` floored at :data:`INT8_SCALE_EPS`, codes
+    rounded half to even; error ≤ scale/2. fp8 (``float8_e4m3fn``):
+    ``scale = amax / FP8_MAX``, the scaled value keeps fp8's own mantissa
+    (relative error). uint8 (int4): ``scale = amax / INT4_MAX``, codes
+    clipped to ±7 and packed two per byte (trailing dim ``d/2``)."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=(1, 3))
+    if code_dtype == torch.int8:
+        scale = torch.clamp_min(amax / 127.0, INT8_SCALE_EPS)
+        codes = torch.clamp(torch.round(xf / scale[:, None, :, None]),
+                            -127, 127).to(torch.int8)
+        return codes, scale
+    if code_dtype == torch.uint8:
+        scale = torch.clamp_min(amax / float(INT4_MAX), INT8_SCALE_EPS)
+        codes = torch.clamp(torch.round(xf / scale[:, None, :, None]),
+                            -INT4_MAX, INT4_MAX).to(torch.int8)
+        return pack_int4(codes), scale
+    if code_dtype != torch.float8_e4m3fn:
+        raise ValueError(f"no quantized code dtype {code_dtype}")
+    scale = torch.clamp_min(amax / FP8_MAX, INT8_SCALE_EPS)
+    return (xf / scale[:, None, :, None]).to(code_dtype), scale
+
+
+def dequantize_blocks(codes: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_blocks` (up to its rounding); uint8 codes
+    unpack to the full head dim first."""
+    if codes.dtype == torch.uint8:
+        codes = unpack_int4(codes)
+    return (codes.to(torch.float32) * scale[:, None, :, None]).to(dtype)
+
+
+def quantized_append(pool: Dict[str, torch.Tensor], new_k: torch.Tensor,
+                     new_v: torch.Tensor, touched: torch.Tensor,
+                     filled: torch.Tensor, wt: torch.Tensor, wo: torch.Tensor,
+                     measure_error: bool = False) -> torch.Tensor:
+    """Append one step's tokens to a quantized pool layer IN PLACE,
+    requantizing every block the step writes: dequantize the touched
+    blocks, scatter the new rows at their offsets, zero the rows at or past
+    each block's ``filled`` count, requantize, write codes and scales back.
+
+    ``touched`` (T,) int64: the physical blocks the step writes, deduped on
+    the host (packed chunk rows share blocks, and every row of a block must
+    be staged before the block is requantized once), padded with the
+    scratch block; ``filled`` (T,): valid tokens in each after the step;
+    ``wt``/``wo`` (tokens,) int64: each new token's touched index and
+    in-block offset (invalid tokens point at the trailing pad entry, whose
+    ``filled`` is 0). ``new_k``/``new_v`` (tokens, kv, d).
+
+    Only exclusively-owned blocks are written (copy-on-write gives a slot
+    its own copy first). Returns the largest |dequantized - staged| over
+    the live rows when ``measure_error``, else an exact 0.0, as a 0-d fp32
+    tensor on the pool's device."""
+    bs = pool["k"].shape[1]
+    n_touched = touched.shape[0]
+    device = pool["k"].device
+    rows_live = (torch.arange(bs, device=device)[None, :]
+                 < filled[:, None])[..., None, None]
+    qerr = torch.zeros((), dtype=torch.float32, device=device)
+    for name, new in (("k", new_k), ("v", new_v)):
+        codes, scale = pool[name], pool[name + "_scale"]
+        raw = codes.view(torch.uint8)    # one-byte codes move as bytes
+        staged = dequantize_blocks(raw[touched].view(codes.dtype),
+                                   scale[touched])
+        flat = staged.view(n_touched * bs, *staged.shape[2:])
+        flat[wt * bs + wo] = new.to(torch.float32)
+        staged = torch.where(rows_live, staged, 0.0)
+        q_codes, q_scale = quantize_blocks(staged, codes.dtype)
+        if measure_error:
+            err = (staged - dequantize_blocks(q_codes, q_scale)).abs()
+            qerr = torch.maximum(qerr, torch.where(rows_live, err, 0.0).max())
+        raw[touched] = q_codes.view(torch.uint8)
+        scale[touched] = q_scale
+    return qerr
 
 
 class BlockAllocator:

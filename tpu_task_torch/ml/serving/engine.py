@@ -20,11 +20,19 @@ return to the pool the same step). Its pieces, as in the JAX engine:
 
 Every fused step runs :func:`~tpu_task_torch.ml.serving.model.
 paged_decode_step` with the paged attention ``decode_impl`` resolves to:
-the CUDA kernel on a CUDA device, the plain version on the CPU.
+the CUDA kernel on a CUDA device (or the pipelined kernel, when asked
+for), the plain version on the CPU.
+
+- **Quantized KV** (``kv_dtype`` int8/fp8/int4): before every fused step
+  the host computes the step's write layout (:meth:`ServingEngine.
+  _quant_layout`: the deduped blocks it writes, their filled counts, each
+  token's block and offset), and the step requantizes those blocks in
+  place. ``TPU_TASK_CHECKIFY=1`` turns on the debug mode, which reads back
+  each step's largest quantization error (``stats()["kv_quant"]``).
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
 here, naming its ROADMAP item): bucketed prefill, speculative decoding,
-micro-steps, the async loop, quantized KV, LoRA, the host tier,
+micro-steps, the async loop, LoRA, the host tier,
 ``export_inflight``/``resume_inflight``, ``adopt_params``, meshes. The
 SLA fields of ``submit`` and the obs/goodput hooks are left out too: with
 none of them set the JAX engine's admission is FIFO and its preemption
@@ -33,6 +41,7 @@ victim the youngest slot, which is what this engine does."""
 from __future__ import annotations
 
 import collections
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -49,11 +58,13 @@ from tpu_task_torch.ml.models.transformer import (
 )
 from tpu_task_torch.ml.ops import paged_attention as pa
 from tpu_task_torch.ml.serving.cache import (
+    QUANT_DTYPES,
     SCRATCH_BLOCK,
     BlockAllocator,
     PrefixCache,
     ServingConfig,
     copy_block,
+    fp8_supported,
     init_pools,
     kv_token_bytes,
     paged_cache_bytes,
@@ -68,16 +79,18 @@ QUEUED, RUNNING, DONE = "queued", "running", "done"
 
 def resolve_decode_impl(scfg: ServingConfig, device: torch.device) -> str:
     """The paged attention every fused step runs: ``"auto"`` is the CUDA
-    kernel on a CUDA device and the plain version on the CPU the caller
-    asked for; ``"reference"`` and ``"cuda"`` can be forced. The kernel
-    takes every geometry and dtype the model can serve, so nothing is
-    gated here; what it cannot take raises at its launch."""
+    kernel (``paged_decode.cu``) on a CUDA device and the plain version on
+    the CPU the caller asked for; ``"reference"``, ``"cuda"`` and
+    ``"pipelined"`` (``paged_decode_pipelined.cu``) can be forced, the two
+    kernels on a CUDA device only. The kernels take every storage type and
+    preset geometry the engine serves, so nothing is gated here; what they
+    cannot take raises at the launch."""
     want = scfg.decode_impl
     if want == "auto":
         return "cuda" if device.type == "cuda" else "reference"
-    if want == "cuda" and device.type != "cuda":
+    if want in ("cuda", "pipelined") and device.type != "cuda":
         raise ValueError(
-            f"decode_impl='cuda' needs a CUDA device, the engine runs on "
+            f"decode_impl={want!r} needs a CUDA device, the engine runs on "
             f"{device}; use decode_impl='reference' or 'auto'")
     return want
 
@@ -147,6 +160,16 @@ class ServingEngine:
         self.cfg = cfg
         self.scfg = scfg = scfg or ServingConfig()
         self.params = params_to(params, self.device)
+        self._quantized = scfg.kv_dtype in QUANT_DTYPES
+        if scfg.kv_dtype == "fp8" and not fp8_supported():
+            raise ValueError(
+                "kv_dtype='fp8' needs float8_e4m3fn support in this torch "
+                "build (cache.fp8_supported() is False) — use "
+                "kv_dtype='int8' for the same byte density or None for "
+                "model-dtype pools")
+        #: Debug mode: read back every quantized step's largest write
+        #: error (one scalar sync per step, so off by default).
+        self.debug = os.environ.get("TPU_TASK_CHECKIFY", "") == "1"
         self.pools = init_pools(cfg, scfg, self.device)
         self.allocator = BlockAllocator(scfg.n_blocks)
         self._pcache = (PrefixCache(self.allocator, scfg.block_size)
@@ -181,6 +204,8 @@ class ServingEngine:
         self.prefix_miss_blocks = 0
         self.prefix_hit_requests = 0
         self.prefix_tokens_saved = 0
+        self.quantized_block_writes = 0
+        self.max_quant_error = 0.0       # debug mode only (readback cost)
 
     # -- front end -------------------------------------------------------------
 
@@ -425,27 +450,70 @@ class ServingEngine:
     def _all_greedy(self) -> bool:
         return all(r is None or r.temperature == 0 for r in self._slots)
 
+    def _quant_layout(self, tables: np.ndarray, positions: np.ndarray,
+                      valid: np.ndarray):
+        """Host half of a quantized step's write: the deduped physical
+        blocks the step writes (``touched``), each one's valid-token count
+        after the step (``filled``; rows past it are garbage the requantize
+        zeroes), and every token's (touched index, in-block offset). Dedup
+        matters: packed chunk rows share a slot's table, so several rows
+        append into one block, and that block is staged once with all of
+        them before it is requantized. Invalid tokens point at the trailing
+        pad entry (the scratch block, ``filled`` 0). ``positions``/``valid``
+        (rows, w); ``tables`` (rows, max_blocks). Vectorised: it runs
+        before every quantized step."""
+        bs = self.scfg.block_size
+        rows, w = positions.shape
+        n_touched = rows * w + 1
+        pos = np.asarray(positions, np.int64).reshape(-1)
+        val = np.asarray(valid, bool).reshape(-1)
+        blocks = np.asarray(tables)[np.arange(rows).repeat(w), pos // bs]
+        uniq, inv = np.unique(blocks[val], return_inverse=True)
+        touched = np.zeros(n_touched, np.int64)
+        touched[:len(uniq)] = uniq
+        filled = np.zeros(n_touched, np.int64)
+        np.maximum.at(filled, inv, pos[val] % bs + 1)
+        wt = np.full(rows * w, n_touched - 1, np.int64)
+        wt[val] = inv
+        wo = np.zeros(rows * w, np.int64)
+        wo[val] = pos[val] % bs
+        self.quantized_block_writes += len(uniq)
+        return tuple(torch.as_tensor(a, device=self.device)
+                     for a in (touched, filled, wt, wo))
+
+    def _note_qerr(self, qerr: torch.Tensor) -> None:
+        """Debug mode keeps the worst write-quantization error seen (a
+        scalar readback per step); otherwise the value is never read."""
+        if self.debug:
+            self.max_quant_error = max(self.max_quant_error, float(qerr))
+
     def _run(self, tokens, positions, tables, active, temps=None, tops=None,
              keys=None, ngen=None) -> np.ndarray:
         """Dispatch one fused step (greedy program when every slot is
-        greedy, else the keyed sampler) and read its tokens back."""
+        greedy, else the keyed sampler) and read its tokens back.
+        ``positions`` are 0 at inactive rows."""
         dev = self.device
 
         def put(a, dtype):
             return torch.as_tensor(a, device=dev, dtype=dtype)
 
+        qa = (self._quant_layout(tables, positions[:, None], active[:, None])
+              if self._quantized else None)
         args = (self.params, self.cfg, put(tokens, torch.int64),
                 put(positions, torch.int32), put(tables, torch.int32),
                 put(active, torch.bool))
+        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
         if self._all_greedy():
-            toks = greedy_decode_step(*args, self.pools,
-                                      attn_impl=self.decode_impl)
+            out = greedy_decode_step(*args, self.pools, qa, **kwargs)
         else:
-            toks = decode_and_sample(
+            out = decode_and_sample(
                 *args, put(temps, torch.float32), put(tops, torch.float32),
                 jrandom.as_key(keys, dev), put(ngen, torch.int64),
-                self.pools, attn_impl=self.decode_impl)
-        return toks.cpu().numpy()
+                self.pools, qa, **kwargs)
+        if self._quantized:
+            out, qerr = out
+            self._note_qerr(qerr)
+        return out.cpu().numpy()
 
     def _temps_tops(self):
         temps = np.array(
@@ -607,7 +675,8 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Scheduler counters, the KV cost model, and the process-wide
-        paged-attention launch counts (kernel and plain version)."""
+        paged-attention launch counts (both kernels and the plain
+        version)."""
         return {
             "decode_impl": self.decode_impl,
             "device": str(self.device),
@@ -617,7 +686,16 @@ class ServingEngine:
             "prefills": self.prefills,
             "prefill_chunks": self.prefill_chunks,
             "recompute_preemptions": self.preemption_count,
-            "kv_bytes_per_token": kv_token_bytes(self.cfg),
+            "kv_quant": {
+                "kv_dtype": self.scfg.kv_dtype
+                or str(self.cfg.dtype).replace("torch.", ""),
+                "quantized_block_writes": self.quantized_block_writes,
+                # Tracked only in debug mode (TPU_TASK_CHECKIFY=1: one
+                # scalar readback per step), None otherwise.
+                "max_quant_error_observed":
+                    self.max_quant_error if self.debug else None,
+            },
+            "kv_bytes_per_token": kv_token_bytes(self.cfg, self.scfg),
             "kv_blocks_high_water": self.allocator.high_water,
             "kv_pool_bytes": paged_cache_bytes(self.cfg, self.scfg,
                                                self.scfg.n_blocks),
@@ -635,6 +713,7 @@ class ServingEngine:
             },
             "attention_launches": {
                 "cuda": pa.paged_decode_attention.launches,
+                "pipelined": pa.paged_decode_pipelined_attention.launches,
                 "reference": pa.paged_reference_attention.launches,
             },
         }
