@@ -19,11 +19,24 @@ script exits non-zero:
              24 rows of widths 1 and 3 up to depth 2048, and the serve
              run's 16-row decode and 144-row chunk steps (tables 72 wide).
              Each case also launches into a NaN-guarded buffer to show the
-             kernel writes its output and nothing beside it.
+             kernel writes its output and nothing beside it. Each case is
+             then run at forced split counts of the KV walk (1, 2, the
+             plan, one per tile) with NaN-filled split states: the output
+             against the merge of the plain split states and the plain
+             version, the split states against ``paged_split_partials``,
+             the combine kernel alone against ``combine_partials``, inputs
+             unchanged.
 4. timing  — kernel, plain version and SDPA over the gathered view
              (``library_ms``, a yardstick the port never calls) at batch 1,
-             16 and 32, depth 1024, beside the memory bound; the kernel is
-             held against the plain version there too.
+             16 and 32, depth 1024, and at the serve run's 144-row chunk
+             step (ragged depths up to 1151, SDPA masked), beside the
+             memory bound, with the split plan and CTAs of each and the
+             kernel's time with its walk left whole (``unsplit_ms``, one
+             split); the kernel is held against the plain version there
+             too. Then, at batch
+             16, wrapper calls under ``torch.profiler`` (one split walk and
+             one combine each: their device ms and the span between), and
+             the combine kernel alone at that shape's split states.
 5. parity  — the engine on the ``tiny`` and ``micro`` presets at fp32:
              greedy and keyed-sampled streams through the kernel equal those
              through the plain version, and greedy ones equal ``generate``;
@@ -35,7 +48,9 @@ script exits non-zero:
              requests of 256-1024 prompt tokens and 64 new tokens each, 12
              greedy and 4 sampled: tokens/s (each wave and the median), step
              times, and launch counts that prove the fused steps ran the
-             kernel. Layer 0's attention in the first decode step and the
+             kernel (and the combine kernel wherever the plan splits the
+             step's shape). Layer 0's attention in the first decode step
+             and the
              last chunk step of the first wave is held against the plain
              version on the same inputs.
 7. flash kernel — the forward, dq and dk/dv kernels against their plain
@@ -72,11 +87,14 @@ script exits non-zero:
              d 16 at block 8 and d 8 at block 4, widths 1 and 3, 24 rows of
              ragged depths up to 2048 with inactive rows, and the serve
              run's 16-row decode and 144-row chunk steps; fp32 and bf16
-             queries, phase 3's gates, NaN-guarded, inputs unchanged.
+             queries, phase 3's gates and forced splits, NaN-guarded,
+             inputs unchanged.
 12. timing quant — both kernels, the plain version and SDPA over the view
              dequantized to bf16 ahead of time (``library_ms``; the
              dequantization is not timed) for each storage type at batch
-             1, 16 and 32, depth 1024, beside the bytes bound.
+             1, 16 and 32, depth 1024, and at the 144-row chunk step,
+             beside the bytes bound and the tile kernel's split plan and
+             ``unsplit_ms``.
 13. parity quant — the engine on ``tiny``, ``micro`` and the INT8_PIN
              geometry of ``tests/test_paged_attention.py`` at fp32, for
              each kv_dtype: greedy and keyed-sampled streams through
@@ -93,8 +111,9 @@ script exits non-zero:
              the pipelined kernel and of int8 through the tile kernel, under
              the same gates.
 
-Then the kernel table as one JSON line (five kernels), the ``nvidia-smi``
-name and power limit, and last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
+Then the kernel table as one JSON line (the five ported kernels and the
+split walk's combine kernel), the ``nvidia-smi`` name and power limit, and
+last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
 
 from __future__ import annotations
@@ -208,6 +227,14 @@ class DeviceTimer:
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
+def device_events(prof) -> list:
+    """(name, start µs, end µs) of each device event a ``torch.profiler``
+    run recorded."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def host_ms(fn, iters: int = 20) -> float:
     """Wall time per call of back-to-back calls, host overhead included."""
     fn()
@@ -303,6 +330,110 @@ def guarded_launch(args, want, pipelined: bool = False) -> bool:
                 and torch.equal(out, want))
 
 
+def close_to(got, ref, dtype) -> bool:
+    """fp32 within FP32_ATOL of ``ref``; bf16 within its output's rounding
+    (2^-8 relative) of ``ref`` plus 1e-5 for fp32 summation order."""
+    err = (got.float() - ref).abs()
+    if dtype == torch.float32:
+        return err.max().item() <= FP32_ATOL
+    return bool((err <= 2.0 ** -8 * ref.abs() + 1e-5).all())
+
+
+def forced_splits(args) -> list:
+    """The split counts the tile kernel is held at: 1, 2, the plan for
+    these shapes on this card, and one per tile."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    q, k_pool, tables = args[0], args[1], args[3]
+    tiles = pa.n_tiles(tables.shape[1], k_pool.shape[1])
+    plan = pa.planned_splits(q, k_pool, tables.shape[1])
+    return sorted({1, min(2, tiles), plan, tiles})
+
+
+def partial_state_err(got, ref) -> float:
+    """How far the kernel's split states are from the plain ones: m
+    relative to max(1, |m|), l relative to l, acc relative to l (the scale
+    of the output it divides into). Infinite where a state is empty in one
+    and not exactly the empty state (m the mask value, l and acc 0) in the
+    other."""
+    from tpu_task_torch.ml.ops.attention import NEG_INF
+
+    m, l, acc = ref[..., 0], ref[..., 1], ref[..., 2:]
+    empty = m <= NEG_INF / 2
+    if not torch.equal(empty, got[..., 0] <= NEG_INF / 2) \
+            or (got[..., 1:][empty] != 0).any():
+        return math.inf
+    live = ~empty
+    if not live.any():
+        return 0.0
+    dm = ((got[..., 0] - m).abs() / m.abs().clamp(min=1.0))[live].max()
+    dl = ((got[..., 1] - l).abs() / l)[live].max()
+    dacc = ((got[..., 2:] - acc).abs() / l[..., None])[live].max()
+    return max(dm.item(), dl.item(), dacc.item())
+
+
+def check_splits(args) -> dict:
+    """The tile kernel at every count of ``forced_splits``, launched
+    uncounted into the middle of a NaN-filled buffer with NaN-filled split
+    states: its output against the merge of the plain split states
+    (``combine_partials(paged_split_partials(...))``, fp32 on the same
+    values) and against the plain version, at ``close_to``'s gate; its
+    split states against ``paged_split_partials`` (``partial_state_err``
+    within FP32_ATOL); the combine kernel alone on the plain states against
+    ``combine_partials``; nothing written beside the output, no NaN left in
+    it or in the states, the inputs unchanged. Raises on any disagreement;
+    returns the split counts and the worst errors."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    q = args[0]
+    rows, w, h, d = q.shape
+    before = [a.clone() for a in args]
+    wide = [q.float()] + [p.float() if p.dtype == q.dtype else p
+                          for p in args[1:3]] + list(args[3:])
+    exact = pa.paged_reference_attention(*wide)
+    result = dict(splits=forced_splits(args), split_max_abs_err=0.0,
+                  split_states_max_rel_err=0.0, combine_max_abs_err=0.0)
+    for splits in result["splits"]:
+        plain = pa.paged_split_partials(*args, splits=splits)
+        merged = pa.combine_partials(plain)
+        n, pad = q.numel(), 1 << 16
+        buf = torch.full((n + 2 * pad,), float("nan"), dtype=q.dtype,
+                         device=q.device)
+        out = buf[pad:pad + n].view(q.shape)
+        states = (torch.full((rows, w, h, splits, pa.PARTIAL_HEAD + d),
+                             float("nan"), device=q.device)
+                  if splits > 1 else None)
+        pa._launch(*args[:5], out, *args[5:], splits=splits, partials=states)
+        torch.cuda.synchronize()
+        ok = bool(torch.isnan(buf[:pad]).all() and torch.isnan(buf[-pad:]).all()
+                  and not torch.isnan(out).any()
+                  and close_to(out, merged, q.dtype)
+                  and close_to(out, exact, q.dtype))
+        err = (out.float() - merged).abs().max().item()
+        result["split_max_abs_err"] = max(result["split_max_abs_err"], err)
+        if splits > 1:
+            state_err = partial_state_err(states, plain)
+            alone = torch.empty_like(q)
+            pa._launch_combine(plain, alone)
+            torch.cuda.synchronize()
+            want = pa.combine_partials(plain)
+            ok = ok and state_err <= FP32_ATOL \
+                and close_to(alone, want, q.dtype)
+            result["split_states_max_rel_err"] = max(
+                result["split_states_max_rel_err"], state_err)
+            result["combine_max_abs_err"] = max(
+                result["combine_max_abs_err"],
+                (alone.float() - want).abs().max().item())
+        if not ok:
+            raise AssertionError(
+                f"paged_decode at {splits} splits disagrees or writes outside "
+                f"its output: {result}, this count's error {err}")
+    if not all(same_bytes(a, b) for a, b in zip(before, args)):
+        raise AssertionError("paged_decode at forced splits changed its "
+                             "inputs")
+    return result
+
+
 #: (what the case stands for, rows, w, deepest position + w, max_blocks).
 #: The last two are the flagship serve run's shapes: its 16-row decode step
 #: and its 144-row token-packed chunk step, tables of max_len 1152 / 16.
@@ -311,14 +442,16 @@ KERNEL_CASES = (("deep", 24, 1, 2048, 128), ("deep", 24, 3, 2048, 128),
                 ("chunk step", 144, 1, 1152, 72))
 
 
-def phase_kernel(device) -> float:
-    """Kernel vs plain version; returns the largest error against the
-    plain version run at the kernel's own dtype."""
+def phase_kernel(device) -> tuple:
+    """Kernel vs plain version, through the wrapper (its planned splits)
+    and at forced split counts (``check_splits``); returns the largest
+    error against the plain version run at the kernel's own dtype and the
+    combine kernel's largest error against its plain version."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     gen = torch.Generator().manual_seed(1)
     rng = np.random.default_rng(1)
-    worst = 0.0
+    worst = combine_worst = 0.0
     for case, rows, w, depth, max_blocks in KERNEL_CASES:
         depths = [None if r % 6 == 5 else int(rng.integers(0, depth - w))
                   for r in range(rows)]
@@ -334,11 +467,18 @@ def phase_kernel(device) -> float:
             guarded = guarded_launch(args, got)
             same = pa.paged_reference_attention(*args)
             err = (got.float() - same.float()).abs().max().item()
-            worst = max(worst, err)
+            split = check_splits(args)
+            worst = max(worst, err, split["split_max_abs_err"]
+                        if dtype == torch.float32 else 0.0)
+            combine_worst = max(combine_worst, split["combine_max_abs_err"]
+                                if dtype == torch.float32 else 0.0)
             line = dict(case=case, w=w, dtype=str(dtype).replace("torch.", ""),
                         rows=rows, max_blocks=max_blocks,
                         inactive_rows=depths.count(None), max_abs_err=err,
-                        writes_only_out_and_repeats=guarded)
+                        writes_only_out_and_repeats=guarded,
+                        planned_splits=pa.planned_splits(args[0], args[1],
+                                                         max_blocks),
+                        **split)
             if dtype == torch.float32:
                 ok = err <= FP32_ATOL
                 line["tolerance"] = (f"{FP32_ATOL}: fp32 sums in another "
@@ -355,29 +495,99 @@ def phase_kernel(device) -> float:
             emit("kernel", ok=ok, **line)
             if not ok:
                 raise AssertionError(f"paged_decode disagrees: {line}")
-    return worst
+    return worst, combine_worst
 
 
-def phase_timing(device, smi: str) -> dict:
-    """Kernel, plain and SDPA times at the flagship decode shape; returns
-    the batch-16 row (the flagship engine's slot count)."""
+#: Rows of the timed paged shapes, tables 72 wide (the flagship engine's
+#: max_len 1152 / block 16): batch 1, 16 and 32 at depth 1024, and the
+#: serve run's 144-row token-packed chunk step at ragged depths up to 1151.
+TIMED_ROWS = (1, 16, 32, 144)
+CHUNK_ROWS = 144
+
+
+def timed_case(gen, rng, rows: int, kv_dtype, device) -> tuple:
+    """bf16-query inputs at one timed shape (flagship geometry), SDPA over
+    the gathered live view (dequantized to bf16 ahead of time for a
+    quantized pool; masked where depths are ragged) as ``library``, and the
+    bytes and flops the function needs: each visible token's K and V row
+    once in its storage type, the live blocks' scales and table entries, q
+    in and out, the positions."""
     from tpu_task_torch.ml.ops import paged_attention as pa
     from tpu_task_torch.ml.serving.cache import flat_pool, gather_kv
 
     F = torch.nn.functional
+    bs, h, kv, d = 16, 8, 2, 128
+    depths = ([1151] + [int(x) for x in rng.integers(0, 1152, rows - 1)]
+              if rows == CHUNK_ROWS else [1023] * rows)
+    args = quant_args(gen, depths, w=1, h=h, kv=kv, d=d, bs=bs, max_blocks=72,
+                      q_dtype=torch.bfloat16, kv_dtype=kv_dtype, device=device)
+    q, kp, vp, tables, pos = args[:5]
+    live = tables[:, :max(depths) // bs + 1]
+    if kv_dtype is None:
+        kd, vd = (gather_kv(flat_pool(p), live, bs) for p in (kp, vp))
+    else:
+        kd, vd = (pa.dequantize_view(
+            gather_kv(flat_pool(p.view(torch.uint8)), live, bs)
+            .view(p.dtype), s, live, bs, torch.bfloat16)
+            for p, s in ((kp, args[5]), (vp, args[6])))
+    kd, vd = (t.transpose(1, 2).contiguous() for t in (kd, vd))
+    qd = q.transpose(1, 2).contiguous()              # (b, h, 1, d)
+    if len(set(depths)) == 1:
+        def library():
+            return F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True)
+    else:
+        kd, vd = (t.repeat_interleave(h // kv, dim=1) for t in (kd, vd))
+        mask = (torch.arange(kd.shape[2], device=device)
+                <= pos[:, :, None])[:, None]          # (b, 1, 1, L)
+
+        def library():
+            return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+    tokens = sum(x + 1 for x in depths)
+    blocks = sum(x // bs + 1 for x in depths)
+    n_bytes = (tokens * kv * kp.shape[-1] * kp.element_size() * 2
+               + (blocks * kv * 4 * 2 if kv_dtype else 0)
+               + 2 * q.numel() * q.element_size() + blocks * 4
+               + pos.numel() * 4)
+    return args, library, n_bytes, 4 * h * d * tokens
+
+
+def bound(n_bytes: int, flops: int) -> dict:
+    by_bytes, by_flops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return dict(bound_ms=max(by_bytes, by_flops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_flops else "operations",
+                bytes=n_bytes, flops=flops)
+
+
+def unsplit_ms(timer, args) -> float:
+    """The tile kernel's device ms with each row's walk left whole: one
+    split, one CTA per row and kv head, the grid before split-KV; launched
+    uncounted."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    out = torch.empty_like(args[0])
+    return timer(lambda: pa._launch(*args[:5], out, *args[5:], splits=1))
+
+
+def shape_name(rows: int) -> str:
+    return "chunk step" if rows == CHUNK_ROWS else f"batch {rows}"
+
+
+def phase_timing(device, smi: str) -> dict:
+    """Kernel, plain and SDPA times at the flagship decode shapes and the
+    serve run's chunk step, the split plan and CTAs beside each; then, at
+    batch 16, wrapper calls traced apart into the split walk and the
+    combine, and the combine kernel alone. Returns {rows: row, "combine":
+    row}."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
     timer = DeviceTimer(device)
     gen = torch.Generator().manual_seed(2)
+    rng = np.random.default_rng(2)
     rows_out = {}
-    depth, bs, h, kv, d = 1024, 16, 8, 2, 128
-    for batch in (1, 16, 32):
-        # max_blocks 72 = the flagship engine's max_len 1152 / block 16.
-        args = paged_case(gen, [depth - 1] * batch, max_blocks=72,
-                          dtype=torch.bfloat16, device=device)
-        q, kp, vp, tables, pos = args
-        live = tables[:, :depth // bs]
-        kd = gather_kv(flat_pool(kp), live, bs).transpose(1, 2).contiguous()
-        vd = gather_kv(flat_pool(vp), live, bs).transpose(1, 2).contiguous()
-        qd = q.transpose(1, 2).contiguous()          # (b, h, 1, d)
+    for rows in TIMED_ROWS:
+        args, library, n_bytes, flops = timed_case(gen, rng, rows, None,
+                                                   device)
+        q = args[0]
 
         def kernel():
             return pa.paged_decode_attention(*args)
@@ -385,34 +595,103 @@ def phase_timing(device, smi: str) -> dict:
         def plain():
             return pa.paged_reference_attention(*args)
 
-        def library():
-            return F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True)
-
         got = kernel()
         check = against_fp32_plain(got, args)
         lib_err = (library().transpose(1, 2).float()
                    - got.float()).abs().max().item()
         if not check.pop("ok") or lib_err > 2e-2:
             raise AssertionError(f"kernel or SDPA yardstick disagrees at "
-                                 f"batch {batch}: {check}, SDPA {lib_err}")
-        itemsize = q.element_size()
-        n_bytes = (batch * depth * kv * d * 2 * itemsize      # live K and V
-                   + 2 * q.numel() * itemsize                  # q in, out
-                   + batch * (depth // bs) * 4 + pos.numel() * 4)
-        flops = 4 * batch * h * depth * d
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        row = dict(batch=batch, depth=depth, dtype="bfloat16",
-                   ms=timer(kernel), plain_ms=timer(plain),
-                   library_ms=timer(library), bound_ms=bound_ms,
-                   bound_by="bytes" if n_bytes / HBM_BYTES_PER_S
-                   >= flops / BF16_FLOPS else "operations",
-                   bytes=n_bytes, flops=flops,
+                                 f"{shape_name(rows)}: {check}, SDPA "
+                                 f"{lib_err}")
+        splits = pa.planned_splits(q, args[1], args[3].shape[1])
+        row = dict(shape=shape_name(rows), batch=rows,
+                   depth="ragged up to 1151" if rows == CHUNK_ROWS else 1024,
+                   dtype="bfloat16", splits=splits,
+                   ctas=rows * args[1].shape[2] * splits,
+                   ms=timer(kernel), unsplit_ms=unsplit_ms(timer, args),
+                   plain_ms=timer(plain), library_ms=timer(library),
+                   **bound(n_bytes, flops),
                    host_ms=host_ms(kernel), plain_host_ms=host_ms(plain),
                    library_max_abs_diff=lib_err, **check, gpu=smi)
-        row["fraction_of_bound"] = bound_ms / row["ms"]
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
         emit("timing", **row)
-        rows_out[batch] = row
-    return rows_out[16]
+        rows_out[rows] = row
+        if rows == 16:
+            profile_wrapper(timer, kernel, row, smi)
+            rows_out["combine"] = time_combine(timer, args, splits, smi)
+    return rows_out
+
+
+def profile_wrapper(timer, kernel, row: dict, smi: str,
+                    iters: int = 20) -> None:
+    """``iters`` wrapper calls under ``torch.profiler``, the L2 flushed
+    before each as ``DeviceTimer`` does: each call must launch one split
+    walk, and one combine when ``row``'s plan splits; prints the mean
+    device ms of each and of the span from the walk's start to the
+    combine's end (the gap between the two launches included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            kernel()
+        torch.cuda.synchronize()
+    events = sorted((start, end, name)
+                    for name, start, end in device_events(prof))
+    walks = [(s, e) for s, e, name in events if "paged_decode_kernel" in name]
+    combines = [(s, e) for s, e, name in events
+                if "combine_splits_kernel" in name]
+    if len(walks) != iters \
+            or len(combines) != (iters if row["splits"] > 1 else 0):
+        raise AssertionError(
+            f"{iters} traced wrapper calls at {row['splits']} splits showed "
+            f"{len(walks)} split walks and {len(combines)} combines")
+    walk_ms = float(np.mean([e - s for s, e in walks])) / 1e3
+    combine_ms = (float(np.mean([e - s for s, e in combines])) / 1e3
+                  if combines else 0.0)
+    ends = [e for _, e in (combines or walks)]
+    span_ms = float(np.mean([e - s for (s, _), e in zip(walks, ends)])) / 1e3
+    emit("timing_profile", kernel="paged_decode", batch=row["batch"],
+         splits=row["splits"], calls=iters, walk_ms=walk_ms,
+         combine_ms=combine_ms, span_ms=span_ms,
+         gap_ms=span_ms - walk_ms - combine_ms,
+         combine_share_of_span=combine_ms / span_ms,
+         timed_ms=row["ms"], gpu=smi)
+
+
+def time_combine(timer, args, splits: int, smi: str) -> dict:
+    """The combine kernel alone on the plain split states of ``args`` at
+    ``splits``, against ``combine_partials`` in the same type; its bound
+    reads the states once and writes the output once."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    q = args[0]
+    states = pa.paged_split_partials(*args, splits=splits)
+    out = torch.empty_like(q)
+
+    def kernel():
+        pa._launch_combine(states, out)
+
+    def plain():
+        return pa.combine_partials(states, q.dtype)
+
+    kernel()
+    want = pa.combine_partials(states)
+    if not close_to(out, want, q.dtype):
+        raise AssertionError("the combine kernel disagrees with "
+                             "combine_partials")
+    row = dict(kernel="paged_decode_combine", batch=q.shape[0],
+               splits=splits, output_rows=q.numel() // q.shape[-1],
+               max_abs_err=(out.float() - want).abs().max().item(),
+               ms=timer(kernel), plain_ms=timer(plain), library_ms=None,
+               **bound(states.numel() * 4 + out.numel() * out.element_size(),
+                       0), gpu=smi)
+    row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+    emit("timing_combine", **row)
+    return row
 
 
 def _parity_waves(vocab: int, bs: int):
@@ -545,6 +824,8 @@ def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
                "pipelined": pa.paged_decode_pipelined_attention.launches}
     launches = kernels.pop(engine.decode_impl)
     plain = pa.paged_reference_attention.launches
+    combines = pa.paged_decode_attention.combine_launches
+    plans = step_splits(engine)
     results = [engine.request(rid) for rid in rids]
     generated = sum(len(r.tokens) for r in results)
     fused = engine.chunk_steps - chunk0 + engine.decode_steps - decode0
@@ -560,9 +841,30 @@ def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
         kernel=engine.decode_impl, kernel_launches=launches,
         other_kernel_launches=sum(kernels.values()), plain_launches=plain,
         expected_launches=engine.cfg.n_layers * fused,
+        step_splits=plans, combine_launches=combines,
+        expected_combine_launches=engine.cfg.n_layers * (
+            (engine.decode_steps - decode0) * (plans["decode"] > 1)
+            + (engine.chunk_steps - chunk0) * (plans["chunk"] > 1)),
         all_finished=all(r.status == "done" and len(r.tokens) == max_new
                          for r in results),
         preemptions=engine.preemption_count - preempt0)
+
+
+def step_splits(engine) -> dict:
+    """The tile kernel's split plan at the engine's decode and chunk steps
+    (1 for the pipelined kernel, which does not split)."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    cfg, scfg = engine.cfg, engine.scfg
+    pool = engine.pools[0]["k"]
+    plans = {}
+    for step, rows in (("decode", scfg.slots),
+                       ("chunk", scfg.slots + scfg.chunk_tokens)):
+        q = torch.empty((rows, 1, cfg.n_heads, cfg.d_head), dtype=cfg.dtype,
+                        device=pool.device)
+        plans[step] = (pa.planned_splits(q, pool, scfg.max_blocks_per_slot)
+                       if engine.decode_impl == "cuda" else 1)
+    return plans
 
 
 #: The flagship serve engine's configuration (phases 6 and 14).
@@ -652,6 +954,8 @@ def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
         kernel_launches=launches,
         other_kernel_launches=sum(r["other_kernel_launches"] for r in runs),
         plain_launches=sum(r["plain_launches"] for r in runs),
+        step_splits=runs[0]["step_splits"],
+        combine_launches=sum(r["combine_launches"] for r in runs),
         kv_pool_bytes=engine.stats()["kv_pool_bytes"],
         steps_checked=checked, logits_finite=bool(finite),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
@@ -663,11 +967,12 @@ def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
     return engine, launches, line
 
 
-def phase_serve(device, smi: str) -> int:
+def phase_serve(device, smi: str) -> tuple:
     """The main path: the flagship with bf16 pools through the tile
-    kernel. Returns the kernel's launch count over the timed waves."""
-    _, launches, _ = serve_flagship(device, smi, "serve")
-    return launches
+    kernel. Returns the kernel's and the combine kernel's launch counts
+    over the timed waves."""
+    _, launches, line = serve_flagship(device, smi, "serve")
+    return launches, line["combine_launches"]
 
 
 def phase_serve_quant(device, smi: str) -> int:
@@ -713,10 +1018,12 @@ def phase_serve_quant(device, smi: str) -> int:
 def wave_ok(run: dict) -> bool:
     """A serve wave's gates: every request done, every fused step through
     the engine's kernel once per layer, nothing through the other kernel or
-    the plain version."""
+    the plain version, and the combine kernel after every tile-kernel call
+    whose step shape the plan splits."""
     return (run["all_finished"] and run["plain_launches"] == 0
             and run["other_kernel_launches"] == 0
-            and run["kernel_launches"] == run["expected_launches"] > 0)
+            and run["kernel_launches"] == run["expected_launches"] > 0
+            and run["combine_launches"] == run["expected_combine_launches"])
 
 
 # -- flash attention ------------------------------------------------------------
@@ -1133,12 +1440,9 @@ def profile_step(step, state, tokens, wall_ms: float) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
+    for name, start, end in device_events(prof):
         spans.append((start, end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
     busy, last = 0.0, -math.inf
     for start, end in sorted(spans):            # union of kernel intervals
         if end > last:
@@ -1277,9 +1581,10 @@ def storage_name(kv_dtype, q_dtype) -> str:
 def phase_kernel_quant(device) -> dict:
     """Both paged kernels against the plain version on the same codes:
     the tile kernel's quantized variants (its model-dtype ones are phase
-    3's) and the pipelined kernel over every storage type. One line per
-    (kernel, storage, q dtype); returns each kernel's largest fp32
-    error."""
+    3's), also at forced split counts (``check_splits``), and the pipelined
+    kernel over every storage type. One line per (kernel, storage, q
+    dtype); returns each kernel's largest fp32 error, the combine kernel's
+    under ``"paged_decode_combine"``."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     gen = torch.Generator().manual_seed(5)
@@ -1290,7 +1595,7 @@ def phase_kernel_quant(device) -> dict:
     cases += [(case, flagship, rows, w, depth, max_blocks)
               for case, rows, w, depth, max_blocks in KERNEL_CASES
               if case != "deep"]
-    worst = {name: 0.0 for name in PAGED_KERNELS}
+    worst = {name: 0.0 for name in PAGED_KERNELS + ("paged_decode_combine",)}
     summary = {}
     for case, geo, rows, w, depth, max_blocks in cases:
         depths = [None if r % 6 == 5 else int(rng.integers(0, depth - w))
@@ -1313,14 +1618,20 @@ def phase_kernel_quant(device) -> dict:
                     guarded = guarded_launch(
                         args, got, pipelined=kernel != "paged_decode")
                     err = (got.float() - same.float()).abs().max().item()
+                    split = (check_splits(args) if kernel == "paged_decode"
+                             else {})
                     line = dict(kernel=kernel, case=case, w=w, rows=rows,
                                 storage=storage_name(kv_dtype, q_dtype),
                                 q_dtype=str(q_dtype).replace("torch.", ""),
                                 max_abs_err=err, inputs_unchanged=unchanged,
-                                writes_only_out_and_repeats=guarded)
+                                writes_only_out_and_repeats=guarded, **split)
                     if q_dtype == torch.float32:
                         ok = err <= FP32_ATOL
-                        worst[kernel] = max(worst[kernel], err)
+                        worst[kernel] = max(worst[kernel], err,
+                                            split.get("split_max_abs_err", 0))
+                        worst["paged_decode_combine"] = max(
+                            worst["paged_decode_combine"],
+                            split.get("combine_max_abs_err", 0))
                     else:
                         line.update(against_fp32_plain(got, args))
                         ok = line.pop("ok") and err <= 2e-2
@@ -1336,6 +1647,14 @@ def phase_kernel_quant(device) -> dict:
                     agg["max_abs_err_vs_fp32"] = max(
                         agg["max_abs_err_vs_fp32"],
                         line.get("max_abs_err_vs_fp32", err))
+                    if split:
+                        agg["splits_checked"] = sorted(
+                            set(agg.get("splits_checked", []))
+                            | set(split["splits"]))
+                        for name in ("split_max_abs_err",
+                                     "split_states_max_rel_err",
+                                     "combine_max_abs_err"):
+                            agg[name] = max(agg.get(name, 0.0), split[name])
     for (kernel, storage, q_dtype), agg in summary.items():
         emit("kernel_quant", ok=True, kernel=kernel, storage=storage,
              q_dtype=q_dtype, **agg,
@@ -1351,66 +1670,37 @@ def phase_kernel_quant(device) -> dict:
 
 def phase_timing_quant(device, smi: str) -> dict:
     """Both paged kernels over each storage type at the flagship decode
-    shape (bf16 queries, depth 1024, tables 72 wide) at batch 1, 16 and 32,
-    beside the plain version, SDPA over the view dequantized to bf16 ahead
-    of time (the dequantization is not in ``library_ms``) and the bytes
-    bound. Returns {kernel: {storage: the batch-16 row}}."""
+    shape (bf16 queries, depth 1024, tables 72 wide) at batch 1, 16 and 32
+    and at the serve run's 144-row chunk step, beside the plain version,
+    SDPA over the view dequantized to bf16 ahead of time (the
+    dequantization is not in ``library_ms``), the bytes bound and the tile
+    kernel's split plan and CTAs. Returns {kernel: {storage: the batch-16
+    row}}."""
     from tpu_task_torch.ml.ops import paged_attention as pa
-    from tpu_task_torch.ml.serving.cache import flat_pool, gather_kv
 
-    F = torch.nn.functional
     timer = DeviceTimer(device)
     gen = torch.Generator().manual_seed(6)
-    depth, bs, h, kv, d = 1024, 16, 8, 2, 128
+    rng = np.random.default_rng(6)
     out = {name: {} for name in PAGED_KERNELS}
     for kv_dtype in KV_STORAGE:
         storage = storage_name(kv_dtype, torch.bfloat16)
-        for batch in (1, 16, 32):
-            args = quant_args(gen, [depth - 1] * batch, w=1, h=h, kv=kv, d=d,
-                              bs=bs, max_blocks=72, q_dtype=torch.bfloat16,
-                              kv_dtype=kv_dtype, device=device)
-            q, kp, vp, tables, pos = args[:5]
-            live = tables[:, :depth // bs]
-            if kv_dtype is None:
-                kd, vd = (gather_kv(flat_pool(p), live, bs) for p in (kp, vp))
-            else:
-                kd, vd = (pa.dequantize_view(
-                    gather_kv(flat_pool(p.view(torch.uint8)), live, bs)
-                    .view(p.dtype), s, live, bs, torch.bfloat16)
-                    for p, s in ((kp, args[5]), (vp, args[6])))
-            kd, vd = (t.transpose(1, 2).contiguous() for t in (kd, vd))
-            qd = q.transpose(1, 2).contiguous()          # (b, h, 1, d)
-
-            def library():
-                return F.scaled_dot_product_attention(qd, kd, vd,
-                                                      enable_gqa=True)
+        for rows in TIMED_ROWS:
+            args, library, n_bytes, flops = timed_case(gen, rng, rows,
+                                                       kv_dtype, device)
 
             def plain():
                 return pa.paged_reference_attention(*args)
 
-            # Each live K and V row once in its storage type, the live
-            # blocks' scales, q in and out, the live table entries and the
-            # positions.
-            n_bytes = (batch * depth * kv * kp.shape[-1]
-                       * kp.element_size() * 2
-                       + (batch * (depth // bs) * kv * 4 * 2
-                          if kv_dtype else 0)
-                       + 2 * q.numel() * q.element_size()
-                       + batch * (depth // bs) * 4 + pos.numel() * 4)
-            flops = 4 * batch * h * depth * d
-            bound_ms = max(n_bytes / HBM_BYTES_PER_S,
-                           flops / BF16_FLOPS) * 1e3
             plain_ms, library_ms = timer(plain), timer(library)
             row_common = dict(
-                batch=batch, depth=depth, q_dtype="bfloat16",
-                storage=storage, plain_ms=plain_ms, library_ms=library_ms,
+                shape=shape_name(rows), batch=rows,
+                depth="ragged up to 1151" if rows == CHUNK_ROWS else 1024,
+                q_dtype="bfloat16", storage=storage, plain_ms=plain_ms,
+                library_ms=library_ms,
                 library_note="SDPA over the gathered view already "
                              "dequantized to bf16; the dequantization is "
                              "not timed",
-                bound_ms=bound_ms,
-                bound_by="bytes" if n_bytes / HBM_BYTES_PER_S
-                >= flops / BF16_FLOPS else "operations",
-                bytes=n_bytes, flops=flops, gpu=smi)
+                **bound(n_bytes, flops), gpu=smi)
             for kernel in PAGED_KERNELS:
                 fn = paged_kernel(kernel)
                 got = fn(*args)
@@ -1420,14 +1710,21 @@ def phase_timing_quant(device, smi: str) -> dict:
                 if not check.pop("ok") or lib_err > 2e-2:
                     raise AssertionError(
                         f"{kernel} or SDPA yardstick disagrees at {storage} "
-                        f"batch {batch}: {check}, SDPA {lib_err}")
-                row = dict(kernel=kernel, ms=timer(lambda: fn(*args)),
+                        f"{shape_name(rows)}: {check}, SDPA {lib_err}")
+                tile = kernel == "paged_decode"
+                splits = (pa.planned_splits(args[0], args[1],
+                                            args[3].shape[1]) if tile else 1)
+                row = dict(kernel=kernel, splits=splits,
+                           ctas=rows * args[1].shape[2] * splits,
+                           ms=timer(lambda: fn(*args)),
+                           unsplit_ms=(unsplit_ms(timer, args) if tile
+                                       else None),
                            host_ms=host_ms(lambda: fn(*args)),
                            library_max_abs_diff=lib_err, **check,
                            **row_common)
-                row["fraction_of_bound"] = bound_ms / row["ms"]
+                row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
                 emit("timing_quant", **row)
-                if batch == 16:
+                if rows == 16:
                     out[kernel][storage] = row
     return out
 
@@ -1518,10 +1815,10 @@ def main() -> int:
     import_port()
     device = torch.device("cuda")
     phase_build()
-    max_err = phase_kernel(device)
+    max_err, combine_err = phase_kernel(device)
     timing = phase_timing(device, smi)
     phase_parity(device)
-    launches = phase_serve(device, smi)
+    launches, combine_launches = phase_serve(device, smi)
     flash_err = phase_flash_kernel(device)
     flash_times = phase_flash_timing(device, smi)
     phase_train_parity(device)
@@ -1537,15 +1834,21 @@ def main() -> int:
                 for storage, row in quant_times[kernel].items()}
 
     int8 = quant_times["paged_decode_pipelined"]["int8"]
+    batch16, combine = timing[16], timing["combine"]
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "tpu_task_torch/csrc/paged_decode.cu",
         "replaces": "tpu_task/ml/ops/paged_attention.py:175",
         "launches": launches,
         "max_abs_err": max(max_err, quant_err["paged_decode"]),
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
+        "ms": batch16["ms"], "plain_ms": batch16["plain_ms"],
+        "bound_ms": batch16["bound_ms"], "bound_by": batch16["bound_by"],
+        "library_ms": batch16["library_ms"],
+        "splits_batch16": batch16["splits"],
+        "unsplit_ms": batch16["unsplit_ms"],
+        "chunk_step_ms": timing[CHUNK_ROWS]["ms"],
+        "chunk_step_splits": timing[CHUNK_ROWS]["splits"],
+        "chunk_step_unsplit_ms": timing[CHUNK_ROWS]["unsplit_ms"],
         "by_storage_batch16": by_storage("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -1568,6 +1871,17 @@ def main() -> int:
         "bound_ms": int8["bound_ms"], "bound_by": int8["bound_by"],
         "library_ms": int8["library_ms"], "storage": "int8",
         "by_storage_batch16": by_storage("paged_decode_pipelined")})
+    # The split walk's second pass: the merge that _paged_decode_kernel's
+    # _finalize does at the end of its sequential block axis.
+    kernels.append({
+        "name": "paged_decode_combine", "route": "cuda",
+        "source": "tpu_task_torch/csrc/paged_kv.cuh",
+        "replaces": "tpu_task/ml/ops/paged_attention.py:252",
+        "launches": combine_launches,
+        "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
+        "ms": combine["ms"], "plain_ms": combine["plain_ms"],
+        "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],
+        "library_ms": None, "splits": combine["splits"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-two paged-decode kernels (over model-dtype and quantized pools) and the
-three flash-attention kernels of training.
+two paged-decode kernels (over model-dtype and quantized pools), the tile
+kernel's split-KV walk and its combine kernel, and the three
+flash-attention kernels of training.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -206,6 +207,98 @@ def test_quantized_engine_runs_both_kernels(cuda_device, preset, kv_dtype):
         want[impl] = engine.cfg.n_layers * fused
         assert launches == want
     assert outs["cuda"] == outs["pipelined"] == outs["reference"]
+
+
+#: Every (q type, pool storage) pair the tile kernel takes; None = q's type.
+TILE_PAIRS = [(dtype, kv_dtype) for dtype in (torch.float32, torch.bfloat16)
+              for kv_dtype in (None, "int8", "fp8", "int4")]
+
+
+def _close(got, ref, dtype):
+    """fp32 within ATOL; bf16 within its output's rounding of ``ref``."""
+    err = (got.float() - ref).abs()
+    if dtype == torch.float32:
+        return err.max().item() <= ATOL
+    return bool((err <= 2.0 ** -8 * ref.abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [
+    dict(h=8, kv=2, d=128, bs=16),            # the flagship
+    dict(h=8, kv=2, d=128, bs=16, rows=144, max_blocks=72),
+    dict(h=8, kv=4, d=16, bs=8),              # the tiny preset
+    dict(h=4, kv=2, d=8, bs=4),               # the micro preset
+    dict(h=8, kv=2, d=32, bs=32)])
+@pytest.mark.parametrize("w", [1, 3])
+@pytest.mark.parametrize("dtype,kv_dtype", TILE_PAIRS)
+@pytest.mark.parametrize("splits", [1, 2, "plan", "tiles"])
+def test_split_kernel_matches_plain(cuda_device, geometry, w, dtype,
+                                    kv_dtype, splits):
+    """The tile kernel with its walk cut into forced splits (1, 2, the plan,
+    one per tile), launched uncounted into a NaN-filled output with
+    NaN-filled partial states: the merged output against the merge of the
+    plain split states and against the plain version, both in fp32 on the
+    same values; no NaN left behind; the combine kernel alone on the plain
+    states against ``combine_partials``. Tables without a given width get
+    three whole tiles and a ragged fourth."""
+    geometry = dict(geometry)
+    bs = geometry["bs"]
+    geometry.setdefault("max_blocks", 3 * tpa.tile_blocks_for(bs) + 2)
+    rng = np.random.default_rng(w + geometry["d"])
+    q, kp, vp, tables, pos = _case(rng, cuda_device, w=w, **geometry)
+    q = q.to(dtype)
+    scales = ()
+    if kv_dtype is None:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        code = tc.kv_code_dtype(kv_dtype)
+        (kp, ks), (vp, vs) = (tc.quantize_blocks(a, code) for a in (kp, vp))
+        scales = (ks, vs)
+    args = (q, kp, vp, tables, pos, *scales)
+    max_blocks = tables.shape[1]
+    tiles = tpa.n_tiles(max_blocks, bs)
+    n = {"plan": tpa.planned_splits(q, kp, max_blocks),
+         "tiles": tiles}.get(splits, splits)
+    rows, _, h, d = q.shape
+    out = torch.full_like(q, float("nan"))
+    partials = (torch.full((rows, w, h, n, 2 + d), float("nan"),
+                           device=cuda_device) if n > 1 else None)
+    tpa.reset_launch_counts()
+    assert tpa._launch(*args[:5], out, *scales, splits=n,
+                       partials=partials) == n
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_attention.launches == 0
+    assert tpa.paged_decode_attention.combine_launches == int(n > 1)
+    assert tpa.paged_reference_attention.launches == 0
+    assert not torch.isnan(out).any()
+    plain = tpa.paged_split_partials(*args, splits=n)
+    assert _close(out, tpa.combine_partials(plain), dtype)
+    pools = [p.float() if p.dtype == dtype else p for p in (kp, vp)]
+    exact = tpa.paged_reference_attention(q.float(), *pools, tables, pos,
+                                          *scales)
+    assert _close(out, exact, dtype)
+    if n > 1:
+        assert not torch.isnan(partials).any()
+        alone = torch.empty_like(q)
+        tpa._launch_combine(plain, alone)
+        torch.cuda.synchronize()
+        assert _close(alone, tpa.combine_partials(plain), dtype)
+
+
+@pytest.mark.cuda
+def test_wrapper_counts_its_combine_launches(cuda_device):
+    """A call whose plan splits the walk counts one call and one combine;
+    a grid that already fills the card takes one split and no combine."""
+    rng = np.random.default_rng(3)
+    for rows in (2, 300):
+        args = _case(rng, cuda_device, rows=rows, max_blocks=20)
+        tpa.reset_launch_counts()
+        tpa.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        split = tpa.planned_splits(args[0], args[1], 20) > 1
+        assert tpa.paged_decode_attention.launches == 1
+        assert tpa.paged_decode_attention.combine_launches == int(split)
+        assert split == (rows == 2)
 
 
 def _flash_inputs(device, dtype, b, h, sq, sk, d, seed=0):

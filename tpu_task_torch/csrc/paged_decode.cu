@@ -21,32 +21,42 @@
 // accumulator; a row with no visible slot outputs 0 (l == 0 divides by 1).
 // Query head h belongs to kv head h / group (contiguous groups).
 //
-// Design: one CTA of 256 threads per (row, kv head). The CTA stages its
-// query group in fp32 shared memory, then walks the row's LIVE blocks only,
-// 0 .. min(max_pos / bs + 1, max_blocks), in a loop that takes the place of
-// the TPU kernel's sequential grid axis. Each iteration takes a tile of
-// about 64 tokens (64 / bs blocks): every thread issues all of its 16-byte
-// loads of the pool's own bytes for the tile before it stores any, so the
-// tile's loads are in flight together, converts them in registers (codes
-// stay codes: no scale is applied here) and stores them as fp32 rows padded
-// to d + 1 floats, so threads that walk different tokens hit different
-// banks. Then one thread per (query row, token) takes the full dot product,
-// one warp per query row updates the online softmax (m, l), and one thread
-// per output element rescales and accumulates P.V in fp32, block by block
-// with its v_scale when the pool is quantized.
-//
 // Bound: memory. The work that must move is every live token's K and V
 // once per kv head (sum of live tokens x kv x d x 2 x bytes per element, a
 // quarter of fp32's for int8/fp8 and an eighth for int4, plus the scales)
 // plus q and out; the arithmetic is ~4 flops per loaded element per query
-// of the group, far below the card's ratio. What this simple design leaves
-// on the table: the grid is rows x kv_heads CTAs (2 at batch 1, on 132
-// SMs), so one CTA's serial walk sets the time; a split of the KV walk
-// across CTAs (flash-decoding) would fill the card. The next tile's loads
-// are not overlapped with this tile's math either (paged_decode_pipelined.cu
-// does that). Inside the CTA the tile's shared-memory traffic sets the pace
-// (the fp32 staging stores, then two loads per multiply-add in the score
-// and P.V loops); registers or the tensor cores would cut it.
+// of the group, far below the card's ratio.
+//
+// Design (v3, split-KV). The grid is (row x kv head) x splits CTAs of 256
+// threads. Split s of a row covers its table entries [s S, (s + 1) S), S a
+// whole number of the CTA's tiles, and walks only the LIVE blocks in that
+// range (the row's live depth, min(max_pos / bs + 1, max_blocks), is read
+// on the device). The host picks the split count from shapes alone
+// (split_plan in ml/ops/paged_attention.py): enough CTAs for one resident
+// wave of the card's 132 SMs. Without the split, the grid was rows x
+// kv_heads CTAs (32 at batch 16, 2 at batch 1) and one CTA's serial walk
+// of a row's whole depth set the time, flat over batch, at ~4% of HBM.
+// With one split the CTA writes out directly, as v2 did, and the call is
+// one launch; with more, each CTA writes its partial softmax state (m, l,
+// acc) to a scratch buffer and combine_splits_kernel (paged_kv.cuh), a
+// second launch, merges them.
+//
+// Inside a CTA nothing changed from v2. It stages its query group in fp32
+// shared memory and takes its range in tiles of about 64 tokens (64 / bs
+// blocks): every thread issues all of its 16-byte loads of the pool's own
+// bytes for the tile before it stores any, converts them in registers
+// (codes stay codes: no scale is applied here) and stores them as fp32 rows
+// padded to d + 1 floats, so threads that walk different tokens hit
+// different banks. Then one thread per (query row, token) takes the full
+// dot product, one warp per query row updates the online softmax (m, l),
+// and one thread per output element rescales and accumulates P.V in fp32,
+// block by block with its v_scale when the pool is quantized. These four
+// phases are separated by barriers and nothing overlaps, about 8 us a tile
+// on the H100: that loop is what is left. It still sets the pace wherever
+// the grid is already full without a split (the serving engine's 144-row
+// chunk step), and the shared-memory traffic inside it (the fp32 staging
+// stores, two loads per multiply-add) is what registers, the tensor cores
+// or a copy ring overlapped with the math would cut.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,10 +153,13 @@ paged_decode_kernel(const Q* __restrict__ q,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ positions, Q* __restrict__ out,
-                    int w, int n_heads, int kv_heads, int d, int bs,
-                    int max_blocks, int tile_blocks) {
+                    float* __restrict__ partials, int w, int n_heads,
+                    int kv_heads, int d, int bs, int max_blocks,
+                    int tile_blocks, int split_blocks) {
   const int kvh = blockIdx.x % kv_heads;
   const int row = blockIdx.x / kv_heads;
+  const int split = blockIdx.y;  // this CTA's part of the row's walk
+  const int splits = gridDim.y;
   const int group = n_heads / kv_heads;
   const int R = w * group;  // query rows of this CTA: (query, head) pairs
   const int tile = tile_blocks * bs;  // tokens per iteration
@@ -194,9 +207,13 @@ paged_decode_kernel(const Q* __restrict__ q,
   for (int wi = 1; wi < w; ++wi) max_pos = max(max_pos, spos[wi]);
   const int n_live = max_pos < 0 ? 0 : min(max_pos / bs + 1, max_blocks);
   const int* table = tables + static_cast<int64_t>(row) * max_blocks;
+  // split_blocks is a whole number of tiles, so this range's tiles are the
+  // unsplit walk's and each quantized block keeps its own v_scale below.
+  const int b_lo = split * split_blocks;
+  const int b_hi = min(b_lo + split_blocks, n_live);
 
-  for (int b0 = 0; b0 < n_live; b0 += tile_blocks) {
-    const int nb = min(tile_blocks, n_live - b0);
+  for (int b0 = b_lo; b0 < b_hi; b0 += tile_blocks) {
+    const int nb = min(tile_blocks, b_hi - b0);
     const int n_tok = nb * bs;
     const int base = b0 * bs;  // position of the tile's first token
     for (int i = tid; i < nb; i += kThreads) {
@@ -278,16 +295,33 @@ paged_decode_kernel(const Q* __restrict__ q,
     __syncthreads();
   }
 
-  for (int e = tid; e < R * d; e += kThreads) {
-    const int r = e / d;
-    const int j = e % d;
-    const int wi = r / group;
-    const int g = r % group;
-    const float l = sl[r];
-    const int64_t dst =
-        ((static_cast<int64_t>(row) * w + wi) * n_heads + kvh * group + g) *
-            d + j;
-    out[dst] = paged_kv::from_float<Q>(sacc[e] / (l == 0.0f ? 1.0f : l));
+  if (splits == 1) {
+    for (int e = tid; e < R * d; e += kThreads) {
+      const int r = e / d;
+      const int j = e % d;
+      const int wi = r / group;
+      const int g = r % group;
+      const float l = sl[r];
+      const int64_t dst =
+          ((static_cast<int64_t>(row) * w + wi) * n_heads + kvh * group + g) *
+              d + j;
+      out[dst] = paged_kv::from_float<Q>(sacc[e] / (l == 0.0f ? 1.0f : l));
+    }
+    return;
+  }
+  // This split's state for each query row, written even when its range
+  // held no live block (the empty state): the buffer is uninitialised.
+  const int ldp = paged_kv::kPartialHead + d;
+  for (int e = tid; e < R * ldp; e += kThreads) {
+    const int r = e / ldp;
+    const int j = e % ldp;
+    const int64_t o =
+        (static_cast<int64_t>(row) * w + r / group) * n_heads + kvh * group +
+        r % group;
+    partials[(o * splits + split) * ldp + j] =
+        j == 0 ? sm[r]
+        : j == 1 ? sl[r]
+                 : sacc[r * d + j - paged_kv::kPartialHead];
   }
 }
 
@@ -295,26 +329,55 @@ int tile_blocks_for(int bs) { return bs >= kTileTokens ? 1 : kTileTokens / bs; }
 
 struct Args {
   const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *tables, *positions;
-  void* out;
-  int rows, w, n_heads, kv_heads, d, bs, max_blocks, smem_bytes;
+  void *out, *partials;
+  int rows, w, n_heads, kv_heads, d, bs, max_blocks, splits, split_blocks,
+      smem_bytes;
   cudaStream_t stream;
 };
 
+// Raise the instantiation's shared-memory limit once per device.
+template <typename Q, typename S>
+cudaError_t prepare() {
+  static bool done[paged_kv::kMaxDevices] = {};
+  return paged_kv::allow_max_smem(paged_decode_kernel<Q, S>, done);
+}
+
 template <typename Q, typename S>
 int launch(const Args& a) {
-  static bool done[paged_kv::kMaxDevices] = {};
-  const cudaError_t err =
-      paged_kv::allow_max_smem(paged_decode_kernel<Q, S>, done);
+  const cudaError_t err = prepare<Q, S>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(a.rows) * a.kv_heads);
+  const dim3 grid(static_cast<unsigned>(a.rows) * a.kv_heads, a.splits);
   paged_decode_kernel<Q, S><<<grid, kThreads, a.smem_bytes, a.stream>>>(
       static_cast<const Q*>(a.q), static_cast<const uint8_t*>(a.k_pool),
       static_cast<const uint8_t*>(a.v_pool),
       static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.positions), static_cast<Q*>(a.out), a.w,
-      a.n_heads, a.kv_heads, a.d, a.bs, a.max_blocks, tile_blocks_for(a.bs));
+      static_cast<const int*>(a.positions), static_cast<Q*>(a.out),
+      static_cast<float*>(a.partials), a.w, a.n_heads, a.kv_heads, a.d, a.bs,
+      a.max_blocks, tile_blocks_for(a.bs), a.split_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+struct Occupancy {
+  int smem_bytes;
+  int* ctas;
+};
+
+template <typename Q, typename S>
+int occupancy(const Occupancy& a) {
+  cudaError_t err = prepare<Q, S>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      a.ctas, paged_decode_kernel<Q, S>, kThreads, a.smem_bytes);
+  return static_cast<int>(err);
+}
+
+template <typename Q>
+int combine(const void* partials, void* out, int n_rows, int splits, int d,
+            cudaStream_t stream) {
+  return static_cast<int>(paged_kv::launch_combine<Q>(
+      static_cast<const float*>(partials), static_cast<Q*>(out), n_rows,
+      splits, d, stream));
 }
 
 }  // namespace
@@ -336,20 +399,50 @@ int tt_paged_decode_smem_bytes(int w, int n_heads, int kv_heads, int d,
 
 // q_type: 0 = fp32, 1 = bf16; kv_type: the pool's storage (paged_kv.cuh).
 // k_scale/v_scale are read only for a quantized pool. d is the head dim of
-// q and out. Returns cudaGetLastError() after the launch (0 = launched);
-// nothing is synchronised.
+// q and out. splits cuts each row's walk, split s taking table entries
+// [s split_blocks, (s + 1) split_blocks): the host's plan (split_blocks in
+// ml/ops/paged_attention.py), whole tiles that together cover the table.
+// With 1 split the kernel writes out; with more it writes each split's
+// state to partials, (rows, w, h, splits, 2 + d) fp32, and leaves out alone
+// for tt_paged_decode_combine. Returns cudaGetLastError() after the launch
+// (0 = launched); nothing is synchronised.
 int tt_paged_decode(int q_type, int kv_type, const void* q,
                     const void* k_pool, const void* v_pool,
                     const void* k_scale, const void* v_scale,
                     const void* tables, const void* positions, void* out,
-                    int rows, int w, int n_heads, int kv_heads, int d,
-                    int bs, int max_blocks, void* stream) {
+                    void* partials, int rows, int w, int n_heads,
+                    int kv_heads, int d, int bs, int max_blocks, int splits,
+                    int split_blocks, void* stream) {
   if (rows == 0) return 0;
+  if (splits < 1 || splits > 65535 || (splits > 1 && partials == nullptr) ||
+      split_blocks < 0 || split_blocks % tile_blocks_for(bs) != 0 ||
+      static_cast<int64_t>(splits) * split_blocks < max_blocks)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, positions, out,
-               rows, w, n_heads, kv_heads, d, bs, max_blocks,
+               partials, rows, w, n_heads, kv_heads, d, bs, max_blocks,
+               splits, split_blocks,
                tt_paged_decode_smem_bytes(w, n_heads, kv_heads, d, bs),
                static_cast<cudaStream_t>(stream)};
   PAGED_KV_DISPATCH(q_type, kv_type, launch, a);
+}
+
+// Merge the split states of n_rows = rows * w * h output rows into out (q's
+// type, q_type as above). Returns cudaGetLastError() after the launch.
+int tt_paged_decode_combine(int q_type, const void* partials, void* out,
+                            int n_rows, int splits, int d, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_type == 0) return combine<float>(partials, out, n_rows, splits, d, s);
+  if (q_type == 1)
+    return combine<__nv_bfloat16>(partials, out, n_rows, splits, d, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// CTAs of the (q_type, kv_type) instantiation that fit one SM at once with
+// smem_bytes of dynamic shared memory, into *ctas; returns the CUDA error.
+int tt_paged_decode_ctas_per_sm(int q_type, int kv_type, int smem_bytes,
+                                void* ctas) {
+  const Occupancy a{smem_bytes, static_cast<int*>(ctas)};
+  PAGED_KV_DISPATCH(q_type, kv_type, occupancy, a);
 }
 
 const char* tt_cuda_error_string(int code) {

@@ -1,7 +1,8 @@
 // Shared pieces of the two paged-decode kernels (paged_decode.cu and
 // paged_decode_pipelined.cu): how each KV pool storage type is read and
 // converted to fp32 in registers, the query/output types, warp reductions,
-// and the one-time opt-in to more than 48 KB of dynamic shared memory.
+// the one-time opt-in to more than 48 KB of dynamic shared memory, and the
+// combine kernel that merges the partial softmax states of a split KV walk.
 //
 // Pool storage types, by the code the Python wrapper passes (kv_type):
 //   0 fp32, 1 bf16              model-dtype pools (values)
@@ -167,6 +168,85 @@ cudaError_t allow_max_smem(Kernel kernel, bool* done) {
                              max_optin);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
+}
+
+// -- split-KV partial states and their merge ---------------------------------
+//
+// A kernel that cuts one row's KV walk over `splits` CTAs has each CTA write,
+// for every query row (query, head) it owns, its online-softmax state over
+// its part of the walk: m (running max), l (running sum) and the
+// unnormalised acc (d values), all fp32, kPartialHead + d floats. Layout
+// (rows, w, h, splits, kPartialHead + d), so one output row's splits are
+// contiguous. A split that saw no visible slot writes m = kNegInf, l = 0,
+// acc = 0.
+constexpr int kPartialHead = 2;  // m, l; then acc[0 .. d)
+
+// Weight of a split's state under the merged max M. A state whose m is the
+// mask value contributes nothing, so a row with no visible slot in any
+// split merges to exactly 0 (not NaN, and not exp(0) = 1 when M is the mask
+// value too).
+__device__ __forceinline__ float split_weight(float m, float M) {
+  return m <= kNegInf / 2 ? 0.0f : expf(m - M);
+}
+
+constexpr int kCombineWarps = 4;  // output rows per CTA, one warp each
+constexpr int kCombineVals = 4;   // head-dim elements per lane per pass
+
+// One warp per output row: M = max_s m_s, L = sum_s l_s e^(m_s - M),
+// o = sum_s acc_s e^(m_s - M) / (L == 0 ? 1 : L), written in Q. Lanes walk
+// splits for M and L (m and l share a sector, so L re-reads from L1), then
+// head-dim elements for o: each split's acc row is read coalesced,
+// kCombineVals independent loads a lane per split and eight splits
+// unrolled, so the walk's loads are in flight together rather than one
+// round trip after another.
+template <typename Q>
+__global__ void __launch_bounds__(32 * kCombineWarps)
+combine_splits_kernel(const float* __restrict__ partials, Q* __restrict__ out,
+                      int n_rows, int splits, int d) {
+  const int lane = threadIdx.x & 31;
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * kCombineWarps +
+                    (threadIdx.x >> 5);
+  if (o >= n_rows) return;  // warp-uniform
+  const int ld = kPartialHead + d;
+  const float* p = partials + o * splits * ld;
+  float M = kNegInf;
+  for (int s = lane; s < splits; s += 32) M = fmaxf(M, p[s * ld]);
+  M = warp_max(M);
+  float L = 0.0f;
+  for (int s = lane; s < splits; s += 32)
+    L += p[s * ld + 1] * split_weight(p[s * ld], M);
+  L = warp_sum(L);
+  const float l_safe = L == 0.0f ? 1.0f : L;
+  for (int j0 = lane; j0 < d; j0 += 32 * kCombineVals) {
+    float acc[kCombineVals] = {};
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float* ps = p + s * ld;
+      const float weight = split_weight(ps[0], M);
+#pragma unroll
+      for (int k = 0; k < kCombineVals; ++k) {
+        const int j = j0 + 32 * k;
+        if (j < d) acc[k] += ps[kPartialHead + j] * weight;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCombineVals; ++k) {
+      const int j = j0 + 32 * k;
+      if (j < d) out[o * d + j] = from_float<Q>(acc[k] / l_safe);
+    }
+  }
+}
+
+// Merge n_rows output rows' split states into out; returns
+// cudaGetLastError() after the launch.
+template <typename Q>
+cudaError_t launch_combine(const float* partials, Q* out, int n_rows,
+                           int splits, int d, cudaStream_t stream) {
+  if (n_rows == 0) return cudaSuccess;
+  const unsigned grid = (n_rows + kCombineWarps - 1) / kCombineWarps;
+  combine_splits_kernel<Q><<<grid, 32 * kCombineWarps, 0, stream>>>(
+      partials, out, n_rows, splits, d);
+  return cudaGetLastError();
 }
 
 }  // namespace paged_kv

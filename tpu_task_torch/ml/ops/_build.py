@@ -32,14 +32,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_decode": {
         # q_type, kv_type, q, k_pool, v_pool, k_scale, v_scale, tables,
-        # positions, out, rows, w, heads, kv_heads, d, bs, max_blocks, stream
-        "tt_paged_decode": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _P]),
+        # positions, out, partials, rows, w, heads, kv_heads, d, bs,
+        # max_blocks, splits, split_blocks, stream
+        "tt_paged_decode": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        # q_type, partials, out, n_rows, splits, d, stream
+        "tt_paged_decode_combine": (_I, [_I, _P, _P, _I, _I, _I, _P]),
+        # q_type, kv_type, smem_bytes, int* ctas
+        "tt_paged_decode_ctas_per_sm": (_I, [_I, _I, _I, _P]),
         "tt_paged_decode_smem_bytes": (_I, [_I, _I, _I, _I, _I]),
         "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "paged_decode_pipelined": {
-        # the arguments of tt_paged_decode
+        # those of tt_paged_decode without partials, splits, split_blocks
         "tt_paged_decode_pipelined": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
                                            _P, _P, _I, _I, _I, _I, _I, _I,
                                            _I, _P]),

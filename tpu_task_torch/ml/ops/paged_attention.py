@@ -8,7 +8,10 @@ originals do:
 - :func:`paged_decode_attention` launches ``csrc/paged_decode.cu``, the
   port of ``_paged_decode_kernel``: it walks each row's block table over
   the physical KV pools in 64-token tiles, so the gathered dense view never
-  exists.
+  exists. The walk is cut across CTAs (split-KV) as far as
+  :func:`split_plan` says to fill the card; past one split, a second
+  kernel (``combine_splits_kernel`` in ``csrc/paged_kv.cuh``) merges the
+  splits' partial softmax states.
 - :func:`paged_decode_pipelined_attention` launches
   ``csrc/paged_decode_pipelined.cu``, the port of
   ``_paged_decode_pipelined_kernel``: the same walk over a double-buffered
@@ -22,24 +25,30 @@ in registers and the scales applied to each block's scores and p·v.
 :func:`paged_reference_attention` is the plain version of both (gather
 through the tables, dequantize, then the shared dense core); the CPU tests
 compare it with the JAX package and ``chip_smoke.py`` compares the kernels
-with it on the card. A wrapper takes the plain version only for tensors
-that lie on the CPU; for a CUDA tensor it launches its kernel or raises.
+with it on the card. :func:`paged_split_partials` and
+:func:`combine_partials` are the plain versions of the split kernel's
+partial states and of their merge. A wrapper takes the plain version only
+for tensors that lie on the CPU; for a CUDA tensor it launches its kernel
+or raises.
 
 Each function counts its launches in a plain integer attribute
 (``paged_decode_attention.launches``,
 ``paged_decode_pipelined_attention.launches``,
 ``paged_reference_attention.launches``) so a run can show which one the
-serving path went through."""
+serving path went through; ``paged_decode_attention.combine_launches``
+counts the combine kernel's launches, where it is launched."""
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
 from tpu_task_torch.ml.ops import _build
-from tpu_task_torch.ml.ops.attention import gqa_cached_attention
+from tpu_task_torch.ml.ops.attention import NEG_INF, gqa_cached_attention
 from tpu_task_torch.ml.serving.cache import flat_pool, gather_kv, unpack_int4
 
 #: The query (and output) types the kernels take, by their code.
@@ -56,6 +65,12 @@ MAX_SMEM_BYTES = 232_448
 
 IMPLS = ("reference", "cuda", "pipelined")
 
+#: Tokens the tile kernel takes per iteration (``kTileTokens`` in
+#: ``csrc/paged_decode.cu``), rounded to whole blocks.
+TILE_TOKENS = 64
+#: Floats ahead of acc in one partial state: m and l (``kPartialHead``).
+PARTIAL_HEAD = 2
+
 
 def dequantize_view(view: torch.Tensor, scale: torch.Tensor,
                     block_tables: torch.Tensor, block_size: int,
@@ -69,6 +84,24 @@ def dequantize_view(view: torch.Tensor, scale: torch.Tensor,
     s_view = scale[block_tables.to(torch.int64)].repeat_interleave(
         block_size, dim=1)
     return (view.to(torch.float32) * s_view[..., None]).to(dtype)
+
+
+def _gathered_views(k_pool, v_pool, block_tables, k_scale, v_scale,
+                    dtype: torch.dtype):
+    """Each row's logical (rows, L, kv, d) K and V views through its block
+    table, a quantized pool's dequantized to ``dtype``."""
+    bs = k_pool.shape[1]
+
+    def gather(pool, scale):
+        if scale is None:
+            return gather_kv(flat_pool(pool), block_tables, bs)
+        # One-byte codes are gathered as bytes, so no indexing kernel has
+        # to know float8.
+        raw = gather_kv(flat_pool(pool.view(torch.uint8)), block_tables, bs)
+        return dequantize_view(raw.view(pool.dtype), scale, block_tables, bs,
+                               dtype)
+
+    return gather(k_pool, k_scale), gather(v_pool, v_scale)
 
 
 def paged_reference_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -85,24 +118,110 @@ def paged_reference_attention(q: torch.Tensor, k_pool: torch.Tensor,
     max_blocks); positions (rows, w); scales (n_blocks, kv). Returns
     (rows, w, h, d) in q's dtype."""
     paged_reference_attention.launches += 1
-    bs = k_pool.shape[1]
-
-    def gather(pool):
-        if k_scale is None:
-            return gather_kv(flat_pool(pool), block_tables, bs)
-        # One-byte codes are gathered as bytes, so no indexing kernel has
-        # to know float8.
-        raw = gather_kv(flat_pool(pool.view(torch.uint8)), block_tables, bs)
-        return raw.view(pool.dtype)
-
-    k_view, v_view = gather(k_pool), gather(v_pool)
-    if k_scale is not None:
-        k_view = dequantize_view(k_view, k_scale, block_tables, bs, q.dtype)
-        v_view = dequantize_view(v_view, v_scale, block_tables, bs, q.dtype)
+    k_view, v_view = _gathered_views(k_pool, v_pool, block_tables, k_scale,
+                                     v_scale, q.dtype)
     return gqa_cached_attention(q, k_view, v_view, q_positions)
 
 
 paged_reference_attention.launches = 0
+
+
+def tile_blocks_for(block_size: int) -> int:
+    """Blocks per tile of the tile kernel (``tile_blocks_for`` in
+    ``csrc/paged_decode.cu``)."""
+    return 1 if block_size >= TILE_TOKENS else TILE_TOKENS // block_size
+
+
+def n_tiles(max_blocks: int, block_size: int) -> int:
+    """Tiles of a table ``max_blocks`` wide; the last may be ragged."""
+    return -(-max_blocks // tile_blocks_for(block_size))
+
+
+def split_plan(rows: int, kv_heads: int, max_blocks: int, block_size: int,
+               n_sms: int, ctas_per_sm: int) -> int:
+    """How many CTAs the tile kernel cuts each (row, kv head) walk into,
+    from shapes alone: enough CTAs for one resident wave of the card
+    (``n_sms * ctas_per_sm``), each split a whole number of tiles, and no
+    more splits than the table has tiles. A grid already a wave wide takes
+    one split (no combine). Reads no positions or tables, so it never waits
+    for the card."""
+    tiles = n_tiles(max_blocks, block_size)
+    ctas = rows * kv_heads
+    wave = n_sms * ctas_per_sm
+    if ctas == 0 or ctas >= wave or tiles <= 1:
+        return 1
+    split_tiles = -(-tiles // min(tiles, -(-wave // ctas)))
+    return -(-tiles // split_tiles)
+
+
+def split_blocks(max_blocks: int, block_size: int, splits: int) -> int:
+    """Table entries each split covers: ceil(tiles / splits) whole tiles.
+    The kernel takes this number as it is."""
+    return -(-n_tiles(max_blocks, block_size) // splits) \
+        * tile_blocks_for(block_size)
+
+
+def split_ranges(max_blocks: int, block_size: int,
+                 splits: int) -> List[Tuple[int, int]]:
+    """Table entries [lo, hi) of each split, as the kernel cuts them: every
+    split :func:`split_blocks` entries, the last ragged, any past the table
+    empty."""
+    span = split_blocks(max_blocks, block_size, splits)
+    return [(min(s * span, max_blocks), min((s + 1) * span, max_blocks))
+            for s in range(splits)]
+
+
+def paged_split_partials(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, block_tables: torch.Tensor,
+                         q_positions: torch.Tensor,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None, *,
+                         splits: int) -> torch.Tensor:
+    """The plain version of the split kernel's output: for each query row
+    and split of :func:`split_ranges`, the online-softmax state over the
+    slots of that split the query sees, from the gathered view in fp32.
+    Returns (rows, w, h, splits, 2 + d) fp32: m (the max score, NEG_INF
+    where the split shows the query nothing), l (the sum of e^(s - m)) and
+    acc (the unnormalised sum of e^(s - m) v); the empty state is
+    (NEG_INF, 0, 0). Arguments as :func:`paged_reference_attention`."""
+    rows, w, h, d = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    k_view, v_view = (t.float() for t in _gathered_views(
+        k_pool, v_pool, block_tables, k_scale, v_scale, torch.float32))
+    qg = q.float().reshape(rows, w, kv, h // kv, d)
+    scores = torch.einsum("bwkgd,blkd->bwkgl", qg, k_view) / math.sqrt(d)
+    slot = torch.arange(k_view.shape[1], device=q.device)
+    visible = slot[None, None, :] <= q_positions[:, :, None]     # (b, w, L)
+    parts = []
+    for lo, hi in split_ranges(block_tables.shape[1], bs, splits):
+        mask = (visible & (slot >= lo * bs) & (slot < hi * bs))[:, :, None,
+                                                                 None]
+        s = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        m = s.amax(dim=-1)
+        shift = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+        p = torch.where(mask, torch.exp(s - shift[..., None]),
+                        torch.zeros_like(s))
+        acc = torch.einsum("bwkgl,blkd->bwkgd", p, v_view)
+        parts.append(torch.cat([m[..., None], p.sum(-1)[..., None], acc], -1))
+    return torch.stack(parts, dim=-2).reshape(rows, w, h, splits,
+                                              PARTIAL_HEAD + d)
+
+
+def combine_partials(partials: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version of the combine kernel: merge (…, splits, 2 + d)
+    partial states into (…, d) in ``dtype``. M = max m_s; a state weighs
+    e^(m_s - M), or 0 when m_s is the mask value; o = Σ acc_s w_s / L with
+    L = Σ l_s w_s (1 where L is 0), so a query that sees no slot gets 0."""
+    m, l, acc = (partials[..., 0], partials[..., 1],
+                 partials[..., PARTIAL_HEAD:])
+    big = m.amax(dim=-1, keepdim=True)
+    weight = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                         torch.exp(m - big))
+    total = (l * weight).sum(-1)
+    out = (acc * weight[..., None]).sum(-2)
+    return (out / torch.where(total == 0, torch.ones_like(total),
+                              total)[..., None]).to(dtype)
 
 
 def _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions,
@@ -193,12 +312,87 @@ def _smem_bytes(pipelined: bool, kv_type: int, w: int, h: int, kv: int,
     return smem
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _ctas_per_sm(index: int, q_type: int, kv_type: int, smem: int) -> int:
+    """CTAs of the tile kernel's instantiation that one SM holds at once,
+    from the CUDA occupancy calculator."""
+    lib = _build.load("paged_decode")
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = lib.tt_paged_decode_ctas_per_sm(q_type, kv_type, smem,
+                                             ctypes.addressof(ctas))
+    if rc:
+        raise RuntimeError(
+            f"paged_decode occupancy query failed: CUDA error {rc} "
+            f"({lib.tt_cuda_error_string(rc).decode()})")
+    if ctas.value < 1:
+        raise RuntimeError(f"paged_decode: no CTA of {smem} bytes of shared "
+                           f"memory fits an SM")
+    return ctas.value
+
+
+def planned_splits(q: torch.Tensor, k_pool: torch.Tensor,
+                   max_blocks: int) -> int:
+    """:func:`split_plan` for the tile kernel at these shapes and types on
+    q's card (its SM count and the instantiation's occupancy, both cached
+    per device and instantiation)."""
+    rows, w, h, d = q.shape
+    _, bs, kv, _ = k_pool.shape
+    kv_type = KV_TYPES[k_pool.dtype]
+    smem = _smem_bytes(False, kv_type, w, h, kv, d, bs)
+    index = q.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return split_plan(rows, kv, max_blocks, bs, _sm_count(index),
+                      _ctas_per_sm(index, Q_TYPES[q.dtype], kv_type, smem))
+
+
+def _raise_on(rc: int, lib, name: str) -> None:
+    if rc:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {rc} "
+            f"({lib.tt_cuda_error_string(rc).decode()})")
+
+
+def _launch_combine(partials: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the combine kernel: merge ``partials`` (rows, w, h, splits,
+    2 + d) fp32 into ``out`` (rows, w, h, d, fp32 or bf16) on the current
+    stream; raises on any CUDA error. Counts nothing."""
+    *lead, splits, width = partials.shape
+    if partials.dtype != torch.float32 or out.dtype not in Q_TYPES \
+            or tuple(out.shape) != (*lead, width - PARTIAL_HEAD) \
+            or out.device != partials.device \
+            or not (partials.is_contiguous() and out.is_contiguous()):
+        raise ValueError(
+            f"combine takes contiguous fp32 partials (…, splits, 2 + d) and "
+            f"an out (…, d) beside them, got {partials.dtype} "
+            f"{tuple(partials.shape)} and {out.dtype} {tuple(out.shape)}")
+    lib = _build.load("paged_decode")
+    with torch.cuda.device(out.device):
+        rc = lib.tt_paged_decode_combine(
+            Q_TYPES[out.dtype], partials.data_ptr(), out.data_ptr(),
+            out.numel() // out.shape[-1], splits, out.shape[-1],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, lib, "paged_decode combine")
+
+
 def _launch(q, k_pool, v_pool, block_tables, q_positions,
             out: torch.Tensor, k_scale=None, v_scale=None, *,
-            pipelined: bool = False) -> None:
+            pipelined: bool = False, splits: Optional[int] = None,
+            partials: Optional[torch.Tensor] = None) -> int:
     """Launch one kernel into ``out`` (q's shape and type) on the current
-    stream after checking its arguments; raises on any CUDA error. Counts
-    nothing: the wrappers are the counted entries."""
+    stream after checking its arguments; raises on any CUDA error. The tile
+    kernel cuts its walk into :func:`planned_splits` splits and, past one,
+    merges them with the combine kernel through ``partials`` scratch, adding
+    one to ``paged_decode_attention.combine_launches`` at that launch; the
+    split walk's own launch is counted by its wrapper. Tests may force
+    ``splits`` (1 .. the table's tiles) and pass the scratch. Returns the
+    split count (1 for the pipelined kernel)."""
     _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions,
                        k_scale, v_scale, pipelined=pipelined)
     if out.shape != q.shape or out.dtype != q.dtype \
@@ -206,24 +400,54 @@ def _launch(q, k_pool, v_pool, block_tables, q_positions,
         raise ValueError("out must be a contiguous tensor like q")
     rows, w, h, d = q.shape
     _, bs, kv, _ = k_pool.shape
+    max_blocks = block_tables.shape[1]
     kv_type = KV_TYPES[k_pool.dtype]
+    if pipelined and (splits not in (None, 1) or partials is not None):
+        raise ValueError("the pipelined kernel does not split its walk")
+    if splits is not None and not 1 <= splits <= n_tiles(max_blocks, bs):
+        raise ValueError(
+            f"splits must be 1 .. {n_tiles(max_blocks, bs)} (the table's "
+            f"tiles), got {splits}")
     _smem_bytes(pipelined, kv_type, w, h, kv, d, bs)
+    if pipelined:
+        splits = 1
+    elif splits is None:
+        splits = planned_splits(q, k_pool, max_blocks)
+    if splits > 1:
+        shape = (rows, w, h, splits, PARTIAL_HEAD + d)
+        if partials is None:
+            partials = torch.empty(shape, dtype=torch.float32,
+                                   device=q.device)
+        elif tuple(partials.shape) != shape \
+                or partials.dtype != torch.float32 \
+                or partials.device != q.device \
+                or not partials.is_contiguous():
+            raise ValueError(f"partials must be contiguous fp32 {shape} on "
+                             f"q's device")
     name = "paged_decode_pipelined" if pipelined else "paged_decode"
     lib = _build.load(name)
-    entry = getattr(lib, f"tt_{name}")
     scales = ((k_scale.data_ptr(), v_scale.data_ptr())
               if k_scale is not None else (None, None))
+    pointers = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+                block_tables.data_ptr(), q_positions.data_ptr(),
+                out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = entry(Q_TYPES[q.dtype], kv_type, q.data_ptr(),
-                   k_pool.data_ptr(), v_pool.data_ptr(), *scales,
-                   block_tables.data_ptr(), q_positions.data_ptr(),
-                   out.data_ptr(), rows, w, h, kv, d, bs,
-                   block_tables.shape[1], stream)
-    if rc:
-        raise RuntimeError(
-            f"{name} kernel launch failed: CUDA error {rc} "
-            f"({lib.tt_cuda_error_string(rc).decode()})")
+        if pipelined:
+            rc = lib.tt_paged_decode_pipelined(
+                Q_TYPES[q.dtype], kv_type, *pointers, rows, w, h, kv, d, bs,
+                max_blocks, stream)
+        else:
+            rc = lib.tt_paged_decode(
+                Q_TYPES[q.dtype], kv_type, *pointers,
+                partials.data_ptr() if splits > 1 else None, rows, w, h, kv,
+                d, bs, max_blocks, splits,
+                split_blocks(max_blocks, bs, splits), stream)
+    _raise_on(rc, lib, name)
+    if splits > 1:
+        _launch_combine(partials, out)
+        paged_decode_attention.combine_launches += 1
+    return splits
 
 
 def _kernel_call(wrapper, pipelined: bool, q, k_pool, v_pool, block_tables,
@@ -249,12 +473,17 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Paged GQA decode attention through ``csrc/paged_decode.cu`` — the
     arguments and result of :func:`paged_reference_attention`. A CPU tensor
     takes the plain version (there is no CUDA there); a CUDA tensor
-    launches the kernel on the current stream, or raises."""
+    launches the kernel on the current stream, cut into
+    :func:`planned_splits` splits and followed by the combine kernel when
+    there is more than one, or raises. ``launches`` counts calls (one per
+    layer per fused step), ``combine_launches`` the combine kernel's
+    launches."""
     return _kernel_call(paged_decode_attention, False, q, k_pool, v_pool,
                         block_tables, q_positions, k_scale, v_scale)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.combine_launches = 0
 
 
 def paged_decode_pipelined_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -277,6 +506,7 @@ paged_decode_pipelined_attention.launches = 0
 
 def reset_launch_counts() -> None:
     paged_decode_attention.launches = 0
+    paged_decode_attention.combine_launches = 0
     paged_decode_pipelined_attention.launches = 0
     paged_reference_attention.launches = 0
 
