@@ -82,19 +82,22 @@ script exits non-zero:
 
 11. kernel quant — both paged kernels (``paged_decode.cu``'s int8, fp8 and
              int4 variants; ``paged_decode_pipelined.cu`` over all five
-             storage types) against the plain version in fp32 on the same
-             codes: the flagship geometry (kv 2, group 4, d 128, block 16),
-             d 16 at block 8 and d 8 at block 4, widths 1 and 3, 24 rows of
-             ragged depths up to 2048 with inactive rows, and the serve
-             run's 16-row decode and 144-row chunk steps; fp32 and bf16
-             queries, phase 3's gates and forced splits, NaN-guarded,
-             inputs unchanged.
+             storage types, on its tensor-core path for bf16 queries at d
+             128 and 16 and its scalar path otherwise) against the plain
+             version in fp32 on the same codes: the flagship geometry (kv
+             2, group 4, d 128, block 16), d 16 at block 8 and d 8 at block
+             4, widths 1 and 3, 24 rows of ragged depths up to 2048 with
+             inactive rows, and the serve run's 16-row decode and 144-row
+             chunk steps; fp32 and bf16 queries, phase 3's gates and forced
+             splits (each kernel at its own plan), NaN-guarded, inputs
+             unchanged.
 12. timing quant — both kernels, the plain version and SDPA over the view
              dequantized to bf16 ahead of time (``library_ms``; the
              dequantization is not timed) for each storage type at batch
              1, 16 and 32, depth 1024, and at the 144-row chunk step,
-             beside the bytes bound and the tile kernel's split plan and
-             ``unsplit_ms``.
+             beside the bytes bound and each kernel's split plan, CTAs and
+             ``unsplit_ms``; then the pipelined kernel's int8 batch-16
+             calls under ``torch.profiler`` (split walk and combine).
 13. parity quant — the engine on ``tiny``, ``micro`` and the INT8_PIN
              geometry of ``tests/test_paged_attention.py`` at fp32, for
              each kv_dtype: greedy and keyed-sampled streams through
@@ -104,8 +107,9 @@ script exits non-zero:
 14. serve quant — the flagship at the serve phase's configuration with
              ``kv_dtype="int8", decode_impl="pipelined"``: a warm-up wave and
              three timed waves of phase 6's traffic (launches must be
-             n_layers per fused step through the pipelined kernel, 0 through
-             the tile kernel and the plain version; layer 0's attention in
+             n_layers per fused step through the pipelined kernel, its
+             combine after every call the plan splits, 0 through the tile
+             kernel and the plain version; layer 0's attention in
              the first decode and last chunk step held against the plain
              version), then one shorter wave each of fp8 and int4 through
              the pipelined kernel and of int8 through the tile kernel, under
@@ -339,14 +343,14 @@ def close_to(got, ref, dtype) -> bool:
     return bool((err <= 2.0 ** -8 * ref.abs() + 1e-5).all())
 
 
-def forced_splits(args) -> list:
-    """The split counts the tile kernel is held at: 1, 2, the plan for
-    these shapes on this card, and one per tile."""
+def forced_splits(args, pipelined: bool = False) -> list:
+    """The split counts a paged kernel is held at: 1, 2, its plan for these
+    shapes on this card, and one per tile (stage)."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     q, k_pool, tables = args[0], args[1], args[3]
     tiles = pa.n_tiles(tables.shape[1], k_pool.shape[1])
-    plan = pa.planned_splits(q, k_pool, tables.shape[1])
+    plan = pa.planned_splits(q, k_pool, tables.shape[1], pipelined=pipelined)
     return sorted({1, min(2, tiles), plan, tiles})
 
 
@@ -372,8 +376,9 @@ def partial_state_err(got, ref) -> float:
     return max(dm.item(), dl.item(), dacc.item())
 
 
-def check_splits(args) -> dict:
-    """The tile kernel at every count of ``forced_splits``, launched
+def check_splits(args, pipelined: bool = False) -> dict:
+    """A paged kernel (the tile kernel, or the pipelined one) at every
+    count of ``forced_splits``, launched
     uncounted into the middle of a NaN-filled buffer with NaN-filled split
     states: its output against the merge of the plain split states
     (``combine_partials(paged_split_partials(...))``, fp32 on the same
@@ -391,7 +396,9 @@ def check_splits(args) -> dict:
     wide = [q.float()] + [p.float() if p.dtype == q.dtype else p
                           for p in args[1:3]] + list(args[3:])
     exact = pa.paged_reference_attention(*wide)
-    result = dict(splits=forced_splits(args), split_max_abs_err=0.0,
+    name = "paged_decode_pipelined" if pipelined else "paged_decode"
+    result = dict(splits=forced_splits(args, pipelined),
+                  split_max_abs_err=0.0,
                   split_states_max_rel_err=0.0, combine_max_abs_err=0.0)
     for splits in result["splits"]:
         plain = pa.paged_split_partials(*args, splits=splits)
@@ -403,7 +410,8 @@ def check_splits(args) -> dict:
         states = (torch.full((rows, w, h, splits, pa.PARTIAL_HEAD + d),
                              float("nan"), device=q.device)
                   if splits > 1 else None)
-        pa._launch(*args[:5], out, *args[5:], splits=splits, partials=states)
+        pa._launch(*args[:5], out, *args[5:], pipelined=pipelined,
+                   splits=splits, partials=states)
         torch.cuda.synchronize()
         ok = bool(torch.isnan(buf[:pad]).all() and torch.isnan(buf[-pad:]).all()
                   and not torch.isnan(out).any()
@@ -414,7 +422,7 @@ def check_splits(args) -> dict:
         if splits > 1:
             state_err = partial_state_err(states, plain)
             alone = torch.empty_like(q)
-            pa._launch_combine(plain, alone)
+            pa._launch_combine(plain, alone, pipelined=pipelined)
             torch.cuda.synchronize()
             want = pa.combine_partials(plain)
             ok = ok and state_err <= FP32_ATOL \
@@ -426,11 +434,10 @@ def check_splits(args) -> dict:
                 (alone.float() - want).abs().max().item())
         if not ok:
             raise AssertionError(
-                f"paged_decode at {splits} splits disagrees or writes outside "
-                f"its output: {result}, this count's error {err}")
+                f"{name} at {splits} splits disagrees or writes outside its "
+                f"output: {result}, this count's error {err}")
     if not all(same_bytes(a, b) for a, b in zip(before, args)):
-        raise AssertionError("paged_decode at forced splits changed its "
-                             "inputs")
+        raise AssertionError(f"{name} at forced splits changed its inputs")
     return result
 
 
@@ -558,14 +565,15 @@ def bound(n_bytes: int, flops: int) -> dict:
                 bytes=n_bytes, flops=flops)
 
 
-def unsplit_ms(timer, args) -> float:
-    """The tile kernel's device ms with each row's walk left whole: one
+def unsplit_ms(timer, args, pipelined: bool = False) -> float:
+    """A paged kernel's device ms with each row's walk left whole: one
     split, one CTA per row and kv head, the grid before split-KV; launched
     uncounted."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     out = torch.empty_like(args[0])
-    return timer(lambda: pa._launch(*args[:5], out, *args[5:], splits=1))
+    return timer(lambda: pa._launch(*args[:5], out, *args[5:],
+                                    pipelined=pipelined, splits=1))
 
 
 def shape_name(rows: int) -> str:
@@ -622,39 +630,57 @@ def phase_timing(device, smi: str) -> dict:
     return rows_out
 
 
-def profile_wrapper(timer, kernel, row: dict, smi: str,
-                    iters: int = 20) -> None:
+def profile_wrapper(timer, kernel, row: dict, smi: str, iters: int = 20,
+                    name: str = "paged_decode") -> None:
     """``iters`` wrapper calls under ``torch.profiler``, the L2 flushed
     before each as ``DeviceTimer`` does: each call must launch one split
-    walk, and one combine when ``row``'s plan splits; prints the mean
-    device ms of each and of the span from the walk's start to the
-    combine's end (the gap between the two launches included)."""
+    walk of kernel ``name``, and one combine after it when ``row``'s plan
+    splits; prints the mean device ms of each and of the span from the
+    walk's start to the combine's end (the gap between the two launches
+    included). One more call runs first inside the trace and is not read:
+    a tracer started after earlier ones in the process may miss its first
+    kernel (seen on the H100: 19 walks of 20 calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     kernel()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(iters + 1):
             timer.flush.zero_()
             kernel()
         torch.cuda.synchronize()
     events = sorted((start, end, name)
                     for name, start, end in device_events(prof))
-    walks = [(s, e) for s, e, name in events if "paged_decode_kernel" in name]
-    combines = [(s, e) for s, e, name in events
-                if "combine_splits_kernel" in name]
-    if len(walks) != iters \
-            or len(combines) != (iters if row["splits"] > 1 else 0):
+    walk_names = {"paged_decode": ("paged_decode_kernel",),
+                  "paged_decode_pipelined": (
+                      "paged_decode_pipelined_kernel",
+                      "paged_decode_pipelined_mma_kernel")}[name]
+    walks = [(s, e) for s, e, ev in events
+             if any(w in ev for w in walk_names)]
+    combines = [(s, e) for s, e, ev in events
+                if "combine_splits_kernel" in ev]
+    split = row["splits"] > 1
+    seen = (len(walks), len(combines))
+    walks, combines = walks[-iters:], combines[-iters:] if split else []
+    paired = all(w_end <= c_start and (i + 1 == iters
+                                       or c_end <= walks[i + 1][0])
+                 for i, ((_, w_end), (c_start, c_end))
+                 in enumerate(zip(walks, combines)))
+    if not (iters <= seen[0] <= iters + 1 and len(walks) == iters
+            and seen[1] <= (iters + 1 if split else 0)
+            and len(combines) == (iters if split else 0) and paired):
         raise AssertionError(
-            f"{iters} traced wrapper calls at {row['splits']} splits showed "
-            f"{len(walks)} split walks and {len(combines)} combines")
+            f"{iters + 1} traced wrapper calls at {row['splits']} splits "
+            f"showed {seen[0]} split walks and {seen[1]} combines"
+            f"{'' if paired else ', not each combine after its walk'}")
     walk_ms = float(np.mean([e - s for s, e in walks])) / 1e3
     combine_ms = (float(np.mean([e - s for s, e in combines])) / 1e3
                   if combines else 0.0)
     ends = [e for _, e in (combines or walks)]
     span_ms = float(np.mean([e - s for (s, _), e in zip(walks, ends)])) / 1e3
-    emit("timing_profile", kernel="paged_decode", batch=row["batch"],
+    emit("timing_profile", kernel=name, storage=row.get("storage"),
+         batch=row["batch"],
          splits=row["splits"], calls=iters, walk_ms=walk_ms,
          combine_ms=combine_ms, span_ms=span_ms,
          gap_ms=span_ms - walk_ms - combine_ms,
@@ -820,11 +846,12 @@ def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
             (time.perf_counter() - s0) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels = {"cuda": pa.paged_decode_attention.launches,
-               "pipelined": pa.paged_decode_pipelined_attention.launches}
-    launches = kernels.pop(engine.decode_impl)
+    kernels = {"cuda": pa.paged_decode_attention,
+               "pipelined": pa.paged_decode_pipelined_attention}
+    kernel = kernels.pop(engine.decode_impl)
+    launches, combines = kernel.launches, kernel.combine_launches
+    other = sum(fn.launches + fn.combine_launches for fn in kernels.values())
     plain = pa.paged_reference_attention.launches
-    combines = pa.paged_decode_attention.combine_launches
     plans = step_splits(engine)
     results = [engine.request(rid) for rid in rids]
     generated = sum(len(r.tokens) for r in results)
@@ -839,7 +866,7 @@ def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
         mean_decode_step_ms=float(np.mean(decode_ms)) if decode_ms else None,
         mean_chunk_step_ms=float(np.mean(chunk_ms)),
         kernel=engine.decode_impl, kernel_launches=launches,
-        other_kernel_launches=sum(kernels.values()), plain_launches=plain,
+        other_kernel_launches=other, plain_launches=plain,
         expected_launches=engine.cfg.n_layers * fused,
         step_splits=plans, combine_launches=combines,
         expected_combine_launches=engine.cfg.n_layers * (
@@ -851,8 +878,8 @@ def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
 
 
 def step_splits(engine) -> dict:
-    """The tile kernel's split plan at the engine's decode and chunk steps
-    (1 for the pipelined kernel, which does not split)."""
+    """The split plan of the engine's kernel at its decode and chunk
+    steps."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     cfg, scfg = engine.cfg, engine.scfg
@@ -862,8 +889,9 @@ def step_splits(engine) -> dict:
                        ("chunk", scfg.slots + scfg.chunk_tokens)):
         q = torch.empty((rows, 1, cfg.n_heads, cfg.d_head), dtype=cfg.dtype,
                         device=pool.device)
-        plans[step] = (pa.planned_splits(q, pool, scfg.max_blocks_per_slot)
-                       if engine.decode_impl == "cuda" else 1)
+        plans[step] = pa.planned_splits(
+            q, pool, scfg.max_blocks_per_slot,
+            pipelined=engine.decode_impl == "pipelined")
     return plans
 
 
@@ -975,12 +1003,12 @@ def phase_serve(device, smi: str) -> tuple:
     return launches, line["combine_launches"]
 
 
-def phase_serve_quant(device, smi: str) -> int:
+def phase_serve_quant(device, smi: str) -> tuple:
     """The quantized path: the flagship with int8 pools through the
     pipelined kernel (three timed waves), then one shorter wave each of
     fp8 and int4 through the pipelined kernel and int8 through the tile
-    kernel. Returns the pipelined kernel's launch count over the three
-    timed int8 waves."""
+    kernel. Returns the pipelined kernel's and its combine kernel's launch
+    counts over the three timed int8 waves."""
     from tpu_task_torch.ml.serving.cache import ServingConfig, \
         paged_cache_bytes
     from tpu_task_torch.ml.serving.engine import ServingEngine
@@ -1012,14 +1040,14 @@ def phase_serve_quant(device, smi: str) -> int:
     if not all(wave_ok(r) for r in short):
         raise AssertionError(f"a short quantized wave failed its gates: "
                              f"{short}")
-    return launches
+    return launches, line["combine_launches"]
 
 
 def wave_ok(run: dict) -> bool:
     """A serve wave's gates: every request done, every fused step through
-    the engine's kernel once per layer, nothing through the other kernel or
-    the plain version, and the combine kernel after every tile-kernel call
-    whose step shape the plan splits."""
+    the engine's kernel once per layer, nothing through the other kernel
+    (nor its combine) or the plain version, and the combine kernel after
+    every call whose step shape the plan splits."""
     return (run["all_finished"] and run["plain_launches"] == 0
             and run["other_kernel_launches"] == 0
             and run["kernel_launches"] == run["expected_launches"] > 0
@@ -1579,12 +1607,13 @@ def storage_name(kv_dtype, q_dtype) -> str:
 
 
 def phase_kernel_quant(device) -> dict:
-    """Both paged kernels against the plain version on the same codes:
-    the tile kernel's quantized variants (its model-dtype ones are phase
-    3's), also at forced split counts (``check_splits``), and the pipelined
-    kernel over every storage type. One line per (kernel, storage, q
-    dtype); returns each kernel's largest fp32 error, the combine kernel's
-    under ``"paged_decode_combine"``."""
+    """Both paged kernels against the plain version on the same codes, each
+    also at forced split counts (``check_splits``): the tile kernel's
+    quantized variants (its model-dtype ones are phase 3's) and the
+    pipelined kernel over every storage type, its tensor-core path (bf16
+    queries, d 128 and 16) and its scalar one (fp32 queries, d 8). One line
+    per (kernel, storage, q dtype); returns each kernel's largest fp32
+    error, the combine kernel's under ``"paged_decode_combine"``."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     gen = torch.Generator().manual_seed(5)
@@ -1618,8 +1647,7 @@ def phase_kernel_quant(device) -> dict:
                     guarded = guarded_launch(
                         args, got, pipelined=kernel != "paged_decode")
                     err = (got.float() - same.float()).abs().max().item()
-                    split = (check_splits(args) if kernel == "paged_decode"
-                             else {})
+                    split = check_splits(args, kernel != "paged_decode")
                     line = dict(kernel=kernel, case=case, w=w, rows=rows,
                                 storage=storage_name(kv_dtype, q_dtype),
                                 q_dtype=str(q_dtype).replace("torch.", ""),
@@ -1641,20 +1669,26 @@ def phase_kernel_quant(device) -> dict:
                         raise AssertionError(f"{kernel} disagrees: {line}")
                     key = (kernel, line["storage"], line["q_dtype"])
                     agg = summary.setdefault(key, dict(
-                        cases=0, max_abs_err=0.0, max_abs_err_vs_fp32=0.0))
+                        cases=0, max_abs_err=0.0, max_abs_err_vs_fp32=0.0,
+                        stage_math=[]))
                     agg["cases"] += 1
+                    if kernel == "paged_decode_pipelined":
+                        path = (f"{case} w{w}: tensor cores"
+                                if pa.pipelined_uses_tensor_cores(*args[:2])
+                                else f"{case} w{w}: scalar")
+                        if path not in agg["stage_math"]:
+                            agg["stage_math"].append(path)
                     agg["max_abs_err"] = max(agg["max_abs_err"], err)
                     agg["max_abs_err_vs_fp32"] = max(
                         agg["max_abs_err_vs_fp32"],
                         line.get("max_abs_err_vs_fp32", err))
-                    if split:
-                        agg["splits_checked"] = sorted(
-                            set(agg.get("splits_checked", []))
-                            | set(split["splits"]))
-                        for name in ("split_max_abs_err",
-                                     "split_states_max_rel_err",
-                                     "combine_max_abs_err"):
-                            agg[name] = max(agg.get(name, 0.0), split[name])
+                    agg["splits_checked"] = sorted(
+                        set(agg.get("splits_checked", []))
+                        | set(split["splits"]))
+                    for name in ("split_max_abs_err",
+                                 "split_states_max_rel_err",
+                                 "combine_max_abs_err"):
+                        agg[name] = max(agg.get(name, 0.0), split[name])
     for (kernel, storage, q_dtype), agg in summary.items():
         emit("kernel_quant", ok=True, kernel=kernel, storage=storage,
              q_dtype=q_dtype, **agg,
@@ -1673,9 +1707,11 @@ def phase_timing_quant(device, smi: str) -> dict:
     shape (bf16 queries, depth 1024, tables 72 wide) at batch 1, 16 and 32
     and at the serve run's 144-row chunk step, beside the plain version,
     SDPA over the view dequantized to bf16 ahead of time (the
-    dequantization is not in ``library_ms``), the bytes bound and the tile
-    kernel's split plan and CTAs. Returns {kernel: {storage: the batch-16
-    row}}."""
+    dequantization is not in ``library_ms``), the bytes bound, each
+    kernel's split plan and CTAs and its time at one split
+    (``unsplit_ms``); then the pipelined kernel's int8 batch-16 wrapper
+    calls traced apart into the split walk and the combine. Returns
+    {kernel: {storage: {rows: row}}}."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     timer = DeviceTimer(device)
@@ -1711,21 +1747,25 @@ def phase_timing_quant(device, smi: str) -> dict:
                     raise AssertionError(
                         f"{kernel} or SDPA yardstick disagrees at {storage} "
                         f"{shape_name(rows)}: {check}, SDPA {lib_err}")
-                tile = kernel == "paged_decode"
-                splits = (pa.planned_splits(args[0], args[1],
-                                            args[3].shape[1]) if tile else 1)
+                pipelined = kernel == "paged_decode_pipelined"
+                splits = pa.planned_splits(args[0], args[1], args[3].shape[1],
+                                           pipelined=pipelined)
                 row = dict(kernel=kernel, splits=splits,
                            ctas=rows * args[1].shape[2] * splits,
                            ms=timer(lambda: fn(*args)),
-                           unsplit_ms=(unsplit_ms(timer, args) if tile
-                                       else None),
+                           unsplit_ms=unsplit_ms(timer, args, pipelined),
                            host_ms=host_ms(lambda: fn(*args)),
                            library_max_abs_diff=lib_err, **check,
                            **row_common)
+                if pipelined:
+                    row["tensor_cores"] = pa.pipelined_uses_tensor_cores(
+                        *args[:2])
                 row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
                 emit("timing_quant", **row)
-                if rows == 16:
-                    out[kernel][storage] = row
+                out[kernel].setdefault(storage, {})[rows] = row
+                if pipelined and rows == 16 and kv_dtype == "int8":
+                    profile_wrapper(timer, lambda: fn(*args), row, smi,
+                                    name=kernel)
     return out
 
 
@@ -1826,14 +1866,15 @@ def main() -> int:
     quant_err = phase_kernel_quant(device)
     quant_times = phase_timing_quant(device, smi)
     phase_parity_quant(device)
-    pipelined_launches = phase_serve_quant(device, smi)
+    pipelined_launches, pipelined_combines = phase_serve_quant(device, smi)
 
     def by_storage(kernel: str) -> dict:
-        return {storage: {key: row[key] for key in (
+        return {storage: {key: rows[16][key] for key in (
                     "ms", "plain_ms", "bound_ms", "library_ms")}
-                for storage, row in quant_times[kernel].items()}
+                for storage, rows in quant_times[kernel].items()}
 
-    int8 = quant_times["paged_decode_pipelined"]["int8"]
+    int8 = quant_times["paged_decode_pipelined"]["int8"][16]
+    int8_chunk = quant_times["paged_decode_pipelined"]["int8"][CHUNK_ROWS]
     batch16, combine = timing[16], timing["combine"]
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -1870,6 +1911,11 @@ def main() -> int:
         "ms": int8["ms"], "plain_ms": int8["plain_ms"],
         "bound_ms": int8["bound_ms"], "bound_by": int8["bound_by"],
         "library_ms": int8["library_ms"], "storage": "int8",
+        "splits_batch16": int8["splits"], "unsplit_ms": int8["unsplit_ms"],
+        "tensor_cores": int8["tensor_cores"],
+        "chunk_step_ms": int8_chunk["ms"],
+        "chunk_step_splits": int8_chunk["splits"],
+        "chunk_step_unsplit_ms": int8_chunk["unsplit_ms"],
         "by_storage_batch16": by_storage("paged_decode_pipelined")})
     # The split walk's second pass: the merge that _paged_decode_kernel's
     # _finalize does at the end of its sequential block axis.
@@ -1878,6 +1924,7 @@ def main() -> int:
         "source": "tpu_task_torch/csrc/paged_kv.cuh",
         "replaces": "tpu_task/ml/ops/paged_attention.py:252",
         "launches": combine_launches,
+        "launches_after_pipelined": pipelined_combines,
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

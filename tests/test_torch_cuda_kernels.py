@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-two paged-decode kernels (over model-dtype and quantized pools), the tile
-kernel's split-KV walk and its combine kernel, and the three
-flash-attention kernels of training.
+two paged-decode kernels (over model-dtype and quantized pools), each
+one's split-KV walk and its combine kernel, and the three flash-attention
+kernels of training.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -241,6 +241,12 @@ def test_split_kernel_matches_plain(cuda_device, geometry, w, dtype,
     same values; no NaN left behind; the combine kernel alone on the plain
     states against ``combine_partials``. Tables without a given width get
     three whole tiles and a ragged fourth."""
+    _check_forced_splits(cuda_device, geometry, w, dtype, kv_dtype, splits,
+                         pipelined=False)
+
+
+def _check_forced_splits(cuda_device, geometry, w, dtype, kv_dtype, splits,
+                         *, pipelined):
     geometry = dict(geometry)
     bs = geometry["bs"]
     geometry.setdefault("max_blocks", 3 * tpa.tile_blocks_for(bs) + 2)
@@ -257,19 +263,27 @@ def test_split_kernel_matches_plain(cuda_device, geometry, w, dtype,
     args = (q, kp, vp, tables, pos, *scales)
     max_blocks = tables.shape[1]
     tiles = tpa.n_tiles(max_blocks, bs)
-    n = {"plan": tpa.planned_splits(q, kp, max_blocks),
+    n = {"plan": tpa.planned_splits(q, kp, max_blocks, pipelined=pipelined),
          "tiles": tiles}.get(splits, splits)
     rows, _, h, d = q.shape
+    before = [a.clone() for a in args]
     out = torch.full_like(q, float("nan"))
     partials = (torch.full((rows, w, h, n, 2 + d), float("nan"),
                            device=cuda_device) if n > 1 else None)
     tpa.reset_launch_counts()
-    assert tpa._launch(*args[:5], out, *scales, splits=n,
-                       partials=partials) == n
+    assert tpa._launch(*args[:5], out, *scales, pipelined=pipelined,
+                       splits=n, partials=partials) == n
     torch.cuda.synchronize()
-    assert tpa.paged_decode_attention.launches == 0
-    assert tpa.paged_decode_attention.combine_launches == int(n > 1)
+    wrapper, other = (tpa.paged_decode_pipelined_attention,
+                      tpa.paged_decode_attention)
+    if not pipelined:
+        wrapper, other = other, wrapper
+    assert wrapper.launches == other.launches == 0
+    assert wrapper.combine_launches == int(n > 1)
+    assert other.combine_launches == 0
     assert tpa.paged_reference_attention.launches == 0
+    assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(before, args))
     assert not torch.isnan(out).any()
     plain = tpa.paged_split_partials(*args, splits=n)
     assert _close(out, tpa.combine_partials(plain), dtype)
@@ -279,10 +293,103 @@ def test_split_kernel_matches_plain(cuda_device, geometry, w, dtype,
     assert _close(out, exact, dtype)
     if n > 1:
         assert not torch.isnan(partials).any()
+        assert _states_close(partials, plain)
         alone = torch.empty_like(q)
-        tpa._launch_combine(plain, alone)
+        tpa._launch_combine(plain, alone, pipelined=pipelined)
         torch.cuda.synchronize()
         assert _close(alone, tpa.combine_partials(plain), dtype)
+
+
+def _states_close(got, ref):
+    """Split states against the plain ones: the same splits empty (exactly
+    the empty state), m within ATOL of max(1, |m|), l and acc within ATOL of
+    l, the scale of the output they divide into."""
+    empty = ref[..., 0] <= tpa.NEG_INF / 2
+    if not torch.equal(empty, got[..., 0] <= tpa.NEG_INF / 2) \
+            or (got[..., 1:][empty] != 0).any():
+        return False
+    live = ~empty
+    l = ref[..., 1]
+    return bool(
+        ((got[..., 0] - ref[..., 0]).abs()
+         <= ATOL * ref[..., 0].abs().clamp(min=1.0))[live].all()
+        and ((got[..., 1] - l).abs() <= ATOL * l)[live].all()
+        and ((got[..., 2:] - ref[..., 2:]).abs()
+             <= ATOL * l[..., None])[live].all())
+
+
+#: Every (q type, pool storage) pair the pipelined kernel takes.
+PIPELINED_PAIRS = TILE_PAIRS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [
+    dict(h=8, kv=2, d=128, bs=16),            # the flagship
+    dict(h=8, kv=2, d=128, bs=16, rows=144, max_blocks=72),
+    dict(h=8, kv=4, d=16, bs=8),              # the tiny preset
+    dict(h=4, kv=2, d=8, bs=4),               # the micro preset
+    dict(h=8, kv=2, d=32, bs=32)])
+@pytest.mark.parametrize("w", [1, 3])
+@pytest.mark.parametrize("dtype,kv_dtype", PIPELINED_PAIRS)
+@pytest.mark.parametrize("splits", [1, 2, "plan", "tiles"])
+def test_pipelined_split_kernel_matches_plain(cuda_device, geometry, w, dtype,
+                                              kv_dtype, splits):
+    """The pipelined kernel at forced splits (1, 2, its plan, one per
+    stage), on its tensor-core path (bf16 queries at d 128, 32 and 16) and
+    its scalar one (fp32 queries, d 8): the gates of the tile kernel's
+    test, the split states against ``paged_split_partials`` and the inputs
+    unchanged."""
+    _check_forced_splits(cuda_device, geometry, w, dtype, kv_dtype, splits,
+                         pipelined=True)
+
+
+@pytest.mark.cuda
+def test_pipelined_kernel_takes_the_tensor_cores_where_it_should(
+        cuda_device):
+    """bf16 queries at d a multiple of 16 up to 128 and at most 16 query
+    rows a CTA take the tensor-core path; fp32 queries, d 8, d 256 and 20
+    query rows the scalar one."""
+    def uses(dtype, w, h, kv, d):
+        q = torch.empty((1, w, h, d), dtype=dtype, device=cuda_device)
+        pool = torch.empty((2, 16, kv, d), dtype=torch.int8,
+                           device=cuda_device)
+        return tpa.pipelined_uses_tensor_cores(q, pool)
+
+    assert uses(torch.bfloat16, 1, 8, 2, 128)
+    assert uses(torch.bfloat16, 3, 8, 2, 128)         # 12 rows
+    assert uses(torch.bfloat16, 1, 8, 4, 16)
+    assert uses(torch.bfloat16, 4, 8, 2, 64)          # 16 rows
+    assert not uses(torch.float32, 1, 8, 2, 128)
+    assert not uses(torch.bfloat16, 1, 4, 2, 8)
+    assert not uses(torch.bfloat16, 1, 8, 2, 256)
+    assert not uses(torch.bfloat16, 5, 8, 2, 128)     # 20 rows
+
+
+@pytest.mark.cuda
+def test_pipelined_wrapper_counts_its_combine_launches(cuda_device):
+    """The pipelined wrapper splits where its own plan says so, and counts
+    one call and one combine; a grid that already fills the card takes one
+    split and no combine."""
+    rng = np.random.default_rng(4)
+    for rows in (2, 600):
+        q, kp, vp, tables, pos = _case(rng, cuda_device, rows=rows,
+                                       max_blocks=20)
+        (kp, ks), (vp, vs) = (tc.quantize_blocks(a, torch.int8)
+                              for a in (kp, vp))
+        q = q.to(torch.bfloat16)
+        tpa.reset_launch_counts()
+        got = tpa.paged_decode_pipelined_attention(q, kp, vp, tables, pos,
+                                                   ks, vs)
+        torch.cuda.synchronize()
+        split = tpa.planned_splits(q, kp, 20, pipelined=True) > 1
+        assert tpa.paged_decode_pipelined_attention.launches == 1
+        assert tpa.paged_decode_pipelined_attention.combine_launches == \
+            int(split)
+        assert tpa.paged_decode_attention.combine_launches == 0
+        assert split == (rows == 2)
+        exact = tpa.paged_reference_attention(q.float(), kp, vp, tables, pos,
+                                              ks, vs)
+        assert _close(got, exact, torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -222,12 +222,15 @@ def test_wrapper_on_cpu_runs_the_plain_version(kv_dtype):
 
 
 def test_forced_splits_are_checked_before_any_launch():
-    """A forced split count outside 1 .. tiles, or any split of the
-    pipelined kernel, raises before a library is built or loaded."""
+    """A forced split count outside 1 .. tiles, for either kernel, or
+    split-state scratch of the wrong shape, raises before a library is
+    built or loaded."""
     args, _ = _inputs(None, 2, 1)
     out = torch.empty_like(args[0])
-    for bad in (0, TILES + 1):
-        with pytest.raises(ValueError, match="splits must be"):
-            tpa._launch(*args, out, splits=bad)
-    with pytest.raises(ValueError, match="does not split"):
-        tpa._launch(*args, out, pipelined=True, splits=2)
+    for pipelined in (False, True):
+        for bad in (0, TILES + 1):
+            with pytest.raises(ValueError, match="splits must be"):
+                tpa._launch(*args, out, pipelined=pipelined, splits=bad)
+        with pytest.raises(ValueError, match="partials must be"):
+            tpa._launch(*args, out, pipelined=pipelined, splits=2,
+                        partials=torch.empty(1))

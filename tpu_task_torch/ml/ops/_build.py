@@ -44,13 +44,21 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "paged_decode_pipelined": {
-        # those of tt_paged_decode without partials, splits, split_blocks
+        # those of tt_paged_decode
         "tt_paged_decode_pipelined": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
-                                           _P, _P, _I, _I, _I, _I, _I, _I,
-                                           _I, _P]),
-        # kv_type, w, heads, kv_heads, d, bs
+                                           _P, _P, _P, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _I, _P]),
+        # those of tt_paged_decode_combine
+        "tt_paged_decode_pipelined_combine": (_I, [_I, _P, _P, _I, _I, _I,
+                                                   _P]),
+        # q_type, kv_type, w, heads, kv_heads, d, bs, int* ctas
+        "tt_paged_decode_pipelined_ctas_per_sm": (_I, [_I, _I, _I, _I, _I,
+                                                       _I, _I, _P]),
+        # q_type, kv_type, w, heads, kv_heads, d, bs
         "tt_paged_decode_pipelined_smem_bytes": (_I, [_I, _I, _I, _I, _I,
-                                                      _I]),
+                                                      _I, _I]),
+        # q_type, w, heads, kv_heads, d
+        "tt_paged_decode_pipelined_uses_mma": (_I, [_I, _I, _I, _I, _I]),
         "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {

@@ -8,15 +8,23 @@ originals do:
 - :func:`paged_decode_attention` launches ``csrc/paged_decode.cu``, the
   port of ``_paged_decode_kernel``: it walks each row's block table over
   the physical KV pools in 64-token tiles, so the gathered dense view never
-  exists. The walk is cut across CTAs (split-KV) as far as
-  :func:`split_plan` says to fill the card; past one split, a second
-  kernel (``combine_splits_kernel`` in ``csrc/paged_kv.cuh``) merges the
-  splits' partial softmax states.
+  exists.
 - :func:`paged_decode_pipelined_attention` launches
   ``csrc/paged_decode_pipelined.cu``, the port of
   ``_paged_decode_pipelined_kernel``: the same walk over a double-buffered
   shared-memory ring that ``cp.async`` fills with the pool's own bytes, the
-  next stage's copy issued before the current stage is computed.
+  next copy issued before the current one is computed; for bf16 queries at
+  head dims that are a multiple of 16 (up to 128) its two products run on
+  the tensor cores.
+
+Both cut each row's walk across CTAs (split-KV) as far as
+:func:`split_plan` says to fill the card, at the kernel's own occupancy
+(:func:`planned_splits`); past one split, a second kernel
+(``combine_splits_kernel`` in ``csrc/paged_kv.cuh``, which each kernel's
+library exports) merges the splits' partial softmax states. The pipelined
+kernel's 64-token stages are the tile kernel's 64-token tiles
+(:func:`stage_blocks_for` equals :func:`tile_blocks_for`), so one split
+arithmetic (:func:`split_blocks`, :func:`split_ranges`) serves both.
 
 Both take model-dtype pools (fp32, bf16) and quantized ones: int8 or fp8
 e4m3 codes, or int4 pairs packed in uint8 (trailing dim ``d / 2``), with
@@ -26,7 +34,7 @@ in registers and the scales applied to each block's scores and p·v.
 through the tables, dequantize, then the shared dense core); the CPU tests
 compare it with the JAX package and ``chip_smoke.py`` compares the kernels
 with it on the card. :func:`paged_split_partials` and
-:func:`combine_partials` are the plain versions of the split kernel's
+:func:`combine_partials` are the plain versions of the split kernels'
 partial states and of their merge. A wrapper takes the plain version only
 for tensors that lie on the CPU; for a CUDA tensor it launches its kernel
 or raises.
@@ -35,8 +43,8 @@ Each function counts its launches in a plain integer attribute
 (``paged_decode_attention.launches``,
 ``paged_decode_pipelined_attention.launches``,
 ``paged_reference_attention.launches``) so a run can show which one the
-serving path went through; ``paged_decode_attention.combine_launches``
-counts the combine kernel's launches, where it is launched."""
+serving path went through; each kernel wrapper's ``combine_launches``
+counts the combine kernel's launches after it, where they are launched."""
 
 from __future__ import annotations
 
@@ -68,6 +76,9 @@ IMPLS = ("reference", "cuda", "pipelined")
 #: Tokens the tile kernel takes per iteration (``kTileTokens`` in
 #: ``csrc/paged_decode.cu``), rounded to whole blocks.
 TILE_TOKENS = 64
+#: Tokens of one stage of the pipelined kernel's walk (``kStageTokens`` in
+#: ``csrc/paged_decode_pipelined.cu``), rounded to whole blocks.
+STAGE_TOKENS = 64
 #: Floats ahead of acc in one partial state: m and l (``kPartialHead``).
 PARTIAL_HEAD = 2
 
@@ -132,6 +143,14 @@ def tile_blocks_for(block_size: int) -> int:
     return 1 if block_size >= TILE_TOKENS else TILE_TOKENS // block_size
 
 
+def stage_blocks_for(block_size: int) -> int:
+    """Blocks per stage of the pipelined kernel (``stage_blocks_for`` in
+    ``csrc/paged_decode_pipelined.cu``). Equal to :func:`tile_blocks_for`
+    at every block size, so the split arithmetic below serves both
+    kernels."""
+    return 1 if block_size >= STAGE_TOKENS else STAGE_TOKENS // block_size
+
+
 def n_tiles(max_blocks: int, block_size: int) -> int:
     """Tiles of a table ``max_blocks`` wide; the last may be ragged."""
     return -(-max_blocks // tile_blocks_for(block_size))
@@ -139,12 +158,12 @@ def n_tiles(max_blocks: int, block_size: int) -> int:
 
 def split_plan(rows: int, kv_heads: int, max_blocks: int, block_size: int,
                n_sms: int, ctas_per_sm: int) -> int:
-    """How many CTAs the tile kernel cuts each (row, kv head) walk into,
+    """How many CTAs a paged kernel cuts each (row, kv head) walk into,
     from shapes alone: enough CTAs for one resident wave of the card
-    (``n_sms * ctas_per_sm``), each split a whole number of tiles, and no
-    more splits than the table has tiles. A grid already a wave wide takes
-    one split (no combine). Reads no positions or tables, so it never waits
-    for the card."""
+    (``n_sms * ctas_per_sm``), each split a whole number of tiles (stages),
+    and no more splits than the table has tiles. A grid already a wave wide
+    takes one split (no combine). Reads no positions or tables, so it never
+    waits for the card."""
     tiles = n_tiles(max_blocks, block_size)
     ctas = rows * kv_heads
     wave = n_sms * ctas_per_sm
@@ -294,13 +313,14 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions,
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_bytes(pipelined: bool, kv_type: int, w: int, h: int, kv: int,
-                d: int, bs: int) -> int:
+def _smem_bytes(pipelined: bool, q_type: int, kv_type: int, w: int, h: int,
+                kv: int, d: int, bs: int) -> int:
     """Shared memory one CTA needs at this geometry; raises past the
     card's limit."""
     if pipelined:
         smem = _build.load("paged_decode_pipelined") \
-            .tt_paged_decode_pipelined_smem_bytes(kv_type, w, h, kv, d, bs)
+            .tt_paged_decode_pipelined_smem_bytes(q_type, kv_type, w, h, kv,
+                                                  d, bs)
     else:
         smem = _build.load("paged_decode").tt_paged_decode_smem_bytes(
             w, h, kv, d, bs)
@@ -317,39 +337,61 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _library(pipelined: bool) -> str:
+    return "paged_decode_pipelined" if pipelined else "paged_decode"
+
+
 @functools.lru_cache(maxsize=None)
-def _ctas_per_sm(index: int, q_type: int, kv_type: int, smem: int) -> int:
-    """CTAs of the tile kernel's instantiation that one SM holds at once,
-    from the CUDA occupancy calculator."""
-    lib = _build.load("paged_decode")
+def _ctas_per_sm(index: int, pipelined: bool, q_type: int, kv_type: int,
+                 w: int, h: int, kv: int, d: int, bs: int) -> int:
+    """CTAs of the kernel that this instantiation and geometry launch that
+    one SM holds at once, from the CUDA occupancy calculator (the pipelined
+    library picks its tensor-core or scalar kernel by the geometry)."""
+    name = _library(pipelined)
+    lib = _build.load(name)
+    smem = _smem_bytes(pipelined, q_type, kv_type, w, h, kv, d, bs)
     ctas = ctypes.c_int(0)
     with torch.cuda.device(index):
-        rc = lib.tt_paged_decode_ctas_per_sm(q_type, kv_type, smem,
-                                             ctypes.addressof(ctas))
+        if pipelined:
+            rc = lib.tt_paged_decode_pipelined_ctas_per_sm(
+                q_type, kv_type, w, h, kv, d, bs, ctypes.addressof(ctas))
+        else:
+            rc = lib.tt_paged_decode_ctas_per_sm(q_type, kv_type, smem,
+                                                 ctypes.addressof(ctas))
     if rc:
         raise RuntimeError(
-            f"paged_decode occupancy query failed: CUDA error {rc} "
+            f"{name} occupancy query failed: CUDA error {rc} "
             f"({lib.tt_cuda_error_string(rc).decode()})")
     if ctas.value < 1:
-        raise RuntimeError(f"paged_decode: no CTA of {smem} bytes of shared "
-                           f"memory fits an SM")
+        raise RuntimeError(f"{name}: no CTA of {smem} bytes of shared memory "
+                           f"fits an SM")
     return ctas.value
 
 
-def planned_splits(q: torch.Tensor, k_pool: torch.Tensor,
-                   max_blocks: int) -> int:
-    """:func:`split_plan` for the tile kernel at these shapes and types on
-    q's card (its SM count and the instantiation's occupancy, both cached
-    per device and instantiation)."""
+def planned_splits(q: torch.Tensor, k_pool: torch.Tensor, max_blocks: int,
+                   *, pipelined: bool = False) -> int:
+    """:func:`split_plan` for the tile kernel, or the pipelined one, at
+    these shapes and types on q's card (its SM count and the kernel's
+    occupancy, both cached per device and instantiation)."""
     rows, w, h, d = q.shape
     _, bs, kv, _ = k_pool.shape
-    kv_type = KV_TYPES[k_pool.dtype]
-    smem = _smem_bytes(False, kv_type, w, h, kv, d, bs)
     index = q.device.index
     if index is None:
         index = torch.cuda.current_device()
-    return split_plan(rows, kv, max_blocks, bs, _sm_count(index),
-                      _ctas_per_sm(index, Q_TYPES[q.dtype], kv_type, smem))
+    ctas = _ctas_per_sm(index, pipelined, Q_TYPES[q.dtype],
+                        KV_TYPES[k_pool.dtype], w, h, kv, d, bs)
+    return split_plan(rows, kv, max_blocks, bs, _sm_count(index), ctas)
+
+
+def pipelined_uses_tensor_cores(q: torch.Tensor,
+                                k_pool: torch.Tensor) -> bool:
+    """Whether the pipelined kernel runs its two products on the tensor
+    cores at q's type and this geometry (bf16 queries, d a multiple of 16
+    up to 128, at most 16 query rows per CTA), or on its scalar path."""
+    _, w, h, d = q.shape
+    return bool(_build.load("paged_decode_pipelined")
+                .tt_paged_decode_pipelined_uses_mma(
+                    Q_TYPES[q.dtype], w, h, k_pool.shape[2], d))
 
 
 def _raise_on(rc: int, lib, name: str) -> None:
@@ -359,10 +401,12 @@ def _raise_on(rc: int, lib, name: str) -> None:
             f"({lib.tt_cuda_error_string(rc).decode()})")
 
 
-def _launch_combine(partials: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the combine kernel: merge ``partials`` (rows, w, h, splits,
-    2 + d) fp32 into ``out`` (rows, w, h, d, fp32 or bf16) on the current
-    stream; raises on any CUDA error. Counts nothing."""
+def _launch_combine(partials: torch.Tensor, out: torch.Tensor, *,
+                    pipelined: bool = False) -> None:
+    """Launch the combine kernel from the tile kernel's library, or the
+    pipelined one's: merge ``partials`` (rows, w, h, splits, 2 + d) fp32
+    into ``out`` (rows, w, h, d, fp32 or bf16) on the current stream;
+    raises on any CUDA error. Counts nothing."""
     *lead, splits, width = partials.shape
     if partials.dtype != torch.float32 or out.dtype not in Q_TYPES \
             or tuple(out.shape) != (*lead, width - PARTIAL_HEAD) \
@@ -372,13 +416,15 @@ def _launch_combine(partials: torch.Tensor, out: torch.Tensor) -> None:
             f"combine takes contiguous fp32 partials (…, splits, 2 + d) and "
             f"an out (…, d) beside them, got {partials.dtype} "
             f"{tuple(partials.shape)} and {out.dtype} {tuple(out.shape)}")
-    lib = _build.load("paged_decode")
+    name = _library(pipelined)
+    lib = _build.load(name)
+    entry = (lib.tt_paged_decode_pipelined_combine if pipelined
+             else lib.tt_paged_decode_combine)
     with torch.cuda.device(out.device):
-        rc = lib.tt_paged_decode_combine(
-            Q_TYPES[out.dtype], partials.data_ptr(), out.data_ptr(),
-            out.numel() // out.shape[-1], splits, out.shape[-1],
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, lib, "paged_decode combine")
+        rc = entry(Q_TYPES[out.dtype], partials.data_ptr(), out.data_ptr(),
+                   out.numel() // out.shape[-1], splits, out.shape[-1],
+                   torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, lib, f"{name} combine")
 
 
 def _launch(q, k_pool, v_pool, block_tables, q_positions,
@@ -386,13 +432,13 @@ def _launch(q, k_pool, v_pool, block_tables, q_positions,
             pipelined: bool = False, splits: Optional[int] = None,
             partials: Optional[torch.Tensor] = None) -> int:
     """Launch one kernel into ``out`` (q's shape and type) on the current
-    stream after checking its arguments; raises on any CUDA error. The tile
+    stream after checking its arguments; raises on any CUDA error. The
     kernel cuts its walk into :func:`planned_splits` splits and, past one,
-    merges them with the combine kernel through ``partials`` scratch, adding
-    one to ``paged_decode_attention.combine_launches`` at that launch; the
-    split walk's own launch is counted by its wrapper. Tests may force
-    ``splits`` (1 .. the table's tiles) and pass the scratch. Returns the
-    split count (1 for the pipelined kernel)."""
+    merges them with its library's combine kernel through ``partials``
+    scratch, adding one to its wrapper's ``combine_launches`` at that
+    launch; the split walk's own launch is counted by its wrapper. Tests may
+    force ``splits`` (1 .. the table's tiles) and pass the scratch. Returns
+    the split count."""
     _check_kernel_args(q, k_pool, v_pool, block_tables, q_positions,
                        k_scale, v_scale, pipelined=pipelined)
     if out.shape != q.shape or out.dtype != q.dtype \
@@ -401,52 +447,51 @@ def _launch(q, k_pool, v_pool, block_tables, q_positions,
     rows, w, h, d = q.shape
     _, bs, kv, _ = k_pool.shape
     max_blocks = block_tables.shape[1]
-    kv_type = KV_TYPES[k_pool.dtype]
-    if pipelined and (splits not in (None, 1) or partials is not None):
-        raise ValueError("the pipelined kernel does not split its walk")
-    if splits is not None and not 1 <= splits <= n_tiles(max_blocks, bs):
-        raise ValueError(
-            f"splits must be 1 .. {n_tiles(max_blocks, bs)} (the table's "
-            f"tiles), got {splits}")
-    _smem_bytes(pipelined, kv_type, w, h, kv, d, bs)
-    if pipelined:
-        splits = 1
-    elif splits is None:
-        splits = planned_splits(q, k_pool, max_blocks)
-    if splits > 1:
+    q_type, kv_type = Q_TYPES[q.dtype], KV_TYPES[k_pool.dtype]
+
+    def check_partials():
         shape = (rows, w, h, splits, PARTIAL_HEAD + d)
-        if partials is None:
-            partials = torch.empty(shape, dtype=torch.float32,
-                                   device=q.device)
-        elif tuple(partials.shape) != shape \
-                or partials.dtype != torch.float32 \
-                or partials.device != q.device \
-                or not partials.is_contiguous():
+        if splits > 1 and partials is not None and (
+                tuple(partials.shape) != shape
+                or partials.dtype != torch.float32
+                or partials.device != q.device
+                or not partials.is_contiguous()):
             raise ValueError(f"partials must be contiguous fp32 {shape} on "
                              f"q's device")
-    name = "paged_decode_pipelined" if pipelined else "paged_decode"
+
+    if splits is not None:                 # forced: checked before any build
+        if not 1 <= splits <= n_tiles(max_blocks, bs):
+            raise ValueError(
+                f"splits must be 1 .. {n_tiles(max_blocks, bs)} (the "
+                f"table's tiles), got {splits}")
+        check_partials()
+    _smem_bytes(pipelined, q_type, kv_type, w, h, kv, d, bs)
+    if splits is None:
+        splits = planned_splits(q, k_pool, max_blocks, pipelined=pipelined)
+        check_partials()
+    if splits > 1 and partials is None:
+        partials = torch.empty((rows, w, h, splits, PARTIAL_HEAD + d),
+                               dtype=torch.float32, device=q.device)
+    name = _library(pipelined)
     lib = _build.load(name)
+    entry = lib.tt_paged_decode_pipelined if pipelined else \
+        lib.tt_paged_decode
     scales = ((k_scale.data_ptr(), v_scale.data_ptr())
               if k_scale is not None else (None, None))
-    pointers = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
-                block_tables.data_ptr(), q_positions.data_ptr(),
-                out.data_ptr())
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if pipelined:
-            rc = lib.tt_paged_decode_pipelined(
-                Q_TYPES[q.dtype], kv_type, *pointers, rows, w, h, kv, d, bs,
-                max_blocks, stream)
-        else:
-            rc = lib.tt_paged_decode(
-                Q_TYPES[q.dtype], kv_type, *pointers,
-                partials.data_ptr() if splits > 1 else None, rows, w, h, kv,
-                d, bs, max_blocks, splits,
-                split_blocks(max_blocks, bs, splits), stream)
+        rc = entry(q_type, kv_type, q.data_ptr(), k_pool.data_ptr(),
+                   v_pool.data_ptr(), *scales, block_tables.data_ptr(),
+                   q_positions.data_ptr(), out.data_ptr(),
+                   partials.data_ptr() if splits > 1 else None, rows, w, h,
+                   kv, d, bs, max_blocks, splits,
+                   split_blocks(max_blocks, bs, splits),
+                   torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, lib, name)
     if splits > 1:
-        _launch_combine(partials, out)
-        paged_decode_attention.combine_launches += 1
+        _launch_combine(partials, out, pipelined=pipelined)
+        wrapper = paged_decode_pipelined_attention if pipelined else \
+            paged_decode_attention
+        wrapper.combine_launches += 1
     return splits
 
 
@@ -494,20 +539,24 @@ def paged_decode_pipelined_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                      v_scale: Optional[torch.Tensor] = None
                                      ) -> torch.Tensor:
     """The same function through ``csrc/paged_decode_pipelined.cu`` (the
-    double-buffered ``cp.async`` walk of the pool's own bytes); same
-    arguments, same CPU and CUDA rules as :func:`paged_decode_attention`.
-    Pool rows must be a multiple of 4 bytes."""
+    double-buffered ``cp.async`` walk of the pool's own bytes, its products
+    on the tensor cores where :func:`pipelined_uses_tensor_cores` says so);
+    same arguments, same CPU and CUDA rules, split plan and counters as
+    :func:`paged_decode_attention`, at this kernel's own occupancy. Pool
+    rows must be a multiple of 4 bytes."""
     return _kernel_call(paged_decode_pipelined_attention, True, q, k_pool,
                         v_pool, block_tables, q_positions, k_scale, v_scale)
 
 
 paged_decode_pipelined_attention.launches = 0
+paged_decode_pipelined_attention.combine_launches = 0
 
 
 def reset_launch_counts() -> None:
     paged_decode_attention.launches = 0
     paged_decode_attention.combine_launches = 0
     paged_decode_pipelined_attention.launches = 0
+    paged_decode_pipelined_attention.combine_launches = 0
     paged_reference_attention.launches = 0
 
 
