@@ -12,7 +12,9 @@ script exits non-zero:
 
 1. device  — the card's name and power limit; TF32 off for the fp32 phases.
 2. build   — nvcc for every kernel source, all started together, with
-             ptxas's report.
+             ptxas's report; then the flash forward's (B1 v3, wgmma fed
+             by a TMA ring) registers, spills, dynamic shared memory and
+             CTAs per SM at d 64 and 128, failing on a spill.
 3. kernel  — the paged-decode kernel against its plain version at the
              flagship geometry (kv 2, group 4, d 128, block 16): fragmented
              shuffled tables, ragged depths, inactive rows, fp32 and bf16;
@@ -60,12 +62,16 @@ script exits non-zero:
              train shape (b 8, s 1024, h 8, d 128, causal), causal and not,
              sq = sk, sq < sk, q_offset 0 with sq != sk, a negative
              q_offset with rows that see no key, a ragged length, d 64 and
-             128, lengths 128 to 2048. Each case also launches every kernel
-             into NaN-guarded buffers.
+             128, lengths 128 to 2048, and the forward's 128-row tile
+             edges (sq 1, 127, 129, 257, sk < sq, q_offset -130, d 64 at
+             sq 384). Each case also launches every kernel into NaN-guarded
+             buffers.
 8. flash timing — each kernel at the flagship train shape (bf16, held
              against its plain version in phase 7): kernel, plain and bound
              ms, and SDPA's forward and backward (``library_ms``, a
-             yardstick the port never calls).
+             yardstick the port never calls); then the forward and SDPA at
+             six more shapes, with a fit of the forward's ms as a fixed
+             cost per CTA plus a cost per kv tile step.
 9. train parity — small GQA configs with a 256-token sequence, fp32 at d 32
              (the fp32-core kernels) and bf16 at d 128 (the tensor-core
              kernels): three ``make_train_step`` steps through the kernels
@@ -116,7 +122,8 @@ script exits non-zero:
              the same gates.
 
 Then the kernel table as one JSON line (the five ported kernels and the
-split walk's combine kernel), the ``nvidia-smi`` name and power limit, and
+split walk's combine kernel; the forward's row names its version, v3),
+the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
 
@@ -299,6 +306,49 @@ def phase_build() -> None:
               for name, output in _build.compiler_output.items()}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(_build.SIGNATURES), ptxas=report)
+
+
+def phase_flash_fwd_build() -> dict:
+    """The wgmma forward's instantiations (d 64 and 128): registers, stack
+    and spill bytes from ptxas, their dynamic shared memory, and the CTAs
+    that fit one SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    with every ptxas warning of the library. Fails on a spill or on an
+    instantiation that fits no SM."""
+    from tpu_task_torch.ml.ops import _build
+    from tpu_task_torch.ml.ops import attention as fa
+
+    output = _build.compiler_output.get("flash_attention", "")
+    kernels = {}
+    for name, text in ptxas_report(output).items():
+        found = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", name)
+        if not found:
+            continue
+        d = int(found.group(1))
+        row = {}
+        for key, pattern in (("registers", r"(\d+) registers"),
+                             ("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill st"),
+                             ("spill_load_bytes", r"(\d+) bytes spill lo")):
+            value = re.search(pattern, text)
+            row[key] = int(value.group(1)) if value else None
+        row.update(smem_bytes=fa.fwd_smem_bytes(d),
+                   ctas_per_sm=fa.fwd_ctas_per_sm(d))
+        kernels[d] = row
+    warnings = [line.strip() for line in output.splitlines()
+                if "warning" in line.lower()]
+    ok = sorted(kernels) == [64, 128] and all(
+        row["spill_store_bytes"] == 0 and row["spill_load_bytes"] == 0
+        and row["ctas_per_sm"] >= 1 for row in kernels.values())
+    emit("flash_fwd_build", ok=ok, kernel="flash_fwd_wgmma_kernel (B1 v3)",
+         threads=384, registers_note="ptxas's count is the launch's; "
+         "setmaxnreg then gives the producer warpgroup 40 and the two "
+         "consumers 232", by_head_dim={str(d): kernels[d]
+                                       for d in sorted(kernels)},
+         ptxas_warnings=warnings)
+    if not ok:
+        raise AssertionError(f"the wgmma forward's build failed its gates: "
+                             f"{kernels}")
+    return kernels
 
 
 def against_fp32_plain(got, args) -> dict:
@@ -1059,7 +1109,10 @@ def wave_ok(run: dict) -> bool:
 #: (b, h, sq, sk, d, causal, q_offset): the flagship train step's own shape
 #: first, then sq = sk, sq < sk, ring attention's q_offset 0 with sq != sk,
 #: a negative offset whose first 96 rows see no key, ragged lengths the
-#: 64-row tiles mask, and non-causal pairs.
+#: 64-row tiles mask, and non-causal pairs; then the forward's 128-row tile
+#: edges: sq 1, 127, 129 and 257, sk < sq (causal rows that see nothing,
+#: and a non-causal pair), a q_offset of -130 (a whole tile that sees
+#: nothing) and d 64 at sq 384.
 FLASH_CASES = (
     (8, 8, 1024, 1024, 128, True, None),
     (2, 4, 128, 128, 64, True, None),
@@ -1070,6 +1123,15 @@ FLASH_CASES = (
     (2, 2, 256, 256, 128, True, -96),
     (1, 4, 200, 328, 128, False, None),
     (1, 4, 200, 328, 64, True, None),
+    (2, 2, 1, 1, 128, True, None),
+    (1, 2, 1, 300, 64, True, None),
+    (2, 2, 127, 127, 128, True, None),
+    (1, 2, 129, 129, 128, True, None),
+    (1, 2, 257, 300, 128, True, None),
+    (1, 2, 257, 129, 128, True, None),
+    (1, 2, 300, 200, 64, False, None),
+    (2, 2, 256, 256, 128, True, -130),
+    (1, 4, 384, 384, 64, True, None),
 )
 
 
@@ -1271,6 +1333,68 @@ def phase_flash_timing(device, smi: str) -> dict:
          note="library_ms of dq and dk/dv is SDPA's one backward call, "
               "which computes dq, dk and dv together")
     return rows
+
+
+#: (b, h, s, d, causal) of the forward's extra timings: the flagship's
+#: non-causal twin, longer and shorter causal rows at the same tokens, and
+#: d 64.
+FWD_SHAPES = ((8, 8, 1024, 128, True), (8, 8, 1024, 128, False),
+              (2, 8, 4096, 128, True), (4, 8, 2048, 128, True),
+              (16, 8, 512, 128, True), (8, 16, 1024, 64, True))
+
+
+def fwd_shape_times(device) -> list:
+    """The flash forward and SDPA's forward at FWD_SHAPES, one row each.
+    It calls only the port's public wrapper, so ``chip_ab.py`` times
+    another checkout's forward with it too."""
+    from tpu_task_torch.ml.ops import attention as fa
+
+    F = torch.nn.functional
+    timer = DeviceTimer(device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    rows = []
+    for b, h, s, d, causal in FWD_SHAPES:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device,
+                               dtype=torch.bfloat16) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rows.append(dict(
+            b=b, h=h, s=s, d=d, causal=causal,
+            ms=timer(lambda: fa.flash_attention(q, k, v, causal,
+                                                return_lse=True)),
+            sdpa_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))))
+    return rows
+
+
+def phase_flash_fwd_shapes(device, smi: str) -> None:
+    """``fwd_shape_times`` with the CTAs and kv tile steps of the wgmma
+    forward's schedule (``flash_fwd_tiles``), then a least-squares fit of
+    the kernel's ms as a fixed cost per CTA plus a cost per tile step,
+    each spread over the card's SMs (one CTA an SM)."""
+    from tpu_task_torch.ml.ops import attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = fwd_shape_times(device)
+    for row in rows:
+        tiles = fa.flash_fwd_tiles(row["s"], row["s"], row["causal"], 0)
+        heads = row["b"] * row["h"]
+        row.update(ctas=len(tiles) * heads,
+                   tile_steps=sum(t.n for t in tiles) * heads)
+    d128 = [r for r in rows if r["d"] == 128]
+    a = np.array([[r["ctas"] / sms, r["tile_steps"] / sms] for r in d128])
+    us = np.array([r["ms"] * 1e3 for r in d128])
+    (per_cta, per_step), *_ = np.linalg.lstsq(a, us, rcond=None)
+    emit("flash_fwd_shapes", shapes=rows, sms=sms,
+         fit_d128=dict(per_cta_us=float(per_cta),
+                       per_tile_step_us=float(per_step),
+                       worst_rel_err=float(np.max(np.abs(a @ [per_cta,
+                                                               per_step]
+                                                          - us) / us))),
+         note="fit: ms x 1e3 = per_cta_us x ctas / sms + per_tile_step_us "
+              "x tile_steps / sms over the d 128 shapes; one tile step is "
+              "the two 128 x 128 x 128 products of both consumers, 1.12 us "
+              "at 989 TFLOP/s over 132 SMs",
+         gpu=smi)
 
 
 def flash_counts() -> dict:
@@ -1855,12 +1979,14 @@ def main() -> int:
     import_port()
     device = torch.device("cuda")
     phase_build()
+    fwd_build = phase_flash_fwd_build()
     max_err, combine_err = phase_kernel(device)
     timing = phase_timing(device, smi)
     phase_parity(device)
     launches, combine_launches = phase_serve(device, smi)
     flash_err = phase_flash_kernel(device)
     flash_times = phase_flash_timing(device, smi)
+    phase_flash_fwd_shapes(device, smi)
     phase_train_parity(device)
     train_counts = phase_train(device, smi)
     quant_err = phase_kernel_quant(device)
@@ -1901,7 +2027,14 @@ def main() -> int:
             "launches": train_counts[name], "max_abs_err": flash_err[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"],
+            "fraction_of_bound": row["fraction_of_bound"]})
+        if name == "flash_fwd":   # B1 v3: wgmma fed by a TMA ring
+            kernels[-1].update(version="v3",
+                               kernel="flash_fwd_wgmma_kernel",
+                               registers_d128=fwd_build[128]["registers"],
+                               ctas_per_sm_d128=fwd_build[128][
+                                   "ctas_per_sm"])
     kernels.append({
         "name": "paged_decode_pipelined", "route": "cuda",
         "source": "tpu_task_torch/csrc/paged_decode_pipelined.cu",

@@ -435,6 +435,16 @@ def _flash_close(got, exact, atol):
     (2, 2, 256, 256, 128, True, -96),         # rows that see no key
     (1, 2, 200, 328, 40, False, None),        # ragged tiles, d 40
     (1, 2, 64, 64, 8, True, None),            # the smallest head dim
+    # the wgmma forward's 128-row tile edges
+    (2, 2, 1, 1, 128, True, None),            # sq 1
+    (1, 2, 1, 300, 64, True, None),           # sq 1 against a long sk
+    (2, 2, 127, 127, 128, True, None),        # one short tile
+    (1, 2, 129, 129, 128, True, None),        # one row into a second tile
+    (1, 2, 257, 300, 128, True, None),        # ragged q and kv tiles
+    (1, 2, 257, 129, 128, True, None),        # sk < sq: 128 rows see nothing
+    (1, 2, 300, 200, 64, False, None),        # sk < sq, not causal
+    (2, 2, 256, 256, 128, True, -130),        # a whole q tile sees nothing
+    (1, 4, 384, 384, 64, True, None),         # d 64 over three tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda_device, b, h, sq, sk, d, causal,
@@ -462,6 +472,18 @@ def test_flash_kernels_match_plain(cuda_device, b, h, sq, sk, d, causal,
     if causal and off < 0:
         assert (o[:, :-off] == 0).all()
         assert (lse[:, :, :-off] == fa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+def test_flash_forward_occupancy_and_shared_memory(cuda_device):
+    """The wgmma forward holds one 384-thread CTA an SM at both head dims,
+    with Q and a 2-stage (d 128) or 3-stage (d 64) ring of 128-row K and V
+    tiles in shared memory, from a 1024-byte boundary."""
+    tile = {128: 32768, 64: 16384}
+    for d, stages in ((128, 2), (64, 3)):
+        assert fa.fwd_ctas_per_sm(d) == 1
+        assert fa.fwd_smem_bytes(d) == \
+            tile[d] * (1 + 2 * stages) + 8 * (1 + 3 * stages) + 1024
 
 
 @pytest.mark.cuda

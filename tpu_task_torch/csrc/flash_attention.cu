@@ -2,9 +2,11 @@
 // and the two backward kernels of one library.
 //
 // Replaces the TPU kernels of tpu_task/ml/ops/attention.py:
-//   flash_fwd_kernel     <- _flash_fwd_kernel      (called by flash_attention)
-//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel   (_flash_bwd_with_stats)
-//   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel  (_flash_bwd_with_stats)
+//   flash_fwd_wgmma_kernel <- _flash_fwd_kernel (:186, called by
+//                             flash_attention at :319): bf16, d 64 and 128
+//   flash_fwd_kernel       <- the same, for fp32 and bf16 at other head dims
+//   flash_bwd_dq_kernel    <- _flash_bwd_dq_kernel   (_flash_bwd_with_stats)
+//   flash_bwd_dkv_kernel   <- _flash_bwd_dkv_kernel  (_flash_bwd_with_stats)
 //
 //   q, do, o, dq   (b, sq, h, d)   fp32 or bf16, contiguous
 //   k, v, dk, dv   (b, sk, h, d)   q's type
@@ -19,43 +21,85 @@
 // ragged edge of the last tile) are masked the same way, so any length is
 // taken.
 //
-// Design. The TPU grid walks kv blocks in order and carries (m, l, acc) in
-// VMEM from one grid step to the next; here blocks run in parallel and in
-// no order, so a CTA owns one 64-row output tile and loops over the other
-// operand's 64-row tiles itself:
-//   - forward and dq: a CTA per (q tile, batch x head); the loop over kv
-//     tiles stops at the last one the tile's last row can see. q tiles are
-//     handed out last first, so the long causal rows start first.
+// The forward on the tensor cores (bf16 at d 64 and 128, the model's
+// shapes). Bound at the flagship train shape (b 8, s 1024, h 8, d 128,
+// causal): bytes. It reads q, k, v and writes o once (67.1 MB) and lse
+// (0.3 MB), 67.4 MB in all, 20.1 us at 3.35 TB/s; its two products over
+// the visible score entries are 17.2 GFLOP, 17.4 us at 989 TFLOP/s. So
+// the kernel has to keep the tensor cores fed while it streams K and V,
+// which is what its design is for:
+//   - a CTA owns a 128-row q tile of one (batch, head), in three
+//     warpgroups (384 threads): a producer, whose one elected thread issues
+//     every copy with the Tensor Memory Accelerator (TMA), and two
+//     consumers of 64 rows each. setmaxnreg moves registers from the
+//     producer (40) to the consumers (232).
+//   - Q is loaded once; K and V stream through a ring of 128-row stages in
+//     shared memory (2 stages at d 128: Q 32 KB + 2 x (K 32 KB + V 32 KB);
+//     3 at d 64), each with a full barrier for K, one for V, and one empty
+//     barrier that the consumers release once their products have read it.
+//   - S = Q.K^T on wgmma m64n128k16 with both operands in shared memory,
+//     K-major under the 128-byte swizzle; O += P.V on wgmma m64n{d}k16 with
+//     P in registers: the fp32 accumulators of S, packed into bf16 pairs,
+//     are already the A fragments of the next wgmma (p is rounded to bf16
+//     before P.V, as at attention.py:248). V is read MN-major through
+//     wgmma's transpose bit, so it is never transposed in memory.
+//   - the online softmax runs in fp32 registers in the exp2 domain: each
+//     weight is exp2(s scale log2(e) - shift) in one FMA and one ex2, the
+//     statistics kept on the raw scores; lse = m scale + log(l). Only the
+//     kv tiles that cross the diagonal or the ragged edge apply the mask;
+//     the loop stops at the last tile the q tile's last row sees
+//     (key_end). flash_fwd_tiles in ml/ops/attention.py writes this
+//     schedule out in Python, where the CPU tests check it.
+//   - the grid is (q tiles, batch x head), started in groups of (batch,
+//     head) pairs that fill about one wave of the SMs, so a group's K and
+//     V stay in L2, with the longest causal rows first inside a group.
+//   - the epilogue divides by l, stages o through the consumer's own rows
+//     of Q's shared memory and writes rows < sq with 16-byte stores.
+// What it leaves: one CTA fills an SM, so a CTA's cold loads of Q, K and
+// V and its epilogue overlap no other CTA's math, and the two consumers
+// run their products and softmax in step rather than in turns (measured
+// in PERF.md; a persistent grid and ping-pong consumers are the next
+// steps).
+// The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled
+// as rank-4 maps over the real (b, s, h, d) layout: dims (d, h, s, b),
+// strides in bytes, boxes of 64 columns x 128 rows; a 128-wide head dim
+// is two boxes). A box past s is zero-filled by the hardware and never
+// wraps into the next batch row. The library is not linked against
+// libcuda: it gets cuTensorMapEncodeTiled through the runtime's
+// cudaGetDriverEntryPoint(ByVersion), and an encoding that fails returns
+// its CUresult (as kTensorMapError + CUresult) for the wrapper to raise on.
+//
+// The backward and the fp32-core forward share one older structure: a CTA
+// owns one 64-row output tile and loops over the other operand's 64-row
+// tiles itself.
+//   - dq: a CTA per (q tile, batch x head); the loop over kv tiles stops at
+//     the last one the tile's last row can see. q tiles are handed out
+//     last first, so the long causal rows start first (the forward too).
 //   - dk/dv: a CTA per (kv tile, batch x head); the loop over q tiles starts
 //     at the first that reaches the diagonal. Every output tile has exactly
 //     one owner, so there are no atomics and the result is deterministic.
 // Two routes share that structure:
-//   - bf16 at head dim 64 or 128 (the model's shapes): 4 warps, each owning
-//     16 rows, with every product on the tensor cores (mma.sync m16n8k16,
-//     bf16 operands, fp32 sums) from bf16 tiles in shared memory read with
-//     ldmatrix. Scores, the online softmax and ds stay in registers in fp32;
-//     p and ds are rounded to bf16 as A operands of the next product, as the
-//     TPU kernels round them (attention.py:248, :387, :436, :441).
+//   - bf16 at head dim 64 or 128: 4 warps, each owning 16 rows, with every
+//     product on mma.sync m16n8k16 (bf16 operands, fp32 sums) from bf16
+//     tiles in shared memory read with ldmatrix. Scores and ds stay in
+//     registers in fp32; p and ds are rounded to bf16 as A operands of the
+//     next product, as the TPU kernels round them (attention.py:387, :436,
+//     :441).
 //   - fp32, and bf16 at other head dims: 256 threads on the fp32 cores, with
 //     tiles staged as fp32 rows padded to d + 1 floats, each thread holding
 //     a 4 x 4 block of the 64 x 64 score tile and a 4 x 8 block of the
 //     (64, d) accumulator; one warp per row for the online softmax. fp32
 //     needs fp32 products: TF32 tensor cores would miss the 2e-5 pin.
-//
-// Bound, at the flagship train shape (b 8, s 1024, h 8, d 128, bf16,
-// causal): operations. The forward executes 2 products of 8.6 GFLOP each
-// after the causal halving (17.2 GFLOP, 17 us at 989 TFLOP/s) against 67 MB
-// of q, k, v and o (20 us at 3.35 TB/s); dq executes 3 products and dk/dv 4
-// (26 and 35 us). What the tensor-core route leaves on the table: mma.sync
-// is Hopper's older, synchronous tensor-core path (wgmma reaches the full
-// rate); a tile's loads are plain loads that no math overlaps (cp.async or
-// TMA double buffering would hide them); and dq and dk/dv each recompute
-// the scores. Those are a later change's work.
+// dq executes 3 products and dk/dv 4 (26 and 35 us of tensor-core time at
+// the flagship shape). They still load each tile with plain loads that no
+// math overlaps, run on mma.sync, and each recompute the scores.
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -179,10 +223,11 @@ __device__ __forceinline__ bool visible(const Geometry& g, int row, int col) {
   return row < g.sq && col < g.sk && (!g.causal || g.q_offset + row >= col);
 }
 
-// One past the last key a q tile whose rows are [q0, q0 + kTile) can see.
-__device__ __forceinline__ int key_end(const Geometry& g, int q0) {
+// One past the last key a q tile whose rows are [q0, q0 + rows) can see.
+__device__ __forceinline__ int key_end(const Geometry& g, int q0,
+                                       int rows = kTile) {
   if (!g.causal) return g.sk;
-  const int last_row = min(q0 + kTile, g.sq) - 1;
+  const int last_row = min(q0 + rows, g.sq) - 1;
   return max(0, min(g.sk, g.q_offset + last_row + 1));
 }
 
@@ -612,103 +657,6 @@ __device__ __forceinline__ void store_acc_bf16(bf16* __restrict__ dst,
 
 template <int kD>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, Geometry g) {
-  constexpr int kLd = kD + kPadH;
-  constexpr int kNT = kTile / 8;  // n-tiles of a score row
-  constexpr int kDT = kD / 8;     // n-tiles of an output row
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int bh = blockIdx.y;
-  const int b = bh / g.heads;
-  const int h = bh % g.heads;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + kTile * kLd;
-  bf16* sv = sk + kTile * kLd;
-
-  load_tile_bf16<kD>(q, sq, b, h, q0, g.sq, g.heads);
-  float acc[kDT][4] = {};
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};  // this thread's share of each row's sum
-
-  const int k_end = key_end(g, q0);
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<kD>(k, sk, b, h, k0, g.sk, g.heads);
-    load_tile_bf16<kD>(v, sv, b, h, k0, g.sk, g.heads);
-    __syncthreads();
-    float s[kNT][4] = {};
-    mma_abt<kNT, kD>(s, sq + warp * 16 * kLd, sk, kLd, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + r0 + (e / 2) * 8;
-        const int col = k0 + j * 8 + 2 * (lane % 4) + e % 2;
-        const float x = visible(g, row, col) ? s[j][e] * g.scale : kNegInf;
-        s[j][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-    float shift[2], corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      shift[i] = m_new <= kNegInf / 2 ? 0.0f : m_new;
-      corr[i] = expf((m[i] <= kNegInf / 2 ? kNegInf : m[i]) - shift[i]);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float p = x <= kNegInf / 2 ? 0.0f : expf(x - shift[e / 2]);
-        s[j][e] = p;
-        l[e / 2] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < kDT; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-    uint32_t pa[kNT / 2][4];
-    acc_to_a<kNT>(s, pa);
-    mma_ab<kDT, kNT / 2>(acc, pa, sv, kLd, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
-  }
-  store_acc_bf16<kD>(o, b, h, q0 + warp * 16, g.sq, g.heads, lane, acc, inv);
-  if (lane % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + r0 + i * 8;
-      if (row >= g.sq) continue;
-      const float shift = m[i] <= kNegInf / 2 ? 0.0f : m[i];
-      lse[static_cast<int64_t>(bh) * g.sq + row] =
-          l[i] == 0.0f ? kNegInf : shift + logf(l[i]);
-    }
-  }
-}
-
-template <int kD>
-__global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -855,6 +803,459 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// The forward on wgmma, fed by a TMA ring (bf16 at head dims 64 and 128).
+//
+// Warpgroup 0 is the producer: its thread 0 loads Q once and walks the kv
+// tiles, waiting on each ring stage's empty barrier before it reloads the
+// stage. Warpgroups 1 and 2 are the consumers, each owning 64 of the CTA's
+// 128 q rows; every one of their threads waits on a stage's full barriers,
+// runs its products, and arrives on the stage's empty barrier once the
+// last product that read it has been waited on.
+//
+// Shared memory, from a 1024-byte boundary (the 128-byte swizzle's period):
+// Q (128 rows), kStages x K, kStages x V, then the barriers. A 128-row
+// tile is kD / 64 boxes of 128 rows x 128 bytes, each row's 16-byte chunks
+// swizzled (chunk c of row r at c ^ (r % 8)), exactly as the TMA writes
+// them and as wgmma's 128-byte-swizzle descriptors read them.
+//
+// Fragments (PTX ISA, wgmma m64nNk16): accumulator element 4j + e of
+// thread t of a warpgroup holds row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2),
+// column 8j + 2 (t % 4) + e % 2; the A fragment of k-step kk in registers
+// is {S(2kk)[0,1], S(2kk)[2,3], S(2kk+1)[0,1], S(2kk+1)[2,3]} as bf16 pairs.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdBlockQ = 128;   // q rows of a CTA, 64 per consumer
+constexpr int kFwdBlockK = 128;   // kv rows of a ring stage
+constexpr int kFwdThreads = 384;  // producer + 2 consumer warpgroups
+constexpr int kBoxCols = 64;      // bf16 columns of a box: 128 bytes
+constexpr int kBoxBytes = kFwdBlockK * kBoxCols * 2;  // 16 KB
+// setmaxnreg's split: 128 x 40 + 256 x 232 = 64,512 of an SM's 65,536
+// registers, so the two consumers hold S, O and P (about 160) unspilled.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// Error codes of an encoding that failed: kTensorMapError + its CUresult.
+constexpr int kTensorMapError = 20000;
+
+template <int kD>
+struct FwdLayout {
+  static_assert(kD == 64 || kD == 128, "the wgmma forward takes d 64, 128");
+  // A third stage fits at d 128 too (230 KB) but did not run faster: one
+  // stage ahead already covers a tile's loads, which mostly hit L2.
+  static constexpr int kStages = kD == 128 ? 2 : 3;
+  static constexpr int kTileBytes = (kD / kBoxCols) * kBoxBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  // q_full, k_full[kStages], v_full[kStages], empty[kStages]
+  static constexpr int kSmem = kBar + (1 + 3 * kStages) * 8 + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed.
+// Built with -DTT_DEBUG_HANG, a wait past 2^26 polls traps, so that a ring
+// that can never fill fails its launch instead of hanging the card. The
+// watchdog is for debugging a new ring only: a trap poisons the process's
+// whole CUDA context, and a poll count is not a time, so a slow but
+// legitimate wait (a debugger, a busy card) would end a training run.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+#ifdef TT_DEBUG_HANG
+  for (uint32_t polls = 0;; ++polls) {
+#else
+  for (;;) {
+#endif
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+#ifdef TT_DEBUG_HANG
+    if (polls == (1u << 26)) __trap();
+#endif
+  }
+}
+
+// One box of a rank-4 map at coordinates (c0, c1, c2, c3) = (column, head,
+// row, batch) into shared memory at dst; completes its bytes on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor under the 128-byte swizzle: start
+// address, leading and stride byte offsets (each >> 4), layout type 1 in
+// bits 62-63 (cute/arch/mma_sm90_desc.hpp's GmmaDescriptor).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Ties registers to this point, so that no read of an accumulator moves
+// above the wait that completes it (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define TT_ACC4(i) "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), \
+                   "+f"(d[(i) + 3])
+#define TT_ACC16(i) TT_ACC4(i), TT_ACC4((i) + 4), TT_ACC4((i) + 8), \
+                    TT_ACC4((i) + 12)
+#define TT_REGS32                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                       \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define TT_REGS64                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                       \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, fp32) = A . B^T (+ d when accumulate): A and B K-major in
+// shared memory (descriptors), bf16.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TT_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : TT_ACC16(0), TT_ACC16(16), TT_ACC16(32), TT_ACC16(48)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) += A . B: A (64 x 16, bf16) in registers, B (16 x
+// 128) MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TT_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : TT_ACC16(0), TT_ACC16(16), TT_ACC16(32), TT_ACC16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The same at N = 64 (d 64).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TT_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TT_ACC16(0), TT_ACC16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef TT_ACC4
+#undef TT_ACC16
+#undef TT_REGS32
+#undef TT_REGS64
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The kv tiles a 128-row q tile walks, [0, n), and how many of them lead
+// without a mask: tile t needs none iff every key of it is below sk and
+// seen by the tile's first row (so by all its rows).
+struct FwdTiles {
+  int n, unmasked;
+};
+
+__device__ __forceinline__ FwdTiles fwd_tiles(const Geometry& g, int q0) {
+  const int end = key_end(g, q0, kFwdBlockQ);
+  const int n = (end + kFwdBlockK - 1) / kFwdBlockK;
+  const int reach = g.causal ? min(g.sk, g.q_offset + q0 + 1) : g.sk;
+  return FwdTiles{n, min(n, max(0, reach) / kFwdBlockK)};
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       bf16* __restrict__ o, float* __restrict__ lse,
+                       Geometry g, int group) {
+  using L = FwdLayout<kD>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char fwd_smem[];
+  const uint32_t raw = smem_u32(fwd_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = fwd_smem + (base - raw);
+  const uint32_t s_q = base + L::kQ;
+  const uint32_t s_k = base + L::kK;
+  const uint32_t s_v = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;                  // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  // Dispatch order (CTAs start in blockIdx order): groups of `group`
+  // (batch, head) pairs, about one wave of the card's SMs, start one after
+  // the other, so their K and V stay in L2 while the group runs; inside a
+  // group the q tiles with the longest causal rows start first.
+  const int linear = blockIdx.x + gridDim.x * blockIdx.y;
+  const int first = linear / (group * gridDim.x) * group;
+  const int size = min(group, static_cast<int>(gridDim.y) - first);
+  const int within = linear - first * static_cast<int>(gridDim.x);
+  const int q0 = (gridDim.x - 1 - within / size) * kFwdBlockQ;
+  const int bh = first + within % size;
+  const int b = bh / g.heads;
+  const int h = bh % g.heads;
+  const FwdTiles tiles = fwd_tiles(g, q0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer ------------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && tiles.n > 0) {
+      mbar_expect_tx(q_full, L::kTileBytes);
+#pragma unroll
+      for (int x = 0; x < kD / kBoxCols; ++x)
+        tma_load(s_q + x * kBoxBytes, &map_q, q_full, x * kBoxCols, h, q0, b);
+      for (int t = 0; t < tiles.n; ++t) {
+        const int stage = t % kStages;
+        mbar_wait(empty + 8 * stage, ((t / kStages) & 1) ^ 1);
+        const uint32_t kb = k_full + 8 * stage, vb = v_full + 8 * stage;
+        mbar_expect_tx(kb, L::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < kD / kBoxCols; ++x)
+          tma_load(s_k + stage * L::kTileBytes + x * kBoxBytes, &map_k, kb,
+                   x * kBoxCols, h, t * kFwdBlockK, b);
+        mbar_expect_tx(vb, L::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < kD / kBoxCols; ++x)
+          tma_load(s_v + stage * L::kTileBytes + x * kBoxBytes, &map_v, vb,
+                   x * kBoxCols, h, t * kFwdBlockK, b);
+      }
+    }
+  } else {
+    // -- consumers -----------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128 - 1;   // 0 or 1: rows 64 wg ..
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int r_local = wg * 64 + warp * 16 + lane / 4;  // and r_local + 8
+    const float scale_log2 = g.scale * 1.4426950408889634f;
+
+    // One past the last key each of this thread's two rows sees (0 for a
+    // row past sq); a masked tile keeps column c of row i iff c < lim[i].
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r_local + 8 * i;
+      lim[i] = row >= g.sq ? 0
+               : g.causal  ? max(0, min(g.sk, g.q_offset + row + 1))
+                           : g.sk;
+    }
+
+    float acc[kD / 2];  // (64, kD) of this warpgroup: kD / 8 n-tiles x 4
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+    float l[2] = {0.0f, 0.0f};  // this thread's share of each row's sum
+
+    if (tiles.n > 0) mbar_wait(q_full, 0);
+    for (int t = 0; t < tiles.n; ++t) {
+      const int stage = t % kStages;
+      const int parity = (t / kStages) & 1;
+      const uint32_t sk_t = s_k + stage * L::kTileBytes;
+      const uint32_t sv_t = s_v + stage * L::kTileBytes;
+
+      // S = Q . K^T, k-step kk: 16 columns at byte 32 (kk % 4) of box kk / 4.
+      mbar_wait(k_full + 8 * stage, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128(s, wgmma_desc(s_q + wg * 64 * 128 + off, 16, 1024),
+                      wgmma_desc(sk_t + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // The online softmax, its statistics on the raw scores: masked
+      // entries are -inf, and each weight is exp2(s scale log2(e) - shift)
+      // in one FMA, shift being the row's running max in the exp2 domain.
+      if (t >= tiles.unmasked) {
+        const int c0 = t * kFwdBlockK + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * j + (e & 1);
+            if (col >= lim[e >> 1]) s[4 * j + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      float shift[2], corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        // A row with nothing visible yet keeps m = -inf: shift by 0, so
+        // its weights stay exactly 0 and no inf - inf arises.
+        shift[i] = mx[i] == -INFINITY ? 0.0f : mx[i] * scale_log2;
+        corr[i] = exp2_approx(fmaf(m[i], scale_log2, -shift[i]));
+        m[i] = mx[i];
+        l[i] *= corr[i];
+      }
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2_approx(fmaf(s[4 * j + e], scale_log2, -shift[e >> 1]));
+          l[e >> 1] += p[e];
+        }
+        pa[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
+        pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        acc[4 * j] *= corr[0];
+        acc[4 * j + 1] *= corr[0];
+        acc[4 * j + 2] *= corr[1];
+        acc[4 * j + 3] *= corr[1];
+      }
+
+      // O += P . V, k-step kk: the 16 kv rows from 16 kk on, 2048 bytes a
+      // step; the two 64-column boxes of d 128 lie kBoxBytes apart (LBO).
+      mbar_wait(v_full + 8 * stage, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t desc = wgmma_desc(sv_t + kk * 2048, kBoxBytes, 1024);
+        if constexpr (kD == 128)
+          wgmma_rs_n128(acc, pa[kk], desc);
+        else
+          wgmma_rs_n64(acc, pa[kk], desc);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(empty + 8 * stage);
+    }
+
+    // Epilogue: o = acc / l through this warpgroup's own rows of Q's shared
+    // memory (the same swizzled layout), then 16-byte stores of rows < sq.
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r_local + 8 * i;
+        const uint32_t at = (j / 8) * kBoxBytes + r * 128 +
+                            ((j % 8) ^ (r % 8)) * 16 + (lane % 4) * 4;
+        *reinterpret_cast<uint32_t*>(base_ptr + L::kQ + at) =
+            pack_bf16(acc[4 * j + 2 * i] * inv[i],
+                      acc[4 * j + 2 * i + 1] * inv[i]);
+      }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    constexpr int kChunks = kD / 8;  // 16-byte chunks of a row
+    for (int c = tw; c < 64 * kChunks; c += 128) {
+      const int r = wg * 64 + c / kChunks;
+      const int chunk = c % kChunks;
+      const int row = q0 + r;
+      if (row >= g.sq) continue;
+      const uint32_t at = (chunk / 8) * kBoxBytes + r * 128 +
+                          ((chunk % 8) ^ (r % 8)) * 16;
+      *reinterpret_cast<uint4*>(o + row_offset(b, row, g.sq, g.heads, h, kD) +
+                                chunk * 8) =
+          *reinterpret_cast<const uint4*>(base_ptr + L::kQ + at);
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + r_local + 8 * i;
+        if (row >= g.sq) continue;
+        lse[static_cast<int64_t>(bh) * g.sq + row] =
+            l[i] == 0.0f ? kNegInf : m[i] * g.scale + logf(l[i]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
@@ -869,7 +1270,8 @@ constexpr bool tensor_core_route(int dtype, int d) {
 constexpr int smem_bytes(int which, int dtype, int d) {
   if (tensor_core_route(dtype, d)) {
     const int tile = kTile * (d + kPadH) * static_cast<int>(sizeof(bf16));
-    if (which == kFwd) return 3 * tile;
+    if (which == kFwd)
+      return d == 128 ? FwdLayout<128>::kSmem : FwdLayout<64>::kSmem;
     if (which == kDq) return 4 * tile;
     return 4 * tile + 2 * kTile * static_cast<int>(sizeof(float));
   }
@@ -932,9 +1334,111 @@ Geometry geometry(int sq, int sk, int heads, int d, int causal,
                   1.0f / sqrtf(static_cast<float>(d))};
 }
 
-dim3 grid_of(int rows, int batch, int heads) {
-  return dim3(static_cast<unsigned>((rows + kTile - 1) / kTile),
+dim3 grid_of(int rows, int batch, int heads, int tile = kTile) {
+  return dim3(static_cast<unsigned>((rows + tile - 1) / tile),
               static_cast<unsigned>(batch * heads));
+}
+
+// cuTensorMapEncodeTiled, through the runtime's entry-point query (the
+// library is not linked against libcuda); its ABI is CUDA 12.0's.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (status != cudaDriverEntryPointSuccess || entry == nullptr)
+      return kTensorMapError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+    found = reinterpret_cast<EncodeTiled>(entry);
+  }
+  *fn = found;
+  return 0;
+}
+
+// A rank-4 map over a contiguous bf16 (batch, s_len, heads, d) tensor:
+// dims (d, heads, s_len, batch), boxes of 64 columns x 128 rows of one
+// head, 128-byte swizzle, out-of-bounds boxes zero-filled.
+int encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
+                int s_len, int heads, int d) {
+  const cuuint64_t elem = sizeof(bf16);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s_len),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {d * elem, heads * d * elem,
+                                 static_cast<cuuint64_t>(s_len) * heads * d *
+                                     elem};
+  const cuuint32_t box[4] = {kBoxCols, 1, kFwdBlockK, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, steps,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+// (batch, head) pairs of one dispatch group of the wgmma forward: enough
+// for about one wave of the card's SMs (one CTA an SM) over n_q_tiles q
+// tiles each, at least 1.
+int fwd_group(int n_q_tiles, int* group) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *group = sms / n_q_tiles > 1 ? sms / n_q_tiles : 1;
+  return static_cast<int>(err);
+}
+
+// The wgmma forward: q, k, v's maps, then the launch. With sk == 0 no
+// tile is walked, and k and v's maps are q's (an empty tensor has no
+// address to encode).
+template <int kD>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int batch, const Geometry& g,
+                     cudaStream_t stream) {
+  const dim3 grid = grid_of(g.sq, batch, g.heads, kFwdBlockQ);
+  int group = 1;
+  int err = fwd_group(static_cast<int>(grid.x), &group);
+  if (err) return err;
+  EncodeTiled fn = nullptr;
+  err = encode_tiled(&fn);
+  if (err) return err;
+  CUtensorMap maps[3];
+  const void* kv[2] = {g.sk > 0 ? k : q, g.sk > 0 ? v : q};
+  const int kv_len = g.sk > 0 ? g.sk : g.sq;
+  err = encode_rows(fn, &maps[0], q, batch, g.sq, g.heads, kD);
+  for (int i = 0; i < 2 && !err; ++i)
+    err = encode_rows(fn, &maps[1 + i], kv[i], batch, kv_len, g.heads, kD);
+  if (err) return err;
+  static bool done[kMaxDevices] = {};
+  return start(flash_fwd_wgmma_kernel<kD>, done, grid, kFwdThreads,
+               FwdLayout<kD>::kSmem, stream, maps[0], maps[1], maps[2], o,
+               lse, g, group);
+}
+
+template <int kD>
+int fwd_ctas_per_sm(int* ctas) {
+  static bool done[kMaxDevices] = {};
+  const cudaError_t err = allow_max_smem(flash_fwd_wgmma_kernel<kD>, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, flash_fwd_wgmma_kernel<kD>, kFwdThreads, FwdLayout<kD>::kSmem));
 }
 
 bool bad_args(int dtype, int d) {
@@ -950,9 +1454,26 @@ int tt_flash_tensor_cores(int dtype, int d) {
   return tensor_core_route(dtype, d) ? 1 : 0;
 }
 
+// CTAs of the wgmma forward (bf16 at head dim d, 64 or 128) that fit one
+// SM, into *ctas; returns a CUDA error code (0 = answered).
+int tt_flash_fwd_ctas_per_sm(int d, void* ctas) {
+  int* out = static_cast<int*>(ctas);
+  if (d == 128) return fwd_ctas_per_sm<128>(out);
+  if (d == 64) return fwd_ctas_per_sm<64>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of the wgmma forward at head dim d (64 or 128),
+// else 0.
+int tt_flash_fwd_smem_bytes(int d) {
+  return tensor_core_route(1, d) ? smem_bytes(kFwd, 1, d) : 0;
+}
+
 // dtype: 0 = fp32, 1 = bf16. Each entry returns cudaGetLastError() after
 // its launch (0 = launched), or cudaErrorInvalidValue for a type or head
-// dim it does not take; nothing is synchronised.
+// dim it does not take; nothing is synchronised. The wgmma forward may
+// also return kTensorMapError + the CUresult of a tensor map that failed
+// to encode.
 int tt_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                  void* o, void* lse, int batch, int sq, int sk, int heads,
                  int d, int causal, int q_offset, void* stream) {
@@ -967,16 +1488,8 @@ int tt_flash_fwd(int dtype, const void* q, const void* k, const void* v,
     return start(flash_fwd_kernel<float>, done, grid, kThreads, smem, s, q,
                  k, v, o, lse, g);
   }
-  if (d == 128) {
-    static bool done[kMaxDevices] = {};
-    return start(flash_fwd_mma_kernel<128>, done, grid, kMmaThreads, smem, s,
-                 q, k, v, o, lse, g);
-  }
-  if (d == 64) {
-    static bool done[kMaxDevices] = {};
-    return start(flash_fwd_mma_kernel<64>, done, grid, kMmaThreads, smem, s,
-                 q, k, v, o, lse, g);
-  }
+  if (d == 128) return launch_fwd_wgmma<128>(q, k, v, o, lse, batch, g, s);
+  if (d == 64) return launch_fwd_wgmma<64>(q, k, v, o, lse, batch, g, s);
   static bool done[kMaxDevices] = {};
   return start(flash_fwd_kernel<bf16>, done, grid, kThreads, smem, s, q, k,
                v, o, lse, g);
@@ -1044,6 +1557,13 @@ int tt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
 }
 
 const char* tt_cuda_error_string(int code) {
+  if (code >= kTensorMapError) {
+    static thread_local char text[96];
+    snprintf(text, sizeof(text),
+             "cuTensorMapEncodeTiled failed with CUresult %d",
+             code - kTensorMapError);
+    return text;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

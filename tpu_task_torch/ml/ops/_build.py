@@ -73,12 +73,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tt_flash_bwd_dkv": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _P]),
         "tt_flash_tensor_cores": (_I, [_I, _I]),
+        # d, int* ctas
+        "tt_flash_fwd_ctas_per_sm": (_I, [_I, _P]),
+        # d
+        "tt_flash_fwd_smem_bytes": (_I, [_I]),
         "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-#: The compiler's output for each library this process built.
+#: The compiler's output for each library this process loaded (kept
+#: beside the library, for one built by an earlier process).
 compiler_output: Dict[str, str] = {}
 
 
@@ -111,6 +116,7 @@ def _build(name: str, target: Path) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
                            f"{done.returncode}\n{done.stdout}")
+    target.with_suffix(".log").write_text(done.stdout)
     os.replace(tmp, target)
     compiler_output[name] = done.stdout
 
@@ -123,6 +129,9 @@ def load(name: str) -> ctypes.CDLL:
         target = library_path(name)
         if not target.exists():
             _build(name, target)
+        elif name not in compiler_output:
+            log = target.with_suffix(".log")
+            compiler_output[name] = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(target))
         for fn, (restype, argtypes) in SIGNATURES[name].items():
             getattr(lib, fn).restype = restype

@@ -18,13 +18,18 @@ CPU; on a CUDA tensor it launches its kernel or raises. Every wrapper and
 plain version counts its calls in a ``.launches`` attribute, which
 :func:`reset_launch_counts` sets to 0.
 
+The forward kernel for bf16 at head dims 64 and 128 walks a schedule of
+128-row tiles that :func:`flash_fwd_tiles` writes out for the CPU tests to
+check; nothing on the card path calls it.
+
 Shapes follow (batch, seq, heads, head_dim) throughout, as in the JAX
 package; ``lse`` and ``delta`` are (batch, heads, sq) float32."""
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -37,6 +42,11 @@ NEG_INF = -1e30
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 IMPLS = ("reference", "cuda")
+
+#: Rows of a q tile and of a kv ring stage in the wgmma forward kernel
+#: (``kFwdBlockQ``, ``kFwdBlockK`` in ``csrc/flash_attention.cu``), at both
+#: head dims it takes.
+FWD_BLOCK_Q = FWD_BLOCK_K = 128
 
 
 def expand_kv_heads(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -174,6 +184,37 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_bwd_reference.launches = 0
 
 
+class FwdTile(NamedTuple):
+    """One q tile of the forward's schedule: rows [q0, q0 + block_q) (those
+    below sq are written) walk kv tiles [0, n) of block_k rows; the first
+    ``unmasked`` apply no mask, the rest (the tiles that cross the diagonal
+    or the ragged edge sk) do."""
+    q0: int
+    n: int
+    unmasked: int
+
+
+def flash_fwd_tiles(sq: int, sk: int, causal: bool, q_offset: int,
+                    block_q: int = FWD_BLOCK_Q,
+                    block_k: int = FWD_BLOCK_K) -> List[FwdTile]:
+    """The wgmma forward kernel's tile schedule (``fwd_tiles`` in
+    ``csrc/flash_attention.cu``), one entry per q tile in row order. The
+    walk stops at the last tile the q tile's last row sees (``key_end``);
+    tile t needs no mask iff all its keys lie below sk and the tile's first
+    row sees them all, which holds for a prefix of the walk."""
+    tiles = []
+    for q0 in range(0, sq, block_q):
+        if causal:
+            last = min(q0 + block_q, sq) - 1
+            end = max(0, min(sk, q_offset + last + 1))
+            reach = min(sk, q_offset + q0 + 1)
+        else:
+            end = reach = sk
+        n = -(-end // block_k)
+        tiles.append(FwdTile(q0, n, min(n, max(0, reach) // block_k)))
+    return tiles
+
+
 # -- the kernels' wrappers ------------------------------------------------------
 
 def check_flash_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -247,6 +288,25 @@ def _check_alignment(q: torch.Tensor, tensors) -> None:
             t.data_ptr() % 16 for t in tensors):
         raise ValueError("the bf16 tensor-core flash kernels take 16-byte "
                          "aligned tensors only")
+
+
+def fwd_ctas_per_sm(d: int) -> int:
+    """CTAs of the wgmma forward kernel (bf16 at head dim 64 or 128) that
+    fit one SM of the current card, by the CUDA occupancy calculator at the
+    kernel's dynamic shared memory."""
+    lib = _build.load("flash_attention")
+    ctas = ctypes.c_int(0)
+    rc = lib.tt_flash_fwd_ctas_per_sm(d, ctypes.addressof(ctas))
+    if rc:
+        raise RuntimeError(f"flash forward occupancy query failed: CUDA "
+                           f"error {rc} "
+                           f"({lib.tt_cuda_error_string(rc).decode()})")
+    return ctas.value
+
+
+def fwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the wgmma forward kernel at head dim d."""
+    return _build.load("flash_attention").tt_flash_fwd_smem_bytes(d)
 
 
 def _check_out(out: torch.Tensor, like: torch.Tensor, name: str) -> None:
