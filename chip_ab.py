@@ -8,14 +8,16 @@ card, in turns: other, this, this, other.
 Each turn is a fresh process in the checkout it times. It imports that
 checkout's own ``chip_smoke.py``, runs its device, build and
 ``flash_timing`` phases (the flash kernels at the flagship train shape),
-then times that checkout's flash forward at this checkout's
-``FWD_SHAPES`` with this checkout's ``fwd_shape_times``, which calls only
-the port's public wrapper. Every JSON line a turn prints is printed again
-with ``turn`` and ``checkout`` ("other" or "this") added; the last line
+then times that checkout's flash forward and its backward pair (dq, then
+dk/dv) at this checkout's ``FWD_SHAPES`` with this checkout's
+``fwd_shape_times`` and ``bwd_shape_times``, which call only the port's
+public wrappers. Every JSON line a turn prints is printed again with
+``turn`` and ``checkout`` ("other" or "this") added; the last line
 gathers, by checkout in turn order, the ``ms`` of every line that names a
-``kernel`` and the forward's ``ms`` at each shape. Compare two versions
-only within one run of this script: cards and hosts differ between runs.
-The script sets no time limit of its own; run it under ``timeout``."""
+``kernel``, the forward's ``ms`` at each shape, and the backward pair's,
+dq's and dk/dv's at each shape. Compare two versions only within one run
+of this script: cards and hosts differ between runs. The script sets no
+time limit of its own; run it under ``timeout``."""
 
 from __future__ import annotations
 
@@ -41,11 +43,12 @@ spec = importlib.util.spec_from_file_location("chip_ab_shapes", sys.argv[1])
 shapes = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(shapes)
 shapes.emit("fwd_shapes", shapes=shapes.fwd_shape_times(device), gpu=smi)
+shapes.emit("bwd_shapes", shapes=shapes.bwd_shape_times(device), gpu=smi)
 """
 
 
-def shape_key(row: dict) -> str:
-    return ("flash_fwd b{b} h{h} s{s} d{d} ".format(**row)
+def shape_key(kernel: str, row: dict) -> str:
+    return (kernel + " b{b} h{h} s{s} d{d} ".format(**row)
             + ("causal" if row["causal"] else "non-causal"))
 
 
@@ -64,8 +67,15 @@ def run_turn(turn: int, who: str, where: Path, summary: dict) -> None:
             summary[who].setdefault(row["kernel"], []).append(row["ms"])
         if row.get("phase") == "fwd_shapes":
             for shape in row["shapes"]:
-                summary[who].setdefault(shape_key(shape), []).append(
-                    shape["ms"])
+                summary[who].setdefault(shape_key("flash_fwd", shape),
+                                        []).append(shape["ms"])
+        if row.get("phase") == "bwd_shapes":
+            for shape in row["shapes"]:
+                for kernel, key in (("flash_bwd_pair", "ms"),
+                                    ("flash_bwd_dq", "dq_ms"),
+                                    ("flash_bwd_dkv", "dkv_ms")):
+                    summary[who].setdefault(shape_key(kernel, shape),
+                                            []).append(shape[key])
     if done.returncode:
         sys.stderr.write(done.stderr[-8000:])
         raise SystemExit(f"chip_ab: turn {turn} ({who}, {where}) exited "

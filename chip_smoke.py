@@ -12,9 +12,10 @@ script exits non-zero:
 
 1. device  — the card's name and power limit; TF32 off for the fp32 phases.
 2. build   — nvcc for every kernel source, all started together, with
-             ptxas's report; then the flash forward's (B1 v3, wgmma fed
-             by a TMA ring) registers, spills, dynamic shared memory and
-             CTAs per SM at d 64 and 128, failing on a spill.
+             ptxas's report; then the registers, spills, dynamic shared
+             memory and CTAs per SM at d 64 and 128 of the flash forward
+             (B1 v3) and of the backward's dq and dk/dv kernels (B2, B3
+             v3), all wgmma fed by TMA rings, failing on a spill.
 3. kernel  — the paged-decode kernel against its plain version at the
              flagship geometry (kv 2, group 4, d 128, block 16): fragmented
              shuffled tables, ragged depths, inactive rows, fp32 and bf16;
@@ -62,16 +63,19 @@ script exits non-zero:
              train shape (b 8, s 1024, h 8, d 128, causal), causal and not,
              sq = sk, sq < sk, q_offset 0 with sq != sk, a negative
              q_offset with rows that see no key, a ragged length, d 64 and
-             128, lengths 128 to 2048, and the forward's 128-row tile
-             edges (sq 1, 127, 129, 257, sk < sq, q_offset -130, d 64 at
-             sq 384). Each case also launches every kernel into NaN-guarded
-             buffers.
+             128, lengths 128 to 2048, the forward's 128-row tile edges
+             (sq 1, 127, 129, 257, sk < sq, q_offset -130, d 64 at sq
+             384) and the backward's 64-row q stage edges (sq 65 and 193,
+             q_offset -64). Each case also launches every kernel into
+             NaN-guarded buffers.
 8. flash timing — each kernel at the flagship train shape (bf16, held
              against its plain version in phase 7): kernel, plain and bound
-             ms, and SDPA's forward and backward (``library_ms``, a
-             yardstick the port never calls); then the forward and SDPA at
-             six more shapes, with a fit of the forward's ms as a fixed
-             cost per CTA plus a cost per kv tile step.
+             ms, SDPA's forward and backward (``library_ms``, a yardstick
+             the port never calls) and the plain-torch delta before the
+             backward; then the forward and SDPA's forward, and the
+             backward pair and SDPA's backward, at six shapes, with a fit
+             of each wgmma kernel's ms as a fixed cost per CTA plus a cost
+             per tile step.
 9. train parity — small GQA configs with a 256-token sequence, fp32 at d 32
              (the fp32-core kernels) and bf16 at d 128 (the tensor-core
              kernels): three ``make_train_step`` steps through the kernels
@@ -122,7 +126,8 @@ script exits non-zero:
              the same gates.
 
 Then the kernel table as one JSON line (the five ported kernels and the
-split walk's combine kernel; the forward's row names its version, v3),
+split walk's combine kernel; the three flash rows name their version, v3,
+their kernel and its registers),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -308,19 +313,20 @@ def phase_build() -> None:
          libraries=sorted(_build.SIGNATURES), ptxas=report)
 
 
-def phase_flash_fwd_build() -> dict:
-    """The wgmma forward's instantiations (d 64 and 128): registers, stack
-    and spill bytes from ptxas, their dynamic shared memory, and the CTAs
-    that fit one SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    with every ptxas warning of the library. Fails on a spill or on an
-    instantiation that fits no SM."""
+def wgmma_build(name: str) -> dict:
+    """{d: row} for each instantiation of the wgmma flash kernel ``name``
+    ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") in the library's
+    ptxas report: registers, stack and spill bytes, its dynamic shared
+    memory and the CTAs that fit one SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from tpu_task_torch.ml.ops import _build
     from tpu_task_torch.ml.ops import attention as fa
 
+    kernel = name.rsplit("_", 1)[-1]             # fwd, dq or dkv
     output = _build.compiler_output.get("flash_attention", "")
-    kernels = {}
-    for name, text in ptxas_report(output).items():
-        found = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", name)
+    rows = {}
+    for found_name, text in ptxas_report(output).items():
+        found = re.search(name + r"_wgmma_kernelILi(\d+)E", found_name)
         if not found:
             continue
         d = int(found.group(1))
@@ -331,23 +337,64 @@ def phase_flash_fwd_build() -> dict:
                              ("spill_load_bytes", r"(\d+) bytes spill lo")):
             value = re.search(pattern, text)
             row[key] = int(value.group(1)) if value else None
-        row.update(smem_bytes=fa.fwd_smem_bytes(d),
-                   ctas_per_sm=fa.fwd_ctas_per_sm(d))
-        kernels[d] = row
-    warnings = [line.strip() for line in output.splitlines()
-                if "warning" in line.lower()]
-    ok = sorted(kernels) == [64, 128] and all(
+        row.update(smem_bytes=fa.wgmma_smem_bytes(kernel, d),
+                   ctas_per_sm=fa.wgmma_ctas_per_sm(kernel, d))
+        rows[d] = row
+    return rows
+
+
+def build_ok(rows: dict) -> bool:
+    """Both head dims built, no spill, at least one CTA an SM."""
+    return sorted(rows) == [64, 128] and all(
         row["spill_store_bytes"] == 0 and row["spill_load_bytes"] == 0
-        and row["ctas_per_sm"] >= 1 for row in kernels.values())
+        and row["ctas_per_sm"] >= 1 for row in rows.values())
+
+
+def ptxas_warnings() -> list:
+    from tpu_task_torch.ml.ops import _build
+
+    return [line.strip() for line in
+            _build.compiler_output.get("flash_attention", "").splitlines()
+            if "warning" in line.lower()]
+
+
+def phase_flash_fwd_build() -> dict:
+    """The wgmma forward's instantiations (d 64 and 128) by
+    ``wgmma_build``, with every ptxas warning of the library. Fails on a
+    spill or on an instantiation that fits no SM."""
+    kernels = wgmma_build("flash_fwd")
+    ok = build_ok(kernels)
     emit("flash_fwd_build", ok=ok, kernel="flash_fwd_wgmma_kernel (B1 v3)",
          threads=384, registers_note="ptxas's count is the launch's; "
          "setmaxnreg then gives the producer warpgroup 40 and the two "
          "consumers 232", by_head_dim={str(d): kernels[d]
                                        for d in sorted(kernels)},
-         ptxas_warnings=warnings)
+         ptxas_warnings=ptxas_warnings())
     if not ok:
         raise AssertionError(f"the wgmma forward's build failed its gates: "
                              f"{kernels}")
+    return kernels
+
+
+def phase_flash_bwd_build() -> dict:
+    """The same for the wgmma backward's four instantiations (dq and dk/dv
+    at d 64 and 128); returns {"flash_bwd_dq": rows, "flash_bwd_dkv":
+    rows}. Fails on a spill or on an instantiation that fits no SM."""
+    kernels = {name: wgmma_build(name)
+               for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    ok = all(build_ok(rows) for rows in kernels.values())
+    emit("flash_bwd_build", ok=ok,
+         kernels="flash_bwd_dq_wgmma_kernel (B2 v3), "
+                 "flash_bwd_dkv_wgmma_kernel (B3 v3)",
+         threads=384, registers_note="ptxas's count is the launch's; "
+         "setmaxnreg then gives the producer warpgroup 24 and the two "
+         "consumers 240",
+         by_kernel={name: {str(d): rows[d] for d in sorted(rows)}
+                    for name, rows in kernels.items()},
+         ptxas_warnings=ptxas_warnings())
+    if not ok:
+        raise AssertionError(f"the wgmma backward's build failed its "
+                             f"gates: {kernels}")
     return kernels
 
 
@@ -1112,7 +1159,9 @@ def wave_ok(run: dict) -> bool:
 #: 64-row tiles mask, and non-causal pairs; then the forward's 128-row tile
 #: edges: sq 1, 127, 129 and 257, sk < sq (causal rows that see nothing,
 #: and a non-causal pair), a q_offset of -130 (a whole tile that sees
-#: nothing) and d 64 at sq 384.
+#: nothing) and d 64 at sq 384; then the backward's 64-row q stage edges:
+#: sq 65 and 193 (one row into a stage, at d 128 and 64) and a q_offset of
+#: -64 (a whole stage that sees nothing).
 FLASH_CASES = (
     (8, 8, 1024, 1024, 128, True, None),
     (2, 4, 128, 128, 64, True, None),
@@ -1132,6 +1181,10 @@ FLASH_CASES = (
     (1, 2, 300, 200, 64, False, None),
     (2, 2, 256, 256, 128, True, -130),
     (1, 4, 384, 384, 64, True, None),
+    (2, 2, 65, 65, 128, True, None),
+    (1, 2, 193, 193, 128, True, None),
+    (1, 4, 193, 300, 64, True, None),
+    (2, 2, 256, 256, 128, True, -64),
 )
 
 
@@ -1294,6 +1347,10 @@ def phase_flash_timing(device, smi: str) -> dict:
 
     sdpa = dict(fwd=timer(sdpa_fwd), bwd=timer(sdpa_bwd),
                 fwd_bwd=timer(sdpa_fwd_bwd))
+    # delta = rowsum(dO * O), the plain torch before the backward pair
+    # (flash_attention_bwd).
+    delta_ms = timer(lambda: (do.float() * o.float()).sum(-1)
+                     .transpose(1, 2).contiguous())
     pairs = visible_pairs(s, s, True, 0) * b * h
     tensor = b * s * h * d * q.element_size()     # one (b, s, h, d) tensor
     stats = b * h * s * 4                         # one (b, h, s) f32 array
@@ -1329,9 +1386,12 @@ def phase_flash_timing(device, smi: str) -> dict:
     emit("flash_timing_sdpa", sdpa_fwd_ms=sdpa["fwd"],
          sdpa_bwd_ms=sdpa["bwd"], sdpa_fwd_bwd_ms=sdpa["fwd_bwd"],
          kernels_fwd_bwd_ms=sum(r["ms"] for r in rows.values()),
+         kernels_bwd_ms=rows["flash_bwd_dq"]["ms"]
+         + rows["flash_bwd_dkv"]["ms"], delta_ms=delta_ms,
          sdpa_max_abs_diff=lib_err, gpu=smi,
          note="library_ms of dq and dk/dv is SDPA's one backward call, "
-              "which computes dq, dk and dv together")
+              "which computes dq, dk and dv together; delta_ms is the "
+              "plain-torch rowsum(dO * O) the kernels' backward runs first")
     return rows
 
 
@@ -1394,6 +1454,84 @@ def phase_flash_fwd_shapes(device, smi: str) -> None:
               "x tile_steps / sms over the d 128 shapes; one tile step is "
               "the two 128 x 128 x 128 products of both consumers, 1.12 us "
               "at 989 TFLOP/s over 132 SMs",
+         gpu=smi)
+
+
+def bwd_shape_times(device) -> list:
+    """The flash backward pair (dq, then dk/dv) and SDPA's backward at
+    FWD_SHAPES, one row each: the pair's ms, each kernel's, and SDPA's one
+    backward call (dq, dk and dv). It calls only the port's public
+    wrappers, so ``chip_ab.py`` times another checkout's pair with it
+    too."""
+    from tpu_task_torch.ml.ops import attention as fa
+
+    F = torch.nn.functional
+    timer = DeviceTimer(device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    rows = []
+    for b, h, s, d, causal in FWD_SHAPES:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                                   device=device, dtype=torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+
+        def dq():
+            return fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+
+        def dkv():
+            return fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+
+        rows.append(dict(
+            b=b, h=h, s=s, d=d, causal=causal,
+            ms=timer(lambda: (dq(), dkv())), dq_ms=timer(dq),
+            dkv_ms=timer(dkv),
+            sdpa_bwd_ms=timer(lambda: torch.autograd.grad(
+                out, (lq, lk, lv), dot, retain_graph=True))))
+        del out
+    return rows
+
+
+def phase_flash_bwd_shapes(device, smi: str) -> None:
+    """``bwd_shape_times`` with the CTAs and tile steps of each wgmma
+    backward kernel's schedule (``flash_bwd_tiles``: dq's 128-row kv
+    stages, dk/dv's 64-row q stages), then for each kernel a least-squares
+    fit of its ms as a fixed cost per CTA plus a cost per tile step over
+    the d 128 shapes, each spread over the card's SMs (one CTA an SM)."""
+    from tpu_task_torch.ml.ops import attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = bwd_shape_times(device)
+    for row in rows:
+        tiles = fa.flash_bwd_tiles(row["s"], row["s"], row["causal"], 0)
+        heads = row["b"] * row["h"]
+        row.update(dq_ctas=len(tiles.dq) * heads,
+                   dq_tile_steps=sum(t.n for t in tiles.dq) * heads,
+                   dkv_ctas=len(tiles.dkv) * heads,
+                   dkv_tile_steps=sum(t.end - t.begin for t in tiles.dkv)
+                   * heads)
+    d128 = [r for r in rows if r["d"] == 128]
+    fits = {}
+    for kernel in ("dq", "dkv"):
+        a = np.array([[r[kernel + "_ctas"] / sms,
+                       r[kernel + "_tile_steps"] / sms] for r in d128])
+        us = np.array([r[kernel + "_ms"] * 1e3 for r in d128])
+        (per_cta, per_step), *_ = np.linalg.lstsq(a, us, rcond=None)
+        fits[kernel] = dict(
+            per_cta_us=float(per_cta), per_tile_step_us=float(per_step),
+            worst_rel_err=float(np.max(np.abs(a @ [per_cta, per_step] - us)
+                                       / us)))
+    emit("flash_bwd_shapes", shapes=rows, sms=sms, fit_d128=fits,
+         note="fit: ms x 1e3 = per_cta_us x ctas / sms + per_tile_step_us "
+              "x tile_steps / sms over the d 128 shapes; a dq tile step is "
+              "both consumers' three 64 x 128 x 128 products (1.68 us at "
+              "989 TFLOP/s over 132 SMs), a dk/dv step their four 64 x 64 "
+              "x 128 products (1.12 us)",
          gpu=smi)
 
 
@@ -1980,6 +2118,7 @@ def main() -> int:
     device = torch.device("cuda")
     phase_build()
     fwd_build = phase_flash_fwd_build()
+    bwd_build = phase_flash_bwd_build()
     max_err, combine_err = phase_kernel(device)
     timing = phase_timing(device, smi)
     phase_parity(device)
@@ -1987,6 +2126,7 @@ def main() -> int:
     flash_err = phase_flash_kernel(device)
     flash_times = phase_flash_timing(device, smi)
     phase_flash_fwd_shapes(device, smi)
+    phase_flash_bwd_shapes(device, smi)
     phase_train_parity(device)
     train_counts = phase_train(device, smi)
     quant_err = phase_kernel_quant(device)
@@ -2029,12 +2169,11 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "fraction_of_bound": row["fraction_of_bound"]})
-        if name == "flash_fwd":   # B1 v3: wgmma fed by a TMA ring
-            kernels[-1].update(version="v3",
-                               kernel="flash_fwd_wgmma_kernel",
-                               registers_d128=fwd_build[128]["registers"],
-                               ctas_per_sm_d128=fwd_build[128][
-                                   "ctas_per_sm"])
+        # B1, B2 and B3 v3: wgmma fed by TMA rings
+        build = fwd_build if name == "flash_fwd" else bwd_build[name]
+        kernels[-1].update(version="v3", kernel=f"{name}_wgmma_kernel",
+                           registers_d128=build[128]["registers"],
+                           ctas_per_sm_d128=build[128]["ctas_per_sm"])
     kernels.append({
         "name": "paged_decode_pipelined", "route": "cuda",
         "source": "tpu_task_torch/csrc/paged_decode_pipelined.cu",

@@ -445,6 +445,11 @@ def _flash_close(got, exact, atol):
     (1, 2, 300, 200, 64, False, None),        # sk < sq, not causal
     (2, 2, 256, 256, 128, True, -130),        # a whole q tile sees nothing
     (1, 4, 384, 384, 64, True, None),         # d 64 over three tiles
+    # the wgmma backward's 64-row q stage edges
+    (2, 2, 65, 65, 128, True, None),          # one row into a second stage
+    (1, 2, 193, 193, 128, True, None),        # ragged stage and kv tile
+    (1, 4, 193, 300, 64, True, None),         # the same at d 64, sk > sq
+    (2, 2, 256, 256, 128, True, -64),         # a whole stage sees nothing
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda_device, b, h, sq, sk, d, causal,
@@ -481,9 +486,26 @@ def test_flash_forward_occupancy_and_shared_memory(cuda_device):
     tiles in shared memory, from a 1024-byte boundary."""
     tile = {128: 32768, 64: 16384}
     for d, stages in ((128, 2), (64, 3)):
-        assert fa.fwd_ctas_per_sm(d) == 1
-        assert fa.fwd_smem_bytes(d) == \
+        assert fa.wgmma_ctas_per_sm("fwd", d) == 1
+        assert fa.wgmma_smem_bytes("fwd", d) == \
             tile[d] * (1 + 2 * stages) + 8 * (1 + 3 * stages) + 1024
+
+
+@pytest.mark.cuda
+def test_flash_backward_occupancy_and_shared_memory(cuda_device):
+    """The wgmma backward kernels hold one 384-thread CTA an SM at both
+    head dims: dq with Q, dO and a 2-stage (d 128) or 3-stage (d 64) ring
+    of 128-row K and V tiles; dk/dv with K, V and a 3-stage ring of 64-row
+    Q and dO tiles and their 64 lse and delta values; each from a
+    1024-byte boundary."""
+    tile = {128: 32768, 64: 16384}
+    for d, stages in ((128, 2), (64, 3)):
+        assert fa.wgmma_ctas_per_sm("dq", d) == 1
+        assert fa.wgmma_smem_bytes("dq", d) == \
+            tile[d] * (2 + 2 * stages) + 8 * (1 + 3 * stages) + 1024
+        assert fa.wgmma_ctas_per_sm("dkv", d) == 1
+        assert fa.wgmma_smem_bytes("dkv", d) == \
+            2 * tile[d] + 3 * (tile[d] + 512) + 8 * (1 + 2 * 3) + 1024
 
 
 @pytest.mark.cuda

@@ -2,11 +2,13 @@
 // and the two backward kernels of one library.
 //
 // Replaces the TPU kernels of tpu_task/ml/ops/attention.py:
-//   flash_fwd_wgmma_kernel <- _flash_fwd_kernel (:186, called by
-//                             flash_attention at :319): bf16, d 64 and 128
-//   flash_fwd_kernel       <- the same, for fp32 and bf16 at other head dims
-//   flash_bwd_dq_kernel    <- _flash_bwd_dq_kernel   (_flash_bwd_with_stats)
-//   flash_bwd_dkv_kernel   <- _flash_bwd_dkv_kernel  (_flash_bwd_with_stats)
+//   flash_fwd_wgmma_kernel     <- _flash_fwd_kernel (:186, called by
+//                                 flash_attention at :319): bf16, d 64, 128
+//   flash_bwd_dq_wgmma_kernel  <- _flash_bwd_dq_kernel (:344, call :577)
+//   flash_bwd_dkv_wgmma_kernel <- _flash_bwd_dkv_kernel (:394, call :597)
+//   flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel
+//                              <- the same three, for fp32 and for bf16 at
+//                                 other head dims
 //
 //   q, do, o, dq   (b, sq, h, d)   fp32 or bf16, contiguous
 //   k, v, dk, dv   (b, sk, h, d)   q's type
@@ -62,37 +64,67 @@
 // steps).
 // The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled
 // as rank-4 maps over the real (b, s, h, d) layout: dims (d, h, s, b),
-// strides in bytes, boxes of 64 columns x 128 rows; a 128-wide head dim
-// is two boxes). A box past s is zero-filled by the hardware and never
+// strides in bytes, boxes of 64 columns x 64 or 128 rows; a 128-wide head
+// dim is two boxes). A box past s is zero-filled by the hardware and never
 // wraps into the next batch row. The library is not linked against
 // libcuda: it gets cuTensorMapEncodeTiled through the runtime's
 // cudaGetDriverEntryPoint(ByVersion), and an encoding that fails returns
 // its CUresult (as kTensorMapError + CUresult) for the wrapper to raise on.
 //
-// The backward and the fp32-core forward share one older structure: a CTA
-// owns one 64-row output tile and loops over the other operand's 64-row
-// tiles itself.
-//   - dq: a CTA per (q tile, batch x head); the loop over kv tiles stops at
-//     the last one the tile's last row can see. q tiles are handed out
-//     last first, so the long causal rows start first (the forward too).
-//   - dk/dv: a CTA per (kv tile, batch x head); the loop over q tiles starts
-//     at the first that reaches the diagonal. Every output tile has exactly
-//     one owner, so there are no atomics and the result is deterministic.
-// Two routes share that structure:
-//   - bf16 at head dim 64 or 128: 4 warps, each owning 16 rows, with every
-//     product on mma.sync m16n8k16 (bf16 operands, fp32 sums) from bf16
-//     tiles in shared memory read with ldmatrix. Scores and ds stay in
-//     registers in fp32; p and ds are rounded to bf16 as A operands of the
-//     next product, as the TPU kernels round them (attention.py:387, :436,
-//     :441).
-//   - fp32, and bf16 at other head dims: 256 threads on the fp32 cores, with
-//     tiles staged as fp32 rows padded to d + 1 floats, each thread holding
-//     a 4 x 4 block of the 64 x 64 score tile and a 4 x 8 block of the
-//     (64, d) accumulator; one warp per row for the online softmax. fp32
-//     needs fp32 products: TF32 tensor cores would miss the 2e-5 pin.
-// dq executes 3 products and dk/dv 4 (26 and 35 us of tensor-core time at
-// the flagship shape). They still load each tile with plain loads that no
-// math overlaps, run on mma.sync, and each recompute the scores.
+// The backward on the tensor cores (bf16 at d 64 and 128) takes the
+// forward's structure: the same three warpgroups, with setmaxnreg giving
+// the producer 24 registers and the consumers 240, every copy a TMA box
+// under the 128-byte swizzle, and every product on wgmma. Bound at the
+// flagship shape: operations. One product over the visible score entries
+// is 8.59 GFLOP; dq runs three (S, dP, dQ: 25.8 GFLOP, 26.1 us at 989
+// TFLOP/s) and dk/dv four (S, dP, dV, dK: 34.4 GFLOP, 34.8 us), against
+// 25.2 and 30.2 us at 3.35 TB/s for their bytes (five and six (b, s, h, d)
+// tensors and two (b, h, s) arrays, each read or written once).
+//   - dq: a CTA per 128-row q tile. Q and dO are loaded once; K and V
+//     stream through the forward's ring of 128-row stages and walk its
+//     schedule (fwd_tiles: stop at key_end, mask only the tiles that cross
+//     the diagonal or sk). Per stage, S = Q.K^T and dP = dO.V^T on
+//     m64n128k16, P = exp2(S scale log2(e) - lse log2(e)), dS = P (dP -
+//     delta), and dQ += dS.K on m64n{d}k16 with dS rounded to bf16 in
+//     registers as its A fragments (attention.py:387) and K read MN-major
+//     through the transpose bit. A consumer holds dQ, S and dP: 3 x 64
+//     fp32 at d 128.
+//   - dk/dv: a CTA per 128-row kv tile, keys on the M side. K and V are
+//     loaded once; Q and dO stream through a ring of 64-row stages, each
+//     with its 64 lse and delta values, which the producer's first warp
+//     loads with plain loads (a ragged sq leaves them off the 16-byte
+//     alignment a bulk copy needs). Per stage, S^T = K.Q^T and dP^T =
+//     V.dO^T on m64n64k16; dV += P^T.dO and dK += dS^T.Q on m64n{d}k16
+//     with P^T and dS^T rounded to bf16 as A (attention.py:436, :441) and
+//     dO and Q read MN-major. A consumer holds dK, dV, S^T and dP^T: 64 +
+//     64 + 32 + 32 fp32 at d 128, which fits only with the 64-row q stage.
+//     The walk starts at the first q tile that reaches the diagonal; a
+//     tile needs the mask only where it crosses the diagonal, sq or sk.
+//     flash_bwd_tiles in ml/ops/attention.py writes both kernels'
+//     schedules out for the CPU tests.
+//   - both: CTAs start in the forward's groups of about one wave of
+//     (batch, head) pairs, the longest walks first (the last q tiles of
+//     dq, the first kv tiles of dk/dv). Rows past sq weigh exactly 0:
+//     their lse and delta are 0 and a masked weight is selected away,
+//     never multiplied by 0; a row whose lse is -1e30 uses 0, as JAX's
+//     lse_safe. The epilogue stages bf16 rows through the consumer's own
+//     rows of Q (dq) or of K and V (dk/dv) and writes rows < sq (sk) with
+//     16-byte stores. Every output tile has exactly one owner: no atomics,
+//     and the result is deterministic.
+// What they leave: two kernels compute S and dP twice, 7 products against
+// a fused backward's 5; a fused backward (dq by a TMA reduce-add, delta in
+// the same pass), a persistent grid and ping-pong consumers are later
+// steps.
+//
+// The fp32 kernels, and bf16 at other head dims, keep an older structure
+// on the fp32 cores: a CTA of 256 threads owns one 64-row output tile and
+// loops over the other operand's 64-row tiles itself (dq: kv tiles up to
+// the last the tile's last row sees; dk/dv: q tiles from the first that
+// reaches the diagonal), with tiles staged as fp32 rows padded to d + 1
+// floats, each thread holding a 4 x 4 block of the 64 x 64 score tile and
+// a 4 x 8 block of the (64, d) accumulator, and one warp per row for the
+// online softmax. fp32 needs fp32 products: TF32 tensor cores would miss
+// the 2e-5 pin.
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
@@ -504,302 +536,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (head dims 64 and 128): warp-level mma.sync.
-//
-// A CTA of 4 warps owns the same 64-row output tile as above; each warp owns
-// 16 of its rows. Tiles sit in shared memory as bf16 rows padded by 8
-// elements (16 bytes), so the 8 rows an ldmatrix reads fall in distinct
-// banks. Every product is mma.m16n8k16 with bf16 operands and fp32 sums:
-// scores and dP as A . B^T with both operands from shared memory, and the
-// weights (p, or ds in the backward) times V, K, Q or dO with the weights
-// in registers, turned from the accumulator layout straight into A
-// fragments and rounded to bf16 on the way, as the TPU kernels round p and
-// ds to the input type before their products. The softmax statistics and
-// every elementwise step stay fp32.
+// Shared by the wgmma kernels below.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 tile rows
-constexpr int kPadH = 8;          // bf16 row padding of a shared tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c += a . b for one m16n8k16 tile: a row-major, b column-major, fp32 c.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// kTile rows of head h from row0 on, as bf16 rows of stride kD + kPadH, in
-// 16-byte vectors; rows past s_len are zero.
-template <int kD>
-__device__ __forceinline__ void load_tile_bf16(const bf16* __restrict__ src,
-                                               bf16* __restrict__ dst, int b,
-                                               int h, int row0, int s_len,
-                                               int heads) {
-  constexpr int kVecs = kD / 8;
-  for (int e = threadIdx.x; e < kTile * kVecs; e += kMmaThreads) {
-    const int r = e / kVecs;
-    const int c = (e % kVecs) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < s_len)
-      val = *reinterpret_cast<const uint4*>(
-          src + row_offset(b, row, s_len, heads, h, kD) + c);
-    *reinterpret_cast<uint4*>(dst + r * (kD + kPadH) + c) = val;
-  }
-}
-
-// acc[j] += A . B^T for NT n-tiles of 8 over K (a multiple of 16). A: the
-// warp's 16 rows at `a`, row-major [m][k]; B: NT * 8 rows at `b`, row-major
-// [n][k]; both in shared memory with row stride ld.
-template <int NT, int K>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
-                                        const bf16* a, const bf16* b, int ld,
-                                        int lane) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane % 16) * ld + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (j * 8 + lane % 8 + (lane / 16) * 8) * ld + kk * 16 +
-                      ((lane / 8) % 2) * 8);
-      mma_bf16(acc[j], af, bf[0], bf[1]);
-      mma_bf16(acc[j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[j] += A . B for NT n-tiles of 8 over K = 16 KT. A: KT m16k16 fragments
-// in registers; B: row-major [k][n] at `b` in shared memory, stride ld.
-template <int NT, int KT>
-__device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
-                                       const uint32_t (&a)[KT][4],
-                                       const bf16* b, int ld, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ld +
-                        j * 8 + (lane / 16) * 8);
-      mma_bf16(acc[j], a[kk], bf[0], bf[1]);
-      mma_bf16(acc[j + 1], a[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// The accumulators of a 16 x 8NT tile as the A fragments of the next
-// product (k = the tile's columns), rounded to bf16.
-template <int NT>
-__device__ __forceinline__ void acc_to_a(const float (&c)[NT][4],
-                                         uint32_t (&a)[NT / 2][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// Stores a warp's 16 x kD accumulators times mul[row half] as bf16 rows.
-template <int kD>
-__device__ __forceinline__ void store_acc_bf16(bf16* __restrict__ dst,
-                                               int b, int h, int row0,
-                                               int s_len, int heads, int lane,
-                                               const float (&acc)[kD / 8][4],
-                                               const float (&mul)[2]) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + lane / 4 + half * 8;
-    if (row >= s_len) continue;
-    bf16* out = dst + row_offset(b, row, s_len, heads, h, kD);
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      const int c = n * 8 + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
-          acc[n][2 * half] * mul[half], acc[n][2 * half + 1] * mul[half]);
-    }
-  }
-}
-
-template <int kD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dq, Geometry g) {
-  constexpr int kLd = kD + kPadH;
-  constexpr int kNT = kTile / 8;
-  constexpr int kDT = kD / 8;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int bh = blockIdx.y;
-  const int b = bh / g.heads;
-  const int h = bh % g.heads;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16 + lane / 4;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdo = sq + kTile * kLd;
-  bf16* sk = sdo + kTile * kLd;
-  bf16* sv = sk + kTile * kLd;
-
-  load_tile_bf16<kD>(q, sq, b, h, q0, g.sq, g.heads);
-  load_tile_bf16<kD>(dout, sdo, b, h, q0, g.sq, g.heads);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + i * 8;
-    float l = 0.0f, dl = 0.0f;
-    if (row < g.sq) {
-      l = lse[static_cast<int64_t>(bh) * g.sq + row];
-      l = l <= kNegInf / 2 ? 0.0f : l;
-      dl = delta[static_cast<int64_t>(bh) * g.sq + row];
-    }
-    row_lse[i] = l;
-    row_delta[i] = dl;
-  }
-  float acc[kDT][4] = {};
-
-  const int k_end = key_end(g, q0);
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<kD>(k, sk, b, h, k0, g.sk, g.heads);
-    load_tile_bf16<kD>(v, sv, b, h, k0, g.sk, g.heads);
-    __syncthreads();
-    float s[kNT][4] = {};
-    float dp[kNT][4] = {};
-    mma_abt<kNT, kD>(s, sq + warp * 16 * kLd, sk, kLd, lane);
-    mma_abt<kNT, kD>(dp, sdo + warp * 16 * kLd, sv, kLd, lane);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + r0 + (e / 2) * 8;
-        const int col = k0 + j * 8 + 2 * (lane % 4) + e % 2;
-        const float p = visible(g, row, col)
-                            ? expf(s[j][e] * g.scale - row_lse[e / 2])
-                            : 0.0f;
-        s[j][e] = p * (dp[j][e] - row_delta[e / 2]);  // ds
-      }
-    uint32_t da[kNT / 2][4];
-    acc_to_a<kNT>(s, da);
-    mma_ab<kDT, kNT / 2>(acc, da, sk, kLd, lane);  // dq += ds . K
-  }
-  const float scale[2] = {g.scale, g.scale};
-  store_acc_bf16<kD>(dq, b, h, q0 + warp * 16, g.sq, g.heads, lane, acc,
-                     scale);
-}
-
-template <int kD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         Geometry g) {
-  constexpr int kLd = kD + kPadH;
-  constexpr int kNT = kTile / 8;
-  constexpr int kDT = kD / 8;
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int b = bh / g.heads;
-  const int h = bh % g.heads;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16 + lane / 4;  // this thread's keys: r0, r0 + 8
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sv = sk + kTile * kLd;
-  bf16* sq = sv + kTile * kLd;
-  bf16* sdo = sq + kTile * kLd;
-  float* slse = reinterpret_cast<float*>(sdo + kTile * kLd);
-  float* sdelta = slse + kTile;
-
-  load_tile_bf16<kD>(k, sk, b, h, k0, g.sk, g.heads);
-  load_tile_bf16<kD>(v, sv, b, h, k0, g.sk, g.heads);
-  float dk_acc[kDT][4] = {};
-  float dv_acc[kDT][4] = {};
-
-  int q_begin = 0;
-  if (g.causal) q_begin = max(0, min(g.sq, k0 - g.q_offset)) / kTile * kTile;
-  for (int q0 = q_begin; q0 < g.sq; q0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<kD>(q, sq, b, h, q0, g.sq, g.heads);
-    load_tile_bf16<kD>(dout, sdo, b, h, q0, g.sq, g.heads);
-    load_stats(lse, delta, slse, sdelta, bh, q0, g.sq);
-    __syncthreads();
-    // Transposed scores: rows are this warp's keys, columns the queries.
-    float st[kNT][4] = {};
-    float dpt[kNT][4] = {};
-    mma_abt<kNT, kD>(st, sk + warp * 16 * kLd, sq, kLd, lane);    // K . Q^T
-    mma_abt<kNT, kD>(dpt, sv + warp * 16 * kLd, sdo, kLd, lane);  // V . dO^T
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + r0 + (e / 2) * 8;
-        const int qc = j * 8 + 2 * (lane % 4) + e % 2;
-        const float p = visible(g, q0 + qc, key)
-                            ? expf(st[j][e] * g.scale - slse[qc])
-                            : 0.0f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - sdelta[qc]);  // ds^T
-      }
-    uint32_t pa[kNT / 2][4];
-    acc_to_a<kNT>(st, pa);
-    mma_ab<kDT, kNT / 2>(dv_acc, pa, sdo, kLd, lane);  // dv += p^T . dO
-    uint32_t da[kNT / 2][4];
-    acc_to_a<kNT>(dpt, da);
-    mma_ab<kDT, kNT / 2>(dk_acc, da, sq, kLd, lane);   // dk += ds^T . Q
-  }
-  const float one[2] = {1.0f, 1.0f};
-  const float scale[2] = {g.scale, g.scale};
-  store_acc_bf16<kD>(dk, b, h, k0 + warp * 16, g.sk, g.heads, lane, dk_acc,
-                     scale);
-  store_acc_bf16<kD>(dv, b, h, k0 + warp * 16, g.sk, g.heads, lane, dv_acc,
-                     one);
 }
 
 // ---------------------------------------------------------------------------
@@ -874,7 +622,9 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // that can never fill fails its launch instead of hanging the card. The
 // watchdog is for debugging a new ring only: a trap poisons the process's
 // whole CUDA context, and a poll count is not a time, so a slow but
-// legitimate wait (a debugger, a busy card) would end a training run.
+// legitimate wait (a debugger, a busy card) would end a training run. Its
+// poll counters also make the backward kernels spill: time only a build
+// without it.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 #ifdef TT_DEBUG_HANG
   for (uint32_t polls = 0;; ++polls) {
@@ -928,8 +678,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Returns once at most N of this warpgroup's committed groups are pending
+// (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Ties registers to this point, so that no read of an accumulator moves
@@ -971,6 +724,17 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same at N = 64: d (64 x 64, fp32) = A . B^T (+ d when accumulate).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TT_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TT_ACC16(0), TT_ACC16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 128, fp32) += A . B: A (64 x 16, bf16) in registers, B (16 x
 // 128) MN-major in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -1005,6 +769,63 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The CTA's place in the grid, in dispatch order: groups of
+// `group` (batch, head) pairs start one after the other, and inside a group
+// tile rank `rank` of every pair starts before rank + 1.
+struct Dispatch {
+  int rank, bh;
+};
+
+__device__ __forceinline__ Dispatch dispatch(int group) {
+  const int linear = blockIdx.x + gridDim.x * blockIdx.y;
+  const int first = linear / (group * gridDim.x) * group;
+  const int size = min(group, static_cast<int>(gridDim.y) - first);
+  const int within = linear - first * static_cast<int>(gridDim.x);
+  return Dispatch{within / size, first + within % size};
+}
+
+// A consumer's epilogue, in two steps around its warpgroup's named
+// barrier. First its fp32 accumulators, the thread's row r_local times
+// mul[0] and row r_local + 8 times mul[1], as bf16 into its own 64 rows of
+// a 128-row tile at `tile`, in the same swizzled layout as the TMA's;
+template <int kD>
+__device__ __forceinline__ void stage_rows(unsigned char* tile,
+                                           const float (&acc)[kD / 2],
+                                           const float (&mul)[2],
+                                           int r_local, int lane) {
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_local + 8 * i;
+      const uint32_t at = (j / 8) * kBoxBytes + r * 128 +
+                          ((j % 8) ^ (r % 8)) * 16 + (lane % 4) * 4;
+      *reinterpret_cast<uint32_t*>(tile + at) = pack_bf16(
+          acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+    }
+}
+
+// then those rows, for rows row0 + r below s_len, into dst (b, s_len,
+// heads, kD) with 16-byte stores.
+template <int kD>
+__device__ __forceinline__ void store_staged(bf16* __restrict__ dst,
+                                             const unsigned char* tile,
+                                             int wg, int tw, int b, int h,
+                                             int row0, int s_len, int heads) {
+  constexpr int kChunks = kD / 8;  // 16-byte chunks of a row
+  for (int c = tw; c < 64 * kChunks; c += 128) {
+    const int r = wg * 64 + c / kChunks;
+    const int chunk = c % kChunks;
+    const int row = row0 + r;
+    if (row >= s_len) continue;
+    const uint32_t at = (chunk / 8) * kBoxBytes + r * 128 +
+                        ((chunk % 8) ^ (r % 8)) * 16;
+    *reinterpret_cast<uint4*>(dst + row_offset(b, row, s_len, heads, h, kD) +
+                              chunk * 8) =
+        *reinterpret_cast<const uint4*>(tile + at);
+  }
 }
 
 // The kv tiles a 128-row q tile walks, [0, n), and how many of them lead
@@ -1046,12 +867,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // (batch, head) pairs, about one wave of the card's SMs, start one after
   // the other, so their K and V stay in L2 while the group runs; inside a
   // group the q tiles with the longest causal rows start first.
-  const int linear = blockIdx.x + gridDim.x * blockIdx.y;
-  const int first = linear / (group * gridDim.x) * group;
-  const int size = min(group, static_cast<int>(gridDim.y) - first);
-  const int within = linear - first * static_cast<int>(gridDim.x);
-  const int q0 = (gridDim.x - 1 - within / size) * kFwdBlockQ;
-  const int bh = first + within % size;
+  const Dispatch place = dispatch(group);
+  const int q0 = (gridDim.x - 1 - place.rank) * kFwdBlockQ;
+  const int bh = place.bh;
   const int b = bh / g.heads;
   const int h = bh % g.heads;
   const FwdTiles tiles = fwd_tiles(g, q0);
@@ -1138,7 +956,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       wgmma_desc(sk_t + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(s);
 
       // The online softmax, its statistics on the raw scores: masked
@@ -1205,7 +1023,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           wgmma_rs_n64(acc, pa[kk], desc);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive(empty + 8 * stage);
     }
@@ -1219,30 +1037,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       inv[i] = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
     }
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = r_local + 8 * i;
-        const uint32_t at = (j / 8) * kBoxBytes + r * 128 +
-                            ((j % 8) ^ (r % 8)) * 16 + (lane % 4) * 4;
-        *reinterpret_cast<uint32_t*>(base_ptr + L::kQ + at) =
-            pack_bf16(acc[4 * j + 2 * i] * inv[i],
-                      acc[4 * j + 2 * i + 1] * inv[i]);
-      }
+    stage_rows<kD>(base_ptr + L::kQ, acc, inv, r_local, lane);
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    constexpr int kChunks = kD / 8;  // 16-byte chunks of a row
-    for (int c = tw; c < 64 * kChunks; c += 128) {
-      const int r = wg * 64 + c / kChunks;
-      const int chunk = c % kChunks;
-      const int row = q0 + r;
-      if (row >= g.sq) continue;
-      const uint32_t at = (chunk / 8) * kBoxBytes + r * 128 +
-                          ((chunk % 8) ^ (r % 8)) * 16;
-      *reinterpret_cast<uint4*>(o + row_offset(b, row, g.sq, g.heads, h, kD) +
-                                chunk * 8) =
-          *reinterpret_cast<const uint4*>(base_ptr + L::kQ + at);
-    }
+    store_staged<kD>(o, base_ptr + L::kQ, wg, tw, b, h, q0, g.sq, g.heads);
     if (lane % 4 == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -1252,6 +1049,495 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             l[i] == 0.0f ? kNegInf : m[i] * g.scale + logf(l[i]);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward on wgmma, fed by TMA rings (bf16 at head dims 64 and 128).
+//
+// Both kernels are the forward's three warpgroups: thread 0 of the
+// producer starts every TMA copy, each consumer warpgroup owns 64 rows of
+// the CTA's 128-row output tile, and a ring stage is released through its
+// empty barrier once both consumers' last product that read it has been
+// waited on. Shared memory starts at a 1024-byte boundary and every tile
+// is a run of boxes of 64 columns (128 bytes) under the 128-byte swizzle,
+// as in the forward; a 64-row box is 8 KB.
+//
+// dq (a CTA per 128-row q tile): Q, dO, then kStages x K and x V of 128
+// rows, then the barriers qdo_full, k_full[], v_full[], empty[].
+// dk/dv (a CTA per 128-row kv tile): K, V, then kStages x Q and x dO of 64
+// rows, kStages x (lse[64], delta[64]) as fp32, then the barriers kv_full,
+// full[], empty[]. A stage's full barrier counts the 32 threads of the
+// producer's first warp, which store its lse and delta before they arrive;
+// thread 0's arrival also expects the bytes of the stage's Q and dO boxes.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdBlockQ = 64;    // q rows of a dk/dv ring stage
+constexpr int kBwdBlockK = 128;   // kv rows of a dk/dv CTA, 64 per consumer
+constexpr int kQBoxBytes = kBwdBlockQ * kBoxCols * 2;  // 8 KB
+// setmaxnreg's split: 128 x 24 + 256 x 240 = 64,512 registers; a consumer
+// holds 192 fp32 accumulators (dQ, S and dP; or dK, dV, S^T and dP^T).
+constexpr int kBwdProducerRegs = 24;
+constexpr int kBwdConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int kD>
+struct DqLayout {
+  static_assert(kD == 64 || kD == 128, "the wgmma dq takes d 64, 128");
+  static constexpr int kStages = kD == 128 ? 2 : 3;
+  static constexpr int kTileBytes = (kD / kBoxCols) * kBoxBytes;  // 128 rows
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kTileBytes;
+  static constexpr int kK = kDo + kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  // qdo_full, k_full[kStages], v_full[kStages], empty[kStages]
+  static constexpr int kSmem = kBar + (1 + 3 * kStages) * 8 + 1024;
+};
+
+template <int kD>
+struct DkvLayout {
+  static_assert(kD == 64 || kD == 128, "the wgmma dk/dv takes d 64, 128");
+  static constexpr int kStages = 3;
+  static constexpr int kKvBytes = (kD / kBoxCols) * kBoxBytes;   // 128 rows
+  static constexpr int kQBytes = (kD / kBoxCols) * kQBoxBytes;   // 64 rows
+  static constexpr int kStatsBytes = 2 * kBwdBlockQ * 4;  // lse, delta
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKvBytes;
+  static constexpr int kQ = kV + kKvBytes;
+  static constexpr int kDo = kQ + kStages * kQBytes;
+  static constexpr int kStats = kDo + kStages * kQBytes;
+  static constexpr int kBar = kStats + kStages * kStatsBytes;
+  // kv_full, full[kStages], empty[kStages]
+  static constexpr int kSmem = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// The 64-row q tiles a dk/dv CTA over keys [k0, k0 + 128) walks, [begin,
+// end), and those that need no mask, [lo, hi): tile t is seen whole iff
+// all its rows lie below sq, all the CTA's keys below sk, and its first
+// row sees the CTA's last key. The walk starts at the tile of the first
+// row that sees key k0 and is empty if no row does.
+struct DkvTiles {
+  int begin, end, lo, hi;
+};
+
+__device__ __forceinline__ DkvTiles dkv_tiles(const Geometry& g, int k0) {
+  const int n_q = (g.sq + kBwdBlockQ - 1) / kBwdBlockQ;
+  const int hi = k0 + kBwdBlockK <= g.sk ? g.sq / kBwdBlockQ : 0;
+  if (!g.causal) return DkvTiles{0, n_q, 0, hi};
+  const int first = max(0, k0 - g.q_offset);
+  if (first >= g.sq) return DkvTiles{0, 0, 0, 0};
+  const int last = k0 + kBwdBlockK - 1 - g.q_offset;
+  const int lo = last <= 0 ? 0 : (last + kBwdBlockQ - 1) / kBwdBlockQ;
+  return DkvTiles{first / kBwdBlockQ, n_q, lo, hi};
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, Geometry g, int group) {
+  using L = DqLayout<kD>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char dq_smem[];
+  const uint32_t raw = smem_u32(dq_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = dq_smem + (base - raw);
+  const uint32_t qdo_full = base + L::kBar;
+  const uint32_t k_full = qdo_full + 8;                // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  // The longest causal rows first: the last q tiles.
+  const Dispatch place = dispatch(group);
+  const int q0 = (gridDim.x - 1 - place.rank) * kFwdBlockQ;
+  const int bh = place.bh;
+  const int b = bh / g.heads;
+  const int h = bh % g.heads;
+  const FwdTiles tiles = fwd_tiles(g, q0);   // 128-row kv stages
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer ------------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdProducerRegs));
+    if (threadIdx.x == 0 && tiles.n > 0) {
+      mbar_expect_tx(qdo_full, 2 * L::kTileBytes);
+#pragma unroll
+      for (int x = 0; x < kD / kBoxCols; ++x) {
+        tma_load(base + L::kQ + x * kBoxBytes, &map_q, qdo_full,
+                 x * kBoxCols, h, q0, b);
+        tma_load(base + L::kDo + x * kBoxBytes, &map_do, qdo_full,
+                 x * kBoxCols, h, q0, b);
+      }
+      for (int t = 0; t < tiles.n; ++t) {
+        const int stage = t % kStages;
+        mbar_wait(empty + 8 * stage, ((t / kStages) & 1) ^ 1);
+        const uint32_t kb = k_full + 8 * stage, vb = v_full + 8 * stage;
+        mbar_expect_tx(kb, L::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < kD / kBoxCols; ++x)
+          tma_load(base + L::kK + stage * L::kTileBytes + x * kBoxBytes,
+                   &map_k, kb, x * kBoxCols, h, t * kFwdBlockK, b);
+        mbar_expect_tx(vb, L::kTileBytes);
+#pragma unroll
+        for (int x = 0; x < kD / kBoxCols; ++x)
+          tma_load(base + L::kV + stage * L::kTileBytes + x * kBoxBytes,
+                   &map_v, vb, x * kBoxCols, h, t * kFwdBlockK, b);
+      }
+    }
+  } else {
+    // -- consumers -----------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdConsumerRegs));
+    const int wg = threadIdx.x / 128 - 1;   // 0 or 1: rows 64 wg ..
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int r_local = wg * 64 + warp * 16 + lane / 4;  // and r_local + 8
+    const float scale_log2 = g.scale * kLog2e;
+
+    // Per row of this thread: one past the last key it sees (a masked tile
+    // keeps column c iff c < lim), lse log2(e) and delta; a row past sq
+    // keeps nothing and has lse = delta = 0, a row whose lse is -1e30 uses
+    // 0 (its weights are masked to 0 anyway).
+    int lim[2];
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r_local + 8 * i;
+      lim[i] = row >= g.sq ? 0
+               : g.causal  ? max(0, min(g.sk, g.q_offset + row + 1))
+                           : g.sk;
+      lse2[i] = dl[i] = 0.0f;
+      if (row < g.sq) {
+        const float l = lse[static_cast<int64_t>(bh) * g.sq + row];
+        lse2[i] = l <= kNegInf / 2 ? 0.0f : l * kLog2e;
+        dl[i] = delta[static_cast<int64_t>(bh) * g.sq + row];
+      }
+    }
+
+    const uint32_t s_q = base + L::kQ + wg * 64 * 128;   // this consumer's
+    const uint32_t s_do = base + L::kDo + wg * 64 * 128; // rows of Q and dO
+    float acc[kD / 2];  // dQ (64, kD) of this warpgroup
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+    float s[64], dp[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.0f;
+
+    if (tiles.n > 0) mbar_wait(qdo_full, 0);
+    for (int t = 0; t < tiles.n; ++t) {
+      const int stage = t % kStages;
+      const int parity = (t / kStages) & 1;
+      const uint32_t sk_t = base + L::kK + stage * L::kTileBytes;
+      const uint32_t sv_t = base + L::kV + stage * L::kTileBytes;
+
+      // S = Q . K^T and dP = dO . V^T; k-step kk: 16 columns at byte
+      // 32 (kk % 4) of box kk / 4.
+      mbar_wait(k_full + 8 * stage, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128(s, wgmma_desc(s_q + off, 16, 1024),
+                      wgmma_desc(sk_t + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      mbar_wait(v_full + 8 * stage, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128(dp, wgmma_desc(s_do + off, 16, 1024),
+                      wgmma_desc(sv_t + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+
+      // P = exp2(S scale log2(e) - lse log2(e)) while dP runs, the mask
+      // only on tiles that cross the diagonal or sk.
+      wgmma_wait<1>();
+      fence_regs(s);
+      const bool masked = t >= tiles.unmasked;
+      const int c0 = t * kFwdBlockK + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              exp2_approx(fmaf(s[4 * j + e], scale_log2, -lse2[e >> 1]));
+          s[4 * j + e] =
+              masked && c0 + 8 * j + (e & 1) >= lim[e >> 1] ? 0.0f : p;
+        }
+
+      // dS = P (dP - delta), rounded to bf16 as the A fragments of
+      // dQ += dS . K.
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t da[8][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = s[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]);
+        da[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+        da[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dQ += dS . K, k-step kk: the 16 kv rows from 16 kk on, K read
+      // MN-major (its two 64-column boxes kBoxBytes apart at d 128).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t desc = wgmma_desc(sk_t + kk * 2048, kBoxBytes, 1024);
+        if constexpr (kD == 128)
+          wgmma_rs_n128(acc, da[kk], desc);
+        else
+          wgmma_rs_n64(acc, da[kk], desc);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty + 8 * stage);
+    }
+
+    // Epilogue: dq = acc scale through this warpgroup's own rows of Q.
+    const float mul[2] = {g.scale, g.scale};
+    stage_rows<kD>(base_ptr + L::kQ, acc, mul, r_local, lane);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    store_staged<kD>(dq, base_ptr + L::kQ, wg, tw, b, h, q0, g.sq, g.heads);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           Geometry g, int group) {
+  using L = DkvLayout<kD>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char dkv_smem[];
+  const uint32_t raw = smem_u32(dkv_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = dkv_smem + (base - raw);
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t full = kv_full + 8;                   // + 8 * stage
+  const uint32_t empty = full + 8 * kStages;
+
+  // The longest causal walks first: the first kv tiles.
+  const Dispatch place = dispatch(group);
+  const int k0 = place.rank * kBwdBlockK;
+  const int bh = place.bh;
+  const int b = bh / g.heads;
+  const int h = bh % g.heads;
+  const DkvTiles tiles = dkv_tiles(g, k0);
+  const int n = tiles.end - tiles.begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);        // the producer's first warp
+      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer ------------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdProducerRegs));
+    const int lane = threadIdx.x;
+    if (lane < 32 && n > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::kKvBytes);
+#pragma unroll
+        for (int x = 0; x < kD / kBoxCols; ++x) {
+          tma_load(base + L::kK + x * kBoxBytes, &map_k, kv_full,
+                   x * kBoxCols, h, k0, b);
+          tma_load(base + L::kV + x * kBoxBytes, &map_v, kv_full,
+                   x * kBoxCols, h, k0, b);
+        }
+      }
+      for (int i = 0; i < n; ++i) {
+        const int stage = i % kStages;
+        const int q0 = (tiles.begin + i) * kBwdBlockQ;
+        mbar_wait(empty + 8 * stage, ((i / kStages) & 1) ^ 1);
+        // lse log2(e) and delta of the stage's rows: 0 past sq, and lse 0
+        // for a row that sees no key (-1e30).
+        float* stats = reinterpret_cast<float*>(base_ptr + L::kStats +
+                                                stage * L::kStatsBytes);
+        for (int r = lane; r < kBwdBlockQ; r += 32) {
+          const int row = q0 + r;
+          float l = 0.0f, dl = 0.0f;
+          if (row < g.sq) {
+            const int64_t idx = static_cast<int64_t>(bh) * g.sq + row;
+            l = lse[idx];
+            l = l <= kNegInf / 2 ? 0.0f : l * kLog2e;
+            dl = delta[idx];
+          }
+          stats[r] = l;
+          stats[kBwdBlockQ + r] = dl;
+        }
+        const uint32_t bar = full + 8 * stage;
+        if (lane == 0) {
+          mbar_expect_tx(bar, 2 * L::kQBytes);
+#pragma unroll
+          for (int x = 0; x < kD / kBoxCols; ++x) {
+            tma_load(base + L::kQ + stage * L::kQBytes + x * kQBoxBytes,
+                     &map_q, bar, x * kBoxCols, h, q0, b);
+            tma_load(base + L::kDo + stage * L::kQBytes + x * kQBoxBytes,
+                     &map_do, bar, x * kBoxCols, h, q0, b);
+          }
+        } else {
+          mbar_arrive(bar);
+        }
+      }
+    }
+  } else {
+    // -- consumers -----------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdConsumerRegs));
+    const int wg = threadIdx.x / 128 - 1;   // 0 or 1: keys 64 wg ..
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int r_local = wg * 64 + warp * 16 + lane / 4;  // and r_local + 8
+    const float scale_log2 = g.scale * kLog2e;
+
+    // Per key of this thread, the first query that sees it: a masked tile
+    // keeps query q iff from <= q < sq (a key past sk keeps none).
+    int from[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = k0 + r_local + 8 * i;
+      from[i] = key >= g.sk ? g.sq
+                : g.causal  ? min(g.sq, max(0, key - g.q_offset))
+                            : 0;
+    }
+
+    const uint32_t s_k = base + L::kK + wg * 64 * 128;   // this consumer's
+    const uint32_t s_v = base + L::kV + wg * 64 * 128;   // keys of K and V
+    float dk_acc[kD / 2], dv_acc[kD / 2];  // (64, kD) of this warpgroup
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+    float st[32], dpt[32];  // S^T, dP^T: keys by this stage's 64 queries
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
+
+    if (n > 0) mbar_wait(kv_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int t = tiles.begin + i;
+      const int stage = i % kStages;
+      const uint32_t sq_t = base + L::kQ + stage * L::kQBytes;
+      const uint32_t sdo_t = base + L::kDo + stage * L::kQBytes;
+      const float* stats = reinterpret_cast<const float*>(
+          base_ptr + L::kStats + stage * L::kStatsBytes);
+
+      // S^T = K . Q^T and dP^T = V . dO^T, both operands K-major; k-step
+      // kk: 16 columns at byte 32 (kk % 4) of box kk / 4.
+      mbar_wait(full + 8 * stage, (i / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t kv_off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        const uint32_t q_off = (kk / 4) * kQBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n64(st, wgmma_desc(s_k + kv_off, 16, 1024),
+                     wgmma_desc(sq_t + q_off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t kv_off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        const uint32_t q_off = (kk / 4) * kQBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n64(dpt, wgmma_desc(s_v + kv_off, 16, 1024),
+                     wgmma_desc(sdo_t + q_off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp2(S^T scale log2(e) - lse log2(e)), the mask only on
+      // tiles that cross the diagonal, sq or sk; dS^T = P^T (dP^T - delta)
+      // with P^T in fp32 (attention.py:441). Both rounded to bf16 as the A
+      // fragments of the next products (attention.py:436).
+      const bool masked = t < tiles.lo || t >= tiles.hi;
+      const int c0 = t * kBwdBlockQ + 2 * (lane % 4);
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(stats + col);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(stats + kBwdBlockQ + col);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2_approx(
+              fmaf(st[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if (masked) {
+            const int q = c0 + 8 * j + (e & 1);
+            if (q < from[e >> 1] || q >= g.sq) p[e] = 0.0f;
+          }
+          ds[e] = p[e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        pa[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
+        pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+        da[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+        da[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += P^T . dO and dK += dS^T . Q, k-step kk: the stage's 16 q rows
+      // from 16 kk on, dO and Q read MN-major (their two 64-column boxes
+      // kQBoxBytes apart at d 128).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdBlockQ / 16; ++kk) {
+        const uint64_t bdo = wgmma_desc(sdo_t + kk * 2048, kQBoxBytes, 1024);
+        const uint64_t bq = wgmma_desc(sq_t + kk * 2048, kQBoxBytes, 1024);
+        if constexpr (kD == 128) {
+          wgmma_rs_n128(dv_acc, pa[kk], bdo);
+          wgmma_rs_n128(dk_acc, da[kk], bq);
+        } else {
+          wgmma_rs_n64(dv_acc, pa[kk], bdo);
+          wgmma_rs_n64(dk_acc, da[kk], bq);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(empty + 8 * stage);
+    }
+
+    // Epilogue: dk = dk_acc scale and dv = dv_acc through this warpgroup's
+    // own rows of K and V.
+    const float scale[2] = {g.scale, g.scale}, one[2] = {1.0f, 1.0f};
+    stage_rows<kD>(base_ptr + L::kK, dk_acc, scale, r_local, lane);
+    stage_rows<kD>(base_ptr + L::kV, dv_acc, one, r_local, lane);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    store_staged<kD>(dk, base_ptr + L::kK, wg, tw, b, h, k0, g.sk, g.heads);
+    store_staged<kD>(dv, base_ptr + L::kV, wg, tw, b, h, k0, g.sk, g.heads);
   }
 }
 
@@ -1269,11 +1555,11 @@ constexpr bool tensor_core_route(int dtype, int d) {
 
 constexpr int smem_bytes(int which, int dtype, int d) {
   if (tensor_core_route(dtype, d)) {
-    const int tile = kTile * (d + kPadH) * static_cast<int>(sizeof(bf16));
     if (which == kFwd)
       return d == 128 ? FwdLayout<128>::kSmem : FwdLayout<64>::kSmem;
-    if (which == kDq) return 4 * tile;
-    return 4 * tile + 2 * kTile * static_cast<int>(sizeof(float));
+    if (which == kDq)
+      return d == 128 ? DqLayout<128>::kSmem : DqLayout<64>::kSmem;
+    return d == 128 ? DkvLayout<128>::kSmem : DkvLayout<64>::kSmem;
   }
   const int ld = d + 1;
   int floats = 0;
@@ -1370,10 +1656,10 @@ int encode_tiled(EncodeTiled* fn) {
 }
 
 // A rank-4 map over a contiguous bf16 (batch, s_len, heads, d) tensor:
-// dims (d, heads, s_len, batch), boxes of 64 columns x 128 rows of one
+// dims (d, heads, s_len, batch), boxes of 64 columns x `rows` rows of one
 // head, 128-byte swizzle, out-of-bounds boxes zero-filled.
 int encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
-                int s_len, int heads, int d) {
+                int s_len, int heads, int d, int rows) {
   const cuuint64_t elem = sizeof(bf16);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(heads),
@@ -1382,7 +1668,8 @@ int encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
   const cuuint64_t strides[3] = {d * elem, heads * d * elem,
                                  static_cast<cuuint64_t>(s_len) * heads * d *
                                      elem};
-  const cuuint32_t box[4] = {kBoxCols, 1, kFwdBlockK, 1};
+  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows),
+                             1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, steps,
@@ -1422,9 +1709,10 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
   CUtensorMap maps[3];
   const void* kv[2] = {g.sk > 0 ? k : q, g.sk > 0 ? v : q};
   const int kv_len = g.sk > 0 ? g.sk : g.sq;
-  err = encode_rows(fn, &maps[0], q, batch, g.sq, g.heads, kD);
+  err = encode_rows(fn, &maps[0], q, batch, g.sq, g.heads, kD, kFwdBlockQ);
   for (int i = 0; i < 2 && !err; ++i)
-    err = encode_rows(fn, &maps[1 + i], kv[i], batch, kv_len, g.heads, kD);
+    err = encode_rows(fn, &maps[1 + i], kv[i], batch, kv_len, g.heads, kD,
+                      kFwdBlockK);
   if (err) return err;
   static bool done[kMaxDevices] = {};
   return start(flash_fwd_wgmma_kernel<kD>, done, grid, kFwdThreads,
@@ -1432,13 +1720,74 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                lse, g, group);
 }
 
+// The maps of q, k, v and dO for a wgmma backward kernel: q and dO in
+// boxes of q_rows rows, k and v of kv_rows. A tensor of length 0 is never
+// loaded, and its map is the other's (an empty tensor has no address to
+// encode).
+int encode_bwd(CUtensorMap (&maps)[4], const void* q, const void* k,
+               const void* v, const void* dout, int batch, const Geometry& g,
+               int q_rows, int kv_rows) {
+  EncodeTiled fn = nullptr;
+  int err = encode_tiled(&fn);
+  if (err) return err;
+  const bool has_q = g.sq > 0, has_kv = g.sk > 0;
+  const void* ptr[4] = {has_q ? q : k, has_kv ? k : q, has_kv ? v : q,
+                        has_q ? dout : k};
+  const int len[4] = {has_q ? g.sq : g.sk, has_kv ? g.sk : g.sq,
+                      has_kv ? g.sk : g.sq, has_q ? g.sq : g.sk};
+  const int rows[4] = {q_rows, kv_rows, kv_rows, q_rows};
+  for (int i = 0; i < 4 && !err; ++i)
+    err = encode_rows(fn, &maps[i], ptr[i], batch, len[i], g.heads, g.d,
+                      rows[i]);
+  return err;
+}
+
 template <int kD>
-int fwd_ctas_per_sm(int* ctas) {
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int batch, const Geometry& g,
+                    cudaStream_t stream) {
+  const dim3 grid = grid_of(g.sq, batch, g.heads, kFwdBlockQ);
+  int group = 1;
+  int err = fwd_group(static_cast<int>(grid.x), &group);
+  if (err) return err;
+  CUtensorMap maps[4];
+  err = encode_bwd(maps, q, k, v, dout, batch, g, kFwdBlockQ, kFwdBlockK);
+  if (err) return err;
   static bool done[kMaxDevices] = {};
-  const cudaError_t err = allow_max_smem(flash_fwd_wgmma_kernel<kD>, done);
+  return start(flash_bwd_dq_wgmma_kernel<kD>, done, grid, kFwdThreads,
+               DqLayout<kD>::kSmem, stream, maps[0], maps[1], maps[2],
+               maps[3], lse, delta, dq, g, group);
+}
+
+template <int kD>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int batch, const Geometry& g,
+                     cudaStream_t stream) {
+  const dim3 grid = grid_of(g.sk, batch, g.heads, kBwdBlockK);
+  int group = 1;
+  int err = fwd_group(static_cast<int>(grid.x), &group);
+  if (err) return err;
+  CUtensorMap maps[4];
+  err = encode_bwd(maps, q, k, v, dout, batch, g, kBwdBlockQ, kBwdBlockK);
+  if (err) return err;
+  static bool done[kMaxDevices] = {};
+  return start(flash_bwd_dkv_wgmma_kernel<kD>, done, grid, kFwdThreads,
+               DkvLayout<kD>::kSmem, stream, maps[0], maps[1], maps[2],
+               maps[3], lse, delta, dk, dv, g, group);
+}
+
+// CTAs of a 384-thread wgmma kernel at `smem` bytes that fit one SM. A
+// query: it raises the kernel's shared memory limit every time (kernels of
+// one signature share the type Kernel, so a cache here would mix them up).
+template <typename Kernel>
+int ctas_per_sm(Kernel kernel, int smem, int* ctas) {
+  bool done[kMaxDevices] = {};
+  const cudaError_t err = allow_max_smem(kernel, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, flash_fwd_wgmma_kernel<kD>, kFwdThreads, FwdLayout<kD>::kSmem));
+      ctas, kernel, kFwdThreads, smem));
 }
 
 bool bad_args(int dtype, int d) {
@@ -1454,19 +1803,30 @@ int tt_flash_tensor_cores(int dtype, int d) {
   return tensor_core_route(dtype, d) ? 1 : 0;
 }
 
-// CTAs of the wgmma forward (bf16 at head dim d, 64 or 128) that fit one
-// SM, into *ctas; returns a CUDA error code (0 = answered).
-int tt_flash_fwd_ctas_per_sm(int d, void* ctas) {
+// CTAs of a wgmma kernel (which: 0 = forward, 1 = dq, 2 = dk/dv; bf16 at
+// head dim d, 64 or 128) that fit one SM, into *ctas; returns a CUDA
+// error code (0 = answered).
+int tt_flash_ctas_per_sm(int which, int d, void* ctas) {
   int* out = static_cast<int*>(ctas);
-  if (d == 128) return fwd_ctas_per_sm<128>(out);
-  if (d == 64) return fwd_ctas_per_sm<64>(out);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (!tensor_core_route(1, d) || which < kFwd || which > kDkv)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(which, 1, d);
+  if (which == kFwd)
+    return d == 128 ? ctas_per_sm(flash_fwd_wgmma_kernel<128>, smem, out)
+                    : ctas_per_sm(flash_fwd_wgmma_kernel<64>, smem, out);
+  if (which == kDq)
+    return d == 128 ? ctas_per_sm(flash_bwd_dq_wgmma_kernel<128>, smem, out)
+                    : ctas_per_sm(flash_bwd_dq_wgmma_kernel<64>, smem, out);
+  return d == 128 ? ctas_per_sm(flash_bwd_dkv_wgmma_kernel<128>, smem, out)
+                  : ctas_per_sm(flash_bwd_dkv_wgmma_kernel<64>, smem, out);
 }
 
-// Dynamic shared memory of the wgmma forward at head dim d (64 or 128),
-// else 0.
-int tt_flash_fwd_smem_bytes(int d) {
-  return tensor_core_route(1, d) ? smem_bytes(kFwd, 1, d) : 0;
+// Dynamic shared memory of a wgmma kernel (which as above) at head dim d
+// (64 or 128), else 0.
+int tt_flash_smem_bytes(int which, int d) {
+  return tensor_core_route(1, d) && which >= kFwd && which <= kDkv
+             ? smem_bytes(which, 1, d)
+             : 0;
 }
 
 // dtype: 0 = fp32, 1 = bf16. Each entry returns cudaGetLastError() after
@@ -1510,16 +1870,10 @@ int tt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
     return start(flash_bwd_dq_kernel<float>, done, grid, kThreads, smem, s,
                  q, k, v, dout, lse, delta, dq, g);
   }
-  if (d == 128) {
-    static bool done[kMaxDevices] = {};
-    return start(flash_bwd_dq_mma_kernel<128>, done, grid, kMmaThreads, smem,
-                 s, q, k, v, dout, lse, delta, dq, g);
-  }
-  if (d == 64) {
-    static bool done[kMaxDevices] = {};
-    return start(flash_bwd_dq_mma_kernel<64>, done, grid, kMmaThreads, smem,
-                 s, q, k, v, dout, lse, delta, dq, g);
-  }
+  if (d == 128)
+    return launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, batch, g, s);
+  if (d == 64)
+    return launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, batch, g, s);
   static bool done[kMaxDevices] = {};
   return start(flash_bwd_dq_kernel<bf16>, done, grid, kThreads, smem, s, q,
                k, v, dout, lse, delta, dq, g);
@@ -1541,16 +1895,12 @@ int tt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
     return start(flash_bwd_dkv_kernel<float>, done, grid, kThreads, smem, s,
                  q, k, v, dout, lse, delta, dk, dv, g);
   }
-  if (d == 128) {
-    static bool done[kMaxDevices] = {};
-    return start(flash_bwd_dkv_mma_kernel<128>, done, grid, kMmaThreads,
-                 smem, s, q, k, v, dout, lse, delta, dk, dv, g);
-  }
-  if (d == 64) {
-    static bool done[kMaxDevices] = {};
-    return start(flash_bwd_dkv_mma_kernel<64>, done, grid, kMmaThreads, smem,
-                 s, q, k, v, dout, lse, delta, dk, dv, g);
-  }
+  if (d == 128)
+    return launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, batch, g,
+                                 s);
+  if (d == 64)
+    return launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, batch, g,
+                                s);
   static bool done[kMaxDevices] = {};
   return start(flash_bwd_dkv_kernel<bf16>, done, grid, kThreads, smem, s, q,
                k, v, dout, lse, delta, dk, dv, g);

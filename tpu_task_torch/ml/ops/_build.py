@@ -73,10 +73,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tt_flash_bwd_dkv": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _P]),
         "tt_flash_tensor_cores": (_I, [_I, _I]),
-        # d, int* ctas
-        "tt_flash_fwd_ctas_per_sm": (_I, [_I, _P]),
-        # d
-        "tt_flash_fwd_smem_bytes": (_I, [_I]),
+        # which (0 = forward, 1 = dq, 2 = dk/dv), d, int* ctas
+        "tt_flash_ctas_per_sm": (_I, [_I, _I, _P]),
+        # which, d
+        "tt_flash_smem_bytes": (_I, [_I, _I]),
         "tt_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -18,9 +18,11 @@ CPU; on a CUDA tensor it launches its kernel or raises. Every wrapper and
 plain version counts its calls in a ``.launches`` attribute, which
 :func:`reset_launch_counts` sets to 0.
 
-The forward kernel for bf16 at head dims 64 and 128 walks a schedule of
-128-row tiles that :func:`flash_fwd_tiles` writes out for the CPU tests to
-check; nothing on the card path calls it.
+The kernels for bf16 at head dims 64 and 128 walk schedules of tiles that
+:func:`flash_fwd_tiles` (the forward and dq: 128-row q tiles over 128-row
+kv stages) and :func:`flash_bwd_tiles` (both backward kernels; dk/dv:
+128-row kv tiles over 64-row q stages) write out for the CPU tests to
+check; nothing on the card path calls them.
 
 Shapes follow (batch, seq, heads, head_dim) throughout, as in the JAX
 package; ``lse`` and ``delta`` are (batch, heads, sq) float32."""
@@ -45,8 +47,14 @@ IMPLS = ("reference", "cuda")
 
 #: Rows of a q tile and of a kv ring stage in the wgmma forward kernel
 #: (``kFwdBlockQ``, ``kFwdBlockK`` in ``csrc/flash_attention.cu``), at both
-#: head dims it takes.
+#: head dims it takes; the wgmma dq kernel uses the same.
 FWD_BLOCK_Q = FWD_BLOCK_K = 128
+#: Rows of a q ring stage and of a CTA's kv tile in the wgmma dk/dv kernel
+#: (``kBwdBlockQ``, ``kBwdBlockK``).
+BWD_BLOCK_Q, BWD_BLOCK_K = 64, 128
+#: The wgmma kernels (bf16 at head dims 64 and 128) by the code their C
+#: entries take.
+WGMMA_KERNELS = {"fwd": 0, "dq": 1, "dkv": 2}
 
 
 def expand_kv_heads(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -215,6 +223,48 @@ def flash_fwd_tiles(sq: int, sk: int, causal: bool, q_offset: int,
     return tiles
 
 
+class DkvTile(NamedTuple):
+    """One kv tile of the dk/dv kernel's schedule: keys [k0, k0 + block_k)
+    (those below sk are written) walk q tiles [begin, end) of block_q rows;
+    tile t applies no mask iff lo <= t < hi (all its rows below sq, all
+    the keys below sk, and its first row sees the last key)."""
+    k0: int
+    begin: int
+    end: int
+    lo: int
+    hi: int
+
+
+class BwdTiles(NamedTuple):
+    """Both wgmma backward kernels' schedules: ``dq`` per q tile (the
+    forward's, :func:`flash_fwd_tiles`) and ``dkv`` per kv tile."""
+    dq: List[FwdTile]
+    dkv: List[DkvTile]
+
+
+def flash_bwd_tiles(sq: int, sk: int, causal: bool, q_offset: int,
+                    block_q: int = BWD_BLOCK_Q, block_k: int = BWD_BLOCK_K,
+                    dq_block_q: int = FWD_BLOCK_Q,
+                    dq_block_k: int = FWD_BLOCK_K) -> BwdTiles:
+    """The wgmma backward kernels' tile schedules (``fwd_tiles`` and
+    ``dkv_tiles`` in ``csrc/flash_attention.cu``), in row order. The dk/dv
+    walk starts at the q tile of the first row that sees the kv tile's
+    first key, and is empty when no row does."""
+    n_q = -(-sq // block_q)
+    dkv = []
+    for k0 in range(0, sk, block_k):
+        hi = sq // block_q if k0 + block_k <= sk else 0
+        first = max(0, k0 - q_offset) if causal else 0
+        if first >= sq:
+            dkv.append(DkvTile(k0, 0, 0, 0, 0))
+            continue
+        last = k0 + block_k - 1 - q_offset
+        lo = -(-last // block_q) if causal and last > 0 else 0
+        dkv.append(DkvTile(k0, first // block_q, n_q, lo, hi))
+    return BwdTiles(flash_fwd_tiles(sq, sk, causal, q_offset, dq_block_q,
+                                    dq_block_k), dkv)
+
+
 # -- the kernels' wrappers ------------------------------------------------------
 
 def check_flash_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -290,23 +340,25 @@ def _check_alignment(q: torch.Tensor, tensors) -> None:
                          "aligned tensors only")
 
 
-def fwd_ctas_per_sm(d: int) -> int:
-    """CTAs of the wgmma forward kernel (bf16 at head dim 64 or 128) that
-    fit one SM of the current card, by the CUDA occupancy calculator at the
-    kernel's dynamic shared memory."""
+def wgmma_ctas_per_sm(kernel: str, d: int) -> int:
+    """CTAs of a wgmma kernel (``kernel`` "fwd", "dq" or "dkv"; bf16 at
+    head dim 64 or 128) that fit one SM of the current card, by the CUDA
+    occupancy calculator at the kernel's dynamic shared memory."""
     lib = _build.load("flash_attention")
     ctas = ctypes.c_int(0)
-    rc = lib.tt_flash_fwd_ctas_per_sm(d, ctypes.addressof(ctas))
+    rc = lib.tt_flash_ctas_per_sm(WGMMA_KERNELS[kernel], d,
+                                  ctypes.addressof(ctas))
     if rc:
-        raise RuntimeError(f"flash forward occupancy query failed: CUDA "
+        raise RuntimeError(f"flash {kernel} occupancy query failed: CUDA "
                            f"error {rc} "
                            f"({lib.tt_cuda_error_string(rc).decode()})")
     return ctas.value
 
 
-def fwd_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of the wgmma forward kernel at head dim d."""
-    return _build.load("flash_attention").tt_flash_fwd_smem_bytes(d)
+def wgmma_smem_bytes(kernel: str, d: int) -> int:
+    """Dynamic shared memory of a wgmma kernel at head dim d."""
+    return _build.load("flash_attention").tt_flash_smem_bytes(
+        WGMMA_KERNELS[kernel], d)
 
 
 def _check_out(out: torch.Tensor, like: torch.Tensor, name: str) -> None:
