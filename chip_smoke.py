@@ -124,16 +124,39 @@ script exits non-zero:
              version), then one shorter wave each of fp8 and int4 through
              the pipelined kernel and of int8 through the tile kernel, under
              the same gates.
+15. serve micro — the flagship with bf16 pools through the tile kernel
+             at ``micro_k`` 1, 4 and 8 (the K-step loop a CUDA graph at K >
+             1), each engine after phase 6's warm-up: three timed waves of
+             phase 6's traffic each, with tokens/s, mean chunk-step and
+             decode- or micro-step ms, micro-steps, graph captures and
+             capture ms, host_gap_frac, dispatches per token and peak
+             memory. Every request's stream at K = 4 and 8 must equal K =
+             1's token for token, greedy and sampled; launches must be
+             n_layers per chunk step and n_layers x K per micro-step (a
+             retired slot's iterations run masked), the combine kernel's
+             likewise where the plan splits, 0 through the other kernel
+             and the plain version.
+16. serve trace — one more wave at K = 1 and at K = 8 under
+             ``torch.profiler`` (CPU and CUDA): per chunk step and per
+             decode or micro-step the mean wall, device-busy ms and idle
+             share, the ten device ops with the most time and the ten host
+             ops with the most self time; the paged kernels' launches
+             counted by name in the trace must equal the counters.
+17. serve micro quant — int8 pools through the pipelined kernel at K = 8,
+             one wave against a K = 1 engine of the same configuration,
+             under phase 15's gates.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
-their kernel and its registers),
+their kernel and its registers; the paged rows and the combine's add
+their launches in phases 15 and 17 at each K),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -923,24 +946,39 @@ def _submit_wave(engine, seed: int, max_new: int = 64):
     return rids, int(lengths.sum())
 
 
-def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
-    """One wave through the engine, its launch counts set to 0 just before
-    and read just after. ``kernel_launches`` counts the kernel the engine
-    resolved (``decode_impl``); ``other_kernel_launches`` the other one."""
+def _timed_drain(engine, seed: int, max_new: int = 64,
+                 step_range=contextlib.nullcontext) -> dict:
+    """One wave through the engine, its launch counts and goodput meter set
+    to 0 just before and read just after; ``step_range()`` wraps each step
+    (a profiler range). ``kernel_launches`` counts the kernel the engine
+    resolved (``decode_impl``); ``other_kernel_launches`` the other one.
+    A micro-step (``micro_k`` > 1) makes ``micro_k`` decode-shape calls a
+    layer, a retired slot's masked iterations included. ``step_kinds``
+    says which steps were chunk steps ("c") and which decode or micro
+    steps ("d"), in order."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     rids, prompt_tokens = _submit_wave(engine, seed, max_new)
     chunk0, decode0 = engine.chunk_steps, engine.decode_steps
-    preempt0 = engine.preemption_count
-    decode_ms, chunk_ms = [], []
+    micro0, preempt0 = engine.micro_steps, engine.preemption_count
+    captures0 = engine.stats()["step_graph"]["captures"]
+    decode_ms, chunk_ms, kinds = [], [], []
+    decode_tokens = 0
+    engine.goodput.reset()
     pa.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while engine.has_work:
         chunks, s0 = engine.chunk_steps, time.perf_counter()
-        engine.step()
-        (chunk_ms if engine.chunk_steps > chunks else decode_ms).append(
+        emitted = engine.goodput.tokens_emitted
+        with step_range():
+            engine.step()
+        chunk = engine.chunk_steps > chunks
+        (chunk_ms if chunk else decode_ms).append(
             (time.perf_counter() - s0) * 1e3)
+        kinds.append("c" if chunk else "d")
+        if not chunk:
+            decode_tokens += engine.goodput.tokens_emitted - emitted
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     kernels = {"cuda": pa.paged_decode_attention,
@@ -952,26 +990,40 @@ def _timed_drain(engine, seed: int, max_new: int = 64) -> dict:
     plans = step_splits(engine)
     results = [engine.request(rid) for rid in rids]
     generated = sum(len(r.tokens) for r in results)
-    fused = engine.chunk_steps - chunk0 + engine.decode_steps - decode0
+    chunk_steps = engine.chunk_steps - chunk0
+    micro_steps = engine.micro_steps - micro0
+    # decode-shape calls a layer: one a plain decode step, K a micro-step
+    decode_calls = (engine.decode_steps - decode0 - micro_steps
+                    + engine.scfg.micro_k * micro_steps)
+    goodput = engine.stats()["goodput"]
     return dict(
         seed=seed, requests=len(results), prompt_tokens=prompt_tokens,
         generated_tokens=generated, wall_s=wall,
         tokens_per_s=generated / wall,
         prompt_and_generated_tokens_per_s=(generated + prompt_tokens) / wall,
         decode_steps=engine.decode_steps - decode0,
-        chunk_steps=engine.chunk_steps - chunk0,
+        chunk_steps=chunk_steps, micro_k=engine.scfg.micro_k,
+        micro_steps=micro_steps,
         mean_decode_step_ms=float(np.mean(decode_ms)) if decode_ms else None,
         mean_chunk_step_ms=float(np.mean(chunk_ms)),
+        # the tokens of the decode (or micro-) steps over their wall
+        decode_phase_tokens=decode_tokens,
+        decode_phase_tokens_per_s=(decode_tokens / sum(decode_ms) * 1e3
+                                   if decode_ms else None),
         kernel=engine.decode_impl, kernel_launches=launches,
         other_kernel_launches=other, plain_launches=plain,
-        expected_launches=engine.cfg.n_layers * fused,
+        expected_launches=engine.cfg.n_layers * (chunk_steps + decode_calls),
         step_splits=plans, combine_launches=combines,
         expected_combine_launches=engine.cfg.n_layers * (
-            (engine.decode_steps - decode0) * (plans["decode"] > 1)
-            + (engine.chunk_steps - chunk0) * (plans["chunk"] > 1)),
+            decode_calls * (plans["decode"] > 1)
+            + chunk_steps * (plans["chunk"] > 1)),
         all_finished=all(r.status == "done" and len(r.tokens) == max_new
                          for r in results),
-        preemptions=engine.preemption_count - preempt0)
+        preemptions=engine.preemption_count - preempt0,
+        host_gap_frac=goodput["host_gap_frac"],
+        dispatches_per_token=goodput["dispatches_per_token"],
+        graph_captures=engine.stats()["step_graph"]["captures"] - captures0,
+        rids=rids, step_kinds="".join(kinds))
 
 
 def step_splits(engine) -> dict:
@@ -1006,6 +1058,21 @@ def flagship_model(device):
     return cfg, params
 
 
+def warm_up(engine) -> None:
+    """bf16 GEMMs at the chunk and decode row counts, both samplers, the
+    allocator's growth and, at ``micro_k`` > 1, the capture of both
+    K-step graphs (a decode step with a sampled request, then one with a
+    greedy request alone), outside the timed waves."""
+    rng = np.random.default_rng(99)
+    vocab = engine.cfg.vocab_size
+    engine.submit(rng.integers(0, vocab, size=300), 4)
+    engine.submit(rng.integers(0, vocab, size=200), 4, temperature=0.8,
+                  top_p=0.9, key=np.array([5, 6], np.uint32))
+    engine.drain()
+    engine.submit(rng.integers(0, vocab, size=100), 4)
+    engine.drain()
+
+
 def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
     """A flagship engine with ``serving`` over SERVE_KNOBS: a warm-up wave,
     then three timed waves of fresh prompts, gated. Returns (the engine,
@@ -1021,13 +1088,7 @@ def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
     scfg = ServingConfig(**SERVE_KNOBS, **serving)
     torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(params, cfg, scfg, device=device)
-    # Warm-up: bf16 GEMMs at the chunk and decode row counts, the sampler,
-    # and the allocator's growth, outside the timed waves.
-    rng = np.random.default_rng(99)
-    engine.submit(rng.integers(0, cfg.vocab_size, size=300), 4)
-    engine.submit(rng.integers(0, cfg.vocab_size, size=200), 4,
-                  temperature=0.8, top_p=0.9, key=np.array([5, 6], np.uint32))
-    engine.drain()
+    warm_up(engine)
 
     # Every fused step's logits must be finite: checked on the card, with
     # no host sync, by wrapping the step the engine's samplers call.
@@ -1149,6 +1210,196 @@ def wave_ok(run: dict) -> bool:
             and run["other_kernel_launches"] == 0
             and run["kernel_launches"] == run["expected_launches"] > 0
             and run["combine_launches"] == run["expected_combine_launches"])
+
+
+# -- K-token micro-steps --------------------------------------------------------
+
+MICRO_KS = (1, 4, 8)
+
+
+def serve_micro(device, smi: str, phase: str, ks, seeds,
+                keep=(), **serving) -> tuple:
+    """For each K of ``ks``: a flagship engine with ``serving`` over
+    SERVE_KNOBS at ``micro_k`` K, the serve phase's warm-up, then one timed
+    wave per seed, gated as the serve waves are (launches counted K a
+    micro-step). Every request's stream at each K must equal the first
+    K's, token for token. Returns (the phase line of each K, the engines
+    of the Ks in ``keep``, kept for the trace)."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    cfg, params = flagship_model(device)
+    streams, lines, kept = {}, {}, {}
+    for k in ks:
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServingEngine(params, cfg, ServingConfig(
+            **SERVE_KNOBS, micro_k=k, **serving), device=device)
+        warm_up(engine)
+        runs = []
+        for seed in seeds:
+            run = _timed_drain(engine, seed)
+            streams[k, seed] = [engine.request(rid).tokens
+                                for rid in run["rids"]]
+            emit(f"{phase}_wave", **run, gpu=smi)
+            runs.append(run)
+        graphs = engine.stats()["step_graph"]
+
+        def median(key):
+            return float(np.median([r[key] for r in runs]))
+
+        lines[k] = line = dict(
+            micro_k=k, kv_dtype=engine.scfg.kv_dtype or "bfloat16",
+            decode_impl=engine.decode_impl, waves=len(runs),
+            tokens_per_s_runs=[r["tokens_per_s"] for r in runs],
+            tokens_per_s_median=median("tokens_per_s"),
+            mean_chunk_step_ms_median=median("mean_chunk_step_ms"),
+            mean_decode_or_micro_step_ms_median=median(
+                "mean_decode_step_ms"),
+            decode_phase_tokens_per_s_runs=[r["decode_phase_tokens_per_s"]
+                                            for r in runs],
+            chunk_steps=sum(r["chunk_steps"] for r in runs),
+            decode_steps=sum(r["decode_steps"] for r in runs),
+            micro_steps=sum(r["micro_steps"] for r in runs),
+            graph_captures=graphs["captures"],
+            graph_captures_in_waves=sum(r["graph_captures"] for r in runs),
+            capture_ms=graphs["capture_ms"], graph_replays=graphs["replays"],
+            host_gap_frac_runs=[r["host_gap_frac"] for r in runs],
+            dispatches_per_token_runs=[r["dispatches_per_token"]
+                                       for r in runs],
+            kernel_launches=sum(r["kernel_launches"] for r in runs),
+            combine_launches=sum(r["combine_launches"] for r in runs),
+            other_kernel_launches=sum(r["other_kernel_launches"]
+                                      for r in runs),
+            plain_launches=sum(r["plain_launches"] for r in runs),
+            step_splits=runs[0]["step_splits"],
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
+        same = all(streams[k, seed] == streams[ks[0], seed]
+                   for seed in seeds)
+        line["streams_equal_micro_k_%d" % ks[0]] = same
+        emit(phase, **line)
+        if not (same and all(wave_ok(r) for r in runs)
+                and (k == 1 or line["micro_steps"] > 0)):
+            raise AssertionError(f"{phase} at micro_k {k} failed its gates: "
+                                 f"{line}")
+        if k in keep:
+            kept[k] = engine
+        del engine
+    return lines, kept
+
+
+def phase_serve_micro(device, smi: str) -> tuple:
+    """The micro-step path: the flagship with bf16 pools through the tile
+    kernel at K = 1, 4 and 8, three timed waves each. Returns the K lines
+    and the K = 1 and K = 8 engines (for the trace)."""
+    return serve_micro(device, smi, "serve_micro", MICRO_KS, (0, 1, 2),
+                       keep=(1, MICRO_KS[-1]))
+
+
+def phase_serve_micro_quant(device, smi: str) -> dict:
+    """int8 pools through the pipelined kernel at K = 8, one wave against
+    a K = 1 engine of the same configuration. Returns the K lines."""
+    lines, _ = serve_micro(device, smi, "serve_micro_quant",
+                           (1, MICRO_KS[-1]), (0,), kv_dtype="int8",
+                           decode_impl="pipelined")
+    return lines
+
+
+#: Device kernel names of the paged kernels' split walks and their combine.
+WALK_NAMES = {"cuda": ("paged_decode_kernel",),
+              "pipelined": ("paged_decode_pipelined_kernel",
+                            "paged_decode_pipelined_mma_kernel")}
+COMBINE_NAME = "combine_splits_kernel"
+
+
+def trace_wave(engine, seed: int, smi: str) -> dict:
+    """One wave under ``torch.profiler`` (CPU and CUDA): per fused step
+    kind the mean wall, device-busy ms and idle share (device events
+    assigned to the step whose host range holds their start: every step
+    ends in a readback), the ten device ops with the most time, the ten
+    host ops with the most self time (``serve_step`` is the step's own
+    Python), and the paged kernels' launches counted by name in the trace,
+    which must equal the wrappers' counters."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # A tracer started after others in a process may miss its first
+        # kernel: let that be this one, which nothing reads.
+        torch.ones(1, device=engine.device).add_(1)
+        torch.cuda.synchronize()
+        run = _timed_drain(engine, seed,
+                           step_range=lambda: record_function("serve_step"))
+    steps = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.name == "serve_step"
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+    # The step ranges also show on the device timeline: leave them out.
+    events = sorted((start, end, name)
+                    for name, start, end in device_events(prof)
+                    if name != "serve_step")
+    kinds = run["step_kinds"]
+    if len(steps) != len(kinds):
+        raise AssertionError(f"the trace holds {len(steps)} step ranges for "
+                             f"{len(kinds)} steps")
+    per = {kind: {"steps": 0, "wall_ms": 0.0, "busy_ms": 0.0}
+           for kind in "cd"}
+    i, by_name = 0, {}
+    for (start, end), kind in zip(steps, kinds):
+        busy, last = 0.0, -math.inf
+        while i < len(events) and events[i][0] < end:
+            d_start, d_end, name = events[i]
+            by_name[name] = by_name.get(name, 0.0) + (d_end - d_start) / 1e3
+            if d_start >= start and d_end > last:  # union of intervals
+                busy += d_end - max(d_start, last)
+                last = d_end
+            i += 1
+        row = per[kind]
+        row["steps"] += 1
+        row["wall_ms"] += (end - start) / 1e3
+        row["busy_ms"] += busy / 1e3
+    walk_names = WALK_NAMES[engine.decode_impl]
+    walks = sum(any(w in name for w in walk_names)
+                for _, _, name in events)
+    combines = sum(COMBINE_NAME in name for _, _, name in events)
+    steps_out = {}
+    for kind, label in (("c", "chunk_step"), ("d", "decode_or_micro_step")):
+        row = per[kind]
+        n = max(1, row["steps"])
+        steps_out[label] = dict(
+            steps=row["steps"], mean_wall_ms=row["wall_ms"] / n,
+            mean_device_busy_ms=row["busy_ms"] / n,
+            device_idle_share=(1 - row["busy_ms"] / row["wall_ms"]
+                               if row["wall_ms"] else None))
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    line = dict(
+        micro_k=engine.scfg.micro_k, kernel=engine.decode_impl,
+        traced_tokens_per_s=run["tokens_per_s"],
+        chunk_steps=run["chunk_steps"], decode_steps=run["decode_steps"],
+        micro_steps=run["micro_steps"], **steps_out,
+        wave_device_busy_ms=sum(r["busy_ms"] for r in per.values()),
+        wave_wall_ms=sum(r["wall_ms"] for r in per.values()),
+        top_device_ops_ms=[(name[:90], ms) for name, ms in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:10]],
+        top_host_ops_self_ms=[(e.key[:90], e.self_cpu_time_total / 1e3,
+                               e.count) for e in host[:10]],
+        traced_walks=walks, traced_combines=combines,
+        kernel_launches=run["kernel_launches"],
+        combine_launches=run["combine_launches"], gpu=smi)
+    line["wave_device_idle_share"] = (
+        1 - line["wave_device_busy_ms"] / line["wave_wall_ms"])
+    emit("serve_trace", **line)
+    if not (wave_ok(run) and walks == run["kernel_launches"]
+            and combines == run["combine_launches"]):
+        raise AssertionError(f"serve trace at micro_k "
+                             f"{engine.scfg.micro_k}: the trace's paged "
+                             f"kernels differ from the counters or the wave "
+                             f"failed its gates: {line}")
+    return line
+
+
+def phase_serve_trace(engines: dict, smi: str) -> dict:
+    """One wave at K = 1 and one at K = 8 under the profiler (seed 3, a
+    wave none of the timed ones was)."""
+    return {k: trace_wave(engine, 3, smi) for k, engine in engines.items()}
 
 
 # -- flash attention ------------------------------------------------------------
@@ -2133,6 +2384,13 @@ def main() -> int:
     quant_times = phase_timing_quant(device, smi)
     phase_parity_quant(device)
     pipelined_launches, pipelined_combines = phase_serve_quant(device, smi)
+    micro, traced = phase_serve_micro(device, smi)
+    phase_serve_trace(traced, smi)
+    del traced
+    micro_quant = phase_serve_micro_quant(device, smi)
+
+    def micro_launches(lines: dict, key: str) -> dict:
+        return {f"micro_k_{k}": line[key] for k, line in lines.items()}
 
     def by_storage(kernel: str) -> dict:
         return {storage: {key: rows[16][key] for key in (
@@ -2156,7 +2414,8 @@ def main() -> int:
         "chunk_step_ms": timing[CHUNK_ROWS]["ms"],
         "chunk_step_splits": timing[CHUNK_ROWS]["splits"],
         "chunk_step_unsplit_ms": timing[CHUNK_ROWS]["unsplit_ms"],
-        "by_storage_batch16": by_storage("paged_decode")}]
+        "by_storage_batch16": by_storage("paged_decode"),
+        "launches_serve_micro": micro_launches(micro, "kernel_launches")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
         row = flash_times[name]
@@ -2188,7 +2447,9 @@ def main() -> int:
         "chunk_step_ms": int8_chunk["ms"],
         "chunk_step_splits": int8_chunk["splits"],
         "chunk_step_unsplit_ms": int8_chunk["unsplit_ms"],
-        "by_storage_batch16": by_storage("paged_decode_pipelined")})
+        "by_storage_batch16": by_storage("paged_decode_pipelined"),
+        "launches_serve_micro_quant": micro_launches(micro_quant,
+                                                     "kernel_launches")})
     # The split walk's second pass: the merge that _paged_decode_kernel's
     # _finalize does at the end of its sequential block axis.
     kernels.append({
@@ -2197,6 +2458,9 @@ def main() -> int:
         "replaces": "tpu_task/ml/ops/paged_attention.py:252",
         "launches": combine_launches,
         "launches_after_pipelined": pipelined_combines,
+        "launches_serve_micro": micro_launches(micro, "combine_launches"),
+        "launches_serve_micro_quant": micro_launches(micro_quant,
+                                                     "combine_launches"),
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 two paged-decode kernels (over model-dtype and quantized pools), each
 one's split-KV walk and its combine kernel, and the three flash-attention
-kernels of training.
+kernels of training; and the serving engine's K-step loop captured as a
+CUDA graph through the paged kernels.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -220,6 +221,41 @@ def _close(got, ref, dtype):
     if dtype == torch.float32:
         return err.max().item() <= ATOL
     return bool((err <= 2.0 ** -8 * ref.abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,impl", [
+    (None, "cuda"), ("int8", "pipelined"), ("int4", "cuda")])
+def test_micro_step_graphs_read_as_k1(cuda_device, kv_dtype, impl):
+    """The tiny preset at micro_k 4: every pure-decode step replays a
+    captured CUDA graph of the K-step loop (one capture per program used),
+    the streams equal the K = 1 engine's, and the launch counts after the
+    replays are those of K separate steps, n_layers each, with nothing of
+    the warm-up or the capture counted."""
+    waves = [(np.arange(1, 30), 9, {"eos_token": 3}),
+             (np.arange(5, 14), 6, {"temperature": 0.8, "key": [4, 5]}),
+             (np.arange(2, 4), 11, {}), (np.arange(40, 57), 2, {})]
+    outs, stats = {}, {}
+    for k in (1, 4):
+        engine = build_engine("tiny", serving={
+            "decode_impl": impl, "kv_dtype": kv_dtype, "micro_k": k},
+            device=cuda_device)
+        tpa.reset_launch_counts()
+        for prompt, max_new, kw in waves:
+            engine.submit(prompt, max_new, **kw)
+        outs[k] = engine.drain()
+        stats[k] = s = engine.stats()
+        calls = s["chunk_steps"] + s["decode_steps"] + (k - 1) * s[
+            "micro_steps"]
+        want = {name: 0 for name in s["attention_launches"]}
+        want[impl] = engine.cfg.n_layers * calls
+        assert s["attention_launches"] == want
+    assert outs[4] == outs[1]
+    graphs = stats[4]["step_graph"]
+    assert stats[4]["micro_steps"] > 0
+    assert graphs["replays"] == stats[4]["micro_steps"]
+    assert graphs["captures"] in (1, 2)
+    assert stats[1]["step_graph"]["captures"] == 0
 
 
 @pytest.mark.cuda

@@ -120,8 +120,10 @@ def uniform(key: KeyLike, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(key, shape)
     one = (bits >> 9) | 0x3F800000
     floats = one.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    # Filled on the device rather than copied from the host: a CUDA graph
+    # of the sampler captures no host-to-device copy.
+    lo = torch.full((), minval, dtype=torch.float32, device=floats.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -105,10 +105,11 @@ class ServingConfig:
     attention of every fused step (see :data:`DECODE_IMPLS`); ``kv_dtype``:
     None keeps the pools in the model dtype, ``"int8"``/``"fp8"``/``"int4"``
     store codes with per-(block, kv-head) scales (int4 needs an even
-    ``d_head``).
+    ``d_head``); ``micro_k``: decode iterations one pure-decode step runs
+    (a captured CUDA graph of the K-step loop on a CUDA device).
 
-    Knobs of later slices (bucketed prefill, speculative decoding,
-    micro-steps, the async loop, the host tier, LoRA) keep their fields so
+    Knobs of later slices (bucketed prefill, speculative decoding, the
+    async loop, the host tier, LoRA) keep their fields so
     configs carry over, and raise NotImplementedError naming their ROADMAP
     item when set."""
 
@@ -164,6 +165,9 @@ class ServingConfig:
                 f"'int4', got {self.kv_dtype!r}")
         if self.micro_k < 1:
             raise ValueError(f"micro_k must be >= 1, got {self.micro_k}")
+        if self.micro_k > self.max_len:
+            raise ValueError(
+                f"micro_k {self.micro_k} exceeds max_len {self.max_len}")
         if self.prefill_slots < 1:
             raise ValueError(
                 f"prefill_slots must be >= 1, got {self.prefill_slots}")
@@ -185,8 +189,6 @@ class ServingConfig:
             raise _not_ported("prefill='bucketed'", "A2 (paged_prefill)")
         if self.spec_k > 0:
             raise _not_ported("spec_k > 0", "A3 (speculative decoding)")
-        if self.micro_k > 1:
-            raise _not_ported("micro_k > 1", "A4 (micro-steps)")
         if self.overlap:
             raise _not_ported("overlap=True", "A5 (the async loop)")
         if self.host_offload_blocks:

@@ -29,14 +29,26 @@ for), the plain version on the CPU.
   token's block and offset), and the step requantizes those blocks in
   place. ``TPU_TASK_CHECKIFY=1`` turns on the debug mode, which reads back
   each step's largest quantization error (``stats()["kv_quant"]``).
+- **K-token micro-steps** (``micro_k`` > 1): a pure-decode step runs
+  ``micro_k`` decode iterations with eos/length retirement on the device
+  (:func:`~tpu_task_torch.ml.serving.model.micro_decode_greedy` /
+  ``_sample``) and the host sweeps the (K, slots) token block once. On a
+  CUDA device the K-step loop is one CUDA graph, replayed once per
+  micro-step (:mod:`~tpu_task_torch.ml.serving.step_graph`); there is no
+  eager K-step path there. On the CPU the loop runs eagerly. Streams are
+  those of K = 1: greedy bit-identical, sampled key-identical.
+- **Goodput** (:class:`~tpu_task_torch.obs.goodput.GoodputMeter`, always
+  on): every dispatch is timed through its readback, and
+  ``stats()["goodput"]`` gives the host-gap share, dispatches per token,
+  the preemption-discounted goodput ratio and MFU.
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
 here, naming its ROADMAP item): bucketed prefill, speculative decoding,
-micro-steps, the async loop, LoRA, the host tier,
-``export_inflight``/``resume_inflight``, ``adopt_params``, meshes. The
-SLA fields of ``submit`` and the obs/goodput hooks are left out too: with
-none of them set the JAX engine's admission is FIFO and its preemption
-victim the youngest slot, which is what this engine does."""
+the async loop, LoRA, the host tier, ``export_inflight``/
+``resume_inflight``, ``adopt_params``, meshes. The SLA fields of
+``submit`` and the obs registry and spans are left out too: with no SLA
+field set the JAX engine's admission is FIFO and its preemption victim the
+youngest slot, which is what this engine does."""
 
 from __future__ import annotations
 
@@ -73,6 +85,8 @@ from tpu_task_torch.ml.serving.model import (
     decode_and_sample,
     greedy_decode_step,
 )
+from tpu_task_torch.ml.serving.step_graph import MicroStepGraphs
+from tpu_task_torch.obs.goodput import GoodputMeter
 
 QUEUED, RUNNING, DONE = "queued", "running", "done"
 
@@ -206,6 +220,15 @@ class ServingEngine:
         self.prefix_tokens_saved = 0
         self.quantized_block_writes = 0
         self.max_quant_error = 0.0       # debug mode only (readback cost)
+        self.micro_steps = 0             # K-wide fused micro dispatches
+        self.goodput = GoodputMeter(cfg, device=self.device)
+        #: The K-step programs (a CUDA graph each on a CUDA device, captured
+        #: at first use), bound to self.params and self.pools: neither is
+        #: ever rebound.
+        self._micro = MicroStepGraphs(
+            self.params, cfg, self.pools, slots=n, max_blocks=m,
+            micro_k=scfg.micro_k, attn_impl=self.decode_impl,
+            measure_qerr=self.debug, device=self.device)
 
     # -- front end -------------------------------------------------------------
 
@@ -279,7 +302,10 @@ class ServingEngine:
 
     def step(self) -> dict:
         """One scheduler iteration: admit → (chunk | decode) → retire.
-        Returns the request ids admitted and finished."""
+        Returns the request ids admitted and finished. A pure-decode step
+        at ``micro_k`` > 1 is one K-token micro-step."""
+        t0 = time.perf_counter()
+        self.goodput.begin_step()
         self.steps += 1
         admitted: List[int] = []
         finished: List[int] = []
@@ -288,7 +314,11 @@ class ServingEngine:
             if any(self._prefilling(i) for i in range(self.scfg.slots)):
                 self._chunk_step(finished)
             elif self.n_active:
-                self._decode(finished)
+                if self.scfg.micro_k > 1:
+                    self._micro_decode(finished)
+                else:
+                    self._decode(finished)
+        self.goodput.end_step(time.perf_counter() - t0)
         return {"admitted": admitted, "finished": finished,
                 "active": self.n_active, "queued": len(self._queue)}
 
@@ -438,6 +468,8 @@ class ServingEngine:
         req.preemptions += 1
         self.preemption_count += 1
         req.status = QUEUED
+        # The rolled-back tokens were emitted work the recompute repeats.
+        self.goodput.wasted_preempt(len(req.tokens))
         # Release BEFORE clearing tokens: _release registers full blocks
         # under the ids that produced their KV (prompt + tokens so far).
         self._release(slot)
@@ -461,7 +493,7 @@ class ServingEngine:
         them before it is requantized. Invalid tokens point at the trailing
         pad entry (the scratch block, ``filled`` 0). ``positions``/``valid``
         (rows, w); ``tables`` (rows, max_blocks). Vectorised: it runs
-        before every quantized step."""
+        before every quantized step. Returns host arrays."""
         bs = self.scfg.block_size
         rows, w = positions.shape
         n_touched = rows * w + 1
@@ -478,8 +510,7 @@ class ServingEngine:
         wo = np.zeros(rows * w, np.int64)
         wo[val] = pos[val] % bs
         self.quantized_block_writes += len(uniq)
-        return tuple(torch.as_tensor(a, device=self.device)
-                     for a in (touched, filled, wt, wo))
+        return touched, filled, wt, wo
 
     def _note_qerr(self, qerr: torch.Tensor) -> None:
         """Debug mode keeps the worst write-quantization error seen (a
@@ -490,14 +521,19 @@ class ServingEngine:
     def _run(self, tokens, positions, tables, active, temps=None, tops=None,
              keys=None, ngen=None) -> np.ndarray:
         """Dispatch one fused step (greedy program when every slot is
-        greedy, else the keyed sampler) and read its tokens back.
-        ``positions`` are 0 at inactive rows."""
+        greedy, else the keyed sampler) and read its tokens back; the
+        goodput meter times it from its inputs' upload through the
+        readback. ``positions`` are 0 at inactive rows."""
         dev = self.device
 
         def put(a, dtype):
             return torch.as_tensor(a, device=dev, dtype=dtype)
 
-        qa = (self._quant_layout(tables, positions[:, None], active[:, None])
+        layout = (self._quant_layout(tables, positions[:, None],
+                                     active[:, None])
+                  if self._quantized else None)
+        t0 = time.perf_counter()
+        qa = (tuple(put(a, torch.int64) for a in layout)
               if self._quantized else None)
         args = (self.params, self.cfg, put(tokens, torch.int64),
                 put(positions, torch.int32), put(tables, torch.int32),
@@ -513,7 +549,9 @@ class ServingEngine:
         if self._quantized:
             out, qerr = out
             self._note_qerr(qerr)
-        return out.cpu().numpy()
+        toks = out.cpu().numpy()
+        self.goodput.program(time.perf_counter() - t0)
+        return toks
 
     def _temps_tops(self):
         temps = np.array(
@@ -534,6 +572,10 @@ class ServingEngine:
         toks = self._run(self._last_token, positions, self._tables, active,
                          temps, tops, self._slot_keys, ngen)
         self.decode_steps += 1
+        # positions is 0 at inactive rows, so its sum is the active rows'.
+        n_act = int(active.sum())
+        self.goodput.work_counts(n_act, float(positions.sum()))
+        self.goodput.emitted(n_act)
         now = time.monotonic()
         for slot, req in enumerate(self._slots):
             if req is None:
@@ -618,9 +660,11 @@ class ServingEngine:
             ngen[sl] = len(req.tokens)
             rows[i] = (off, c, pos)
             off += c
-        toks = self._run(tokens, np.where(active, positions, 0), tables,
-                         active, temps, tops, keys, ngen)
+        pos_masked = np.where(active, positions, 0)
+        toks = self._run(tokens, pos_masked, tables, active, temps, tops,
+                         keys, ngen)
         self.chunk_steps += 1
+        self.goodput.work_counts(int(active.sum()), float(pos_masked.sum()))
         now = time.monotonic()
         for i, req in enumerate(self._slots):
             if req is None or not widths[i]:
@@ -637,12 +681,95 @@ class ServingEngine:
                 self._positions[i] = int(self._positions[i]) + 1
                 tok = int(toks[i])
             req.tokens.append(tok)
+            self.goodput.emitted(1)
             if req.first_token_t is None:
                 req.first_token_t = now
             self._last_token[i] = tok
             if req.finished:
                 self._retire(i)
                 finished.append(req.rid)
+
+    def _micro_spans(self) -> np.ndarray:
+        """Each slot's token span in the next micro-step: min(micro_k,
+        remaining max_new) for a running slot, 0 for an empty one — both
+        the block-reservation widths and the retirement limits."""
+        spans = np.zeros((self.scfg.slots,), np.int32)
+        for i, req in enumerate(self._slots):
+            if req is not None:
+                spans[i] = min(self.scfg.micro_k,
+                               req.max_new_tokens - len(req.tokens))
+        return spans
+
+    def _micro_quant_layout(self, positions: np.ndarray,
+                            spans: np.ndarray) -> Dict[str, np.ndarray]:
+        """Stacked write layouts of a quantized micro-step: iteration j's
+        is the K = 1 step's at ``positions + j`` over the slots whose span
+        covers j, as if each lives through its span. A slot that retires
+        on eos mid-span writes its remaining rows only into its own
+        blocks, past its last valid position, in a partial block that is
+        never registered with the prefix cache and frees at the sweep."""
+        parts = [self._quant_layout(self._tables, (positions + j)[:, None],
+                                    (spans > j)[:, None])
+                 for j in range(self.scfg.micro_k)]
+        return {name: np.stack([p[i] for p in parts])
+                for i, name in enumerate(("touched", "filled", "wt", "wo"))}
+
+    def _micro_decode(self, finished: list) -> None:
+        """One K-token micro-step: ``micro_k`` decode iterations with
+        eos/length retirement on the device, one dispatch (a CUDA graph
+        replay on a CUDA device), one (K, slots) readback, and one host
+        sweep that commits each slot's valid prefix — stopping at its
+        eos or limit, as K separate steps would."""
+        self._ensure_blocks(self._micro_spans())
+        if not self.n_active:
+            return
+        spans = self._micro_spans()       # preemption may have freed slots
+        active = spans > 0
+        positions = np.where(active, self._positions, 0)
+        eos = np.array([r.eos_token if r is not None
+                        and r.eos_token is not None else -1
+                        for r in self._slots], np.int64)
+        inputs = dict(tok=self._last_token, pos=positions,
+                      tables=self._tables, active=active, limits=spans,
+                      eos=eos)
+        sampled = not self._all_greedy()
+        if sampled:
+            temps, tops = self._temps_tops()
+            inputs.update(temps=temps, tops=tops, keys=self._slot_keys,
+                          ngen=np.array([len(r.tokens) if r else 0
+                                         for r in self._slots], np.int64))
+        if self._quantized:
+            inputs.update(self._micro_quant_layout(positions, spans))
+        t0 = time.perf_counter()
+        toks, qerr = self._micro.run(sampled, inputs)    # (micro_k, slots)
+        self.goodput.program(time.perf_counter() - t0)
+        if qerr is not None:
+            self._note_qerr(qerr)
+        self.decode_steps += 1
+        self.micro_steps += 1
+        now = time.monotonic()
+        emitted_total, pos_sum = 0, 0.0
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            for j in range(int(spans[slot])):
+                tok = int(toks[j, slot])
+                req.tokens.append(tok)
+                emitted_total += 1
+                pos_sum += float(positions[slot]) + j
+                self._positions[slot] += 1
+                self._last_token[slot] = tok
+                if req.first_token_t is None:
+                    req.first_token_t = now
+                if req.finished:
+                    break
+            if req.finished:
+                self._retire(slot)
+                finished.append(req.rid)
+        # One dispatch did emitted_total tokens of work: the charge is per
+        # valid token, so the FLOP model is the same at any K.
+        self.goodput.work_counts(emitted_total, pos_sum)
+        self.goodput.emitted(emitted_total)
 
     # -- release / retire ------------------------------------------------------
 
@@ -682,6 +809,11 @@ class ServingEngine:
             "device": str(self.device),
             "steps": self.steps,
             "decode_steps": self.decode_steps,
+            # The configured K and the K-wide micro dispatches that ran.
+            "micro_k": self.scfg.micro_k,
+            "micro_steps": self.micro_steps,
+            # Graph captures and replays of the K-step programs (CUDA).
+            "step_graph": self._micro.stats(),
             "chunk_steps": self.chunk_steps,
             "prefills": self.prefills,
             "prefill_chunks": self.prefill_chunks,
@@ -716,4 +848,5 @@ class ServingEngine:
                 "pipelined": pa.paged_decode_pipelined_attention.launches,
                 "reference": pa.paged_reference_attention.launches,
             },
+            "goodput": self.goodput.snapshot(),
         }

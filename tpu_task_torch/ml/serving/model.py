@@ -14,7 +14,13 @@ A quantized pool (its layers carry ``k_scale``/``v_scale``,
 :func:`~tpu_task_torch.ml.serving.cache.quantized_append` with the host's
 write layout ``qa`` and attends with its scales; its steps return the
 largest quantization error of their writes beside their result (an exact
-0.0 unless ``measure_qerr``), as the JAX package's do."""
+0.0 unless ``measure_qerr``), as the JAX package's do.
+
+:func:`micro_decode_greedy` and :func:`micro_decode_sample` run ``micro_k``
+sequential decode iterations with the retirement bookkeeping between them
+(``_micro_scan``, the JAX package's ``lax.scan`` written as a loop); on a
+CUDA device the engine captures that loop as one CUDA graph
+(:mod:`~tpu_task_torch.ml.serving.step_graph`)."""
 
 from __future__ import annotations
 
@@ -152,3 +158,89 @@ def decode_and_sample(params: Params, cfg: TransformerConfig, tokens,
     keys = jrandom.fold_in(slot_keys, n_generated)
     toks = sample_tokens(logits, temperature, top_p, keys)
     return (toks, out[1]) if isinstance(out, tuple) else toks
+
+
+# -- K-token micro-steps (ROADMAP A4) -----------------------------------------
+
+def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
+                block_tables, active, limits, eos, pools: Pools,
+                qa: Optional[QuantLayout], micro_k: int, sampler, *,
+                attn_impl: str, measure_qerr: bool):
+    """``micro_k`` SEQUENTIAL decode iterations, the body of the JAX
+    package's ``_micro_scan`` line for line: iteration j samples slot i's
+    next token while the slot is ``alive`` (it entered active and has hit
+    neither its eos, ``eos[i] >= 0``, nor ``limits[i]`` emitted tokens);
+    a retired slot is masked exactly like an inactive one (position 0,
+    writes to the scratch block, output unread), and positions advance by
+    one per emitted token, so iteration j addresses what the j-th of
+    ``micro_k`` separate steps would.
+
+    ``sampler(logits, alive, emitted)`` gives the (rows,) next tokens.
+    Quantized pools take a stacked ``qa`` (leading dim ``micro_k``) and
+    iteration j writes through ``qa[j]``. Returns the (micro_k, rows)
+    tokens, and for a quantized pool the max quantization error over the
+    iterations beside them. Every operation stays on the device and none
+    reads a value back, so a CUDA graph can capture the whole loop."""
+    quantized = pool_is_quantized(pools)
+    if quantized and qa is None:
+        raise ValueError(
+            "quantized pools need the host-computed stacked `qa` write "
+            "layouts (one per micro iteration) — see "
+            "ServingEngine._micro_quant_layout")
+    tok, pos, alive = tokens, positions, active
+    emitted = torch.zeros_like(positions)
+    ys, qerrs = [], []
+    for j in range(micro_k):
+        out = paged_decode_step(
+            params, cfg, tok, torch.where(alive, pos, 0), block_tables,
+            alive, pools, tuple(a[j] for a in qa) if quantized else None,
+            attn_impl=attn_impl, measure_qerr=measure_qerr)
+        logits = out[0] if quantized else out
+        nxt = sampler(logits, alive, emitted)
+        emitted = emitted + alive.to(emitted.dtype)
+        done = alive & (((eos >= 0) & (nxt == eos)) | (emitted >= limits))
+        tok = torch.where(alive, nxt, tok)
+        pos = pos + alive.to(pos.dtype)
+        alive = alive & ~done
+        ys.append(nxt)
+        if quantized:
+            qerrs.append(out[1])
+    toks = torch.stack(ys)
+    if quantized:
+        return toks, _fold_qerr(qerrs)
+    return toks
+
+
+def micro_decode_greedy(params: Params, cfg: TransformerConfig, tokens,
+                        positions, block_tables, active, limits, eos,
+                        pools: Pools, qa: Optional[QuantLayout] = None, *,
+                        micro_k: int, attn_impl: str = "reference",
+                        measure_qerr: bool = False):
+    """Greedy K-token micro-step: ``micro_k`` decode + argmax iterations,
+    tokens bit-identical to ``micro_k`` separate
+    :func:`greedy_decode_step` calls."""
+    def sampler(logits, alive, emitted):
+        return torch.argmax(logits, dim=-1)
+
+    return _micro_scan(params, cfg, tokens, positions, block_tables, active,
+                       limits, eos, pools, qa, micro_k, sampler,
+                       attn_impl=attn_impl, measure_qerr=measure_qerr)
+
+
+def micro_decode_sample(params: Params, cfg: TransformerConfig, tokens,
+                        positions, block_tables, active, limits, eos,
+                        temperature, top_p, slot_keys, n_generated,
+                        pools: Pools, qa: Optional[QuantLayout] = None, *,
+                        micro_k: int, attn_impl: str = "reference",
+                        measure_qerr: bool = False):
+    """Sampled K-token micro-step: iteration j's keys are
+    ``fold_in(slot_keys[i], n_generated[i] + emitted[i])``, the same key
+    stream :func:`decode_and_sample` draws one token at a time, so a
+    request's sampled stream is the same at any K."""
+    def sampler(logits, alive, emitted):
+        keys = jrandom.fold_in(slot_keys, n_generated + emitted)
+        return sample_tokens(logits, temperature, top_p, keys)
+
+    return _micro_scan(params, cfg, tokens, positions, block_tables, active,
+                       limits, eos, pools, qa, micro_k, sampler,
+                       attn_impl=attn_impl, measure_qerr=measure_qerr)
