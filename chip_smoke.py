@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``tpu_task_torch``) on one NVIDIA
 card: builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version, times it, drives the paged serving engine at the
-flagship model's full width (model-dtype and quantized KV pools), and
-trains the flagship for a few steps.
+flagship model's full width (model-dtype and quantized KV pools,
+K-token micro-steps, speculative decoding), and trains the flagship for a
+few steps.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,8 @@ script exits non-zero:
              flagship geometry (kv 2, group 4, d 128, block 16): fragmented
              shuffled tables, ragged depths, inactive rows, fp32 and bf16;
              24 rows of widths 1 and 3 up to depth 2048, and the serve
-             run's 16-row decode and 144-row chunk steps (tables 72 wide).
+             runs' 16-row decode and 144-row chunk steps and 16-row
+             speculative scoring steps at widths 5 and 4 (tables 72 wide).
              Each case also launches into a NaN-guarded buffer to show the
              kernel writes its output and nothing beside it. Each case is
              then run at forced split counts of the KV walk (1, 2, the
@@ -39,7 +41,12 @@ script exits non-zero:
              too. Then, at batch
              16, wrapper calls under ``torch.profiler`` (one split walk and
              one combine each: their device ms and the span between), and
-             the combine kernel alone at that shape's split states.
+             the combine kernel alone at that shape's split states. Then
+             the speculative scoring step (``timing_spec``): the tile
+             kernel at 16 rows x w 5 over bf16 pools, the pipelined one at
+             16 x w 4 over int8 (its tensor-core path), each beside its
+             one-split time, the plain version, SDPA with each query's
+             causal mask and the bound.
 5. parity  — the engine on the ``tiny`` and ``micro`` presets at fp32:
              greedy and keyed-sampled streams through the kernel equal those
              through the plain version, and greedy ones equal ``generate``;
@@ -97,8 +104,10 @@ script exits non-zero:
              version in fp32 on the same codes: the flagship geometry (kv
              2, group 4, d 128, block 16), d 16 at block 8 and d 8 at block
              4, widths 1 and 3, 24 rows of ragged depths up to 2048 with
-             inactive rows, and the serve run's 16-row decode and 144-row
-             chunk steps; fp32 and bf16 queries, phase 3's gates and forced
+             inactive rows, and the serve runs' 16-row decode, 144-row
+             chunk and 16-row scoring steps (w 5 and 4; the pipelined
+             kernel's tensor cores take w 4, w x group 4 <= 16 rows); fp32
+             and bf16 queries, phase 3's gates and forced
              splits (each kernel at its own plan), NaN-guarded, inputs
              unchanged.
 12. timing quant — both kernels, the plain version and SDPA over the view
@@ -145,11 +154,36 @@ script exits non-zero:
 17. serve micro quant — int8 pools through the pipelined kernel at K = 8,
              one wave against a K = 1 engine of the same configuration,
              under phase 15's gates.
+18. parity spec — speculative decoding (``spec_k`` 2) on ``tiny`` and
+             ``micro`` at fp32, the target as its own draft and a
+             differently seeded model of the preset: streams through the
+             kernel equal those through the plain version, greedy ones
+             equal ``spec_k = 0``'s and ``generate``'s, launches equal the
+             target's layers x (chunk steps + rounds) plus the draft's
+             layers x (its decode and catch-up calls), 0 plain; the self
+             draft accepts over 90% on the greedy requests alone.
+19. serve spec — the flagship with bf16 pools through the tile kernel at
+             ``spec_k`` 4 (scoring at w 5): the target as its own draft
+             (three timed waves of phase 6's traffic) and a random-init
+             2-layer d_model 512 draft (two): tokens/s, decode-phase
+             tokens/s (what the rounds commit over their wall), rounds,
+             the mean round split into catch-up, proposals, scoring and
+             the host's accept, accept rate, tokens a round, launches
+             against the calls (counted by wrapping the model functions by
+             call site), pool bytes, peak memory, and how many greedy
+             streams equal phase 6's (reported; each that differs with its
+             first differing position and top-2 logit gap). Layer 0's
+             attention in a target scoring, target chunk, draft decode and
+             draft catch-up call is held against the fp32 plain version.
+20. serve spec quant — int8 pools through the pipelined kernel at
+             ``spec_k`` 3 (scoring at w 4 on its tensor cores), the target
+             as its own draft, one wave, phase 19's lines and gates.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers; the paged rows and the combine's add
-their launches in phases 15 and 17 at each K),
+their launches in phases 15, 17, 19 and 20 and the scoring step's
+timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -272,6 +306,18 @@ def device_events(prof) -> list:
     return [(e.name, e.time_range.start, e.time_range.end)
             for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def prime_tracer(device) -> None:
+    """The first thing inside a ``torch.profiler`` trace that is read: a
+    tracer started after others in the process may miss the kernels it is
+    given first (seen on the H100: one kernel, and once the first five of
+    a loop of wrapper calls). Short kernels, each waited for, and a pause
+    take their place."""
+    for _ in range(8):
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize()
+    time.sleep(0.05)
 
 
 def host_ms(fn, iters: int = 20) -> float:
@@ -561,12 +607,20 @@ def check_splits(args, pipelined: bool = False) -> dict:
     return result
 
 
+#: Draft tokens a speculative round proposes in the bf16 spec run (through
+#: the tile kernel) and in the int8 one (through the pipelined kernel,
+#: whose tensor-core path takes at most 16 query rows a CTA: w x group 4).
+SPEC_K, SPEC_K_QUANT = 4, 3
+
 #: (what the case stands for, rows, w, deepest position + w, max_blocks).
-#: The last two are the flagship serve run's shapes: its 16-row decode step
-#: and its 144-row token-packed chunk step, tables of max_len 1152 / 16.
+#: The last four are the flagship serve runs' shapes: the 16-row decode
+#: step, the 144-row token-packed chunk step, and the 16-row speculative
+#: scoring steps at w 5 and 4, tables of max_len 1152 / 16.
 KERNEL_CASES = (("deep", 24, 1, 2048, 128), ("deep", 24, 3, 2048, 128),
                 ("decode step", 16, 1, 1152, 72),
-                ("chunk step", 144, 1, 1152, 72))
+                ("chunk step", 144, 1, 1152, 72),
+                ("spec scoring", 16, SPEC_K + 1, 1152, 72),
+                ("spec scoring", 16, SPEC_K_QUANT + 1, 1152, 72))
 
 
 def phase_kernel(device) -> tuple:
@@ -751,22 +805,22 @@ def phase_timing(device, smi: str) -> dict:
 
 
 def profile_wrapper(timer, kernel, row: dict, smi: str, iters: int = 20,
-                    name: str = "paged_decode") -> None:
+                    name: str = "paged_decode", warm: int = 2) -> None:
     """``iters`` wrapper calls under ``torch.profiler``, the L2 flushed
     before each as ``DeviceTimer`` does: each call must launch one split
     walk of kernel ``name``, and one combine after it when ``row``'s plan
     splits; prints the mean device ms of each and of the span from the
     walk's start to the combine's end (the gap between the two launches
-    included). One more call runs first inside the trace and is not read:
-    a tracer started after earlier ones in the process may miss its first
-    kernel (seen on the H100: 19 walks of 20 calls)."""
+    included). The trace starts with ``prime_tracer`` and ``warm`` more
+    calls that are not read, then reads the last ``iters`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     kernel()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters + 1):
+        prime_tracer(timer.flush.device)
+        for _ in range(warm + iters):
             timer.flush.zero_()
             kernel()
         torch.cuda.synchronize()
@@ -787,11 +841,11 @@ def profile_wrapper(timer, kernel, row: dict, smi: str, iters: int = 20,
                                        or c_end <= walks[i + 1][0])
                  for i, ((_, w_end), (c_start, c_end))
                  in enumerate(zip(walks, combines)))
-    if not (iters <= seen[0] <= iters + 1 and len(walks) == iters
-            and seen[1] <= (iters + 1 if split else 0)
+    if not (iters <= seen[0] <= iters + warm and len(walks) == iters
+            and seen[1] <= (iters + warm if split else 0)
             and len(combines) == (iters if split else 0) and paired):
         raise AssertionError(
-            f"{iters + 1} traced wrapper calls at {row['splits']} splits "
+            f"{iters + warm} traced wrapper calls at {row['splits']} splits "
             f"showed {seen[0]} split walks and {seen[1]} combines"
             f"{'' if paired else ', not each combine after its walk'}")
     walk_ms = float(np.mean([e - s for s, e in walks])) / 1e3
@@ -1076,7 +1130,8 @@ def warm_up(engine) -> None:
 def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
     """A flagship engine with ``serving`` over SERVE_KNOBS: a warm-up wave,
     then three timed waves of fresh prompts, gated. Returns (the engine,
-    its kernel's launch count over the timed waves, the phase line)."""
+    its kernel's launch count over the timed waves, the phase line, each
+    wave's streams by seed)."""
     from tpu_task_torch.ml.serving import model as serving_model
     from tpu_task_torch.ml.serving.cache import ServingConfig
     from tpu_task_torch.ml.serving.engine import ServingEngine
@@ -1105,11 +1160,13 @@ def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
 
     serving_model.paged_decode_step = checked_step
     serving_model.paged_attention = recorder
-    runs = []
+    runs, streams = [], {}
     try:
         for seed in range(3):
             recorder.armed = seed == 0
             runs.append(_timed_drain(engine, seed))
+            streams[seed] = [engine.request(rid).tokens
+                             for rid in runs[-1]["rids"]]
     finally:
         serving_model.paged_decode_step = step_fn
         serving_model.paged_attention = attn_fn
@@ -1150,15 +1207,15 @@ def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
             and all(wave_ok(r) for r in runs)):
         raise AssertionError(f"flagship serving run ({phase}) failed its "
                              f"gates: {line}")
-    return engine, launches, line
+    return engine, launches, line, streams
 
 
 def phase_serve(device, smi: str) -> tuple:
     """The main path: the flagship with bf16 pools through the tile
     kernel. Returns the kernel's and the combine kernel's launch counts
-    over the timed waves."""
-    _, launches, line = serve_flagship(device, smi, "serve")
-    return launches, line["combine_launches"]
+    over the timed waves, and the waves' streams by seed."""
+    _, launches, line, streams = serve_flagship(device, smi, "serve")
+    return launches, line["combine_launches"], streams
 
 
 def phase_serve_quant(device, smi: str) -> tuple:
@@ -1166,12 +1223,13 @@ def phase_serve_quant(device, smi: str) -> tuple:
     pipelined kernel (three timed waves), then one shorter wave each of
     fp8 and int4 through the pipelined kernel and int8 through the tile
     kernel. Returns the pipelined kernel's and its combine kernel's launch
-    counts over the three timed int8 waves."""
+    counts over the three timed int8 waves, and those waves' streams by
+    seed."""
     from tpu_task_torch.ml.serving.cache import ServingConfig, \
         paged_cache_bytes
     from tpu_task_torch.ml.serving.engine import ServingEngine
 
-    engine, launches, line = serve_flagship(
+    engine, launches, line, streams = serve_flagship(
         device, smi, "serve_quant", kv_dtype="int8", decode_impl="pipelined")
     bf16_pool = paged_cache_bytes(engine.cfg, ServingConfig(**SERVE_KNOBS),
                                   SERVE_KNOBS["n_blocks"])
@@ -1198,7 +1256,7 @@ def phase_serve_quant(device, smi: str) -> tuple:
     if not all(wave_ok(r) for r in short):
         raise AssertionError(f"a short quantized wave failed its gates: "
                              f"{short}")
-    return launches, line["combine_launches"]
+    return launches, line["combine_launches"], streams
 
 
 def wave_ok(run: dict) -> bool:
@@ -1323,10 +1381,7 @@ def trace_wave(engine, seed: int, smi: str) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # A tracer started after others in a process may miss its first
-        # kernel: let that be this one, which nothing reads.
-        torch.ones(1, device=engine.device).add_(1)
-        torch.cuda.synchronize()
+        prime_tracer(engine.device)
         run = _timed_drain(engine, seed,
                            step_range=lambda: record_function("serve_step"))
     steps = sorted((e.time_range.start, e.time_range.end)
@@ -2206,7 +2261,10 @@ def phase_kernel_quant(device) -> dict:
         emit("kernel_quant", ok=True, kernel=kernel, storage=storage,
              q_dtype=q_dtype, **agg,
              geometries=[name for name, _ in QUANT_GEOMETRIES],
-             widths=[1, 3], serve_steps=["decode step", "chunk step"],
+             widths=[1, 3],
+             serve_steps=["decode step", "chunk step",
+                          f"spec scoring w{SPEC_K + 1}",
+                          f"spec scoring w{SPEC_K_QUANT + 1}"],
              tolerance=(f"{FP32_ATOL} vs the fp32 plain version"
                         if q_dtype == "float32" else
                         "2^-8*|fp32 ref| + 1e-5, and 2e-2 vs the bf16 plain "
@@ -2363,6 +2421,590 @@ def phase_parity_quant(device) -> None:
                      decode_steps=s["decode_steps"])
 
 
+# -- speculative decoding -------------------------------------------------------
+
+#: The random-init draft of the ``half`` serve_spec run, the accept floor:
+#: ``bench.py``'s ``half`` draft at the flagship's vocab, 2 layers of d_model
+#: 512 (4 heads of 128 over 1 kv head, d_ff 2048).
+HALF_DRAFT = dict(vocab_size=32768, d_model=512, n_layers=2, n_heads=4,
+                  d_head=128, d_ff=2048, n_kv_heads=1)
+SPEC_KINDS = ("target chunk", "target scoring", "draft decode",
+              "draft catch-up")
+
+
+class SpecProbe:
+    """For one speculative engine, wraps the model functions its steps call
+    (as ``checked_step`` does) and the serving model's ``paged_attention``,
+    keyed by call site: a target chunk step, the target's scoring step, a
+    draft decode step, a draft catch-up. Counts each site's calls, times
+    each round's catch-up, proposals and scoring (every one ends in a
+    readback; the scoring is synchronized here), checks every step's
+    features and logits finite on the card without a host sync, sums the
+    combine launches the split plan predicts for every attention call,
+    and, while ``armed``, keeps layer 0's attention inputs and output of
+    the first call of each site (of the last target chunk step) to hold
+    against the fp32 plain version. Use as a context manager."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.kind, self.layer, self.armed = None, 0, False
+        self.steps = {}
+        self.finite = torch.ones((), dtype=torch.bool, device=engine.device)
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = dict.fromkeys(SPEC_KINDS, 0)
+        self.attn_calls = dict.fromkeys(SPEC_KINDS, 0)
+        self.expected_combines = 0
+        self.rounds = []               # per round: ms of each part, tokens
+        self._part = None
+
+    def __enter__(self):
+        from tpu_task_torch.ml.serving import engine as serving_engine
+        from tpu_task_torch.ml.serving import model as serving_model
+
+        eng = self.engine
+        self._saved = []
+
+        def patch(module, name, wrapper):
+            self._saved.append((module, name, getattr(module, name)))
+            setattr(module, name, wrapper(getattr(module, name)))
+
+        def site(kind_of, timed=None):
+            def wrap(fn):
+                def call(*args, **kwargs):
+                    kind = kind_of(args)
+                    self.kind, self.layer = kind, 0
+                    self.calls[kind] += 1
+                    t0 = time.perf_counter()
+                    try:
+                        out = fn(*args, **kwargs)
+                        if timed and self._part is not None:
+                            torch.cuda.synchronize()
+                            self._part[timed] += \
+                                (time.perf_counter() - t0) * 1e3
+                        return out
+                    finally:
+                        self.kind = None
+                return call
+            return wrap
+
+        def finite(fn):
+            def call(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                t = out[0] if isinstance(out, tuple) else out
+                self.finite.logical_and_(torch.isfinite(t).all())
+                return out
+            return call
+
+        patch(serving_engine, "greedy_decode_step", site(
+            lambda a: ("draft decode" if a[6] is eng._draft_pools
+                       else "target chunk")))
+        patch(serving_engine, "decode_and_sample",
+              site(lambda a: "target chunk"))
+        patch(serving_engine, "chunked_step_greedy",
+              site(lambda a: "draft catch-up"))
+        for name in ("spec_score_greedy", "spec_score_probs"):
+            patch(serving_engine, name,
+                  site(lambda a: "target scoring", timed="scoring"))
+        for name in ("_multitoken_features", "paged_decode_step",
+                     "paged_multitoken_logits"):
+            patch(serving_model, name, finite)
+        patch(serving_model, "paged_attention", self._attention)
+        for name, part in (("_draft_catchup", "catch-up"),
+                           ("_draft_propose", "propose")):
+            setattr(eng, name, self._timed_part(getattr(eng, name), part))
+        eng._spec_step = self._timed_round(eng._spec_step)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        for name in ("_draft_catchup", "_draft_propose", "_spec_step"):
+            delattr(self.engine, name)
+        return False
+
+    def _attention(self, fn):
+        from tpu_task_torch.ml.ops import paged_attention as pa
+
+        def call(q, k_pool, v_pool, tables, pos, *scales, impl):
+            out = fn(q, k_pool, v_pool, tables, pos, *scales, impl=impl)
+            kind, layer = self.kind, self.layer
+            self.layer += 1
+            self.attn_calls[kind] += 1
+            if impl != "reference":
+                self.expected_combines += pa.planned_splits(
+                    q, k_pool, tables.shape[1],
+                    pipelined=impl == "pipelined") > 1
+            if self.armed and layer == 0 and (
+                    kind not in self.steps or kind == "target chunk"):
+                args = (q, k_pool, v_pool, tables, pos) + tuple(
+                    s for s in scales if s is not None)
+                self.steps[kind] = ([a.clone() for a in args], out.clone())
+            return out
+        return call
+
+    def _timed_part(self, fn, part):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if self._part is not None:
+                self._part[part] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def _timed_round(self, fn):
+        eng = self.engine
+
+        def call(finished):
+            self._part = dict.fromkeys(("catch-up", "propose", "scoring"),
+                                       0.0)
+            rounds, emitted = eng.spec_rounds, eng.goodput.tokens_emitted
+            live = sum(r is not None and not eng._prefilling(i)
+                       for i, r in enumerate(eng._slots))
+            t0 = time.perf_counter()
+            try:
+                fn(finished)
+            finally:
+                wall = (time.perf_counter() - t0) * 1e3
+                part, self._part = self._part, None
+            if eng.spec_rounds > rounds:
+                self.rounds.append(dict(
+                    wall_ms=wall, tokens=eng.goodput.tokens_emitted - emitted,
+                    live_slots=live, **part))
+        return call
+
+
+def attention_launches() -> dict:
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    return {"cuda": (pa.paged_decode_attention.launches,
+                     pa.paged_decode_attention.combine_launches),
+            "pipelined": (pa.paged_decode_pipelined_attention.launches,
+                          pa.paged_decode_pipelined_attention
+                          .combine_launches),
+            "reference": (pa.paged_reference_attention.launches, 0)}
+
+
+def spec_launch_check(engine, probe, chunk_steps: int, rounds: int) -> dict:
+    """The launches since the last ``reset_launch_counts`` against what the
+    run's calls need: the engine's paged attention once a layer of every
+    target chunk and scoring step and of every draft decode and catch-up
+    call, its combine wherever the plan splits that call, and nothing
+    through the other kernel or the plain version (or, for the plain
+    version, nothing through either kernel)."""
+    counts = attention_launches()
+    launches, combines = counts.pop(engine.decode_impl)
+    other = sum(n + c for n, c in counts.values())
+    expected = (engine.cfg.n_layers * (chunk_steps + rounds)
+                + engine.draft_cfg.n_layers * (probe.calls["draft decode"]
+                                               + probe.calls["draft catch-up"]))
+    return dict(
+        kernel=engine.decode_impl, kernel_launches=launches,
+        expected_launches=expected, combine_launches=combines,
+        expected_combine_launches=probe.expected_combines,
+        other_kernel_launches=other,
+        draft_decode_calls=probe.calls["draft decode"],
+        draft_catchup_calls=probe.calls["draft catch-up"],
+        target_attention_calls=probe.attn_calls["target chunk"]
+        + probe.attn_calls["target scoring"],
+        draft_attention_calls=probe.attn_calls["draft decode"]
+        + probe.attn_calls["draft catch-up"],
+        launches_ok=(launches == expected > 0 and other == 0
+                     and combines == probe.expected_combines
+                     and probe.calls["target chunk"] == chunk_steps
+                     and probe.calls["target scoring"] == rounds))
+
+
+def spec_engine(params, cfg, scfg, device, draft):
+    from tpu_task_torch.ml import random as jrandom
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    draft_cfg, draft_params = draft
+    return ServingEngine(params, cfg, scfg, rng=jrandom.PRNGKey(0),
+                         device=device, draft_params=draft_params,
+                         draft_cfg=draft_cfg)
+
+
+def phase_parity_spec(device) -> None:
+    """The spec engine on ``micro`` and ``tiny`` at fp32, ``spec_k`` 2, with
+    the target as its own draft and with a differently seeded model of the
+    same preset: streams through the kernel equal those through the plain
+    version, greedy ones equal ``spec_k = 0``'s and ``generate``'s, the
+    launches match what the run's calls need (0 plain), and the self
+    draft accepts over 90% of its proposals on the waves' greedy
+    requests."""
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.models.decoding import generate
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    for preset in ("micro", "tiny"):
+        base = build_engine(preset, device=device)
+        cfg, params = base.cfg, base.params
+        waves = _parity_waves(cfg.vocab_size, base.scfg.block_size)
+        for wave in waves:
+            for prompt, max_new, kw in wave:
+                base.submit(prompt, max_new, **kw)
+            plain = base.drain(max_steps=5000)
+        greedy = [(rid, prompt, max_new) for rid, (prompt, max_new, kw)
+                  in enumerate(w for wave in waves for w in wave) if not kw]
+        for rid, prompt, max_new in greedy:
+            ref = generate(params, cfg, prompt[None], max_new,
+                           device=device)[0].tolist()
+            if plain[rid] != ref:
+                raise AssertionError(f"{preset}: spec_k 0 request {rid} "
+                                     f"differs from generate")
+        seeded = transformer.params_to(transformer.init(
+            torch.Generator().manual_seed(1), cfg), device)
+        for name, draft in (("self", (cfg, params)), ("seeded",
+                                                      (cfg, seeded))):
+            outs, lines = {}, {}
+            for impl in ("cuda", "reference"):
+                scfg = ServingConfig(**{**SERVING_PRESETS[preset],
+                                        "decode_impl": impl, "spec_k": 2})
+                engine = spec_engine(params, cfg, scfg, device, draft)
+                pa.reset_launch_counts()
+                with SpecProbe(engine) as probe:
+                    for wave in waves:
+                        for prompt, max_new, kw in wave:
+                            engine.submit(prompt, max_new, **kw)
+                        outs[impl] = engine.drain(max_steps=5000)
+                s = engine.stats()
+                lines[impl] = check = spec_launch_check(
+                    engine, probe, engine.chunk_steps, engine.spec_rounds)
+                if not (check["launches_ok"] and bool(probe.finite)
+                        and s["draft_decode_impl"] == impl):
+                    raise AssertionError(f"{preset}/{name}/{impl}: launches "
+                                         f"or logits fail: {check}")
+            if outs["cuda"] != outs["reference"]:
+                raise AssertionError(f"{preset}/{name}: kernel and plain "
+                                     "spec streams differ")
+            if any(outs["cuda"][rid] != plain[rid] for rid, _, _ in greedy):
+                raise AssertionError(f"{preset}/{name}: a greedy spec stream "
+                                     "differs from spec_k 0's")
+            line = dict(preset=preset, draft=name, spec_k=2,
+                        requests=len(outs["cuda"]),
+                        greedy_vs_spec_off_and_generate=len(greedy),
+                        spec=s["spec"], chunk_steps=s["chunk_steps"],
+                        **{f"{key}_{impl}": check[key]
+                           for impl, check in lines.items()
+                           for key in ("kernel_launches",
+                                       "expected_launches",
+                                       "combine_launches",
+                                       "other_kernel_launches",
+                                       "draft_decode_calls",
+                                       "draft_catchup_calls")})
+            if name == "self":
+                # The waves' greedy requests alone: a draft that is the
+                # target should agree with nearly every proposal.
+                scfg = ServingConfig(**{**SERVING_PRESETS[preset],
+                                        "decode_impl": "cuda", "spec_k": 2})
+                engine = spec_engine(params, cfg, scfg, device, draft)
+                for _, prompt, max_new in greedy:
+                    engine.submit(prompt, max_new)
+                engine.drain(max_steps=5000)
+                line["greedy_only_accept_rate"] = rate = \
+                    engine.stats()["spec"]["accept_rate"]
+                if not rate > 0.9:
+                    raise AssertionError(f"{preset}: the self draft accepts "
+                                         f"{rate} of its greedy proposals")
+            emit("parity_spec", ok=True, **line)
+
+
+def pool_bytes(pools) -> int:
+    return sum(t.numel() * t.element_size() for layer in pools
+               for t in layer.values())
+
+
+def top2_gap(engine, req, upto: int) -> float:
+    """The target's top-2 logit gap after the prompt and ``upto`` tokens
+    of ``req``'s stream (a plain forward of the context)."""
+    from tpu_task_torch.ml.models import transformer
+
+    ids = np.concatenate([req.prompt, np.asarray(req.tokens[:upto],
+                                                 np.int32)])
+    with torch.no_grad():
+        logits = transformer.apply(
+            engine.params, engine.cfg,
+            torch.as_tensor(ids, device=engine.device)[None])[0, -1]
+    top = logits.topk(2).values
+    return float(top[0] - top[1])
+
+
+def spec_wave(engine, probe, seed: int, reference: dict) -> dict:
+    """One wave of ``_submit_wave``'s traffic through a spec engine, its
+    launch counts and goodput meter set to 0 just before and read just
+    after. ``reference`` holds the non-spec serve engine's streams by
+    seed: greedy streams equal to them are counted, and each that differs
+    gives its first differing position and the top-2 logit gap there
+    (reported, not gated: bf16 scoring at 80 rows rounds apart from 16-row
+    decode steps)."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    rids, prompt_tokens = _submit_wave(engine, seed)
+    chunk0, rounds0 = engine.chunk_steps, engine.spec_rounds
+    proposed0, accepted0 = engine.spec_proposed, engine.spec_accepted
+    preempt0 = engine.preemption_count
+    probe.reset()
+    engine.goodput.reset()
+    pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while engine.has_work:
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    results = [engine.request(rid) for rid in rids]
+    generated = sum(len(r.tokens) for r in results)
+    chunk_steps = engine.chunk_steps - chunk0
+    rounds = engine.spec_rounds - rounds0
+    proposed = engine.spec_proposed - proposed0
+    accepted = engine.spec_accepted - accepted0
+    check = spec_launch_check(engine, probe, chunk_steps, rounds)
+    walls = [r["wall_ms"] for r in probe.rounds]
+    parts = {part: float(np.mean([r[part] for r in probe.rounds]))
+             for part in ("catch-up", "propose", "scoring")}
+    round_tokens = sum(r["tokens"] for r in probe.rounds)
+    same, differ = 0, []
+    for i, req in enumerate(results):
+        if req.temperature or seed not in reference:
+            continue
+        want = reference[seed][i]
+        if req.tokens == want:
+            same += 1
+            continue
+        at = next(j for j, (a, b) in enumerate(zip(req.tokens, want))
+                  if a != b)
+        differ.append(dict(request=i, first_differing_position=at,
+                           top2_logit_gap=top2_gap(engine, req, at)))
+    goodput = engine.stats()["goodput"]
+    return dict(
+        seed=seed, requests=len(results), prompt_tokens=prompt_tokens,
+        generated_tokens=generated, wall_s=wall,
+        tokens_per_s=generated / wall,
+        decode_phase_tokens=round_tokens,
+        decode_phase_tokens_per_s=round_tokens / sum(walls) * 1e3,
+        spec_rounds=rounds, chunk_steps=chunk_steps,
+        mean_round_ms=float(np.mean(walls)),
+        mean_round_catchup_ms=parts["catch-up"],
+        mean_round_propose_ms=parts["propose"],
+        mean_round_scoring_ms=parts["scoring"],
+        mean_round_host_accept_ms=float(np.mean(walls)) - sum(parts.values()),
+        proposed=proposed, accepted=accepted,
+        accept_rate=accepted / proposed if proposed else 0.0,
+        emitted_per_round=round_tokens / rounds if rounds else 0.0,
+        # tokens a round commits for each slot it scored
+        emitted_per_slot_round=round_tokens / max(
+            1, sum(r["live_slots"] for r in probe.rounds)),
+        **check, plain_launches=attention_launches()["reference"][0],
+        all_finished=all(r.status == "done" and len(r.tokens) == 64
+                         for r in results),
+        preemptions=engine.preemption_count - preempt0,
+        greedy_streams_equal_spec_off=same if seed in reference else None,
+        greedy_streams_differing=differ,
+        host_gap_frac=goodput["host_gap_frac"],
+        goodput_ratio=goodput["ratio"],
+        dispatches_per_token=goodput["dispatches_per_token"])
+
+
+def serve_spec(device, smi: str, phase: str, draft_name: str, draft, seeds,
+               reference: dict, **serving) -> dict:
+    """A flagship spec engine with ``serving`` over SERVE_KNOBS and
+    ``draft`` ((cfg, params); None: the target itself): the serve phase's
+    warm-up, then one timed wave per seed, gated: every request done,
+    every step's logits finite, layer 0's attention of a target scoring,
+    target chunk, draft decode and draft catch-up call held against the
+    fp32 plain version, the launches as the run's calls need them, and for
+    the ``self`` draft more tokens accepted than rounds. Returns the phase
+    line."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+
+    cfg, params = flagship_model(device)
+    torch.cuda.reset_peak_memory_stats()
+    engine = spec_engine(params, cfg, ServingConfig(**SERVE_KNOBS, **serving),
+                         device, draft or (cfg, params))
+    warm_up(engine)
+    runs = []
+    with SpecProbe(engine) as probe:
+        for seed in seeds:
+            probe.armed = seed == seeds[0]
+            runs.append(spec_wave(engine, probe, seed, reference))
+            emit(f"{phase}_wave", draft=draft_name, **runs[-1], gpu=smi)
+    steps_ok = True
+    for kind, (args, out) in sorted(probe.steps.items()):
+        check = against_fp32_plain(out, args)
+        steps_ok = steps_ok and check["ok"]
+        emit(f"{phase}_step_check", draft=draft_name, step=kind, layer=0,
+             rows=int(args[0].shape[0]), w=int(args[0].shape[1]),
+             deepest_position=int(args[4].max()), **check)
+    checked = sorted(probe.steps)
+    probe.steps.clear()
+    stats = engine.stats()
+
+    def median(key):
+        return float(np.median([r[key] for r in runs]))
+
+    line = dict(
+        draft=draft_name, spec_k=engine.scfg.spec_k,
+        kv_dtype=engine.scfg.kv_dtype or "bfloat16",
+        decode_impl=engine.decode_impl,
+        draft_decode_impl=stats["draft_decode_impl"], waves=len(runs),
+        draft_layers=engine.draft_cfg.n_layers,
+        draft_d_model=engine.draft_cfg.d_model,
+        tokens_per_s_runs=[r["tokens_per_s"] for r in runs],
+        tokens_per_s_median=median("tokens_per_s"),
+        decode_phase_tokens_per_s_runs=[r["decode_phase_tokens_per_s"]
+                                        for r in runs],
+        mean_round_ms_median=median("mean_round_ms"),
+        round_split_ms_median={
+            part: median(f"mean_round_{part}_ms")
+            for part in ("catchup", "propose", "scoring", "host_accept")},
+        accept_rate_runs=[r["accept_rate"] for r in runs],
+        emitted_per_round_runs=[r["emitted_per_round"] for r in runs],
+        emitted_per_slot_round_runs=[r["emitted_per_slot_round"]
+                                     for r in runs],
+        spec_rounds=sum(r["spec_rounds"] for r in runs),
+        chunk_steps=sum(r["chunk_steps"] for r in runs),
+        kernel_launches=sum(r["kernel_launches"] for r in runs),
+        combine_launches=sum(r["combine_launches"] for r in runs),
+        other_kernel_launches=sum(r["other_kernel_launches"] for r in runs),
+        plain_launches=sum(r["plain_launches"] for r in runs),
+        greedy_streams_equal_spec_off=[r["greedy_streams_equal_spec_off"]
+                                       for r in runs],
+        target_kv_pool_bytes=stats["kv_pool_bytes"],
+        draft_kv_pool_bytes=pool_bytes(engine._draft_pools),
+        steps_checked=checked, logits_finite=bool(probe.finite),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
+    if engine.decode_impl == "pipelined":
+        q = torch.empty((1, engine.scfg.spec_k + 1, cfg.n_heads, cfg.d_head),
+                        dtype=cfg.dtype, device=device)
+        line["scoring_uses_tensor_cores"] = pa.pipelined_uses_tensor_cores(
+            q, engine.pools[0]["k"])
+    emit(phase, **line)
+    ok = (bool(probe.finite) and steps_ok
+          and checked == sorted(SPEC_KINDS)
+          and all(r["all_finished"] and r["launches_ok"]
+                  and r["plain_launches"] == 0 for r in runs)
+          and (draft_name != "self"
+               or all(r["accepted"] > r["spec_rounds"] for r in runs)))
+    if not ok:
+        raise AssertionError(f"{phase} ({draft_name} draft) failed its "
+                             f"gates: {line}")
+    return line
+
+
+def phase_serve_spec(device, smi: str, reference: dict) -> dict:
+    """bf16 pools through the tile kernel at ``spec_k`` SPEC_K: the target
+    as its own draft (the accept ceiling, three timed waves) and the
+    random-init HALF_DRAFT (the accept floor, two). Returns the lines by
+    draft."""
+    from tpu_task_torch.ml.models import transformer
+
+    half_cfg = transformer.TransformerConfig(dtype=torch.bfloat16,
+                                             **HALF_DRAFT)
+    half = (half_cfg, transformer.init(
+        torch.Generator(device=device).manual_seed(1), half_cfg))
+    return {"self": serve_spec(device, smi, "serve_spec", "self", None,
+                               (0, 1, 2), reference, spec_k=SPEC_K),
+            "half": serve_spec(device, smi, "serve_spec", "half", half,
+                               (0, 1), reference, spec_k=SPEC_K)}
+
+
+def phase_serve_spec_quant(device, smi: str, reference: dict) -> dict:
+    """int8 pools through the pipelined kernel at ``spec_k`` SPEC_K_QUANT
+    (its scoring step on the tensor cores), the target as its own draft,
+    one timed wave."""
+    return serve_spec(device, smi, "serve_spec_quant", "self", None, (0,),
+                      reference, spec_k=SPEC_K_QUANT, kv_dtype="int8",
+                      decode_impl="pipelined")
+
+
+def spec_timed_case(gen, w: int, kv_dtype, device) -> tuple:
+    """The flagship scoring step's attention: 16 rows of w queries at
+    positions 1024-w .. 1023 (bf16 queries, tables 72 wide), SDPA over the
+    gathered view (dequantized to bf16 ahead of time for a quantized pool)
+    with each query's causal mask as ``library``, and the bytes and flops
+    the function needs: each row's K and V up to its last query once, the
+    live blocks' scales and table entries, q in and out, the positions."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import flat_pool, gather_kv
+
+    F = torch.nn.functional
+    rows, bs, h, kv, d = 16, 16, 8, 2, 128
+    args = quant_args(gen, [1024 - w] * rows, w=w, h=h, kv=kv, d=d, bs=bs,
+                      max_blocks=72, q_dtype=torch.bfloat16,
+                      kv_dtype=kv_dtype, device=device)
+    q, kp, vp, tables, pos = args[:5]
+    live = tables[:, :1024 // bs]
+    if kv_dtype is None:
+        kd, vd = (gather_kv(flat_pool(p), live, bs) for p in (kp, vp))
+    else:
+        kd, vd = (pa.dequantize_view(
+            gather_kv(flat_pool(p.view(torch.uint8)), live, bs)
+            .view(p.dtype), s, live, bs, torch.bfloat16)
+            for p, s in ((kp, args[5]), (vp, args[6])))
+    kd, vd = (t.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+              .contiguous() for t in (kd, vd))
+    qd = q.transpose(1, 2).contiguous()              # (rows, h, w, d)
+    mask = (torch.arange(kd.shape[2], device=device)
+            <= pos[:, :, None])[:, None]              # (rows, 1, w, L)
+
+    def library():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+
+    blocks = rows * (1024 // bs)
+    n_bytes = (rows * 1024 * kv * kp.shape[-1] * kp.element_size() * 2
+               + (blocks * kv * 4 * 2 if kv_dtype else 0)
+               + 2 * q.numel() * q.element_size() + blocks * 4
+               + pos.numel() * 4)
+    return args, library, n_bytes, 4 * h * d * int((pos + 1).sum())
+
+
+def phase_timing_spec(device, smi: str) -> dict:
+    """The scoring step's attention timed: the tile kernel at 16 rows x w
+    SPEC_K + 1 over bf16 pools, the pipelined kernel at 16 x SPEC_K_QUANT
+    + 1 over int8 (its tensor-core path), each beside its one-split time,
+    the plain version, SDPA (``library_ms``) and the bound, held against
+    the plain version in fp32. Returns {kernel: row}."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    timer = DeviceTimer(device)
+    gen = torch.Generator().manual_seed(8)
+    out = {}
+    for kernel, w, kv_dtype in (("paged_decode", SPEC_K + 1, None),
+                                ("paged_decode_pipelined", SPEC_K_QUANT + 1,
+                                 "int8")):
+        args, library, n_bytes, flops = spec_timed_case(gen, w, kv_dtype,
+                                                        device)
+        fn = paged_kernel(kernel)
+        pipelined = kernel == "paged_decode_pipelined"
+        got = fn(*args)
+        check = against_fp32_plain(got, args)
+        lib_err = (library().transpose(1, 2).float()
+                   - got.float()).abs().max().item()
+        if not check.pop("ok") or lib_err > 2e-2:
+            raise AssertionError(f"{kernel} or SDPA disagrees at the scoring "
+                                 f"step: {check}, SDPA {lib_err}")
+        splits = pa.planned_splits(args[0], args[1], 72, pipelined=pipelined)
+        row = dict(kernel=kernel, shape=f"spec scoring 16 x w{w}",
+                   storage=storage_name(kv_dtype, torch.bfloat16), w=w,
+                   splits=splits, ctas=16 * 2 * splits,
+                   ms=timer(lambda: fn(*args)),
+                   unsplit_ms=unsplit_ms(timer, args, pipelined),
+                   plain_ms=timer(lambda: pa.paged_reference_attention(*args)),
+                   library_ms=timer(library), **bound(n_bytes, flops),
+                   library_max_abs_diff=lib_err, **check, gpu=smi)
+        if pipelined:
+            row["tensor_cores"] = pa.pipelined_uses_tensor_cores(*args[:2])
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+        emit("timing_spec", **row)
+        out[kernel] = row
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     import_port()
@@ -2372,8 +3014,9 @@ def main() -> int:
     bwd_build = phase_flash_bwd_build()
     max_err, combine_err = phase_kernel(device)
     timing = phase_timing(device, smi)
+    spec_times = phase_timing_spec(device, smi)
     phase_parity(device)
-    launches, combine_launches = phase_serve(device, smi)
+    launches, combine_launches, serve_streams = phase_serve(device, smi)
     flash_err = phase_flash_kernel(device)
     flash_times = phase_flash_timing(device, smi)
     phase_flash_fwd_shapes(device, smi)
@@ -2383,11 +3026,21 @@ def main() -> int:
     quant_err = phase_kernel_quant(device)
     quant_times = phase_timing_quant(device, smi)
     phase_parity_quant(device)
-    pipelined_launches, pipelined_combines = phase_serve_quant(device, smi)
+    pipelined_launches, pipelined_combines, quant_streams = \
+        phase_serve_quant(device, smi)
     micro, traced = phase_serve_micro(device, smi)
     phase_serve_trace(traced, smi)
     del traced
     micro_quant = phase_serve_micro_quant(device, smi)
+    phase_parity_spec(device)
+    spec = phase_serve_spec(device, smi, serve_streams)
+    spec_quant = phase_serve_spec_quant(device, smi, quant_streams)
+
+    def spec_scoring(kernel: str) -> dict:
+        row = spec_times[kernel]
+        return {f"spec_scoring_{key}": row[key] for key in (
+            "w", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "splits", "unsplit_ms")}
 
     def micro_launches(lines: dict, key: str) -> dict:
         return {f"micro_k_{k}": line[key] for k, line in lines.items()}
@@ -2415,7 +3068,10 @@ def main() -> int:
         "chunk_step_splits": timing[CHUNK_ROWS]["splits"],
         "chunk_step_unsplit_ms": timing[CHUNK_ROWS]["unsplit_ms"],
         "by_storage_batch16": by_storage("paged_decode"),
-        "launches_serve_micro": micro_launches(micro, "kernel_launches")}]
+        "launches_serve_micro": micro_launches(micro, "kernel_launches"),
+        "launches_serve_spec": {name: line["kernel_launches"]
+                                for name, line in spec.items()},
+        **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
         row = flash_times[name]
@@ -2449,7 +3105,11 @@ def main() -> int:
         "chunk_step_unsplit_ms": int8_chunk["unsplit_ms"],
         "by_storage_batch16": by_storage("paged_decode_pipelined"),
         "launches_serve_micro_quant": micro_launches(micro_quant,
-                                                     "kernel_launches")})
+                                                     "kernel_launches"),
+        "launches_serve_spec_quant": spec_quant["kernel_launches"],
+        "spec_scoring_tensor_cores":
+            spec_times["paged_decode_pipelined"]["tensor_cores"],
+        **spec_scoring("paged_decode_pipelined")})
     # The split walk's second pass: the merge that _paged_decode_kernel's
     # _finalize does at the end of its sequential block axis.
     kernels.append({
@@ -2461,6 +3121,9 @@ def main() -> int:
         "launches_serve_micro": micro_launches(micro, "combine_launches"),
         "launches_serve_micro_quant": micro_launches(micro_quant,
                                                      "combine_launches"),
+        "launches_serve_spec": {name: line["combine_launches"]
+                                for name, line in spec.items()},
+        "launches_serve_spec_quant": spec_quant["combine_launches"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

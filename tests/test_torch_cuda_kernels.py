@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 two paged-decode kernels (over model-dtype and quantized pools), each
 one's split-KV walk and its combine kernel, and the three flash-attention
-kernels of training; and the serving engine's K-step loop captured as a
-CUDA graph through the paged kernels.
+kernels of training; the serving engine's K-step loop captured as a
+CUDA graph through the paged kernels; and both paged kernels at the
+speculative scoring widths, with a spec engine's target and draft steps
+through them.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -26,7 +28,9 @@ from tpu_task_torch.ml.models import transformer
 from tpu_task_torch.ml.ops import attention as fa
 from tpu_task_torch.ml.ops import paged_attention as tpa
 from tpu_task_torch.ml.serving import cache as tc
-from tpu_task_torch.serve.replica import build_engine
+from tpu_task_torch.ml.serving.cache import ServingConfig
+from tpu_task_torch.ml.serving.engine import ServingEngine
+from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
 
 ATOL = 2e-5
 
@@ -442,6 +446,103 @@ def test_wrapper_counts_its_combine_launches(cuda_device):
         assert tpa.paged_decode_attention.launches == 1
         assert tpa.paged_decode_attention.combine_launches == int(split)
         assert split == (rows == 2)
+
+
+#: The speculative scoring step's query widths: spec_k + 1 at spec_k 3 (the
+#: quantized spec run, tensor cores at group 4) and 4 (the bf16 one).
+SPEC_WIDTHS = [4, 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [
+    # the flagship's scoring step: 16 slots, tables of max_len 1152
+    dict(h=8, kv=2, d=128, bs=16, rows=16, max_blocks=72),
+    dict(h=8, kv=4, d=16, bs=8),              # the tiny preset
+    dict(h=4, kv=2, d=8, bs=4)])              # the micro preset
+@pytest.mark.parametrize("w", SPEC_WIDTHS)
+@pytest.mark.parametrize("dtype,kv_dtype", TILE_PAIRS)
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["tile", "pipelined"])
+@pytest.mark.parametrize("splits", [1, 2, "plan", "tiles"])
+def test_spec_scoring_widths_match_plain(cuda_device, geometry, w, dtype,
+                                         kv_dtype, pipelined, splits):
+    """Both paged kernels at the scoring widths, every (q type, storage)
+    pair: fragmented tables, ragged depths, an inactive row, forced splits
+    with NaN-filled output and split states, the split states and the
+    combine alone against their plain versions, inputs unchanged."""
+    _check_forced_splits(cuda_device, geometry, w, dtype, kv_dtype, splits,
+                         pipelined=pipelined)
+
+
+@pytest.mark.cuda
+def test_pipelined_tensor_cores_at_the_scoring_widths(cuda_device):
+    """At the flagship's group 4, a CTA takes w × 4 query rows: w 4 (spec_k
+    3) is 16 rows, on the tensor cores; w 5 (spec_k 4) is 20, scalar."""
+    pool = torch.empty((2, 16, 2, 128), dtype=torch.int8, device=cuda_device)
+    for w, mma in ((4, True), (5, False)):
+        q = torch.empty((16, w, 8, 128), dtype=torch.bfloat16,
+                        device=cuda_device)
+        assert tpa.pipelined_uses_tensor_cores(q, pool) == mma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_k", [3, 4])
+@pytest.mark.parametrize("impl,kv_dtype", [("cuda", None), ("cuda", "int8"),
+                                           ("pipelined", "int8")])
+def test_spec_engine_runs_the_kernels(cuda_device, spec_k, impl, kv_dtype):
+    """A spec engine (micro preset, a differently seeded draft of the same
+    geometry) through a kernel: the target's scoring step and the draft's
+    steps all launch it, never the plain version, as many calls as a
+    forced-plain engine makes, with the same streams."""
+    base = build_engine("micro", device="cpu")
+    draft = transformer.init(torch.Generator().manual_seed(1), base.cfg)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, base.cfg.vocab_size, size=n)
+               for n in (3, 13, 7, 1, 22)]
+    outs, calls = {}, {}
+    for path in (impl, "reference"):
+        serving = {"decode_impl": path, "kv_dtype": kv_dtype,
+                   "spec_k": spec_k}
+        engine = ServingEngine(base.params, base.cfg,
+                               ServingConfig(**{**SERVING_PRESETS["micro"],
+                                                **serving}),
+                               device=cuda_device, draft_params=draft,
+                               draft_cfg=base.cfg)
+        tpa.reset_launch_counts()
+        for i, prompt in enumerate(prompts):
+            engine.submit(prompt, 12, **({"temperature": 0.8, "key": [i, 1]}
+                                         if i % 2 else {}))
+        outs[path] = engine.drain()
+        launches = engine.stats()["attention_launches"]
+        calls[path] = launches[path]
+        assert sum(launches.values()) == launches[path] > 0
+        assert engine.stats()["spec"]["rounds"] > 0
+        assert engine.stats()["draft_decode_impl"] == path
+    assert outs[impl] == outs["reference"]
+    assert calls[impl] == calls["reference"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda", "pipelined"])
+def test_spec_engine_refuses_a_width_the_kernel_cannot_take(cuda_device,
+                                                            impl):
+    """The flagship's heads at spec_k 127 would score at w 128: 512 query
+    rows a CTA, past the card's shared memory. The engine says so at
+    construction, naming the step, rather than at a launch mid-stream."""
+    cfg = transformer.TransformerConfig(
+        vocab_size=256, d_model=256, n_layers=1, n_heads=8, d_head=128,
+        d_ff=256, n_kv_heads=2, dtype=torch.bfloat16)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    scfg = ServingConfig(slots=2, block_size=16, n_blocks=40, max_len=256,
+                         spec_k=127, decode_impl=impl)
+    with pytest.raises(ValueError, match="scoring step.*shared memory"):
+        ServingEngine(params, cfg, scfg, device=cuda_device,
+                      draft_params=params, draft_cfg=cfg)
+    engine = ServingEngine(params, cfg,
+                           ServingConfig(**{**scfg.__dict__, "spec_k": 4}),
+                           device=cuda_device, draft_params=params,
+                           draft_cfg=cfg)
+    assert engine.stats()["draft_decode_impl"] == impl
 
 
 def _flash_inputs(device, dtype, b, h, sq, sk, d, seed=0):

@@ -140,3 +140,41 @@ def test_peak_and_meter_arithmetic(monkeypatch):
     assert snap["mfu"] == pytest.approx(want / 1.0 / 1e9)
     meter.reset()
     assert meter.snapshot()["dispatches"] == 0
+
+
+def test_spec_charges_match_jax_meter():
+    """A speculative engine (the target as its own draft, spec_k 2) charges
+    what JAX's does: every draft, scoring and uniform dispatch, the
+    rejected proposals in ``tokens.spec_rejected`` and in ``ratio``'s
+    denominator, and the scored positions' FLOPs."""
+    jcfg, jparams = jax_model("micro")
+    cfg, params = port_model(jcfg, jparams)
+    knobs = serving_knobs("micro", spec_k=2)
+    jax_engine = JaxServingEngine(
+        jparams, jcfg, JaxServingConfig(**knobs, decode_impl="xla"),
+        rng=jax.random.PRNGKey(0), obs=Obs.create("micro-spec"),
+        draft_params=jparams, draft_cfg=jcfg)
+    port = ServingEngine(params, cfg, ServingConfig(**knobs),
+                         rng=R.PRNGKey(0), device=CPU, draft_params=params,
+                         draft_cfg=cfg)
+    work = _workload(port.cfg.vocab_size)
+    want, jg = _run(jax_engine, work)
+    got, pg = _run(port, work)
+    assert got == want
+    assert pg["tokens"] == jg["tokens"]
+    assert pg["tokens"]["spec_rejected"] > 0 and pg["ratio"] < 1
+    assert pg["ratio"] == jg["ratio"]
+    assert pg["dispatches"] == jg["dispatches"]
+    assert pg["model_flops"] == pytest.approx(jg["model_flops"], rel=1e-12)
+
+
+def test_wasted_spec_joins_the_denominator():
+    cfg, _ = port_model(*jax_model("micro"))
+    meter = tgoodput.GoodputMeter(cfg, peak_flops=1e9)
+    meter.emitted(6)
+    meter.wasted_spec(2)
+    meter.wasted_spec(-1)                 # nothing rejected: no charge
+    meter.wasted_preempt(1)
+    snap = meter.snapshot()
+    assert snap["tokens"]["spec_rejected"] == 2
+    assert snap["ratio"] == (6 - 1) / (6 + 2)

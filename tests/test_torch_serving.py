@@ -165,7 +165,7 @@ def _leaves(params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("spec_k", 2), ("overlap", True),
+    ("overlap", True),
     ("n_adapter_blocks", 4), ("prefill", "bucketed"),
     ("host_offload_blocks", 8), ("lora_rank", 4)])
 def test_unported_knobs_raise(knob, value):

@@ -191,8 +191,7 @@ def test_refusals():
             ServingEngine(engine.params, engine.cfg,
                           ServingConfig(decode_impl=impl, kv_dtype="int8"),
                           device="cpu")
-    for knob, value in (("spec_k", 2), ("overlap", True),
-                        ("host_offload_blocks", 4)):
+    for knob, value in (("overlap", True), ("host_offload_blocks", 4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingConfig(kv_dtype="int4", **{knob: value})
     one = torch.zeros(1, dtype=torch.int64)

@@ -332,6 +332,25 @@ def _smem_bytes(pipelined: bool, q_type: int, kv_type: int, w: int, h: int,
     return smem
 
 
+def require_geometry(q_dtype: torch.dtype, pool_dtype: torch.dtype, w: int,
+                     h: int, kv: int, d: int, bs: int, *,
+                     pipelined: bool) -> None:
+    """Raise ValueError, naming the cause, if a paged kernel cannot take
+    this geometry at all: shared memory past the card's limit at query
+    width ``w`` (it grows with ``w`` × the GQA group), or, for the
+    pipelined kernel, pool rows that are not whole 4-byte units. Builds
+    the kernel's library to ask it. An engine checks its steps' shapes at
+    construction with this, rather than at a launch mid-stream."""
+    row_bytes = (d // 2 if pool_dtype == torch.uint8 else d) * \
+        torch.empty((), dtype=pool_dtype).element_size()
+    if pipelined and row_bytes % 4:
+        raise ValueError(
+            f"the pipelined kernel copies pool rows in 4-byte units; a row "
+            f"of this pool is {row_bytes} bytes (d={d}, {pool_dtype})")
+    _smem_bytes(pipelined, Q_TYPES[q_dtype], KV_TYPES[pool_dtype], w, h, kv,
+                d, bs)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -106,12 +106,13 @@ class ServingConfig:
     None keeps the pools in the model dtype, ``"int8"``/``"fp8"``/``"int4"``
     store codes with per-(block, kv-head) scales (int4 needs an even
     ``d_head``); ``micro_k``: decode iterations one pure-decode step runs
-    (a captured CUDA graph of the K-step loop on a CUDA device).
+    (a captured CUDA graph of the K-step loop on a CUDA device);
+    ``spec_k``: draft tokens a speculative round proposes per slot (0 is
+    off; the engine then needs ``draft_params``/``draft_cfg``).
 
-    Knobs of later slices (bucketed prefill, speculative decoding, the
-    async loop, the host tier, LoRA) keep their fields so
-    configs carry over, and raise NotImplementedError naming their ROADMAP
-    item when set."""
+    Knobs of later slices (bucketed prefill, the async loop, the host
+    tier, LoRA) keep their fields so configs carry over, and raise
+    NotImplementedError naming their ROADMAP item when set."""
 
     slots: int = 8
     block_size: int = 16
@@ -187,8 +188,6 @@ class ServingConfig:
                 f"{self.n_adapter_blocks}")
         if self.prefill == "bucketed":
             raise _not_ported("prefill='bucketed'", "A2 (paged_prefill)")
-        if self.spec_k > 0:
-            raise _not_ported("spec_k > 0", "A3 (speculative decoding)")
         if self.overlap:
             raise _not_ported("overlap=True", "A5 (the async loop)")
         if self.host_offload_blocks:
@@ -283,15 +282,6 @@ def flat_pool(pool: torch.Tensor) -> torch.Tensor:
     of the same storage: writes through it land in the pool."""
     n, bs = pool.shape[:2]
     return pool.view(n * bs, *pool.shape[2:])
-
-
-def token_slots(block_tables: torch.Tensor, positions: torch.Tensor,
-                block_size: int) -> torch.Tensor:
-    """Flat pool slot of each row's ``positions`` entry through its table
-    row. block_tables (rows, max_blocks); positions (rows,)."""
-    block = (positions // block_size).to(torch.int64)
-    phys = torch.gather(block_tables.to(torch.int64), 1, block[:, None])[:, 0]
-    return phys * block_size + positions % block_size
 
 
 def copy_block(pools: List[Dict[str, torch.Tensor]], src: int,

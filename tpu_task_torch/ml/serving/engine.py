@@ -37,15 +37,30 @@ for), the plain version on the CPU.
   micro-step (:mod:`~tpu_task_torch.ml.serving.step_graph`); there is no
   eager K-step path there. On the CPU the loop runs eagerly. Streams are
   those of K = 1: greedy bit-identical, sampled key-identical.
+- **Speculative decoding** (``spec_k`` > 0, with ``draft_params``/
+  ``draft_cfg``): after any chunk step, one round per scheduler step — the
+  draft catches its own cache up (:func:`~tpu_task_torch.ml.serving.model.
+  chunked_step_greedy`), proposes up to ``spec_k`` tokens per slot with
+  greedy decode steps, ONE target step scores all ``spec_k + 1`` positions
+  of every slot through the paged kernel (:func:`~tpu_task_torch.ml.
+  serving.model.spec_score_greedy` / ``_probs``), and the host commits the
+  longest agreeing prefix plus one token (greedy) or rejection-samples
+  against uniforms keyed by (request key, absolute position)
+  (:func:`spec_uniforms`). Greedy streams are those of ``spec_k = 0``,
+  sampled ones the JAX spec engine's. The draft runs the target's paged
+  attention; a draft (or scoring width) the kernel cannot take raises at
+  construction — the JAX engine sends such a draft through XLA instead.
+  ``spec_enabled`` is the brownout knob: off, a round proposes nothing and
+  still scores every slot through the spec path.
 - **Goodput** (:class:`~tpu_task_torch.obs.goodput.GoodputMeter`, always
   on): every dispatch is timed through its readback, and
   ``stats()["goodput"]`` gives the host-gap share, dispatches per token,
-  the preemption-discounted goodput ratio and MFU.
+  the preemption- and rejection-discounted goodput ratio and MFU.
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
-here, naming its ROADMAP item): bucketed prefill, speculative decoding,
-the async loop, LoRA, the host tier, ``export_inflight``/
-``resume_inflight``, ``adopt_params``, meshes. The SLA fields of
+here, naming its ROADMAP item): bucketed prefill, the async loop, LoRA,
+the host tier, ``export_inflight``/``resume_inflight``, ``adopt_params``,
+meshes. The SLA fields of
 ``submit`` and the obs registry and spans are left out too: with no SLA
 field set the JAX engine's admission is FIFO and its preemption victim the
 youngest slot, which is what this engine does."""
@@ -53,6 +68,7 @@ youngest slot, which is what this engine does."""
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -82,13 +98,34 @@ from tpu_task_torch.ml.serving.cache import (
     paged_cache_bytes,
 )
 from tpu_task_torch.ml.serving.model import (
+    chunked_step_greedy,
     decode_and_sample,
     greedy_decode_step,
+    spec_score_greedy,
+    spec_score_probs,
 )
 from tpu_task_torch.ml.serving.step_graph import MicroStepGraphs
 from tpu_task_torch.obs.goodput import GoodputMeter
 
 QUEUED, RUNNING, DONE = "queued", "running", "done"
+
+#: Salt folded into a request's key before deriving its per-position
+#: rejection-sampling uniforms: keeps the speculative stream disjoint from
+#: the ``fold_in(key, token_index)`` stream the plain sampler draws.
+SPEC_SALT = 0x5BEC
+
+
+def spec_uniforms(keys: torch.Tensor, positions: torch.Tensor
+                  ) -> torch.Tensor:
+    """Two uniforms per (request key, absolute position), one call for a
+    whole round: ``uniform(fold_in(fold_in(key, SPEC_SALT), pos), (2,))``
+    for ``keys`` (slots, 2) and ``positions`` (slots, w) — the JAX
+    engine's ``_spec_uniform_fn``, bit for bit, on the keys' device.
+    Returns (slots, w, 2) float32: the accept coin and the residual (or
+    bonus) inverse-CDF draw."""
+    salted = jrandom.fold_in(keys, SPEC_SALT)
+    return jrandom.uniform(jrandom.fold_in(salted[:, None, :], positions),
+                           (2,))
 
 
 def resolve_decode_impl(scfg: ServingConfig, device: torch.device) -> str:
@@ -169,7 +206,9 @@ class ServingEngine:
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  scfg: Optional[ServingConfig] = None,
-                 rng: Optional[jrandom.KeyLike] = None, device=None):
+                 rng: Optional[jrandom.KeyLike] = None, device=None,
+                 draft_params: Optional[Params] = None,
+                 draft_cfg: Optional[TransformerConfig] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg = scfg or ServingConfig()
@@ -222,6 +261,7 @@ class ServingEngine:
         self.max_quant_error = 0.0       # debug mode only (readback cost)
         self.micro_steps = 0             # K-wide fused micro dispatches
         self.goodput = GoodputMeter(cfg, device=self.device)
+        self._init_spec(draft_params, draft_cfg)
         #: The K-step programs (a CUDA graph each on a CUDA device, captured
         #: at first use), bound to self.params and self.pools: neither is
         #: ever rebound.
@@ -229,6 +269,63 @@ class ServingEngine:
             self.params, cfg, self.pools, slots=n, max_blocks=m,
             micro_k=scfg.micro_k, attn_impl=self.decode_impl,
             measure_qerr=self.debug, device=self.device)
+
+    def _init_spec(self, draft_params: Optional[Params],
+                   draft_cfg: Optional[TransformerConfig]) -> None:
+        """Speculative decoding's state: the draft triple validated
+        together, the draft's own pools — always in the draft's dtype,
+        ``slots × max_blocks + 1`` blocks with a FIXED identity layout
+        (slot s owns blocks [1 + s·m, 1 + (s+1)·m), never allocated or
+        freed) — and the round counters."""
+        scfg, n = self.scfg, self.scfg.slots
+        m = scfg.max_blocks_per_slot
+        self._spec_on = scfg.spec_k > 0
+        #: Brownout knob (the degrade ladder's no-spec rung): False caps
+        #: the draft width at zero INSIDE the spec round, so every slot
+        #: still scores through the spec path's position-keyed streams and
+        #: toggling it mid-stream cannot change a token.
+        self.spec_enabled = True
+        if self._spec_on and (draft_params is None or draft_cfg is None):
+            raise ValueError("spec_k > 0 needs draft_params and draft_cfg")
+        if draft_cfg is not None and \
+                draft_cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                f"{self.cfg.vocab_size}")
+        self.draft_cfg = draft_cfg
+        self.draft_params = None
+        self.draft_decode_impl: Optional[str] = None
+        self._draft_pos = np.zeros((n,), np.int32)
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        if not self._spec_on:
+            return
+        # The draft runs the target's paged attention. The kernels take
+        # any head dim, but not every width: check the scoring step's and
+        # the draft's shapes now, not at a launch mid-stream.
+        if self.decode_impl in ("cuda", "pipelined"):
+            for what, c, pool_dtype, w in (
+                    ("the target's scoring step", self.cfg,
+                     self.pools[0]["k"].dtype, scfg.spec_k + 1),
+                    ("the draft model", draft_cfg, draft_cfg.dtype, 1)):
+                try:
+                    pa.require_geometry(
+                        c.dtype, pool_dtype, w, c.n_heads, c.kv_heads,
+                        c.d_head, scfg.block_size,
+                        pipelined=self.decode_impl == "pipelined")
+                except ValueError as error:
+                    raise ValueError(
+                        f"spec_k={scfg.spec_k}: {what} cannot run through "
+                        f"{self.decode_impl!r}: {error}") from None
+        self.draft_decode_impl = self.decode_impl
+        self.draft_params = params_to(draft_params, self.device)
+        self._draft_pools = init_pools(
+            draft_cfg, dataclasses.replace(scfg, n_blocks=n * m + 1,
+                                           kv_dtype=None), self.device)
+        self._draft_tables = torch.as_tensor(
+            1 + np.arange(n * m, dtype=np.int32).reshape(n, m),
+            device=self.device)
 
     # -- front end -------------------------------------------------------------
 
@@ -311,9 +408,18 @@ class ServingEngine:
         finished: List[int] = []
         self._admit_chunked(admitted)
         with torch.no_grad():
-            if any(self._prefilling(i) for i in range(self.scfg.slots)):
+            prefilling = any(self._prefilling(i)
+                             for i in range(self.scfg.slots))
+            if prefilling:
+                # With spec on, the chunk step advances only the ingesting
+                # slots and the spec round below advances the decoders, so
+                # a request's later tokens always come from the spec path.
                 self._chunk_step(finished)
-            elif self.n_active:
+            if self._spec_on:
+                self._spec_step(finished)
+            elif not prefilling and self.n_active:
+                # Spec rounds are the multi-token path when spec is on;
+                # otherwise a pure-decode step is a K-token micro-step.
                 if self.scfg.micro_k > 1:
                     self._micro_decode(finished)
                 else:
@@ -424,6 +530,7 @@ class ServingEngine:
             self._positions[slot] = cached_len
             self._prefill_target[slot] = plen
             self._last_token[slot] = 0
+            self._draft_pos[slot] = 0
             admitted.append(req.rid)
 
     def _ensure_blocks(self, widths: Optional[np.ndarray] = None) -> None:
@@ -597,7 +704,8 @@ class ServingEngine:
         under one shared ``chunk_tokens`` budget), each row with its own
         slot's block table. Every row scatters its k/v before any row
         attends, and the position mask gives each chunk token exactly its
-        predecessors."""
+        predecessors. With spec on, decode rows are HELD (width 0): the
+        spec round of the same scheduler step advances them."""
         n, W = self.scfg.slots, self.scfg.chunk_tokens
         order = sorted(range(n), key=lambda j: self._admit_seq[j])
 
@@ -612,7 +720,7 @@ class ServingEngine:
                 if pos < target:
                     w[i] = min(budget, target - pos)
                     budget -= w[i]
-                else:
+                elif not self._spec_on:
                     w[i] = 1
             return w
 
@@ -667,7 +775,7 @@ class ServingEngine:
         self.goodput.work_counts(int(active.sum()), float(pos_masked.sum()))
         now = time.monotonic()
         for i, req in enumerate(self._slots):
-            if req is None or not widths[i]:
+            if req is None or not widths[i]:          # empty or spec-held
                 continue
             if i in rows:                             # prefill rows
                 off, c, pos = rows[i]
@@ -771,6 +879,237 @@ class ServingEngine:
         self.goodput.work_counts(emitted_total, pos_sum)
         self.goodput.emitted(emitted_total)
 
+    # -- speculative decoding --------------------------------------------------
+
+    def _spec_step(self, finished: list) -> None:
+        """One speculative round: the draft proposes up to ``spec_k``
+        tokens per slot (greedy — its proposal distribution is a point
+        mass, so rejection sampling reduces to accept-with-prob-p(d)), ONE
+        fused target step scores all k+1 positions of every slot, and the
+        host commits the accepted prefix plus one bonus or replacement
+        token in place."""
+        n, k = self.scfg.slots, self.scfg.spec_k
+        if not self.spec_enabled:
+            k = 0                         # brownout: score, propose nothing
+        bs = self.scfg.block_size
+
+        def live(i: int) -> bool:
+            # Mid-prompt slots advance through the chunk step, never here.
+            return self._slots[i] is not None and not self._prefilling(i)
+
+        def eff() -> np.ndarray:
+            ke = np.zeros((n,), np.int32)
+            for i, req in enumerate(self._slots):
+                if not live(i):
+                    continue
+                remaining = req.max_new_tokens - len(req.tokens)
+                # Emitting ke + 1 tokens must stay within remaining, and the
+                # last scored position inside the slot's table.
+                cap = self.scfg.max_blocks_per_slot * bs - 1 \
+                    - int(self._positions[i])
+                ke[i] = max(0, min(k, remaining - 1, cap))
+            return ke
+
+        want = eff()
+        self._ensure_blocks(np.asarray(
+            [want[i] + 1 if live(i) else 0 for i in range(n)], np.int32))
+        if not any(live(i) for i in range(n)):
+            return
+        k_eff = eff()                     # preemption may have freed slots
+        # Even an all-zero k_eff round scores through the spec program, so
+        # a sampled request's tokens always ride the position-keyed spec
+        # streams, never a mix with the plain sampler's.
+        if self.spec_enabled:
+            self._draft_catchup()
+            proposals = self._draft_propose(k_eff)
+        else:
+            # No draft passes at all: the catch-up heals on re-enable.
+            proposals = np.zeros((n, 1), np.int32)
+        tokens = np.zeros((n, k + 1), np.int32)
+        positions = np.zeros((n, k + 1), np.int32)
+        valid = np.zeros((n, k + 1), bool)
+        for i in range(n):
+            if not live(i):
+                continue
+            ke, pos = int(k_eff[i]), int(self._positions[i])
+            tokens[i, 0] = self._last_token[i]
+            tokens[i, 1:ke + 1] = proposals[i, :ke]
+            positions[i, :ke + 1] = np.arange(pos, pos + ke + 1)
+            valid[i, :ke + 1] = True
+        layout = (self._quant_layout(self._tables, positions, valid)
+                  if self._quantized else None)
+        dev = self.device
+
+        def put(a, dtype):
+            return torch.as_tensor(a, device=dev, dtype=dtype)
+
+        t0 = time.perf_counter()
+        args = (self.params, self.cfg, put(tokens, torch.int64),
+                put(positions, torch.int32), put(valid, torch.bool),
+                put(self._tables, torch.int32))
+        qa = (tuple(put(a, torch.int64) for a in layout)
+              if self._quantized else None)
+        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
+        sampled = not self._all_greedy()
+        if sampled:
+            temps, tops = self._temps_tops()
+            out = spec_score_probs(*args, put(temps, torch.float32),
+                                   put(tops, torch.float32), self.pools, qa,
+                                   **kwargs)
+        else:
+            out = spec_score_greedy(*args, self.pools, qa, **kwargs)
+        if self._quantized:
+            out, qerr = out
+            self._note_qerr(qerr)
+        scored = out.cpu().numpy()
+        self.goodput.program(time.perf_counter() - t0)
+        if sampled:
+            probs = scored
+            t0 = time.perf_counter()
+            uniforms = spec_uniforms(
+                jrandom.as_key(self._slot_keys, dev),
+                put(positions, torch.int64)).cpu().numpy()
+            self.goodput.program(time.perf_counter() - t0)
+        self.spec_rounds += 1
+        # positions is 0 outside the valid mask, so its plain sum is the
+        # valid entries' position sum.
+        self.goodput.work_counts(int(valid.sum()), float(positions.sum()))
+        now = time.monotonic()
+        for i, req in enumerate(self._slots):
+            if not live(i):
+                continue
+            ke, pos = int(k_eff[i]), int(self._positions[i])
+            if not sampled or req.temperature == 0:
+                row = probs[i].argmax(-1) if sampled else scored[i]
+                a = 0
+                while a < ke and proposals[i, a] == row[a]:
+                    a += 1
+                emitted = [int(t) for t in row[:a + 1]]
+            else:
+                emitted = self._spec_accept_sampled(
+                    probs[i], proposals[i], ke, uniforms[i])
+                a = len(emitted) - 1
+            self.spec_proposed += ke
+            self.spec_accepted += a
+            # eos / max_new truncation: both mean the slot retires now.
+            lim = req.max_new_tokens - len(req.tokens)
+            emitted = emitted[:lim]
+            if req.eos_token is not None and req.eos_token in emitted:
+                emitted = emitted[:emitted.index(req.eos_token) + 1]
+            m = len(emitted)
+            req.tokens.extend(emitted)
+            self.goodput.emitted(m)
+            self.goodput.wasted_spec(ke - a)
+            if req.first_token_t is None:
+                req.first_token_t = now
+            self._positions[i] = pos + m
+            self._last_token[i] = emitted[-1]
+            # Draft KV is valid through pos + min(m, ke) - 1: a full accept
+            # leaves the draft one token behind (it never fed its own last
+            # proposal), which the next round's catch-up feeds.
+            self._draft_pos[i] = pos + min(m, ke)
+            if req.finished:
+                self._retire(i)
+                finished.append(req.rid)
+
+    @staticmethod
+    def _inv_cdf(p: np.ndarray, u: float) -> int:
+        c = np.cumsum(p, dtype=np.float64)
+        total = c[-1] if c[-1] > 0 else 1.0
+        return int(min(np.searchsorted(c / total, u, side="right"),
+                       len(p) - 1))
+
+    def _spec_accept_sampled(self, probs: np.ndarray, proposals: np.ndarray,
+                             ke: int, uniforms: np.ndarray) -> List[int]:
+        """Rejection sampling against the target distribution ``probs[j]``
+        (already tempered and top-p filtered on the device). The greedy
+        draft's proposal is a point mass, so proposal ``d`` is accepted
+        with probability p(d), and a rejection samples the residual (p
+        without d, renormalized): the stream is distribution-exact against
+        non-speculative sampling. ``uniforms[j]`` is the (accept coin,
+        inverse-CDF draw) pair keyed by (request, absolute position), so a
+        preempted and replayed request makes the same decisions under any
+        schedule. Host-side numpy in float64, as in JAX."""
+        emitted: List[int] = []
+        for j in range(ke):
+            d = int(proposals[j])
+            u_accept, u_res = uniforms[j]
+            if u_accept < probs[j, d]:
+                emitted.append(d)
+                continue
+            residual = probs[j].astype(np.float64).copy()
+            residual[d] = 0.0
+            if residual.sum() <= 0:
+                emitted.append(int(probs[j].argmax()))
+            else:
+                emitted.append(self._inv_cdf(residual, u_res))
+            return emitted
+        u_bonus = uniforms[ke, 0]
+        emitted.append(self._inv_cdf(probs[ke].astype(np.float64), u_bonus))
+        return emitted
+
+    def _draft_catchup(self) -> None:
+        """Feed the draft cache every context token it has not seen —
+        prompt ingestion (``chunk_tokens`` per slot per call) and the one
+        or two tokens a committed round leaves behind. Each call is timed
+        through a readback of its tokens, which the round does not use."""
+        n, W = self.scfg.slots, self.scfg.chunk_tokens
+        while True:
+            need = [i for i in range(n) if self._slots[i] is not None
+                    and int(self._draft_pos[i]) < int(self._positions[i])]
+            if not need:
+                return
+            tokens = np.zeros((n, W), np.int32)
+            positions = np.zeros((n, W), np.int32)
+            valid = np.zeros((n, W), bool)
+            last_idx = np.zeros((n,), np.int32)
+            for i in need:
+                dp = int(self._draft_pos[i])
+                c = min(W, int(self._positions[i]) - dp)
+                ctx = self._context_ids(self._slots[i])
+                tokens[i, :c] = ctx[dp:dp + c]
+                positions[i, :c] = np.arange(dp, dp + c)
+                valid[i, :c] = True
+                last_idx[i] = c - 1
+                self._draft_pos[i] = dp + c
+            dev = self.device
+            t0 = time.perf_counter()
+            chunked_step_greedy(
+                self.draft_params, self.draft_cfg,
+                torch.as_tensor(tokens, device=dev, dtype=torch.int64),
+                torch.as_tensor(positions, device=dev),
+                torch.as_tensor(valid, device=dev),
+                torch.as_tensor(last_idx, device=dev), self._draft_tables,
+                self._draft_pools, attn_impl=self.draft_decode_impl).cpu()
+            self.goodput.program(time.perf_counter() - t0)
+
+    def _draft_propose(self, k_eff: np.ndarray) -> np.ndarray:
+        """Greedy draft proposals: up to ``k_eff[i]`` sequential tokens per
+        slot through the batched draft decode step (rows past their own
+        ``k_eff`` go inactive and write only the scratch block)."""
+        n, kmax = self.scfg.slots, int(k_eff.max())
+        cur = self._last_token.copy()
+        dpos = self._positions.copy()
+        out = np.zeros((n, max(kmax, 1)), np.int32)
+        dev = self.device
+        for j in range(kmax):
+            act = np.array([self._slots[i] is not None and k_eff[i] > j
+                            for i in range(n)])
+            t0 = time.perf_counter()
+            toks = greedy_decode_step(
+                self.draft_params, self.draft_cfg,
+                torch.as_tensor(cur, device=dev, dtype=torch.int64),
+                torch.as_tensor(np.where(act, dpos, 0), device=dev,
+                                dtype=torch.int32),
+                self._draft_tables, torch.as_tensor(act, device=dev),
+                self._draft_pools,
+                attn_impl=self.draft_decode_impl).cpu().numpy()
+            self.goodput.program(time.perf_counter() - t0)
+            out[act, j] = toks[act]
+            cur[act] = toks[act]
+            dpos[act] += 1
+        return out
+
     # -- release / retire ------------------------------------------------------
 
     def _release(self, slot: int) -> None:
@@ -792,6 +1131,7 @@ class ServingEngine:
         self._positions[slot] = 0
         self._prefill_target[slot] = 0
         self._last_token[slot] = 0
+        self._draft_pos[slot] = 0
         self._slots[slot] = None
 
     def _retire(self, slot: int) -> None:
@@ -806,6 +1146,8 @@ class ServingEngine:
         version)."""
         return {
             "decode_impl": self.decode_impl,
+            # The draft's paged attention: the target's, or None (spec off).
+            "draft_decode_impl": self.draft_decode_impl,
             "device": str(self.device),
             "steps": self.steps,
             "decode_steps": self.decode_steps,
@@ -842,6 +1184,15 @@ class ServingEngine:
                 "shared_blocks": (self._pcache.shared_blocks()
                                   if self._pcache else 0),
                 "evictions": self._pcache.evictions if self._pcache else 0,
+            },
+            "spec": {
+                "k": self.scfg.spec_k,
+                "rounds": self.spec_rounds,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "accept_rate": round(
+                    self.spec_accepted / self.spec_proposed, 4)
+                if self.spec_proposed else 0.0,
             },
             "attention_launches": {
                 "cuda": pa.paged_decode_attention.launches,

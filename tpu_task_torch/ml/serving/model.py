@@ -20,7 +20,13 @@ largest quantization error of their writes beside their result (an exact
 sequential decode iterations with the retirement bookkeeping between them
 (``_micro_scan``, the JAX package's ``lax.scan`` written as a loop); on a
 CUDA device the engine captures that loop as one CUDA graph
-(:mod:`~tpu_task_torch.ml.serving.step_graph`)."""
+(:mod:`~tpu_task_torch.ml.serving.step_graph`).
+
+Speculative decoding's steps (:func:`paged_multitoken_logits`,
+:func:`spec_score_greedy`, :func:`spec_score_probs`) run the same forward
+(:func:`_multitoken_features`) at query width ``spec_k + 1``;
+:func:`chunked_step_greedy`, the draft's catch-up, keeps JAX's (slots, w)
+signature but packs the valid tokens into width-1 rows."""
 
 from __future__ import annotations
 
@@ -39,11 +45,7 @@ from tpu_task_torch.ml.models.transformer import (
     embed_lookup,
 )
 from tpu_task_torch.ml.ops.paged_attention import paged_attention
-from tpu_task_torch.ml.serving.cache import (
-    flat_pool,
-    quantized_append,
-    token_slots,
-)
+from tpu_task_torch.ml.serving.cache import flat_pool, quantized_append
 
 Pools = List[Dict[str, torch.Tensor]]
 #: The host-computed write layout of a quantized step: (touched, filled,
@@ -63,6 +65,61 @@ def _fold_qerr(qerrs: List[torch.Tensor]) -> torch.Tensor:
     return functools.reduce(torch.maximum, qerrs)
 
 
+def _multitoken_features(params: Params, cfg: TransformerConfig,
+                         tokens: torch.Tensor, positions: torch.Tensor,
+                         valid: torch.Tensor, block_tables: torch.Tensor,
+                         pools: Pools, qa: Optional[QuantLayout] = None, *,
+                         attn_impl: str = "reference",
+                         measure_qerr: bool = False):
+    """The paged forward of every step, the width-``w`` generalization of
+    :func:`paged_decode_step`: ``tokens`` (rows, w) at PER-TOKEN absolute
+    ``positions`` (rows, w) int32 with a ``valid`` mask (rows, w). Each
+    valid token's k/v is scattered into its pool slot through its row's
+    table before any token attends; ragged rows (a speculative row shorter
+    than ``k + 1``, an inactive slot) write only the scratch block and
+    their outputs are garbage the host discards. The attention runs at
+    query width ``w`` through ``attn_impl`` (the paged kernels take any
+    width their shared memory holds). Returns the (rows, w, d_model)
+    final-norm features, and for a quantized pool the max quantization
+    error beside them."""
+    block_size = pools[0]["k"].shape[1]
+    quantized = pool_is_quantized(pools)
+    if quantized and qa is None:
+        raise ValueError(
+            "quantized pools need the host-computed `qa` write layout "
+            "(touched, filled, wt, wo) — see cache.quantized_append; "
+            "ServingEngine derives it per step (_quant_layout)")
+    qpos = torch.where(valid, positions, 0)
+    write_idx = None
+    if not quantized:
+        block = (qpos // block_size).to(torch.int64)
+        phys = torch.gather(block_tables.to(torch.int64), 1, block)
+        write_idx = torch.where(valid, phys * block_size + qpos % block_size,
+                                0).reshape(-1)
+    x = embed_lookup(params["embed"], tokens)
+    qerrs: List[torch.Tensor] = []
+    for layer, pool in zip(params["layers"], pools):
+        def attn_fn(q, k, v, pool=pool):
+            # Scatter this step's k/v, THEN attend: a token attends itself,
+            # and its in-step predecessors (a chunk's earlier rows, the
+            # earlier columns of a speculative row).
+            k, v = (t.reshape(-1, *t.shape[2:]) for t in (k, v))
+            if quantized:
+                qerrs.append(quantized_append(pool, k, v, *qa,
+                                              measure_error=measure_qerr))
+                return paged_attention(q, pool["k"], pool["v"],
+                                       block_tables, qpos, pool["k_scale"],
+                                       pool["v_scale"], impl=attn_impl)
+            flat_pool(pool["k"]).index_copy_(0, write_idx, k)
+            flat_pool(pool["v"]).index_copy_(0, write_idx, v)
+            return paged_attention(q, pool["k"], pool["v"], block_tables,
+                                   qpos, impl=attn_impl)
+
+        x = _block(x, layer, cfg, attn_fn, positions=qpos)
+    x = _rmsnorm(x, params["final_norm"])
+    return (x, _fold_qerr(qerrs)) if quantized else x
+
+
 def paged_decode_step(params: Params, cfg: TransformerConfig,
                       tokens: torch.Tensor, positions: torch.Tensor,
                       block_tables: torch.Tensor, active: torch.Tensor,
@@ -76,39 +133,13 @@ def paged_decode_step(params: Params, cfg: TransformerConfig,
     inactive rows still compute but write only the scratch block, and the
     host discards their outputs. Updates ``pools`` in place. A quantized
     pool needs ``qa`` and returns (logits, max quantization error)."""
-    block_size = pools[0]["k"].shape[1]
-    quantized = pool_is_quantized(pools)
-    if quantized and qa is None:
-        raise ValueError(
-            "quantized pools need the host-computed `qa` write layout "
-            "(touched, filled, wt, wo) — see cache.quantized_append; "
-            "ServingEngine derives it per step (_quant_layout)")
-    write_idx = None if quantized else torch.where(
-        active, token_slots(block_tables, positions, block_size), 0)
-    pos2d = positions[:, None]
-    x = embed_lookup(params["embed"], tokens[:, None])
-    qerrs: List[torch.Tensor] = []
-    for layer, pool in zip(params["layers"], pools):
-        def attn_fn(q, k, v, pool=pool):
-            # Scatter this step's k/v, THEN attend: the new token attends
-            # itself, and a chunk's rows attend their in-chunk predecessors.
-            if quantized:
-                qerrs.append(quantized_append(pool, k[:, 0], v[:, 0], *qa,
-                                              measure_error=measure_qerr))
-                return paged_attention(q, pool["k"], pool["v"],
-                                       block_tables, pos2d, pool["k_scale"],
-                                       pool["v_scale"], impl=attn_impl)
-            flat_pool(pool["k"]).index_copy_(0, write_idx, k[:, 0])
-            flat_pool(pool["v"]).index_copy_(0, write_idx, v[:, 0])
-            return paged_attention(q, pool["k"], pool["v"], block_tables,
-                                   pos2d, impl=attn_impl)
-
-        x = _block(x, layer, cfg, attn_fn, positions=pos2d)
-    x = _rmsnorm(x, params["final_norm"])
-    logits = (x[:, -1] @ params["unembed"]).to(torch.float32)
-    if quantized:
-        return logits, _fold_qerr(qerrs)
-    return logits
+    out = _multitoken_features(
+        params, cfg, tokens[:, None], positions[:, None], active[:, None],
+        block_tables, pools, qa, attn_impl=attn_impl,
+        measure_qerr=measure_qerr)
+    feats = out[0] if isinstance(out, tuple) else out
+    logits = (feats[:, -1] @ params["unembed"]).to(torch.float32)
+    return (logits, out[1]) if isinstance(out, tuple) else logits
 
 
 def greedy_decode_step(params: Params, cfg: TransformerConfig, tokens,
@@ -244,3 +275,113 @@ def micro_decode_sample(params: Params, cfg: TransformerConfig, tokens,
     return _micro_scan(params, cfg, tokens, positions, block_tables, active,
                        limits, eos, pools, qa, micro_k, sampler,
                        attn_impl=attn_impl, measure_qerr=measure_qerr)
+
+
+# -- multi-token steps: speculative scoring and the draft catch-up (A3) ------
+
+def paged_multitoken_logits(params: Params, cfg: TransformerConfig, tokens,
+                            positions, valid, block_tables, pools: Pools,
+                            qa: Optional[QuantLayout] = None, *,
+                            attn_impl: str = "reference",
+                            measure_qerr: bool = False):
+    """Full-width logits (slots, w, vocab) float32 — the speculative
+    scoring step: ONE fused target pass scores all k+1 positions of every
+    slot's [last_token, draft_1..draft_k] row against the paged cache."""
+    out = _multitoken_features(params, cfg, tokens, positions, valid,
+                               block_tables, pools, qa, attn_impl=attn_impl,
+                               measure_qerr=measure_qerr)
+    feats = out[0] if isinstance(out, tuple) else out
+    logits = (feats @ params["unembed"]).to(torch.float32)
+    return (logits, out[1]) if isinstance(out, tuple) else logits
+
+
+def spec_score_greedy(params: Params, cfg: TransformerConfig, tokens,
+                      positions, valid, block_tables, pools: Pools,
+                      qa: Optional[QuantLayout] = None, *,
+                      attn_impl: str = "reference",
+                      measure_qerr: bool = False):
+    """Speculative scoring + argmax: the (slots, w) target tokens the
+    host's greedy accept rule (longest agreeing prefix + one bonus token)
+    runs on, bit-identical to non-speculative greedy decoding."""
+    out = paged_multitoken_logits(params, cfg, tokens, positions, valid,
+                                  block_tables, pools, qa,
+                                  attn_impl=attn_impl,
+                                  measure_qerr=measure_qerr)
+    if isinstance(out, tuple):
+        return torch.argmax(out[0], dim=-1), out[1]
+    return torch.argmax(out, dim=-1)
+
+
+def spec_score_probs(params: Params, cfg: TransformerConfig, tokens,
+                     positions, valid, block_tables, temperature, top_p,
+                     pools: Pools, qa: Optional[QuantLayout] = None, *,
+                     attn_impl: str = "reference",
+                     measure_qerr: bool = False):
+    """Speculative scoring for sampled requests: per-position target
+    probabilities (slots, w, vocab) float32 after the SAME
+    temper-then-``_top_p_filter`` order :func:`sample_tokens` applies, so
+    the host's rejection sampling targets exactly the distribution
+    non-speculative decoding samples from. Greedy rows (temperature 0) run
+    at temperature 1; the host takes argmax(probs), which is
+    argmax(logits)."""
+    out = paged_multitoken_logits(params, cfg, tokens, positions, valid,
+                                  block_tables, pools, qa,
+                                  attn_impl=attn_impl,
+                                  measure_qerr=measure_qerr)
+    logits = out[0] if isinstance(out, tuple) else out
+    slots, w, vocab = logits.shape
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))
+    filtered = _top_p_filter(
+        (logits / safe_t[:, None, None]).reshape(-1, vocab),
+        top_p.repeat_interleave(w))
+    probs = torch.softmax(filtered, dim=-1).reshape(slots, w, vocab)
+    return (probs, out[1]) if isinstance(out, tuple) else probs
+
+
+def chunked_step_greedy(params: Params, cfg: TransformerConfig, tokens,
+                        positions, valid, last_idx, block_tables,
+                        pools: Pools, qa: Optional[QuantLayout] = None, *,
+                        attn_impl: str = "reference",
+                        measure_qerr: bool = False):
+    """Multi-row chunk ingestion, the draft cache's catch-up: every slot
+    of ``tokens`` (slots, w) advances by its own ``valid`` span and emits
+    the argmax at ``last_idx`` (slots,); a slot whose ``last_idx`` token
+    is not valid gets an unspecified token the host discards. Returns
+    (slots,) tokens (and the max quantization error, quantized pools).
+
+    JAX's signature and result, computed another way: the valid tokens
+    are PACKED into width-1 rows, each with its slot's table and its own
+    position — the layout of the engine's token-packed chunk step — so
+    the paged kernel runs at query width 1 whatever ``w`` is (its shared
+    memory grows with the width: 128 columns would not fit a CTA). All
+    rows scatter their k/v before any row attends and the position mask
+    gives each token exactly its predecessors, so the result is the
+    (slots, w) layout's. Packing reads the valid count back (one small
+    device-to-host copy)."""
+    slots, w = tokens.shape
+    flat_valid = valid.reshape(-1)
+    idx = torch.nonzero(flat_valid).reshape(-1)
+    row_slot = idx // w
+    packed_qa = qa
+    if qa is not None:
+        touched, filled, wt, wo = qa
+        packed_qa = (touched, filled, wt.reshape(-1)[idx],
+                     wo.reshape(-1)[idx])
+    out = _multitoken_features(
+        params, cfg, tokens.reshape(-1)[idx][:, None],
+        positions.reshape(-1)[idx][:, None],
+        torch.ones((idx.numel(), 1), dtype=torch.bool, device=idx.device),
+        block_tables[row_slot], pools, packed_qa, attn_impl=attn_impl,
+        measure_qerr=measure_qerr)
+    feats = out[0] if isinstance(out, tuple) else out
+    # Each slot's last_idx token's packed row; a slot whose token is not
+    # valid reads the zero row appended past the packed ones.
+    rank = torch.cumsum(flat_valid.to(torch.int64), 0) - 1
+    last = torch.arange(slots, device=idx.device) * w + last_idx.to(
+        torch.int64)
+    row = torch.where(flat_valid[last], rank[last], idx.numel())
+    feats = torch.cat([feats[:, 0], feats.new_zeros((1, feats.shape[-1]))])
+    logits = (feats[row] @ params["unembed"]).to(torch.float32)
+    toks = torch.argmax(logits, dim=-1)
+    return (toks, out[1]) if isinstance(out, tuple) else toks

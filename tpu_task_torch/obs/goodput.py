@@ -10,7 +10,7 @@ tokens back, so the device's work is inside it) and *host-gap* time
 ``host_gap_frac`` is that split; ``dispatches_per_token`` falls as the
 K-token micro-step (``ServingConfig.micro_k``) folds K decode iterations
 into one dispatch. ``ratio`` discounts token-work that preemption threw
-away, and ``mfu`` divides the static FLOP model's count by busy wall and
+away or that the target scored and rejected (speculative decoding), and ``mfu`` divides the static FLOP model's count by busy wall and
 the peak.
 
 Where the JAX package differs: its meter lives on an ``obs`` registry and
@@ -93,7 +93,8 @@ class GoodputMeter:
     """Per-engine accumulator. The engine calls :meth:`program` around
     every fused dispatch, :meth:`begin_step`/:meth:`end_step` around each
     scheduler iteration, :meth:`work_counts` and :meth:`emitted` where it
-    commits tokens, and :meth:`wasted_preempt` where it preempts."""
+    commits tokens, :meth:`wasted_preempt` where it preempts and
+    :meth:`wasted_spec` where a speculative round rejects proposals."""
 
     def __init__(self, cfg, peak_flops: Optional[float] = None, device=None):
         self.cfg = cfg
@@ -112,6 +113,7 @@ class GoodputMeter:
         self.model_flops = 0.0
         self.tokens_emitted = 0
         self.tokens_preempted = 0
+        self.tokens_spec_rejected = 0
         self._prog_mark = 0.0
 
     # -- time ------------------------------------------------------------------
@@ -143,6 +145,10 @@ class GoodputMeter:
         """A recompute preemption rolled back ``n`` committed tokens."""
         self.tokens_preempted += max(0, n)
 
+    def wasted_spec(self, n: int) -> None:
+        """``n`` draft proposals were scored by the target and rejected."""
+        self.tokens_spec_rejected += max(0, n)
+
     # -- gauges ----------------------------------------------------------------
     @property
     def busy_s(self) -> float:
@@ -156,9 +162,12 @@ class GoodputMeter:
     @property
     def ratio(self) -> float:
         """Useful tokens over token-work: preempted tokens were emitted and
-        thrown away."""
+        thrown away (they leave the numerator and stay in the denominator),
+        rejected speculative proposals were scored and never emitted (they
+        join the denominator)."""
         useful = max(0, self.tokens_emitted - self.tokens_preempted)
-        return useful / self.tokens_emitted if self.tokens_emitted else 1.0
+        total = self.tokens_emitted + self.tokens_spec_rejected
+        return useful / total if total > 0 else 1.0
 
     @property
     def mfu(self) -> float:
@@ -173,9 +182,8 @@ class GoodputMeter:
 
     def snapshot(self) -> dict:
         """``stats()["goodput"]``: the JAX meter's snapshot keys. The
-        overlapped loop's host time, speculative rejections and
-        re-ingested prefixes belong to slices not ported yet (A5, A3,
-        A10) and read 0."""
+        overlapped loop's host time and re-ingested prefixes belong to
+        slices not ported yet (A5, A10) and read 0."""
         return {
             "ratio": round(self.ratio, 6),
             "mfu": self.mfu,
@@ -191,7 +199,7 @@ class GoodputMeter:
             "tokens": {
                 "emitted": self.tokens_emitted,
                 "preempted": self.tokens_preempted,
-                "spec_rejected": 0,
+                "spec_rejected": self.tokens_spec_rejected,
                 "reingested": 0,
             },
         }
