@@ -3,13 +3,13 @@
 card: builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
-K-token micro-steps, speculative decoding), and trains the flagship for a
-few steps.
+K-token micro-steps, speculative decoding, drain and resume), and trains
+the flagship for a few steps.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failed check raises and the
-script exits non-zero:
+Phases, each printing one JSON line (with ``t_s``, its seconds since the
+start); any failed check raises and the script exits non-zero:
 
 1. device  — the card's name and power limit; TF32 off for the fp32 phases.
 2. build   — nvcc for every kernel source, all started together, with
@@ -164,8 +164,8 @@ script exits non-zero:
              draft accepts over 90% on the greedy requests alone.
 19. serve spec — the flagship with bf16 pools through the tile kernel at
              ``spec_k`` 4 (scoring at w 5): the target as its own draft
-             (three timed waves of phase 6's traffic) and a random-init
-             2-layer d_model 512 draft (two): tokens/s, decode-phase
+             and a random-init 2-layer d_model 512 draft, two timed waves
+             of phase 6's traffic each: tokens/s, decode-phase
              tokens/s (what the rounds commit over their wall), rounds,
              the mean round split into catch-up, proposals, scoring and
              the host's accept, accept rate, tokens a round, launches
@@ -178,11 +178,38 @@ script exits non-zero:
 20. serve spec quant — int8 pools through the pipelined kernel at
              ``spec_k`` 3 (scoring at w 4 on its tensor cores), the target
              as its own draft, one wave, phase 19's lines and gates.
+21. parity resume — drain and resume (``export_inflight`` → ``json`` →
+             ``resume_inflight``) on ``micro`` and ``tiny`` at fp32 and int8
+             pools, through ``"cuda"``, ``"pipelined"`` and ``"reference"``,
+             at K = 1, ``micro_k`` 4 and ``spec_k`` 2 (self draft): a wave
+             of greedy and keyed-sampled requests exported once every
+             request holds tokens, resumed in a fresh engine whose pool
+             preempts a resumed slot. Every resumed stream equals the
+             uninterrupted one (a spec engine's sampled streams are held to
+             the plain version's resume instead: the token at
+             ``len(tokens)`` comes from the chunk step's sampler, as in the
+             JAX engine), the preempted resumed requests keep exactly their
+             imported tokens, launches are as the calls need them, and the
+             resume captures no K-step graph. Then one wave of mixed SLO
+             classes and deadlines on ``micro`` into a tight pool, on the
+             card and on the CPU: the same admissions and victims in the
+             same order, and the same streams.
+22. serve resume — the flagship at the serve configuration, bf16 pools
+             through the tile kernel and int8 through the pipelined kernel:
+             phase 6's first wave exported once half its requests hold
+             tokens (export ms, record bytes), resumed in a fresh engine
+             after the warm-up under phase 6's launch gates: the
+             re-ingest's chunk steps and ms until every request has its
+             next token, ``tokens.reingested``, tokens/s, peak memory, and
+             how many streams equal the uninterrupted wave's (reported;
+             each that differs with its first differing position and top-2
+             logit gap). Layer 0's attention in the first re-ingest chunk
+             step is held against the fp32 plain version.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers; the paged rows and the combine's add
-their launches in phases 15, 17, 19 and 20 and the scoring step's
+their launches in phases 15, 17, 19, 20 and 22 and the scoring step's
 timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -221,8 +248,14 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 FLASH_FWD_ATOL, FLASH_BWD_ATOL = 2e-5, 5e-5
 
 
+#: The script's start: each phase line carries its seconds since then.
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T0, 3)}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1001,24 +1034,31 @@ def _submit_wave(engine, seed: int, max_new: int = 64):
 
 
 def _timed_drain(engine, seed: int, max_new: int = 64,
-                 step_range=contextlib.nullcontext) -> dict:
+                 step_range=contextlib.nullcontext, load=None) -> dict:
     """One wave through the engine, its launch counts and goodput meter set
     to 0 just before and read just after; ``step_range()`` wraps each step
-    (a profiler range). ``kernel_launches`` counts the kernel the engine
-    resolved (``decode_impl``); ``other_kernel_launches`` the other one.
-    A micro-step (``micro_k`` > 1) makes ``micro_k`` decode-shape calls a
-    layer, a retired slot's masked iterations included. ``step_kinds``
-    says which steps were chunk steps ("c") and which decode or micro
-    steps ("d"), in order."""
+    (a profiler range). ``load()`` puts the wave in the queue and returns
+    (its ids, its prompt tokens): ``_submit_wave`` by default, a resume of
+    exported records in phase 22. ``kernel_launches`` counts the kernel
+    the engine resolved (``decode_impl``); ``other_kernel_launches`` the
+    other one. A micro-step (``micro_k`` > 1) makes ``micro_k``
+    decode-shape calls a layer, a retired slot's masked iterations
+    included. ``step_kinds`` says which steps were chunk steps ("c") and
+    which decode or micro steps ("d"), in order; ``all_next_token_ms``
+    and ``all_next_token_chunk_steps`` are the wall and chunk steps until
+    every request of the wave had emitted a token in this engine."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
-    rids, prompt_tokens = _submit_wave(engine, seed, max_new)
+    engine.goodput.reset()
+    rids, prompt_tokens = (load or (
+        lambda: _submit_wave(engine, seed, max_new)))()
     chunk0, decode0 = engine.chunk_steps, engine.decode_steps
     micro0, preempt0 = engine.micro_steps, engine.preemption_count
     captures0 = engine.stats()["step_graph"]["captures"]
     decode_ms, chunk_ms, kinds = [], [], []
     decode_tokens = 0
-    engine.goodput.reset()
+    waiting = [engine.request(rid) for rid in rids]
+    next_token_ms = next_token_chunks = None
     pa.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1033,6 +1073,10 @@ def _timed_drain(engine, seed: int, max_new: int = 64,
         kinds.append("c" if chunk else "d")
         if not chunk:
             decode_tokens += engine.goodput.tokens_emitted - emitted
+        waiting = [r for r in waiting if len(r.tokens) <= r.resume_from]
+        if not waiting and next_token_ms is None:
+            next_token_ms = (time.perf_counter() - t0) * 1e3
+            next_token_chunks = engine.chunk_steps - chunk0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     kernels = {"cuda": pa.paged_decode_attention,
@@ -1043,7 +1087,8 @@ def _timed_drain(engine, seed: int, max_new: int = 64,
     plain = pa.paged_reference_attention.launches
     plans = step_splits(engine)
     results = [engine.request(rid) for rid in rids]
-    generated = sum(len(r.tokens) for r in results)
+    # tokens this engine generated (a resumed prefix was generated before)
+    generated = sum(len(r.tokens) - r.resume_from for r in results)
     chunk_steps = engine.chunk_steps - chunk0
     micro_steps = engine.micro_steps - micro0
     # decode-shape calls a layer: one a plain decode step, K a micro-step
@@ -1076,7 +1121,10 @@ def _timed_drain(engine, seed: int, max_new: int = 64,
         preemptions=engine.preemption_count - preempt0,
         host_gap_frac=goodput["host_gap_frac"],
         dispatches_per_token=goodput["dispatches_per_token"],
+        goodput_tokens=goodput["tokens"],
         graph_captures=engine.stats()["step_graph"]["captures"] - captures0,
+        all_next_token_ms=next_token_ms,
+        all_next_token_chunk_steps=next_token_chunks,
         rids=rids, step_kinds="".join(kinds))
 
 
@@ -2898,8 +2946,8 @@ def serve_spec(device, smi: str, phase: str, draft_name: str, draft, seeds,
 
 def phase_serve_spec(device, smi: str, reference: dict) -> dict:
     """bf16 pools through the tile kernel at ``spec_k`` SPEC_K: the target
-    as its own draft (the accept ceiling, three timed waves) and the
-    random-init HALF_DRAFT (the accept floor, two). Returns the lines by
+    as its own draft (the accept ceiling) and the random-init HALF_DRAFT
+    (the accept floor), two timed waves each. Returns the lines by
     draft."""
     from tpu_task_torch.ml.models import transformer
 
@@ -2908,7 +2956,7 @@ def phase_serve_spec(device, smi: str, reference: dict) -> dict:
     half = (half_cfg, transformer.init(
         torch.Generator(device=device).manual_seed(1), half_cfg))
     return {"self": serve_spec(device, smi, "serve_spec", "self", None,
-                               (0, 1, 2), reference, spec_k=SPEC_K),
+                               (0, 1), reference, spec_k=SPEC_K),
             "half": serve_spec(device, smi, "serve_spec", "half", half,
                                (0, 1), reference, spec_k=SPEC_K)}
 
@@ -3005,7 +3053,387 @@ def phase_timing_spec(device, smi: str) -> dict:
     return out
 
 
+# -- drain and resume ---------------------------------------------------------
+
+#: The paths phase 21 resumes through: K = 1, the K = 4 micro-step graphs
+#: and speculative decoding at spec_k 2 with the target as its own draft.
+RESUME_PATHS = (("k1", {}), ("micro_k4", {"micro_k": 4}),
+                ("spec_k2", {"spec_k": 2}))
+
+#: Per preset, the exporting engine's knobs and the resuming engine's pool:
+#: small enough that a resumed slot is preempted (found on the CPU with the
+#: plain version; the schedule is host logic, the same on the card).
+RESUME_KNOBS = {"micro": (dict(slots=6, max_len=40), 12),
+                "tiny": (dict(slots=6, block_size=4, max_len=48), 12)}
+
+
+def _resume_wave(vocab: int):
+    """Greedy and keyed-sampled requests for phase 21: 7-17 prompt tokens
+    and 14 new tokens each, one greedy request with an eos token."""
+    rng = np.random.default_rng(21)
+    wave = []
+    for i in range(6):
+        kw = ({"temperature": 0.9, "top_p": 0.85, "key": [70 + i, 3]}
+              if i % 2 else {})
+        if i == 4:
+            kw["eos_token"] = 5
+        wave.append((rng.integers(0, vocab, size=7 + 2 * i), 14, kw))
+    return wave
+
+
+class Preemptions:
+    """Wraps an engine's ``_preempt``: each victim's id, its imported
+    prefix length and its tokens just after the rollback, and, when
+    given, one ("victim", rid) event in ``events``."""
+
+    def __init__(self, engine, events=None):
+        self.victims = []
+        inner = engine._preempt
+
+        def preempt(slot):
+            req = engine._slots[slot]
+            inner(slot)
+            self.victims.append((req.rid, req.resume_from, list(req.tokens)))
+            if events is not None:
+                events.append(("victim", req.rid))
+
+        engine._preempt = preempt
+
+
+def resume_engine(preset: str, serving: dict, device):
+    """An fp32 engine of ``preset`` with ``serving``; at ``spec_k`` > 0 the
+    target drafts for itself."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    if not serving.get("spec_k"):
+        return build_engine(preset, serving=serving, device=device)
+    base = build_engine(preset, device=device)
+    return spec_engine(base.params, base.cfg, ServingConfig(
+        **{**SERVING_PRESETS[preset], **serving}), device,
+        (base.cfg, base.params))
+
+
+def export_part_way(preset: str, serving: dict, device) -> dict:
+    """Phase 21's wave through an engine with ``serving`` until every
+    request holds tokens, then an export across ``json``; the engine then
+    drains on, which gives the uninterrupted streams."""
+    first = resume_engine(preset, serving, device)
+    wave = _resume_wave(first.cfg.vocab_size)
+    rids = [first.submit(p, n, **kw) for p, n, kw in wave]
+    while not all(first.request(r).tokens for r in rids):
+        first.step()
+    records = json.loads(json.dumps(first.export_inflight()))
+    out = first.drain(max_steps=5000)
+    return dict(rids=rids, records=records,
+                uninterrupted=[out[r] for r in rids],
+                sampled=[i for i, (_, _, kw) in enumerate(wave)
+                         if "temperature" in kw])
+
+
+def parity_resume_run(preset: str, serving: dict, n_blocks: int, device,
+                      export: dict) -> dict:
+    """``export``'s records resumed through one configuration: a fresh
+    engine with ``serving`` and ``n_blocks`` (at ``micro_k`` > 1 after one
+    warm-up request per program, so its K-step graphs exist before the
+    resume). Launches are counted over the resume and its drain: the
+    engine's paged attention once a layer of every fused call (a spec
+    engine's calls counted by ``SpecProbe``), its combine where the plan
+    splits, nothing through the other kernel or the plain version.
+    Returns the streams and the gates' numbers."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    rids, records = export["rids"], export["records"]
+    second = resume_engine(preset, {**serving, "n_blocks": n_blocks}, device)
+    if second.scfg.micro_k > 1:           # capture both K-step programs
+        second.submit([4, 5], 6, temperature=0.8, key=[1, 1])
+        second.drain()
+        second.submit([1, 2, 3], 6)
+        second.drain()
+    captures0 = second.stats()["step_graph"]["captures"]
+    preempts = Preemptions(second)
+    chunk0, decode0, micro0 = (second.chunk_steps, second.decode_steps,
+                               second.micro_steps)
+    rounds0 = second.spec_rounds
+    pa.reset_launch_counts()
+    spec = second.scfg.spec_k > 0
+    probe = SpecProbe(second) if spec else contextlib.nullcontext()
+    with probe:
+        mapping = second.resume_inflight(records)
+        out = second.drain(max_steps=5000)
+    resumed = [out[mapping[r]] if r in mapping else done
+               for r, done in zip(rids, export["uninterrupted"])]
+    chunk_steps = second.chunk_steps - chunk0
+    impl = second.decode_impl
+    if spec:
+        check = spec_launch_check(second, probe, chunk_steps,
+                                  second.spec_rounds - rounds0)
+    else:
+        micro = second.micro_steps - micro0
+        calls = chunk_steps + (second.decode_steps - decode0 - micro
+                               + second.scfg.micro_k * micro)
+        counts = attention_launches()
+        launches, combines = counts.pop(impl)
+        other = sum(n + c for n, c in counts.values())
+        plans = step_splits(second) if impl != "reference" else {}
+        want = second.cfg.n_layers * calls
+        check = dict(kernel=impl, kernel_launches=launches,
+                     expected_launches=want, other_kernel_launches=other,
+                     combine_launches=combines,
+                     launches_ok=launches == want > 0 and other == 0)
+        if impl != "reference":
+            decode_calls = calls - chunk_steps
+            check["expected_combine_launches"] = expected = \
+                second.cfg.n_layers * (decode_calls * (plans["decode"] > 1)
+                                       + chunk_steps * (plans["chunk"] > 1))
+            check["launches_ok"] &= combines == expected
+    by_len = {len(r["tokens"]): r["tokens"] for r in records}
+    kept = [(floor, tokens) for _, floor, tokens in preempts.victims
+            if floor]
+    return dict(
+        uninterrupted=export["uninterrupted"], resumed=resumed,
+        sampled=export["sampled"], records=len(records),
+        exported_tokens=sum(len(r["tokens"]) for r in records),
+        preemptions=len(preempts.victims), resumed_preemptions=len(kept),
+        rollback_kept_prefix=bool(kept) and all(
+            tokens == by_len[floor] for floor, tokens in kept),
+        reingested=second.stats()["goodput"]["tokens"]["reingested"],
+        recaptures=second.stats()["step_graph"]["captures"] - captures0,
+        finite=bool(probe.finite) if spec else True, **check)
+
+
+def sla_wave(engine) -> tuple:
+    """Mixed classes and deadlines through ``engine``: the events in
+    order, ("admit", rid) from each step's admissions and ("victim", rid)
+    from each preemption, and the streams."""
+    events = []
+    Preemptions(engine, events)
+    rng = np.random.default_rng(5)
+    sla = ({"slo_class": "best_effort"},
+           {"slo_class": "premium", "deadline_s": 90.0},
+           {"deadline_s": 30.0}, {"slo_class": "premium"},
+           {"slo_class": "best_effort", "deadline_s": 5.0},
+           {"deadline_s": 60.0}, {},
+           {"slo_class": "premium", "deadline_s": 45.0})
+    rids = []
+    for i, extra in enumerate(sla):
+        kw = {"temperature": 0.8, "key": [i, 3]} if i % 3 == 1 else {}
+        rids.append(engine.submit(rng.integers(0, 64, size=6 + i), 10,
+                                  **kw, **extra))
+    while engine.has_work:
+        events += [("admit", rid) for rid in engine.step()["admitted"]]
+    return events, [engine.result(r) for r in rids]
+
+
+def phase_parity_resume(device, impls=("cuda", "pipelined", "reference"),
+                        presets=("micro", "tiny")) -> None:
+    """Drain and resume on ``micro`` and ``tiny`` at fp32 and int8 pools,
+    at K = 1, ``micro_k`` 4 and ``spec_k`` 2: one export through the first
+    of ``impls``, resumed through each of them. Every resumed stream
+    equals the uninterrupted one (a spec engine's
+    sampled streams excepted: JAX's resumed spec engine draws the token
+    at ``len(tokens)`` with the chunk step's sampler, so there the
+    kernels' resumed streams are held to the plain version's), a resumed
+    slot is preempted and keeps exactly its imported prefix, the launches
+    are as the run's calls need them, and a resume captures no graph.
+    Then one SLA wave on ``micro`` on the card and on the CPU: the same
+    admissions and victims in the same order, and the same streams."""
+    from tpu_task_torch.serve.replica import build_engine
+
+    for preset in presets:
+        knobs, tight = RESUME_KNOBS[preset]
+        for kv_dtype in (None, "int8"):
+            for path, extra in RESUME_PATHS:
+                serving = {**knobs, **extra}
+                if kv_dtype:
+                    serving["kv_dtype"] = kv_dtype
+                export = export_part_way(
+                    preset, {**serving, "decode_impl": impls[0]}, device)
+                runs = {impl: parity_resume_run(
+                            preset, {**serving, "decode_impl": impl}, tight,
+                            device, export)
+                        for impl in impls}
+                base = runs[impls[-1]]
+                line = dict(preset=preset, kv_dtype=kv_dtype or "float32",
+                            path=path, impls=list(impls),
+                            records=base["records"],
+                            exported_tokens=base["exported_tokens"],
+                            preemptions=base["preemptions"],
+                            resumed_preemptions=base["resumed_preemptions"],
+                            reingested=base["reingested"],
+                            **{f"{key}_{impl}": run[key]
+                               for impl, run in runs.items()
+                               for key in ("kernel_launches",
+                                           "expected_launches",
+                                           "combine_launches",
+                                           "other_kernel_launches")})
+                failures = []
+                for impl, run in runs.items():
+                    for i, (got, want) in enumerate(
+                            zip(run["resumed"], run["uninterrupted"])):
+                        if got != want and not (extra.get("spec_k")
+                                                and i in run["sampled"]):
+                            failures.append(f"{impl}: stream {i} differs "
+                                            "from the uninterrupted one")
+                    if run["resumed"] != base["resumed"]:
+                        failures.append(f"{impl}: resumed streams differ "
+                                        "from the plain version's")
+                    if not (run["launches_ok"] and run["finite"]):
+                        failures.append(f"{impl}: launches or logits fail")
+                    if not (run["resumed_preemptions"]
+                            and run["rollback_kept_prefix"]):
+                        failures.append(f"{impl}: no resumed preemption, or "
+                                        "a rollback past resume_from")
+                    if run["recaptures"] or run["reingested"] != \
+                            run["exported_tokens"]:
+                        failures.append(f"{impl}: the resume recaptured a "
+                                        "graph or miscounted reingest")
+                emit("parity_resume", ok=not failures, **line,
+                     failures=failures)
+                if failures:
+                    raise AssertionError(
+                        f"{preset}/{kv_dtype}/{path}: {failures}")
+    card = sla_wave(build_engine("micro", serving={"n_blocks": 12},
+                                 device=device))
+    host = sla_wave(build_engine("micro", serving={"n_blocks": 12},
+                                 device="cpu"))
+    victims = sum(kind == "victim" for kind, _ in card[0])
+    same = card == host
+    emit("parity_resume_sla", ok=same and victims > 0,
+         events=len(card[0]), victims=victims,
+         admission_order=[rid for kind, rid in card[0] if kind == "admit"],
+         victim_order=[rid for kind, rid in card[0] if kind == "victim"],
+         card_equals_cpu=same)
+    if not (same and victims):
+        raise AssertionError(f"the SLA wave's schedule or streams differ "
+                             f"between the card and the CPU: {card} {host}")
+
+
+def export_wave(engine) -> tuple:
+    """Phase 6's seed-0 wave through ``engine`` until at least half its
+    requests hold tokens, then one timed export. Returns the records, the
+    export's ms, its JSON bytes and the wave's ids."""
+    rids, _ = _submit_wave(engine, 0)
+    while sum(bool(engine.request(r).tokens) for r in rids) < len(rids) // 2:
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = engine.export_inflight()
+    export_ms = (time.perf_counter() - t0) * 1e3
+    blob = json.dumps(records)
+    return json.loads(blob), export_ms, len(blob.encode()), rids
+
+
+def serve_resume(device, smi: str, phase: str, reference: dict,
+                 **serving) -> dict:
+    """The flagship at SERVE_KNOBS with ``serving``: one engine (after the
+    serve warm-up) exports phase 6's seed-0 wave part-way, a fresh engine
+    (after the warm-up) resumes the records and drains them under
+    ``_timed_drain``'s gates, with layer 0's attention in the first
+    re-ingest chunk step held against the fp32 plain version. Streams
+    equal to ``reference`` (the uninterrupted wave's) are counted, not
+    gated; each that differs gives its first differing position and the
+    top-2 logit gap there. Returns the phase line."""
+    from tpu_task_torch.ml.serving import model as serving_model
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    cfg, params = flagship_model(device)
+    scfg = ServingConfig(**SERVE_KNOBS, **serving)
+    first = ServingEngine(params, cfg, scfg, device=device)
+    warm_up(first)
+    records, export_ms, record_bytes, wave_rids = export_wave(first)
+    del first
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(params, cfg, scfg, device=device)
+    warm_up(engine)
+    attn_fn = serving_model.paged_attention
+    recorder = StepRecorder(attn_fn, cfg.n_layers, scfg.slots)
+    recorder.armed = True
+
+    def first_step_only(*args, **kwargs):
+        out = recorder(*args, **kwargs)
+        if recorder.calls == cfg.n_layers:
+            recorder.armed = False
+        return out
+
+    def load():
+        mapping = engine.resume_inflight(records)
+        return list(mapping.values()), sum(
+            len(r["prompt"]) + len(r["tokens"]) for r in records)
+
+    serving_model.paged_attention = first_step_only
+    try:
+        run = _timed_drain(engine, 0, load=load)
+    finally:
+        serving_model.paged_attention = attn_fn
+    checks = []
+    for kind, (args, out) in sorted(recorder.steps.items()):
+        checks.append(dict(step=kind, rows=int(args[4].shape[0]),
+                           deepest_position=int(args[4].max()),
+                           **against_fp32_plain(out, args)))
+    recorder.steps.clear()
+    want = reference[0]
+    same, differ = 0, []
+    for record, rid in zip(records, run["rids"]):
+        req, i = engine.request(rid), wave_rids.index(record["rid"])
+        if req.tokens == want[i]:
+            same += 1
+            continue
+        at = next(j for j, (a, b) in enumerate(zip(req.tokens, want[i]))
+                  if a != b)
+        differ.append(dict(request=i, sampled=bool(req.temperature),
+                           first_differing_position=at,
+                           resumed_from=req.resume_from,
+                           top2_logit_gap=top2_gap(engine, req, at)))
+    line = dict(
+        kv_dtype=scfg.kv_dtype or "bfloat16", decode_impl=engine.decode_impl,
+        records=len(records), record_bytes=record_bytes,
+        export_ms=export_ms,
+        exported_tokens=sum(len(r["tokens"]) for r in records),
+        requests_holding_tokens=sum(bool(r["tokens"]) for r in records),
+        reingest_chunk_steps=run["all_next_token_chunk_steps"],
+        reingest_ms=run["all_next_token_ms"],
+        reingested=run["goodput_tokens"]["reingested"],
+        tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"],
+        generated_tokens=run["generated_tokens"],
+        chunk_steps=run["chunk_steps"], decode_steps=run["decode_steps"],
+        mean_chunk_step_ms=run["mean_chunk_step_ms"],
+        mean_decode_step_ms=run["mean_decode_step_ms"],
+        kernel=run["kernel"], kernel_launches=run["kernel_launches"],
+        expected_launches=run["expected_launches"],
+        combine_launches=run["combine_launches"],
+        expected_combine_launches=run["expected_combine_launches"],
+        other_kernel_launches=run["other_kernel_launches"],
+        plain_launches=run["plain_launches"], step_splits=run["step_splits"],
+        preemptions=run["preemptions"], step_checks=checks,
+        streams_equal_uninterrupted=same, streams_compared=len(records),
+        streams_differing=differ,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
+    emit(phase, **line)
+    ok = (wave_ok(run) and len(checks) == 1 and checks[0]["ok"]
+          and checks[0]["step"] == "chunk step"
+          and line["reingested"] == line["exported_tokens"]
+          and line["requests_holding_tokens"] >= len(records) // 2)
+    if not ok:
+        raise AssertionError(f"{phase} failed its gates: {line}")
+    return line
+
+
+def phase_serve_resume(device, smi: str, serve_streams: dict,
+                       quant_streams: dict) -> dict:
+    """Drain and resume at the flagship: bf16 pools through the tile
+    kernel against phase 6's wave, int8 through the pipelined kernel
+    against phase 14's. Returns both phase lines."""
+    return {"bf16": serve_resume(device, smi, "serve_resume",
+                                 serve_streams),
+            "int8": serve_resume(device, smi, "serve_resume_quant",
+                                 quant_streams, kv_dtype="int8",
+                                 decode_impl="pipelined")}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     import_port()
     device = torch.device("cuda")
@@ -3035,6 +3463,8 @@ def main() -> int:
     phase_parity_spec(device)
     spec = phase_serve_spec(device, smi, serve_streams)
     spec_quant = phase_serve_spec_quant(device, smi, quant_streams)
+    phase_parity_resume(device)
+    resume = phase_serve_resume(device, smi, serve_streams, quant_streams)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -3071,6 +3501,7 @@ def main() -> int:
         "launches_serve_micro": micro_launches(micro, "kernel_launches"),
         "launches_serve_spec": {name: line["kernel_launches"]
                                 for name, line in spec.items()},
+        "launches_serve_resume": resume["bf16"]["kernel_launches"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -3107,6 +3538,7 @@ def main() -> int:
         "launches_serve_micro_quant": micro_launches(micro_quant,
                                                      "kernel_launches"),
         "launches_serve_spec_quant": spec_quant["kernel_launches"],
+        "launches_serve_resume_quant": resume["int8"]["kernel_launches"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -3124,10 +3556,13 @@ def main() -> int:
         "launches_serve_spec": {name: line["combine_launches"]
                                 for name, line in spec.items()},
         "launches_serve_spec_quant": spec_quant["combine_launches"],
+        "launches_serve_resume": resume["bf16"]["combine_launches"],
+        "launches_serve_resume_quant": resume["int8"]["combine_launches"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],
         "library_ms": None, "splits": combine["splits"]})
+    emit("total", seconds=time.perf_counter() - t_start, gpu=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ one's split-KV walk and its combine kernel, and the three flash-attention
 kernels of training; the serving engine's K-step loop captured as a
 CUDA graph through the paged kernels; and both paged kernels at the
 speculative scoring widths, with a spec engine's target and draft steps
-through them.
+through them; and a drained engine's requests resumed through both.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -520,6 +520,45 @@ def test_spec_engine_runs_the_kernels(cuda_device, spec_k, impl, kv_dtype):
         assert engine.stats()["draft_decode_impl"] == path
     assert outs[impl] == outs["reference"]
     assert calls[impl] == calls["reference"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro_k", [1, 4])
+@pytest.mark.parametrize("impl,kv_dtype", [("cuda", None), ("cuda", "int8"),
+                                           ("pipelined", None),
+                                           ("pipelined", "int8")])
+def test_resumed_requests_run_the_kernels(cuda_device, impl, kv_dtype,
+                                          micro_k):
+    """Drain and resume on the card: an export taken once every request
+    holds tokens resumes in a fresh engine whose pool preempts, through
+    the kernel and through the plain version, with the uninterrupted
+    streams, launching only the engine's own paged attention."""
+    import json
+
+    serving = {"decode_impl": impl, "kv_dtype": kv_dtype,
+               "micro_k": micro_k, "slots": 6, "max_len": 40}
+    rng = np.random.default_rng(21)
+    wave = [(rng.integers(0, 64, size=7 + 2 * i), 14,
+             {"temperature": 0.9, "key": [i, 3]} if i % 2 else {})
+            for i in range(6)]
+    first = build_engine("micro", serving=serving, device=cuda_device)
+    rids = [first.submit(p, n, **kw) for p, n, kw in wave]
+    while not all(first.request(r).tokens for r in rids):
+        first.step()
+    records = json.loads(json.dumps(first.export_inflight()))
+    want = first.drain()
+    for path in (impl, "reference"):
+        second = build_engine("micro", serving={
+            **serving, "decode_impl": path, "n_blocks": 12},
+            device=cuda_device)
+        tpa.reset_launch_counts()
+        mapping = second.resume_inflight(records)
+        out = second.drain()
+        assert {r: out[mapping[r]] for r in mapping} == \
+            {r: want[r] for r in mapping}
+        assert second.preemption_count > 0
+        launches = second.stats()["attention_launches"]
+        assert sum(launches.values()) == launches[path] > 0
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_task_torch.ml import random as jrandom
 from tpu_task_torch.ml.ops.attention import (
     dot_product_attention,
     expand_kv_heads,
@@ -90,26 +91,14 @@ def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     }
 
 
-def init(generator: torch.Generator, cfg: TransformerConfig,
-         param_dtype: Optional[torch.dtype] = None) -> Params:
-    """Random weights with the JAX ``init``'s shapes and scales (normal
-    draws times d_model^-0.5, d_ff^-0.5 for ``w_down``, 1.0 for the
-    embedding; norms at 1), drawn on the generator's device and stored in
-    ``param_dtype`` (default ``cfg.dtype``). The values differ from JAX's:
-    tests that compare the two load JAX's weights through
-    :func:`params_from_jax` instead."""
-    device = generator.device
+def _build_params(cfg: TransformerConfig, dense: Callable,
+                  ones: Callable) -> Params:
+    """The param tree of the JAX ``init``: ``dense(shape, scale)`` for each
+    weight in its draw order (embed, unembed, then per layer wq, wk, wv,
+    wo, w_gate, w_up, w_down), scale d_model^-0.5 (d_ff^-0.5 for
+    ``w_down``, 1.0 for the embedding), and ``ones(shape)`` for the
+    norms."""
     scale = cfg.d_model ** -0.5
-    dtype = cfg.dtype if param_dtype is None else param_dtype
-
-    def dense(shape, s):
-        w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (w * s).to(dtype)
-
-    def ones(shape):
-        return torch.ones(shape, device=device, dtype=dtype)
-
     params: Params = {
         "embed": dense((cfg.vocab_size, cfg.d_model), 1.0),
         "unembed": dense((cfg.d_model, cfg.vocab_size), scale),
@@ -126,6 +115,41 @@ def init(generator: torch.Generator, cfg: TransformerConfig,
                     shape, cfg.d_ff ** -0.5 if name == "w_down" else scale)
         params["layers"].append(layer)
     return params
+
+
+def init(generator: torch.Generator, cfg: TransformerConfig,
+         param_dtype: Optional[torch.dtype] = None) -> Params:
+    """Random weights with the JAX ``init``'s shapes and scales, drawn from
+    ``torch.randn`` on the generator's device and stored in
+    ``param_dtype`` (default ``cfg.dtype``). The values differ from JAX's;
+    :func:`init_from_key` draws JAX's own."""
+    device = generator.device
+    dtype = cfg.dtype if param_dtype is None else param_dtype
+
+    def dense(shape, s):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w * s).to(dtype)
+
+    return _build_params(cfg, dense, lambda shape: torch.ones(
+        shape, device=device, dtype=dtype))
+
+
+def init_from_key(key, cfg: TransformerConfig) -> Params:
+    """The JAX package's ``init(key, cfg)``, bit for bit: the same
+    ``split(key, 2 + 7 * n_layers)`` in the same draw order, each weight a
+    float32 :func:`~tpu_task_torch.ml.random.normal` draw times its scale,
+    every leaf float32 on the CPU. Threefry on the host is slow at the
+    flagship's 189 M parameters, which :func:`init` draws instead."""
+    keys = iter(jrandom.split(jrandom.as_key(key, "cpu"),
+                              2 + 7 * cfg.n_layers))
+
+    def dense(shape, s):
+        return jrandom.normal(next(keys), shape) * torch.tensor(
+            s, dtype=torch.float32)
+
+    return _build_params(cfg, dense, lambda shape: torch.ones(
+        shape, dtype=torch.float32))
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: TransformerConfig,

@@ -7,7 +7,9 @@ draw the SAME random bits from the same key. This module reimplements the
 pieces of ``jax.random`` the serving path uses, matching jax 0.9.0 with
 ``jax_threefry_partitionable=True`` (its default) on raw ``(2,)`` keys:
 :func:`PRNGKey`, :func:`fold_in`, :func:`split`, :func:`random_bits`
-(32-bit), :func:`uniform`, :func:`gumbel` and :func:`categorical`.
+(32-bit), :func:`uniform`, :func:`gumbel`, :func:`categorical` and
+:func:`normal` (with the XLA CPU ``log1p`` and ``erf_inv`` it draws
+through, so preset weights drawn here equal the JAX package's).
 
 Keys and bits are ``int64`` tensors holding ``uint32`` values (torch's
 ``uint32`` dtype lacks the shift and add kernels this needs); every
@@ -18,7 +20,7 @@ maps the scalar functions."""
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -147,3 +149,139 @@ def categorical(key: KeyLike, logits: torch.Tensor) -> torch.Tensor:
                 f"{tuple(logits.shape)}")
         noise = gumbel(key, logits.shape[-1:])
     return torch.argmax(noise + logits.to(torch.float32), dim=-1)
+
+
+# -- jax.random.normal --------------------------------------------------------
+#
+# XLA's CPU backend computes float32 ``erf_inv`` (and the ``log1p`` inside
+# it) with its own polynomials, and LLVM fuses each multiply feeding an add
+# into one FMA. The functions below repeat that arithmetic operation for
+# operation: an FMA rounds once (:func:`_fma`), every other step is a
+# float32 torch op, and ``sqrt`` and the one division run in float64 and
+# round once (exact for float32 inputs), because torch's float32 ``sqrt``
+# on the CPU is not always correctly rounded.
+
+_INF64 = float("inf")
+
+
+def _f32(value: float) -> float:
+    return float(np.float32(value))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a hardware FMA rounds. The
+    product of two float32 values is exact in float64; the float64 sum is
+    rounded to odd (Boldo-Melquiond) before the one rounding to float32,
+    which makes the double rounding exact."""
+    a64 = a.double() if torch.is_tensor(a) else a
+    b64 = b.double() if torch.is_tensor(b) else b
+    c64 = (c.double() if torch.is_tensor(c)
+           else torch.tensor(c, dtype=torch.float64))
+    p = a64 * b64
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)               # exact: p + c - s
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.full_like(s, _INF64)
+    toward = torch.where(err > 0, inf, -inf)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+#: XLA CPU's float32 ``log`` polynomial (Cephes ``logf``): three degree-2
+#: pieces, combined in powers of x^3.
+_LOG_C = tuple(_f32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, -1.2420140846e-1, 1.4249322787e-1,
+    2.0000714765e-1, -2.4999993993e-1, 1.1676998740e-1, -1.6668057665e-1,
+    3.3333331174e-1))
+
+
+def _xla_log(u: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` of positive finite ``u`` as XLA's CPU backend
+    computes it: frexp into a mantissa in [sqrt(1/2), sqrt(2)) and an
+    exponent, the Cephes polynomial, the exponent times ln 2 split in
+    two parts."""
+    bits = torch.clamp_min(u, _F32_TINY).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    mant = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    small = mant < _f32(0.707106769)
+    x = (mant - 1.0) + torch.where(small, mant, torch.zeros_like(mant))
+    e = torch.where(small, e - 1.0, e)
+    z = x * x
+    z3 = z * x
+    c = _LOG_C
+    p3 = _fma(_fma(x, c[0], c[1]), x, c[6])
+    p4 = _fma(_fma(x, c[2], c[3]), x, c[7])
+    p5 = _fma(_fma(x, c[4], c[5]), x, c[8])
+    p7 = _fma(_fma(p3, z3, p4), z3, p5)
+    r = _fma(p7, z3, e * _f32(-2.12194440e-4))
+    r = _fma(torch.full_like(z, -0.5), z, x) + r
+    return _fma(e, _f32(0.693359375), r)
+
+
+#: XLA's ``log1p`` rational function for |x| < sqrt(2) - 1 (Cephes).
+_LOG1P_DEN = tuple(_f32(v) for v in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+_LOG1P_NUM = tuple(_f32(v) for v in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``jnp.log1p`` as XLA's CPU backend computes it (jax 0.9.0):
+    a rational function for |x| < sqrt(2) - 1, else :func:`_xla_log` of
+    ``x + 1``. Bit-identical over every input ``-u * u`` that
+    :func:`normal` feeds it; for x > -1 only (what ``erf_inv`` needs)."""
+    x = x.float()
+    x2 = x * x
+    den = torch.full_like(x, _LOG1P_DEN[0])
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    for c in _LOG1P_DEN[1:]:
+        den = _fma(den, x, c)
+    for c in _LOG1P_NUM[1:]:
+        num = _fma(num, x, c)
+    ratio = (num.double() / den.double()).float()
+    small = x + _fma(torch.full_like(x, -0.5), x2, (x * x2) * ratio)
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small,
+                       _xla_log(x + 1.0))
+
+
+#: XLA's ``ErfInv32`` (Giles' single-precision approximation): the degree-8
+#: polynomial coefficients for w < 5 and for w >= 5.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613, 0.00943887047,
+               1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor, log1p_value: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """float32 ``jax.lax.erf_inv`` on XLA's CPU backend, for |x| < 1:
+    w = -log1p(-x^2), a Horner polynomial in w - 2.5 (w < 5) or sqrt(w) - 3,
+    times x. ``log1p_value`` stands in for :func:`log1p` of ``x * -x``
+    (the tests feed JAX's own to hold this stage alone)."""
+    x = x.float()
+    w = -(log1p(x * -x) if log1p_value is None else log1p_value.float())
+    lt = w < 5.0
+    root = torch.sqrt(w.double().clamp_min(0.0)).float()
+    w = torch.where(lt, w - 2.5, root - 3.0)
+    lt5 = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
+    ge5 = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lt5[0], ge5[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, torch.where(lt, lt5[i], ge5[i]))
+    return p * x
+
+
+def normal(key: KeyLike, shape: Sequence[int]) -> torch.Tensor:
+    """float32 ``jax.random.normal(key, shape)``, bit for bit (jax 0.9.0 on
+    the CPU): uniforms in (-1, 1) through ``sqrt(2) * erf_inv``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return erf_inv(u) * _f32(math.sqrt(2.0))

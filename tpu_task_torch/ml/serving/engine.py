@@ -15,8 +15,22 @@ return to the pool the same step). Its pieces, as in the JAX engine:
   and rows slots.. carry the admitting slots' next prompt chunk, one token
   per row, each row with its own slot's block table.
 - **Recompute preemption**: when the pool runs dry mid-decode the engine
-  evicts refcount-0 cached blocks, then preempts the youngest running
-  request back to the queue head; keyed sampling reproduces its stream.
+  evicts refcount-0 cached blocks, then preempts the least-protected
+  running request with the most slack (the youngest among equals) back to
+  the queue head; keyed sampling reproduces its stream.
+- **SLA order**: ``submit(slo_class=, deadline_s=)`` sets a request's
+  protection class and deadline. Admission takes the highest class first,
+  then the earliest deadline (:meth:`ServingEngine._next_admit_index`);
+  with no SLA field set both orders reduce to FIFO and youngest-first.
+  Neither order touches a token's value: sampling is keyed by (key,
+  index).
+- **Drain and resume**: :meth:`ServingEngine.export_inflight` writes every
+  unfinished request as a JSON-serializable record (the JAX engine's keys)
+  and :meth:`ServingEngine.resume_inflight` imports such records, from
+  either package, into a fresh engine. A resumed request re-ingests prompt
+  plus tokens through the chunk steps and continues at token index
+  ``len(tokens)``; a later preemption rolls it back to that prefix
+  (``Request.resume_from``), never through it.
 
 Every fused step runs :func:`~tpu_task_torch.ml.serving.model.
 paged_decode_step` with the paged attention ``decode_impl`` resolves to:
@@ -58,12 +72,10 @@ for), the plain version on the CPU.
   the preemption- and rejection-discounted goodput ratio and MFU.
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
-here, naming its ROADMAP item): bucketed prefill, the async loop, LoRA,
-the host tier, ``export_inflight``/``resume_inflight``, ``adopt_params``,
-meshes. The SLA fields of
-``submit`` and the obs registry and spans are left out too: with no SLA
-field set the JAX engine's admission is FIFO and its preemption victim the
-youngest slot, which is what this engine does."""
+here, naming its ROADMAP item): bucketed prefill, the async loop, LoRA
+(so any ``adapter_id`` raises), the host tier, ``adopt_params`` and with
+it every param generation but 0, meshes. The obs registry and spans are
+left out too."""
 
 from __future__ import annotations
 
@@ -106,6 +118,7 @@ from tpu_task_torch.ml.serving.model import (
 )
 from tpu_task_torch.ml.serving.step_graph import MicroStepGraphs
 from tpu_task_torch.obs.goodput import GoodputMeter
+from tpu_task_torch.obs.sla import DEFAULT_CLASS, class_rank
 
 QUEUED, RUNNING, DONE = "queued", "running", "done"
 
@@ -188,6 +201,20 @@ class Request:
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
     preemptions: int = 0
+    #: Tokens that existed when this request entered THIS engine — nonzero
+    #: only for :meth:`ServingEngine.resume_inflight` imports, whose prefix
+    #: is context to re-ingest, never to regenerate. A recompute
+    #: preemption rolls ``tokens`` back to this floor, not to 0.
+    resume_from: int = 0
+    #: SLA metadata: protection class and absolute deadline on THIS
+    #: engine's ``time.monotonic()`` clock (None = no deadline). Consumed
+    #: by admission and victim order, never by sampling.
+    slo_class: str = DEFAULT_CLASS
+    deadline: Optional[float] = None
+    #: LoRA adapter of the stream; always None here (lora_rank 0).
+    adapter_id: Optional[str] = None
+    #: Param generation the stream is pinned to; always 0 until A8.
+    generation: int = 0
 
     @property
     def finished(self) -> bool:
@@ -246,6 +273,9 @@ class ServingEngine:
         self._next_rid = 0
         self._base_key = (jrandom.PRNGKey(0) if rng is None
                           else jrandom.as_key(rng))
+        #: The param generation this engine serves: 0, the only one it
+        #: holds until weight hot-swap (ROADMAP A8).
+        self.generation = 0
         self.steps = 0
         self.decode_steps = 0
         self.prefills = 0
@@ -331,12 +361,17 @@ class ServingEngine:
 
     def submit(self, prompt, max_new_tokens: int, *, temperature: float = 0.0,
                top_p: Optional[float] = None,
-               eos_token: Optional[int] = None, key=None) -> int:
+               eos_token: Optional[int] = None, key=None,
+               slo_class: str = DEFAULT_CLASS,
+               deadline_s: Optional[float] = None,
+               adapter_id: Optional[str] = None) -> int:
         """Queue a generation request; returns its id. Temperature 0 is
         greedy; ``top_p`` needs temperature > 0. ``key`` (two raw uint32
         words) overrides the engine-derived ``fold_in(base, rid)`` — a
         router passes one so the same request draws the same sampled
-        stream on any replica."""
+        stream on any replica. ``slo_class`` and ``deadline_s`` (seconds
+        from now) order admission and preemption; ``adapter_id`` raises,
+        because this engine has no LoRA (``lora_rank`` 0)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("prompt must hold at least one token")
@@ -347,6 +382,9 @@ class ServingEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if top_p is not None and temperature == 0:
             raise ValueError("top_p needs temperature > 0 (greedy ignores it)")
+        if adapter_id is not None:
+            raise ValueError(
+                "adapter_id needs lora_rank > 0 in the ServingConfig")
         if ((prompt < 0) | (prompt >= self.cfg.vocab_size)).any():
             raise ValueError(
                 f"prompt token ids must lie in [0, {self.cfg.vocab_size})")
@@ -363,10 +401,14 @@ class ServingEngine:
         self._next_rid += 1
         key = (jrandom.key_to_numpy(jrandom.fold_in(self._base_key, rid))
                if key is None else _check_key(key))
+        now = time.monotonic()
         req = Request(
             rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
             temperature=temperature, top_p=1.0 if top_p is None else top_p,
-            eos_token=eos_token, key=key, submit_t=time.monotonic())
+            eos_token=eos_token, key=key, submit_t=now,
+            slo_class=str(slo_class),
+            deadline=None if deadline_s is None else now + float(deadline_s),
+            generation=self.generation)
         self._requests[rid] = req
         self._queue.append(req)
         return rid
@@ -442,13 +484,121 @@ class ServingEngine:
             steps += 1
         return {rid: list(r.tokens) for rid, r in self._requests.items()}
 
-    def export_inflight(self):
-        raise NotImplementedError(
-            "export_inflight is not ported yet: ROADMAP A10")
+    def export_inflight(self) -> List[dict]:
+        """Every not-yet-done request as a JSON-serializable record, key
+        for key the JAX engine's: the prompt, the tokens emitted so far,
+        the per-request key (raw uint32 words), the sampling parameters,
+        ``slo_class``, ``generation``, and ``deadline_s`` (REMAINING
+        seconds, clamped at 0: two processes share no clock) and
+        ``adapter_id`` when set. Values are plain ints, floats, lists and
+        None. Tokens are committed only at a step's host sweep, so a
+        record between steps always ends on a token boundary, at any
+        ``micro_k``. The engine itself is left untouched."""
+        records = []
+        for req in self._requests.values():
+            if req.status == DONE:
+                continue
+            record = {
+                "rid": int(req.rid),
+                "prompt": [int(t) for t in req.prompt],
+                "tokens": [int(t) for t in req.tokens],
+                "key": [int(w) for w in np.asarray(req.key, np.uint32)
+                        .reshape(-1)],
+                "max_new_tokens": int(req.max_new_tokens),
+                "temperature": float(req.temperature),
+                "top_p": float(req.top_p),
+                "eos_token": (None if req.eos_token is None
+                              else int(req.eos_token)),
+                "slo_class": req.slo_class,
+                "generation": int(req.generation),
+            }
+            if req.adapter_id is not None:
+                record["adapter_id"] = req.adapter_id
+            if req.deadline is not None:
+                record["deadline_s"] = max(
+                    0.0, req.deadline - time.monotonic())
+            records.append(record)
+        return records
 
-    def resume_inflight(self, records, *args, **kwargs):
-        raise NotImplementedError(
-            "resume_inflight is not ported yet: ROADMAP A10")
+    def resume_inflight(self, records: List[dict]) -> Dict[int, int]:
+        """Import :meth:`export_inflight` records (from this package's
+        engine or the JAX package's, possibly in another process); returns
+        {exported rid: local rid}. A resumed request re-ingests prompt +
+        emitted tokens as context through the chunk steps and continues at
+        token index ``len(tokens)``: with the exported key, greedy streams
+        and sampled ones (keyed by ``fold_in(key, index)``) continue token
+        for token. A speculative round's sampled draws are keyed by
+        absolute position instead, so the token a resumed spec engine
+        samples at ``len(tokens)`` (the chunk step's) differs from the
+        uninterrupted spec stream's there, as in the JAX engine. A record
+        that already met its stopping condition imports as done."""
+        mapping: Dict[int, int] = {}
+        for record in records:
+            prompt = np.asarray(record["prompt"], np.int32).reshape(-1)
+            tokens = [int(t) for t in record.get("tokens", ())]
+            max_new = int(record["max_new_tokens"])
+            eos = record.get("eos_token")
+            if len(prompt) < 1:
+                raise ValueError("prompt must hold at least one token")
+            if max_new < 1:
+                raise ValueError(
+                    f"max_new_tokens must be >= 1, got {max_new}")
+            if len(tokens) > max_new:
+                raise ValueError(
+                    f"resume record carries {len(tokens)} tokens but "
+                    f"max_new_tokens is {max_new}")
+            total = len(prompt) + max_new
+            if total > self.scfg.max_len:
+                raise ValueError(
+                    f"resumed context {len(prompt)} + max_new_tokens "
+                    f"{max_new} exceeds max_len {self.scfg.max_len}")
+            if self.scfg.blocks_for(total) > self.scfg.n_blocks - 1:
+                raise ValueError(
+                    f"resumed request needs {self.scfg.blocks_for(total)} "
+                    f"blocks but the pool holds {self.scfg.n_blocks - 1}")
+            ids = np.concatenate([prompt, np.asarray(tokens, np.int32)])
+            if ((ids < 0) | (ids >= self.cfg.vocab_size)).any():
+                raise ValueError(
+                    f"resume record token ids must lie in "
+                    f"[0, {self.cfg.vocab_size})")
+            aid = record.get("adapter_id")
+            if aid is not None:
+                raise ValueError(
+                    f"resume record pins adapter {aid!r} but this engine "
+                    "has lora_rank 0")
+            key = _check_key(record["key"])
+            deadline_s = record.get("deadline_s")
+            gen = int(record.get("generation", self.generation))
+            now = time.monotonic()
+            req = Request(
+                rid=self._next_rid, prompt=prompt, max_new_tokens=max_new,
+                temperature=float(record.get("temperature", 0.0)),
+                top_p=float(record.get("top_p", 1.0)),
+                eos_token=None if eos is None else int(eos), key=key,
+                submit_t=now, tokens=tokens, resume_from=len(tokens),
+                slo_class=str(record.get("slo_class", DEFAULT_CLASS)),
+                deadline=None if deadline_s is None
+                else now + float(deadline_s),
+                generation=gen)
+            if not req.finished and gen != self.generation:
+                raise ValueError(
+                    f"resume record pins param generation {gen}, but this "
+                    f"engine holds only generation {self.generation} and "
+                    "cannot restore another until weight hot-swap is "
+                    "ported (ROADMAP A8) — refusing to decode the stream "
+                    "under different weights")
+            self._next_rid += 1
+            self._requests[req.rid] = req
+            if req.finished:
+                req.status = DONE
+                req.finish_t = now
+            else:
+                # The imported prefix is context another engine already
+                # produced: re-ingesting it is work the ratio discounts.
+                self.goodput.wasted_reingest(len(tokens))
+                self._queue.append(req)
+            mapping[int(record.get("rid", req.rid))] = req.rid
+        return mapping
 
     def adopt_params(self, params, generation=None):
         raise NotImplementedError(
@@ -474,10 +624,27 @@ class ServingEngine:
             return None
         return self.allocator.alloc(n)
 
+    def _next_admit_index(self) -> int:
+        """The queue index to admit next (class-then-EDF): higher
+        protection class first, then earliest deadline, deadline-less
+        requests after every deadlined one of their class, FIFO among
+        equals. Class outranks the deadline so that cheap best_effort work
+        with the same deadline cannot win by arrival. With no SLA field in
+        the queue every key ties and the pick is index 0, FIFO; a request
+        preempted back to the head keeps winning ties there."""
+        return min(range(len(self._queue)),
+                   key=lambda i: (
+                       -class_rank(getattr(
+                           self._queue[i], "slo_class", DEFAULT_CLASS)),
+                       self._queue[i].deadline is None,
+                       self._queue[i].deadline or 0.0, i))
+
     def _admit_chunked(self, admitted: list) -> None:
-        """Assign free slots and blocks to queued requests (FIFO); prompt
-        ingestion happens across the following steps' chunk rows. At most
-        ``prefill_slots`` slots prefill at a time."""
+        """Assign free slots and blocks to queued requests in
+        :meth:`_next_admit_index` order; prompt ingestion (a resumed
+        request's prompt and imported tokens) happens across the following
+        steps' chunk rows. At most ``prefill_slots`` slots prefill at a
+        time."""
         bs = self.scfg.block_size
         while self._queue:
             if sum(self._prefilling(i) for i in range(self.scfg.slots)) \
@@ -487,7 +654,8 @@ class ServingEngine:
                 (i for i, r in enumerate(self._slots) if r is None), None)
             if slot is None:
                 return
-            req = self._queue[0]
+            pick = self._next_admit_index()
+            req = self._queue[pick]
             ctx = self._context_ids(req)
             plen = len(ctx)
             cached = (self._pcache.lookup(ctx)              # increfs
@@ -504,7 +672,7 @@ class ServingEngine:
                 for b in cached:
                     self.allocator.decref(b)
                 return
-            self._queue.popleft()
+            del self._queue[pick]
             table = np.zeros((self.scfg.max_blocks_per_slot,), np.int32)
             table[:len(cached)] = cached
             if need:
@@ -536,8 +704,9 @@ class ServingEngine:
     def _ensure_blocks(self, widths: Optional[np.ndarray] = None) -> None:
         """Every active slot gets blocks covering its next ``widths[i]``
         writes (default 1) — evicting refcount-0 cached blocks first, then
-        preempting the youngest running request (requeued at the head,
-        recompute) when the pool is truly dry."""
+        preempting the least-protected, most-slack, youngest running
+        request (requeued at the head, recompute) when the pool is truly
+        dry."""
         bs = self.scfg.block_size
         for slot in sorted(range(self.scfg.slots),
                            key=lambda i: self._admit_seq[i]):
@@ -554,9 +723,7 @@ class ServingEngine:
                     if got is not None:
                         self._tables[slot, block_i] = got[0]
                         break
-                    victim = max(
-                        (i for i, r in enumerate(self._slots) if r is not None),
-                        key=lambda i: self._admit_seq[i])
+                    victim = self._victim()
                     self._preempt(victim)
                     if victim == slot:
                         preempted_self = True
@@ -570,17 +737,31 @@ class ServingEngine:
                 if preempted_self:
                     break
 
+    def _victim(self) -> int:
+        """The running slot to preempt: lowest protection class first, then
+        most slack (no deadline = infinite), then the youngest admission.
+        All-default requests tie on the first two terms, so the pick is
+        the youngest slot."""
+        return max(
+            (i for i, r in enumerate(self._slots) if r is not None),
+            key=lambda i: (
+                -class_rank(self._slots[i].slo_class),
+                float("inf") if self._slots[i].deadline is None
+                else self._slots[i].deadline,
+                self._admit_seq[i]))
+
     def _preempt(self, slot: int) -> None:
         req = self._slots[slot]
         req.preemptions += 1
         self.preemption_count += 1
         req.status = QUEUED
         # The rolled-back tokens were emitted work the recompute repeats.
-        self.goodput.wasted_preempt(len(req.tokens))
-        # Release BEFORE clearing tokens: _release registers full blocks
-        # under the ids that produced their KV (prompt + tokens so far).
+        self.goodput.wasted_preempt(len(req.tokens) - req.resume_from)
+        # Release BEFORE rolling back: _release registers full blocks under
+        # the ids that produced their KV (prompt + tokens so far). A
+        # resumed request rolls back only to its imported prefix.
         self._release(slot)
-        req.tokens.clear()
+        del req.tokens[req.resume_from:]
         req.first_token_t = None
         self._queue.appendleft(req)
 

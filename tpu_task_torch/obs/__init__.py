@@ -1,1 +1,2 @@
-"""Serving observability of the port: the goodput meter (``goodput``)."""
+"""Serving observability of the port: the goodput meter (``goodput``) and
+the SLO classes (``sla``)."""

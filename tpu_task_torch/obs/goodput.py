@@ -10,8 +10,10 @@ tokens back, so the device's work is inside it) and *host-gap* time
 ``host_gap_frac`` is that split; ``dispatches_per_token`` falls as the
 K-token micro-step (``ServingConfig.micro_k``) folds K decode iterations
 into one dispatch. ``ratio`` discounts token-work that preemption threw
-away or that the target scored and rejected (speculative decoding), and ``mfu`` divides the static FLOP model's count by busy wall and
-the peak.
+away, that the target scored and rejected (speculative decoding) or that
+a resumed request re-ingests (an imported prefix another engine already
+produced), and ``mfu`` divides the static FLOP model's count by busy wall
+and the peak.
 
 Where the JAX package differs: its meter lives on an ``obs`` registry and
 exists only when the engine has one; here it is always on (two
@@ -93,8 +95,9 @@ class GoodputMeter:
     """Per-engine accumulator. The engine calls :meth:`program` around
     every fused dispatch, :meth:`begin_step`/:meth:`end_step` around each
     scheduler iteration, :meth:`work_counts` and :meth:`emitted` where it
-    commits tokens, :meth:`wasted_preempt` where it preempts and
-    :meth:`wasted_spec` where a speculative round rejects proposals."""
+    commits tokens, :meth:`wasted_preempt` where it preempts,
+    :meth:`wasted_spec` where a speculative round rejects proposals and
+    :meth:`wasted_reingest` where it imports a resumed request."""
 
     def __init__(self, cfg, peak_flops: Optional[float] = None, device=None):
         self.cfg = cfg
@@ -114,6 +117,7 @@ class GoodputMeter:
         self.tokens_emitted = 0
         self.tokens_preempted = 0
         self.tokens_spec_rejected = 0
+        self.tokens_reingested = 0
         self._prog_mark = 0.0
 
     # -- time ------------------------------------------------------------------
@@ -149,6 +153,11 @@ class GoodputMeter:
         """``n`` draft proposals were scored by the target and rejected."""
         self.tokens_spec_rejected += max(0, n)
 
+    def wasted_reingest(self, n: int) -> None:
+        """``n`` already-emitted tokens re-ingested as context (a resumed
+        prefix another engine already produced)."""
+        self.tokens_reingested += max(0, n)
+
     # -- gauges ----------------------------------------------------------------
     @property
     def busy_s(self) -> float:
@@ -163,10 +172,12 @@ class GoodputMeter:
     def ratio(self) -> float:
         """Useful tokens over token-work: preempted tokens were emitted and
         thrown away (they leave the numerator and stay in the denominator),
-        rejected speculative proposals were scored and never emitted (they
-        join the denominator)."""
+        rejected speculative proposals were scored and never emitted, and
+        re-ingested tokens were emitted by another engine (both join the
+        denominator)."""
         useful = max(0, self.tokens_emitted - self.tokens_preempted)
-        total = self.tokens_emitted + self.tokens_spec_rejected
+        total = (self.tokens_emitted + self.tokens_spec_rejected
+                 + self.tokens_reingested)
         return useful / total if total > 0 else 1.0
 
     @property
@@ -182,8 +193,8 @@ class GoodputMeter:
 
     def snapshot(self) -> dict:
         """``stats()["goodput"]``: the JAX meter's snapshot keys. The
-        overlapped loop's host time and re-ingested prefixes belong to
-        slices not ported yet (A5, A10) and read 0."""
+        overlapped loop's host time belongs to a slice not ported yet (A5)
+        and reads 0."""
         return {
             "ratio": round(self.ratio, 6),
             "mfu": self.mfu,
@@ -200,6 +211,6 @@ class GoodputMeter:
                 "emitted": self.tokens_emitted,
                 "preempted": self.tokens_preempted,
                 "spec_rejected": self.tokens_spec_rejected,
-                "reingested": 0,
+                "reingested": self.tokens_reingested,
             },
         }

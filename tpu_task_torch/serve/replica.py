@@ -36,10 +36,11 @@ SERVING_PRESETS: Dict[str, dict] = {
 def build_engine(preset: str = "tiny", serving: Optional[dict] = None,
                  rng_seed: int = 0, device=None) -> ServingEngine:
     """A ServingEngine from a preset name: same name → same weights, same
-    config, same streams, in any process. Weights are drawn at fp32 from a
-    ``torch.Generator`` seeded with the preset's seed, on the CPU (so they
-    are the same on every device) and moved to ``device`` — CUDA unless
-    the caller passes ``device="cpu"``."""
+    config, same streams, in any process and in either package. Weights
+    are the JAX package's, bit for bit: ``init_from_key`` draws them at
+    fp32 from ``PRNGKey(seed)`` of the preset's seed on the CPU (so they
+    are the same on every device) and the engine moves them to ``device``
+    — CUDA unless the caller passes ``device="cpu"``."""
     device = resolve_device(device)
     if preset not in MODEL_PRESETS:
         raise ValueError(
@@ -47,7 +48,7 @@ def build_engine(preset: str = "tiny", serving: Optional[dict] = None,
     spec = dict(MODEL_PRESETS[preset])
     seed = spec.pop("seed")
     cfg = transformer.TransformerConfig(dtype=torch.float32, **spec)
-    params = transformer.init(torch.Generator().manual_seed(seed), cfg)
+    params = transformer.init_from_key(jrandom.PRNGKey(seed), cfg)
     knobs = dict(SERVING_PRESETS[preset])
     knobs.update(serving or {})
     return ServingEngine(params, cfg, ServingConfig(**knobs),
