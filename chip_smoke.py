@@ -3,8 +3,9 @@
 card: builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
-K-token micro-steps, speculative decoding, drain and resume), and trains
-the flagship for a few steps.
+K-token micro-steps, speculative decoding, drain and resume, blocks
+imported from the fleet KV plane), and trains the flagship for a few
+steps.
 
     python3 chip_smoke.py
 
@@ -62,7 +63,9 @@ start); any failed check raises and the script exits non-zero:
              step's shape). Layer 0's attention in the first decode step
              and the
              last chunk step of the first wave is held against the plain
-             version on the same inputs.
+             version on the same inputs. Then the engine publishes every
+             hot block of its prefix cache into a temporary bucket (phase
+             24).
 7. flash kernel — the forward, dq and dk/dv kernels against their plain
              versions: fp32 (2e-5 forward, 5e-5 backward) and bf16 (against
              the plain version in fp32 on the same bf16 values, within
@@ -132,7 +135,8 @@ start); any failed check raises and the script exits non-zero:
              the first decode and last chunk step held against the plain
              version), then one shorter wave each of fp8 and int4 through
              the pipelined kernel and of int8 through the tile kernel, under
-             the same gates.
+             the same gates. The int8 engine publishes its hot blocks
+             as phase 6's does.
 15. serve micro — the flagship with bf16 pools through the tile kernel
              at ``micro_k`` 1, 4 and 8 (the K-step loop a CUDA graph at K >
              1), each engine after phase 6's warm-up: three timed waves of
@@ -205,12 +209,32 @@ start); any failed check raises and the script exits non-zero:
              each that differs with its first differing position and top-2
              logit gap). Layer 0's attention in the first re-ingest chunk
              step is held against the fp32 plain version.
+23. parity kvfleet — the fleet KV seam on ``micro`` and ``tiny`` at fp32
+             and int8 pools, through ``"cuda"``, ``"pipelined"`` and
+             ``"reference"``, plus ``micro_k`` 4 (tiny, int8, pipelined)
+             and ``spec_k`` 2 (micro, fp32, tile kernel): engine A serves
+             a wave of greedy and keyed-sampled requests and publishes
+             every hot block into a temporary ``LocalBackend`` bucket, a
+             fresh engine B bound to it serves the same wave. B's streams
+             equal A's, B's imported blocks read back byte-equal to the
+             bucket's payloads, ``hit_blocks`` equals the index's chain
+             depths, and B ran its kernel and not the plain version.
+24. serve kvfleet — the flagship imports what phases 6 (bf16, tile
+             kernel) and 14 (int8, pipelined kernel) published: a fresh
+             engine bound to the bucket, after the warm-up, serves the
+             publishers' last wave (seed 2) again under phase 6's launch
+             gates: blocks, bytes and ms of the publish (stage, read
+             back, write), each admission's import ms, ``hit_blocks``
+             against the chain depths, chunk steps and ms until every
+             request holds its first token against the publisher's,
+             tokens/s, launches, and how many streams equal the
+             publisher's (reported).
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers; the paged rows and the combine's add
-their launches in phases 15, 17, 19, 20 and 22 and the scoring step's
-timing),
+their launches in phases 15, 17, 19, 20, 22 and 24 and the scoring
+step's timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1179,7 +1203,7 @@ def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
     """A flagship engine with ``serving`` over SERVE_KNOBS: a warm-up wave,
     then three timed waves of fresh prompts, gated. Returns (the engine,
     its kernel's launch count over the timed waves, the phase line, each
-    wave's streams by seed)."""
+    wave's streams by seed, each wave's ``_timed_drain`` result)."""
     from tpu_task_torch.ml.serving import model as serving_model
     from tpu_task_torch.ml.serving.cache import ServingConfig
     from tpu_task_torch.ml.serving.engine import ServingEngine
@@ -1255,30 +1279,37 @@ def serve_flagship(device, smi: str, phase: str, **serving) -> tuple:
             and all(wave_ok(r) for r in runs)):
         raise AssertionError(f"flagship serving run ({phase}) failed its "
                              f"gates: {line}")
-    return engine, launches, line, streams
+    return engine, launches, line, streams, runs
 
 
-def phase_serve(device, smi: str) -> tuple:
+def phase_serve(device, smi: str, bucket: str) -> tuple:
     """The main path: the flagship with bf16 pools through the tile
-    kernel. Returns the kernel's and the combine kernel's launch counts
-    over the timed waves, and the waves' streams by seed."""
-    _, launches, line, streams = serve_flagship(device, smi, "serve")
-    return launches, line["combine_launches"], streams
+    kernel; then the engine publishes its hot blocks into ``bucket`` for
+    phase 24. Returns the kernel's and the combine kernel's launch counts
+    over the timed waves, the waves' streams by seed, and the publisher's
+    numbers (``publish_hot``)."""
+    engine, launches, line, streams, runs = serve_flagship(device, smi,
+                                                           "serve")
+    published = publish_hot(engine, bucket, "serve", runs[KVFLEET_SEED])
+    return launches, line["combine_launches"], streams, published
 
 
-def phase_serve_quant(device, smi: str) -> tuple:
+def phase_serve_quant(device, smi: str, bucket: str) -> tuple:
     """The quantized path: the flagship with int8 pools through the
-    pipelined kernel (three timed waves), then one shorter wave each of
-    fp8 and int4 through the pipelined kernel and int8 through the tile
-    kernel. Returns the pipelined kernel's and its combine kernel's launch
-    counts over the three timed int8 waves, and those waves' streams by
-    seed."""
+    pipelined kernel (three timed waves; then the engine publishes its hot
+    blocks into ``bucket``), then one shorter wave each of fp8 and int4
+    through the pipelined kernel and int8 through the tile kernel. Returns
+    the pipelined kernel's and its combine kernel's launch counts over the
+    three timed int8 waves, those waves' streams by seed, and the
+    publisher's numbers."""
     from tpu_task_torch.ml.serving.cache import ServingConfig, \
         paged_cache_bytes
     from tpu_task_torch.ml.serving.engine import ServingEngine
 
-    engine, launches, line, streams = serve_flagship(
+    engine, launches, line, streams, runs = serve_flagship(
         device, smi, "serve_quant", kv_dtype="int8", decode_impl="pipelined")
+    published = publish_hot(engine, bucket, "serve_quant",
+                            runs[KVFLEET_SEED])
     bf16_pool = paged_cache_bytes(engine.cfg, ServingConfig(**SERVE_KNOBS),
                                   SERVE_KNOBS["n_blocks"])
     params, cfg = engine.params, engine.cfg
@@ -1304,7 +1335,7 @@ def phase_serve_quant(device, smi: str) -> tuple:
     if not all(wave_ok(r) for r in short):
         raise AssertionError(f"a short quantized wave failed its gates: "
                              f"{short}")
-    return launches, line["combine_launches"], streams
+    return launches, line["combine_launches"], streams, published
 
 
 def wave_ok(run: dict) -> bool:
@@ -3432,7 +3463,326 @@ def phase_serve_resume(device, smi: str, serve_streams: dict,
                                  decode_impl="pipelined")}
 
 
+# -- the fleet KV seam --------------------------------------------------------
+
+#: The serve phases' last timed wave: its blocks are the hottest in the
+#: publisher's prefix cache, and phase 24 serves it again from the bucket.
+KVFLEET_SEED = 2
+
+#: Phase 23's configurations: (preset, kv_dtype, decode_impl, path knobs).
+#: K = 1 through each attention for both presets and pool types, plus one
+#: micro-step and one spec case.
+KVFLEET_CASES = tuple(
+    (preset, kv_dtype, impl, "k1", {})
+    for preset in ("micro", "tiny") for kv_dtype in (None, "int8")
+    for impl in ("cuda", "pipelined", "reference")) + (
+    ("tiny", "int8", "pipelined", "micro_k4", {"micro_k": 4}),
+    ("micro", None, "cuda", "spec_k2", {"spec_k": 2}))
+
+
+def publish_hot(engine, bucket: str, source: str, wave: dict) -> dict:
+    """Every hot block of ``engine``'s prefix cache into ``bucket`` through
+    the port's fleet client: staged on the device, read back, written.
+    Returns the blocks and bytes, each part's ms and ``wave``'s numbers
+    (the publisher's own run of the wave phase 24 repeats)."""
+    from tpu_task_torch.ml.serving.cache import staged_block_to_bytes
+    from tpu_task_torch.serve.kvfleet import FleetKvClient
+    from tpu_task_torch.storage.backends import LocalBackend
+
+    client = FleetKvClient(LocalBackend(bucket), source)
+    client.bind(engine.cfg, engine.scfg)
+    hot = len(engine._pcache.hot_entries())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = client.stage(engine, limit=hot)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    payloads = [(h, staged_block_to_bytes(s)) for h, s in staged]
+    t2 = time.perf_counter()
+    client.ship_bytes(payloads)
+    t3 = time.perf_counter()
+    del staged
+    return dict(
+        blocks=client.published_blocks, bytes=client.bytes_shipped,
+        payload_bytes=len(payloads[0][1]) if payloads else 0,
+        stage_ms=(t1 - t0) * 1e3, force_ms=(t2 - t1) * 1e3,
+        write_ms=(t3 - t2) * 1e3, publish_ms=(t3 - t0) * 1e3,
+        namespace=client.index.namespace,
+        wave=dict(streams=[engine.request(r).tokens for r in wave["rids"]],
+                  prompts=[engine.request(r).prompt for r in wave["rids"]],
+                  **{key: wave[key] for key in (
+                      "chunk_steps", "all_next_token_ms", "tokens_per_s",
+                      "wall_s")}))
+
+
+def _kvfleet_wave(vocab: int, bs: int):
+    """Phase 23's wave: greedy and keyed-sampled requests, two sharing a
+    three-block prefix, one prompt of exactly two blocks."""
+    rng = np.random.default_rng(23)
+    shared = rng.integers(0, vocab, size=3 * bs)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, size=2)]),
+               rng.integers(0, vocab, size=2 * bs + 3),
+               np.concatenate([shared, rng.integers(0, vocab, size=bs + 1)]),
+               rng.integers(0, vocab, size=2 * bs),
+               rng.integers(0, vocab, size=5)]
+    return [(p, 10, {"temperature": 0.9, "top_p": 0.85, "key": [60 + i, 2]}
+             if i % 2 else {}) for i, p in enumerate(prompts)]
+
+
+def kvfleet_engine(preset: str, serving: dict, device, client):
+    """A ``preset`` engine (JAX's weights) with ``serving`` and the fleet
+    client ``client``; at ``spec_k`` > 0 the target drafts for itself."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    base = build_engine(preset, serving={"n_blocks": 2}, device=device)
+    spec = serving.get("spec_k", 0) > 0
+    return ServingEngine(
+        base.params, base.cfg,
+        ServingConfig(**{**SERVING_PRESETS[preset], **serving}),
+        device=device, kv_fleet=client,
+        draft_params=base.params if spec else None,
+        draft_cfg=base.cfg if spec else None)
+
+
+def expected_imports(index, wave, bs: int) -> int:
+    """The blocks an importer of ``wave`` takes from the fleet: each
+    request's chain depth in ``index`` past what an earlier request of
+    the wave already brought into the local cache."""
+    from tpu_task_torch.ml.serving.cache import chain_block_hashes
+
+    local, hits = set(), 0
+    for prompt, _, _ in wave:
+        chain = [h.hex() for h in chain_block_hashes(prompt, bs)]
+        have = 0
+        while have < len(chain) and chain[have] in local:
+            have += 1
+        depth = index.chain_depth(chain[have:])
+        hits += depth
+        local.update(chain[:have + depth])
+    return hits
+
+
+def parity_kvfleet_run(preset: str, kv_dtype, impl: str, path: str,
+                       extra: dict, device) -> dict:
+    """Engine A serves phase 23's wave and publishes every hot block into
+    a fresh bucket; a fresh engine B, bound to it, serves the same wave.
+    Returns the gates' numbers: B's streams against A's (A imported
+    nothing: its bucket was empty), B's imported blocks read back against
+    the bucket's payloads, ``hit_blocks`` against the index's chain
+    depths, and B's launches."""
+    import tempfile
+
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import (
+        chain_block_hashes,
+        export_block_bytes,
+    )
+    from tpu_task_torch.serve.kvfleet import FleetKvClient
+    from tpu_task_torch.storage.backends import LocalBackend
+
+    serving = {**extra, "decode_impl": impl}
+    if kv_dtype:
+        serving["kv_dtype"] = kv_dtype
+    with tempfile.TemporaryDirectory(prefix="kvfleet-") as bucket:
+        backend = LocalBackend(bucket)
+        pub = FleetKvClient(backend, "a", refresh_interval=0.0)
+        first = kvfleet_engine(preset, serving, device, pub)
+        bs = first.scfg.block_size
+        wave = _kvfleet_wave(first.cfg.vocab_size, bs)
+        rids = [first.submit(p, n, **kw) for p, n, kw in wave]
+        out = first.drain(max_steps=5000)
+        unshared = [out[r] for r in rids]
+        published = pub.publish(first, limit=10_000)
+        client = FleetKvClient(backend, "b", refresh_interval=0.0)
+        second = kvfleet_engine(preset, serving, device, client)
+        client.index.refresh(force=True)
+        predicted = expected_imports(client.index, wave, bs)
+        pa.reset_launch_counts()
+        rids = [second.submit(p, n, **kw) for p, n, kw in wave]
+        out = second.drain(max_steps=5000)
+        counts = attention_launches()
+        torch.cuda.synchronize()
+        imported = bytes_equal = 0
+        for h in {h for prompt, _, _ in wave
+                  for h in chain_block_hashes(prompt, bs)}:
+            block = second._pcache.cached_block(h)
+            if block is None or h.hex() not in client.index:
+                continue
+            imported += 1
+            bytes_equal += export_block_bytes(second.pools, block) == \
+                backend.read(client.index.block_key(h.hex()))
+        fleet = second.stats()["kvfleet"]
+    launches, combines = counts.pop(second.decode_impl)
+    other = sum(n + c for n, c in counts.values())
+    plain = counts.get("reference", (0, 0))[0]
+    return dict(
+        preset=preset, kv_dtype=kv_dtype or "float32", impl=impl,
+        path=path, published_blocks=published,
+        hit_blocks=fleet["hit_blocks"], expected_hit_blocks=predicted,
+        import_requests=fleet["import_requests"],
+        bytes_fetched=fleet["bytes_fetched"],
+        imported_blocks_read_back=imported,
+        imported_blocks_byte_equal=bytes_equal,
+        streams_equal_unshared=sum(
+            out[r] == want for r, want in zip(rids, unshared)),
+        streams=len(rids), kernel_launches=launches,
+        combine_launches=combines, other_kernel_launches=other,
+        plain_launches=plain if impl != "reference" else 0,
+        micro_steps=second.micro_steps, spec_rounds=second.spec_rounds)
+
+
+def phase_parity_kvfleet(device) -> None:
+    """The fleet KV seam on ``micro`` and ``tiny`` (JAX's weights) at fp32
+    and int8 pools, through ``"cuda"``, ``"pipelined"`` and
+    ``"reference"``, plus one ``micro_k`` 4 and one ``spec_k`` 2 case.
+    Gates, each raising: B's streams equal A's, B's imported blocks read
+    back byte-equal to the bucket's payloads, ``hit_blocks`` equals the
+    index's chain depths (and is not 0), and B ran its kernel once or more
+    and neither the other kernel nor the plain version."""
+    for preset, kv_dtype, impl, path, extra in KVFLEET_CASES:
+        run = parity_kvfleet_run(preset, kv_dtype, impl, path, extra,
+                                 device)
+        failures = []
+        if run["streams_equal_unshared"] != run["streams"]:
+            failures.append("an importer's stream differs from the "
+                            "unshared engine's")
+        if not (run["imported_blocks_read_back"] == run["hit_blocks"]
+                == run["imported_blocks_byte_equal"]
+                == run["expected_hit_blocks"] > 0):
+            failures.append("imports differ from the chain depth or from "
+                            "the published bytes")
+        if not (run["kernel_launches"] > 0 and run["other_kernel_launches"]
+                == 0 and run["plain_launches"] == 0):
+            failures.append("the importer's launches miss its kernel")
+        if path == "micro_k4" and not run["micro_steps"]:
+            failures.append("no micro-step ran")
+        if path == "spec_k2" and not run["spec_rounds"]:
+            failures.append("no spec round ran")
+        emit("parity_kvfleet", ok=not failures, **run, failures=failures)
+        if failures:
+            raise AssertionError(f"{preset}/{kv_dtype}/{impl}/{path}: "
+                                 f"{failures}")
+
+
+def serve_kvfleet(device, smi: str, phase: str, bucket: str,
+                  published: dict, **serving) -> dict:
+    """A fresh flagship engine with ``serving`` bound to ``bucket`` (the
+    serve phase's publisher's blocks), after the warm-up, serves the
+    publisher's last wave again under ``_timed_drain``'s gates: each
+    admission's import (timed to its writes' completion), the chunk steps
+    and ms until every request holds its first token against the
+    publisher's, tokens/s, launches, and how many streams equal the
+    publisher's (reported, each that differs with its first differing
+    position and top-2 logit gap: the importer decodes its tokens in
+    other step shapes than the publisher did)."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.serve.kvfleet import FleetKvClient
+    from tpu_task_torch.storage.backends import LocalBackend
+
+    cfg, params = flagship_model(device)
+    scfg = ServingConfig(**SERVE_KNOBS, **serving)
+    client = FleetKvClient(LocalBackend(bucket), phase)
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(params, cfg, scfg, device=device,
+                           kv_fleet=client)
+    warm_up(engine)
+    client.index.refresh(force=True)
+    ref = published["wave"]
+    predicted = expected_imports(client.index, [
+        (p, 0, None) for p in ref["prompts"]], scfg.block_size)
+    imports, inner = [], engine._fleet_import
+
+    def timed_import(ctx, have):
+        t0 = time.perf_counter()
+        got = inner(ctx, have)
+        torch.cuda.synchronize()
+        imports.append(((time.perf_counter() - t0) * 1e3, len(got)))
+        return got
+
+    engine._fleet_import = timed_import
+    before = dict(engine.stats()["kvfleet"])
+    run = _timed_drain(engine, KVFLEET_SEED)
+    fleet = {key: value - before[key] for key, value in
+             engine.stats()["kvfleet"].items() if key != "enabled"}
+    same, differ = 0, []
+    for i, (rid, want) in enumerate(zip(run["rids"], ref["streams"])):
+        req = engine.request(rid)
+        if req.tokens == want:
+            same += 1
+            continue
+        at = next(j for j, (a, b) in enumerate(zip(req.tokens, want))
+                  if a != b)
+        differ.append(dict(request=i, sampled=bool(req.temperature),
+                           first_differing_position=at,
+                           top2_logit_gap=top2_gap(engine, req, at)))
+    import_ms = [ms for ms, _ in imports]
+    line = dict(
+        kv_dtype=scfg.kv_dtype or "bfloat16", decode_impl=engine.decode_impl,
+        published_blocks=published["blocks"],
+        published_bytes=published["bytes"],
+        payload_bytes=published["payload_bytes"],
+        publish_ms=published["publish_ms"],
+        publish_stage_ms=published["stage_ms"],
+        publish_force_ms=published["force_ms"],
+        publish_write_ms=published["write_ms"],
+        hit_blocks=fleet["hit_blocks"], expected_hit_blocks=predicted,
+        miss_blocks=fleet["miss_blocks"],
+        import_requests=fleet["import_requests"],
+        bytes_fetched=fleet["bytes_fetched"],
+        import_ms_per_request=float(np.mean(import_ms)),
+        import_ms_max=max(import_ms), import_ms_total=sum(import_ms),
+        chunk_steps=run["chunk_steps"],
+        publisher_chunk_steps=ref["chunk_steps"],
+        all_first_token_ms=run["all_next_token_ms"],
+        publisher_all_first_token_ms=ref["all_next_token_ms"],
+        tokens_per_s=run["tokens_per_s"],
+        publisher_tokens_per_s=ref["tokens_per_s"], wall_s=run["wall_s"],
+        decode_steps=run["decode_steps"],
+        mean_chunk_step_ms=run["mean_chunk_step_ms"],
+        mean_decode_step_ms=run["mean_decode_step_ms"],
+        kernel=run["kernel"], kernel_launches=run["kernel_launches"],
+        expected_launches=run["expected_launches"],
+        combine_launches=run["combine_launches"],
+        expected_combine_launches=run["expected_combine_launches"],
+        other_kernel_launches=run["other_kernel_launches"],
+        plain_launches=run["plain_launches"],
+        streams_equal_publisher=same, streams_compared=len(run["rids"]),
+        streams_differing=differ, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, gpu=smi)
+    emit(phase, **line)
+    if not (wave_ok(run) and line["hit_blocks"] == predicted > 0
+            and line["import_requests"] == len(run["rids"])):
+        raise AssertionError(f"{phase} failed its gates: {line}")
+    return line
+
+
+def phase_serve_kvfleet(device, smi: str, bucket: str, published: dict,
+                        published_quant: dict) -> dict:
+    """The flagship imports its own published waves: bf16 pools through
+    the tile kernel (phase 6's publisher), int8 through the pipelined
+    kernel (phase 14's). Returns both phase lines."""
+    return {"bf16": serve_kvfleet(device, smi, "serve_kvfleet", bucket,
+                                  published),
+            "int8": serve_kvfleet(device, smi, "serve_kvfleet_quant", bucket,
+                                  published_quant, kv_dtype="int8",
+                                  decode_impl="pipelined")}
+
+
 def main() -> int:
+    import shutil
+    import tempfile
+
+    # The bucket phases 6 and 14 publish into and phase 24 imports from.
+    bucket = tempfile.mkdtemp(prefix="tpu-task-kvfleet-")
+    try:
+        return run_phases(bucket)
+    finally:
+        shutil.rmtree(bucket, ignore_errors=True)
+
+
+def run_phases(bucket: str) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     import_port()
@@ -3444,7 +3794,8 @@ def main() -> int:
     timing = phase_timing(device, smi)
     spec_times = phase_timing_spec(device, smi)
     phase_parity(device)
-    launches, combine_launches, serve_streams = phase_serve(device, smi)
+    launches, combine_launches, serve_streams, published = phase_serve(
+        device, smi, bucket)
     flash_err = phase_flash_kernel(device)
     flash_times = phase_flash_timing(device, smi)
     phase_flash_fwd_shapes(device, smi)
@@ -3454,8 +3805,8 @@ def main() -> int:
     quant_err = phase_kernel_quant(device)
     quant_times = phase_timing_quant(device, smi)
     phase_parity_quant(device)
-    pipelined_launches, pipelined_combines, quant_streams = \
-        phase_serve_quant(device, smi)
+    pipelined_launches, pipelined_combines, quant_streams, \
+        published_quant = phase_serve_quant(device, smi, bucket)
     micro, traced = phase_serve_micro(device, smi)
     phase_serve_trace(traced, smi)
     del traced
@@ -3465,6 +3816,9 @@ def main() -> int:
     spec_quant = phase_serve_spec_quant(device, smi, quant_streams)
     phase_parity_resume(device)
     resume = phase_serve_resume(device, smi, serve_streams, quant_streams)
+    phase_parity_kvfleet(device)
+    kvfleet = phase_serve_kvfleet(device, smi, bucket, published,
+                                  published_quant)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -3502,6 +3856,7 @@ def main() -> int:
         "launches_serve_spec": {name: line["kernel_launches"]
                                 for name, line in spec.items()},
         "launches_serve_resume": resume["bf16"]["kernel_launches"],
+        "launches_serve_kvfleet": kvfleet["bf16"]["kernel_launches"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -3539,6 +3894,7 @@ def main() -> int:
                                                      "kernel_launches"),
         "launches_serve_spec_quant": spec_quant["kernel_launches"],
         "launches_serve_resume_quant": resume["int8"]["kernel_launches"],
+        "launches_serve_kvfleet_quant": kvfleet["int8"]["kernel_launches"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -3558,6 +3914,8 @@ def main() -> int:
         "launches_serve_spec_quant": spec_quant["combine_launches"],
         "launches_serve_resume": resume["bf16"]["combine_launches"],
         "launches_serve_resume_quant": resume["int8"]["combine_launches"],
+        "launches_serve_kvfleet": kvfleet["bf16"]["combine_launches"],
+        "launches_serve_kvfleet_quant": kvfleet["int8"]["combine_launches"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

@@ -45,6 +45,8 @@ def test_scan_covers_the_package_and_chip_smoke():
     assert "tpu_task_torch/ml/serving/engine.py" in names
     assert "tpu_task_torch/ml/ops/attention.py" in names
     assert "tpu_task_torch/ml/train.py" in names
+    assert "tpu_task_torch/serve/kvfleet.py" in names
+    assert "tpu_task_torch/storage/backends.py" in names
     assert all((ROOT / n).exists() for n in names)
 
 

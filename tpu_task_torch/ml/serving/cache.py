@@ -22,8 +22,13 @@ only the bytes it writes.
 
 The host-side :class:`BlockAllocator`, :func:`chain_block_hashes` and
 :class:`PrefixCache` are this package's own copies of the JAX package's
-(which the port does not import), trimmed to what this slice runs: the
-host-tier demotion marks and fleet-KV adoption come with those slices."""
+(which the port does not import), fleet-KV adoption and the host-tier
+demotion marks included (nothing demotes until the host tier is ported).
+
+Fleet block shipping (:func:`kv_fingerprint` … :func:`write_blocks`) is
+byte-compatible with the JAX package's: for the same config and the same
+pool contents, the same fingerprint, payload length and payload bytes, so
+blocks published by an engine of either package import into the other."""
 
 from __future__ import annotations
 
@@ -243,6 +248,19 @@ def paged_cache_bytes(cfg: TransformerConfig, scfg: ServingConfig,
     return n_blocks * kv_block_bytes(cfg, scfg)
 
 
+def dense_cache_bytes(cfg: TransformerConfig, slots: int,
+                      max_len: int) -> int:
+    """Worst-case bytes of the dense layout: every slot reserves max_len."""
+    return slots * max_len * kv_token_bytes(cfg)
+
+
+def kv_shard_bytes(cfg: TransformerConfig, scfg: ServingConfig,
+                   n_blocks: int, tp: int) -> int:
+    """Per-device bytes of ``n_blocks`` physical blocks under a ``tp``-way
+    kv-head shard (the port serves at tp 1 until ROADMAP A14)."""
+    return paged_cache_bytes(cfg, scfg, n_blocks) // max(1, tp)
+
+
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
@@ -405,12 +423,159 @@ def quantized_append(pool: Dict[str, torch.Tensor], new_k: torch.Tensor,
     return qerr
 
 
+# -- fleet block shipping (export/import of physical blocks) -----------------
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``'float32'``, ``'bfloat16'``): the
+    spelling the JAX package's fingerprint hashes."""
+    return str(dtype).replace("torch.", "")
+
+
+def kv_fingerprint(cfg: TransformerConfig, scfg: ServingConfig) -> str:
+    """Compatibility fingerprint of a pool's BLOCK PAYLOAD layout — the
+    namespace of the fleet KV plane's bucket, equal to the JAX package's
+    for the same geometry. Two engines may exchange block bytes iff their
+    fingerprints match: same per-block geometry (block_size, kv_heads,
+    d_head, n_layers) and storage (model dtype or quantized codes). What
+    does not change a block's bytes (n_blocks, slots, chunking, spec_k)
+    is left out, so differently sized pools share."""
+    parts = (cfg.n_layers, cfg.kv_heads, cfg.d_head, _dtype_name(cfg.dtype),
+             scfg.block_size, scfg.kv_dtype or "model")
+    return hashlib.blake2b(repr(parts).encode(), digest_size=8).hexdigest()
+
+
+def block_payload_nbytes(cfg: TransformerConfig, scfg: ServingConfig) -> int:
+    """Exact byte length of one exported block payload: the importer's
+    gate (a payload of any other length is a miss, never written). A
+    payload is every byte of one block, codes and scales, so this is
+    :func:`kv_block_bytes`."""
+    return kv_block_bytes(cfg, scfg)
+
+
+def stage_block_arrays(pools: List[Dict[str, torch.Tensor]],
+                       block: int) -> List[torch.Tensor]:
+    """The non-blocking half of :func:`export_block_bytes`: a device copy
+    of physical block ``block`` of every leaf, in (layer, sorted leaf name)
+    order, without reading it back. The copies are enqueued on the current
+    stream, behind every step already dispatched there (a micro-step
+    graph replays on it too), and they are new tensors: a later in-place
+    write into the pools cannot change what they hold."""
+    return [layer[name][block].clone()
+            for layer in pools for name in sorted(layer)]
+
+
+def staged_block_to_bytes(staged: List[torch.Tensor]) -> bytes:
+    """Read a :func:`stage_block_arrays` staging back as the payload
+    bytes, in one device-to-host copy. Every leaf goes through its raw
+    bytes (``view(torch.uint8)``), so bf16 and fp8, which numpy lacks,
+    export as they are stored."""
+    raw = torch.cat([leaf.reshape(-1).view(torch.uint8) for leaf in staged])
+    return raw.cpu().numpy().tobytes()
+
+
+def export_block_bytes(pools: List[Dict[str, torch.Tensor]],
+                       block: int) -> bytes:
+    """ONE physical block's bytes across every layer, in (layer, sorted
+    leaf name) order: codes and scale sidecars for quantized pools, raw
+    model-dtype values otherwise. Byte-identical to the JAX package's
+    export of the same pool contents; round-trips through
+    :func:`split_block_bytes` and :func:`write_block`."""
+    return staged_block_to_bytes(stage_block_arrays(pools, block))
+
+
+def _payload_leaves(cfg: TransformerConfig, scfg: ServingConfig):
+    """(name, dtype, shape) of each leaf of one layer's payload, in order."""
+    d_store = cfg.d_head // 2 if scfg.kv_dtype == "int4" else cfg.d_head
+    shape = (scfg.block_size, cfg.kv_heads, d_store)
+    if scfg.kv_dtype in QUANT_DTYPES:
+        code = kv_code_dtype(scfg.kv_dtype)
+        scale = (cfg.kv_heads,)
+        return (("k", code, shape), ("k_scale", torch.float32, scale),
+                ("v", code, shape), ("v_scale", torch.float32, scale))
+    return (("k", cfg.dtype, shape), ("v", cfg.dtype, shape))
+
+
+def split_block_bytes(data: bytes, cfg: TransformerConfig,
+                      scfg: ServingConfig
+                      ) -> Optional[List[Dict[str, torch.Tensor]]]:
+    """Inverse of :func:`export_block_bytes`: one payload as the per-layer
+    {leaf name: CPU tensor} list :func:`write_block` takes (shapes without
+    the leading n_blocks axis). Returns None — a miss, never an exception
+    — when the length does not match this config's layout (a foreign or
+    torn object). Each leaf is a writable copy of its bytes, viewed as
+    the pool's dtype (numpy has no bf16 or fp8)."""
+    if len(data) != block_payload_nbytes(cfg, scfg):
+        return None
+    out: List[Dict[str, torch.Tensor]] = []
+    offset = 0
+    for _ in range(cfg.n_layers):
+        layer = {}
+        for name, dtype, shape in _payload_leaves(cfg, scfg):
+            n = int(np.prod(shape)) * _itemsize(dtype)
+            raw = np.frombuffer(data, np.uint8, count=n, offset=offset)
+            layer[name] = torch.from_numpy(raw.copy()).view(dtype).reshape(
+                shape)
+            offset += n
+        out.append(layer)
+    return out
+
+
+def write_blocks(pools: List[Dict[str, torch.Tensor]], dsts,
+                 values: List[Dict[str, torch.Tensor]]) -> None:
+    """Write imported blocks IN PLACE: ``dsts`` (N,) physical block ids,
+    every ``values`` leaf with a leading N axis (the :func:`split_block_bytes`
+    leaves stacked). A byte copy through ``view(torch.uint8)`` (one index
+    write a leaf), so an imported block reads exactly as the publisher's
+    and the pool tensors the micro-step graphs hold stay the same
+    tensors. Unlike the JAX package, which pads the batch to
+    ``max_blocks_per_slot`` so that XLA compiles once, only the N real
+    rows are written."""
+    for pool, vals in zip(pools, values):
+        for name, arr in pool.items():
+            idx = torch.as_tensor(dsts, dtype=torch.int64, device=arr.device)
+            src = vals[name].to(arr.device, arr.dtype)
+            arr.view(torch.uint8)[idx] = src.view(torch.uint8)
+
+
+def write_block_payloads(pools: List[Dict[str, torch.Tensor]], dsts,
+                         payloads: List[bytes]) -> None:
+    """:func:`write_blocks` straight from payload bytes, each of
+    :func:`block_payload_nbytes` (the caller checks): the N payloads go to
+    the device in ONE copy, and each leaf's rows are then written from
+    their byte columns, in the payload's (layer, sorted leaf name) order.
+    The same bytes land where :func:`split_block_bytes` and
+    :func:`write_blocks` would put them, without a host copy a leaf."""
+    device = pools[0]["k"].device
+    raw = torch.from_numpy(
+        np.frombuffer(b"".join(payloads), np.uint8).reshape(
+            len(payloads), -1).copy()).to(device)
+    idx = torch.as_tensor(dsts, dtype=torch.int64, device=device)
+    offset = 0
+    for pool in pools:
+        for name in sorted(pool):
+            rows = pool[name].view(torch.uint8).view(pool[name].shape[0], -1)
+            n = rows.shape[1]
+            rows[idx] = raw[:, offset:offset + n]
+            offset += n
+
+
+def write_block(pools: List[Dict[str, torch.Tensor]], dst: int,
+                values: List[Dict[str, torch.Tensor]]) -> None:
+    """Write one imported block's :func:`split_block_bytes` values into
+    physical block ``dst`` of every layer, in place."""
+    write_blocks(pools, [dst], [{name: leaf[None] for name, leaf in
+                                 layer.items()} for layer in values])
+
+
 class BlockAllocator:
     """Host-side refcounted free list over the physical blocks (block 0 is
     scratch). ``alloc`` hands out blocks at refcount 1, shared-prefix
     mappings ``incref``, releases ``decref``; a block at refcount 0 returns
     to the free list unless the prefix cache ``retain``-ed it. Tracks the
-    high-water mark of referenced blocks."""
+    high-water mark of referenced blocks. A retained refcount-0 block may
+    also carry a ``demoted`` mark (its bytes have a host-tier copy, which
+    makes it eviction's first victim); ``incref`` cancels the mark.
+    Nothing marks a block until the host tier is ported (ROADMAP A9)."""
 
     def __init__(self, n_blocks: int):
         if n_blocks < 2:
@@ -420,6 +585,7 @@ class BlockAllocator:
         self._free = list(range(n_blocks - 1, SCRATCH_BLOCK, -1))
         self._ref: Dict[int, int] = {}     # block -> refcount (>= 1)
         self._retained: set = set()        # refcount-0 blocks the cache holds
+        self._demoted: set = set()         # retained blocks with a host copy
         self.high_water = 0
 
     @property
@@ -439,8 +605,30 @@ class BlockAllocator:
     def refcount(self, block: int) -> int:
         return self._ref.get(block, 0)
 
+    def is_free(self, block: int) -> bool:
+        return block in self._free
+
     def is_retained(self, block: int) -> bool:
         return block in self._retained
+
+    def is_demoted(self, block: int) -> bool:
+        return block in self._demoted
+
+    @property
+    def demoted(self) -> int:
+        """Retained refcount-0 blocks whose bytes also live on the host
+        tier: the instantly evictable set."""
+        return len(self._demoted)
+
+    def mark_demoted(self, block: int) -> None:
+        """Record that ``block``'s bytes now live on the host tier; only a
+        retained refcount-0 block qualifies."""
+        self._check(block)
+        if block not in self._retained or block in self._ref:
+            raise ValueError(
+                f"mark_demoted of block {block}: only retained "
+                f"refcount-0 blocks demote")
+        self._demoted.add(block)
 
     def _check(self, block: int) -> None:
         if not SCRATCH_BLOCK < block < self.n_blocks:
@@ -462,6 +650,7 @@ class BlockAllocator:
         self._check(block)
         if block in self._free:
             raise ValueError(f"incref of free block {block}")
+        self._demoted.discard(block)       # touched again: no longer cold
         self._ref[block] = self._ref.get(block, 0) + 1
         self.high_water = max(self.high_water, len(self._ref))
         return self._ref[block]
@@ -494,6 +683,7 @@ class BlockAllocator:
         if block not in self._retained:
             raise ValueError(f"release of unretained block {block}")
         self._retained.discard(block)
+        self._demoted.discard(block)
         if block not in self._ref:
             self._free.append(block)
 
@@ -531,6 +721,16 @@ class PrefixCache:
 
     def __len__(self) -> int:
         return len(self._by_hash)
+
+    def has(self, h: bytes) -> bool:
+        """Whether ``h`` is cached, without an incref (the prefetch path's
+        skip test)."""
+        return h in self._by_hash
+
+    def cached_block(self, h: bytes) -> Optional[int]:
+        """Physical block registered under ``h``, or None; no incref, no
+        LRU touch."""
+        return self._by_hash.get(h)
 
     def _touch(self, block: int) -> None:
         self._tick += 1
@@ -574,14 +774,55 @@ class PrefixCache:
             new += 1
         return new
 
+    def adopt(self, h: bytes, block: int) -> bool:
+        """Register an ALLOCATED block imported from the fleet KV plane
+        under the publisher's chained hash ``h`` (equal hashes mean equal
+        token prefixes, so the imported bytes are the KV a local prefill
+        would have written, up to the quantization contract). The block is
+        retained like any registered one; the importing slot's reference
+        comes from its allocation. Returns False, adopting nothing, when
+        ``h`` is already cached."""
+        if h in self._by_hash:
+            self._touch(self._by_hash[h])
+            return False
+        self._by_hash[h] = block
+        self._hash_of[block] = h
+        self._alloc.retain(block)
+        self._touch(block)
+        return True
+
+    def _ref0_cached(self):
+        """(last touch, block) of every retained refcount-0 cached block."""
+        return [(t, b) for b, t in self._lru.items()
+                if self._alloc.refcount(b) == 0
+                and self._alloc.is_retained(b)]
+
+    def hot_entries(self, limit: Optional[int] = None
+                    ) -> List[Tuple[bytes, int]]:
+        """The publishable set: (hash, block) of every retained refcount-0
+        cached block, most recently touched first. Such blocks are frozen
+        (no slot writes them without a copy first), so a publish reads
+        exact bytes."""
+        entries = sorted(self._ref0_cached(), reverse=True)[:limit]
+        return [(self._hash_of[b], b) for _, b in entries]
+
+    def cold_entries(self, limit: int) -> List[Tuple[bytes, int]]:
+        """Demotion candidates: (hash, block) of up to ``limit`` retained
+        refcount-0 cached blocks not yet demoted, coldest first."""
+        entries = sorted((t, b) for t, b in self._ref0_cached()
+                         if not self._alloc.is_demoted(b))
+        return [(self._hash_of[b], b) for _, b in entries[:limit]]
+
     def evict(self, n: int) -> int:
-        """Evict up to ``n`` refcount-0 cached blocks back to the free list
-        in LRU order; referenced blocks are never touched. Returns how many
-        were reclaimed."""
-        victims = sorted((t, b) for b, t in self._lru.items()
+        """Evict up to ``n`` refcount-0 cached blocks back to the free list,
+        demoted blocks first (their bytes survive on the host tier), then
+        in LRU order; referenced blocks are never touched. Returns how
+        many were reclaimed."""
+        victims = sorted((not self._alloc.is_demoted(b), t, b)
+                         for b, t in self._lru.items()
                          if self._alloc.refcount(b) == 0)
         freed = 0
-        for _, b in victims[:n]:
+        for _, _, b in victims[:n]:
             del self._by_hash[self._hash_of.pop(b)]
             del self._lru[b]
             self._alloc.release(b)

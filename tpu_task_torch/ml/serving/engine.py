@@ -70,12 +70,25 @@ for), the plain version on the CPU.
   on): every dispatch is timed through its readback, and
   ``stats()["goodput"]`` gives the host-gap share, dispatches per token,
   the preemption- and rejection-discounted goodput ratio and MFU.
+- **Fleet KV** (``kv_fleet=``, a duck-typed client such as
+  :class:`~tpu_task_torch.serve.kvfleet.FleetKvClient`; needs the prefix
+  cache): an admission imports the full blocks its local cache missed
+  from blocks other replicas published, by content hash, and writes them
+  into the pools in place (:meth:`ServingEngine._fleet_import`) instead of
+  prefilling them; :meth:`ServingEngine.prefetch_chain` does the same
+  ahead of any request, and :meth:`ServingEngine.stage_cached_blocks` /
+  :meth:`ServingEngine.export_cached_blocks` give the hot blocks to
+  publish. Payloads are the JAX package's bytes, so replicas of both
+  packages share one bucket. The draft's pools are never imported into:
+  its catch-up re-ingests the context from position 0, as after a local
+  prefix hit.
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
 here, naming its ROADMAP item): bucketed prefill, the async loop, LoRA
 (so any ``adapter_id`` raises), the host tier, ``adopt_params`` and with
-it every param generation but 0, meshes. The obs registry and spans are
-left out too."""
+it every param generation but 0, meshes. ``stats()`` carries their keys
+at the values of an engine that has them off. The obs registry and spans
+are left out too."""
 
 from __future__ import annotations
 
@@ -84,7 +97,7 @@ import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,11 +116,18 @@ from tpu_task_torch.ml.serving.cache import (
     BlockAllocator,
     PrefixCache,
     ServingConfig,
+    block_payload_nbytes,
+    chain_block_hashes,
     copy_block,
+    dense_cache_bytes,
     fp8_supported,
     init_pools,
+    kv_shard_bytes,
     kv_token_bytes,
     paged_cache_bytes,
+    stage_block_arrays,
+    staged_block_to_bytes,
+    write_block_payloads,
 )
 from tpu_task_torch.ml.serving.model import (
     chunked_step_greedy,
@@ -229,13 +249,16 @@ class ServingEngine:
     tokens, :meth:`step` → one scheduler iteration, :meth:`drain` → run to
     empty. Runs on ``device`` — CUDA unless the caller passes
     ``device="cpu"``; params are moved there. ``rng`` is the raw (2,) base
-    key a request's default key folds its id into."""
+    key a request's default key folds its id into. ``kv_fleet`` is a fleet
+    KV client (duck-typed: ``bind``, ``lookup_chain``, ``fetch``), bound
+    here to this engine's pool layout."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  scfg: Optional[ServingConfig] = None,
                  rng: Optional[jrandom.KeyLike] = None, device=None,
                  draft_params: Optional[Params] = None,
-                 draft_cfg: Optional[TransformerConfig] = None):
+                 draft_cfg: Optional[TransformerConfig] = None,
+                 kv_fleet=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg = scfg or ServingConfig()
@@ -254,6 +277,17 @@ class ServingEngine:
         self.allocator = BlockAllocator(scfg.n_blocks)
         self._pcache = (PrefixCache(self.allocator, scfg.block_size)
                         if scfg.prefix_cache else None)
+        self._fleet = kv_fleet
+        if kv_fleet is not None:
+            if not scfg.prefix_cache:
+                raise ValueError(
+                    "kv_fleet needs prefix_cache=True — imported blocks "
+                    "are adopted INTO the local prefix cache")
+            kv_fleet.bind(cfg, scfg)
+        self.fleet_hit_blocks = 0
+        self.fleet_miss_blocks = 0
+        self.fleet_import_requests = 0
+        self.fleet_prefetch_blocks = 0
         #: Which paged attention the fused steps run, resolved once here
         #: and recorded in stats().
         self.decode_impl = resolve_decode_impl(scfg, self.device)
@@ -660,6 +694,11 @@ class ServingEngine:
             plen = len(ctx)
             cached = (self._pcache.lookup(ctx)              # increfs
                       if self._pcache is not None else [])
+            if self._fleet is not None:
+                # The blocks the local cache missed may exist in the
+                # fleet: import them by content hash instead of prefilling
+                # them (each lands in the local cache too).
+                cached += self._fleet_import(ctx, len(cached))
             # The last prompt token is ALWAYS recomputed (its logits seed
             # the first sample), so a whole-prompt hit caps at plen - 1 —
             # and that one write lands inside the final shared block, the
@@ -1321,10 +1360,124 @@ class ServingEngine:
         req.finish_t = time.monotonic()
         self._release(slot)
 
+    # -- fleet KV --------------------------------------------------------------
+
+    def _fleet_import(self, ctx: np.ndarray, have: int) -> List[int]:
+        """Import the consecutive full-block tail of ``ctx`` that the local
+        prefix cache missed (``have`` = local hit depth in blocks) from the
+        fleet KV plane. Any failure (an index hole, a missing or torn
+        object, pool pressure) stops the import, and the rest of the tail
+        prefills locally. Returns the imported blocks in chain order, each
+        at the admitting slot's reference."""
+        want = chain_block_hashes(ctx, self.scfg.block_size)[have:]
+        if not want:
+            return []
+        imported = self._import_hash_chain(want)
+        self.fleet_hit_blocks += len(imported)
+        self.fleet_miss_blocks += len(want) - len(imported)
+        if imported:
+            self.fleet_import_requests += 1
+        return imported
+
+    def _import_hash_chain(self, want: List[bytes]) -> List[int]:
+        """Fetch, write and adopt the leading run of ``want`` (consecutive
+        chained hashes) that the fleet index advertises: the payloads go
+        to the device in one copy and into freshly allocated blocks, in
+        place, with one index write per pool leaf
+        (:func:`~tpu_task_torch.ml.serving.cache.write_block_payloads`),
+        and each block is adopted under its hash. Returns the imported
+        blocks (each at allocation refcount 1 and cache-retained). Chains clamp to ``max_blocks_per_slot``, as in
+        the JAX engine. The host tier's rung, which the JAX engine tries
+        before the bucket, comes with ROADMAP A9."""
+        want = want[:self.scfg.max_blocks_per_slot]
+        if not want or self._fleet is None:
+            return []
+        try:
+            n_hit = self._fleet.lookup_chain(want)
+        except OSError:
+            n_hit = 0
+        nbytes = block_payload_nbytes(self.cfg, self.scfg)
+        payloads: List[Tuple[bytes, bytes]] = []
+        for h in want[:n_hit]:
+            data = self._fleet.fetch(h)
+            if data is None:
+                break             # stale index entry → local prefill
+            if len(data) != nbytes:
+                break             # foreign or torn payload → local prefill
+            payloads.append((h, data))
+        imported: List[int] = []
+        for _ in payloads:
+            got = self._reserve(1, 0)
+            if got is None:
+                break             # pool pressure → prefill what is left
+            imported.append(got[0])
+        payloads = payloads[:len(imported)]
+        if imported:
+            t0 = time.perf_counter()
+            write_block_payloads(self.pools, imported,
+                                 [data for _, data in payloads])
+            self.goodput.program(time.perf_counter() - t0)
+            for (h, _), block in zip(payloads, imported):
+                self._pcache.adopt(h, block)
+        return imported
+
+    def prefetch_chain(self, hashes: List[bytes]) -> int:
+        """Import a published chain into the LOCAL prefix cache before any
+        request needs it (a router's next-turn hint). Leading hashes
+        already cached are skipped; imported blocks stay cached at
+        refcount 0, evictable like any other. Best effort: every failure
+        gives a shorter (possibly empty) prefetch. Returns the blocks
+        imported."""
+        if self._fleet is None or self._pcache is None or not hashes:
+            return 0
+        have = 0
+        for h in hashes:
+            if not self._pcache.has(h):
+                break
+            have += 1
+        imported = self._import_hash_chain(list(hashes[have:]))
+        for block in imported:
+            # adopt() retained it: dropping the allocation's reference
+            # leaves it cached at refcount 0.
+            self.allocator.decref(block)
+        self.fleet_prefetch_blocks += len(imported)
+        return len(imported)
+
+    def stage_cached_blocks(self, limit: int = 16,
+                            skip=()) -> List[Tuple[str, List[torch.Tensor]]]:
+        """The non-blocking half of a publish: up to ``limit`` hot
+        refcount-0 cached blocks, hottest first and not in ``skip``, as
+        (hash hex, device copies of the block). Such blocks are frozen, so
+        the copies hold exact bytes; read them back with
+        ``cache.staged_block_to_bytes``."""
+        if self._pcache is None:
+            return []
+        out: List[Tuple[str, List[torch.Tensor]]] = []
+        for h, block in self._pcache.hot_entries():
+            if len(out) >= limit:
+                break
+            hash_hex = h.hex()
+            if hash_hex in skip:
+                continue
+            out.append((hash_hex, stage_block_arrays(self.pools, block)))
+        return out
+
+    def export_cached_blocks(self, limit: int = 16,
+                             skip=()) -> List[Tuple[str, bytes]]:
+        """:meth:`stage_cached_blocks` read back: (hash hex, payload)."""
+        return [(hash_hex, staged_block_to_bytes(staged))
+                for hash_hex, staged in self.stage_cached_blocks(
+                    limit=limit, skip=skip)]
+
     def stats(self) -> dict:
         """Scheduler counters, the KV cost model, and the process-wide
         paged-attention launch counts (both kernels and the plain
-        version)."""
+        version). Every key of the JAX engine's ``stats()`` is here; the
+        groups of what the port does not run yet (tp/ep meshes, the async
+        loop, the host tier, LoRA) hold an engine's values with them off."""
+        n_blocks, high = self.scfg.n_blocks, self.allocator.high_water
+        in_flight = collections.Counter(
+            r.generation for r in self._requests.values() if r.status != DONE)
         return {
             "decode_impl": self.decode_impl,
             # The draft's paged attention: the target's, or None (spec off).
@@ -1338,9 +1491,16 @@ class ServingEngine:
             # Graph captures and replays of the K-step programs (CUDA).
             "step_graph": self._micro.stats(),
             "chunk_steps": self.chunk_steps,
+            # The async loop is not ported (ROADMAP A5).
+            "overlap": False,
+            "prefill_slots": self.scfg.prefill_slots,
+            "overlap_flushes": 0,
             "prefills": self.prefills,
             "prefill_chunks": self.prefill_chunks,
             "recompute_preemptions": self.preemption_count,
+            # One device: meshes come with ROADMAP A14.
+            "tp": 1,
+            "ep": 1,
             "kv_quant": {
                 "kv_dtype": self.scfg.kv_dtype
                 or str(self.cfg.dtype).replace("torch.", ""),
@@ -1351,9 +1511,15 @@ class ServingEngine:
                     self.max_quant_error if self.debug else None,
             },
             "kv_bytes_per_token": kv_token_bytes(self.cfg, self.scfg),
-            "kv_blocks_high_water": self.allocator.high_water,
+            "kv_blocks_high_water": high,
+            "kv_high_water_bytes": paged_cache_bytes(self.cfg, self.scfg,
+                                                     high),
             "kv_pool_bytes": paged_cache_bytes(self.cfg, self.scfg,
-                                               self.scfg.n_blocks),
+                                               n_blocks),
+            "kv_pool_bytes_per_shard": kv_shard_bytes(self.cfg, self.scfg,
+                                                      n_blocks, 1),
+            "kv_dense_worst_case_bytes": dense_cache_bytes(
+                self.cfg, self.scfg.slots, self.scfg.max_len),
             "prefix_cache": {
                 "enabled": self._pcache is not None,
                 "miss_blocks": self.prefix_miss_blocks,
@@ -1366,6 +1532,29 @@ class ServingEngine:
                                   if self._pcache else 0),
                 "evictions": self._pcache.evictions if self._pcache else 0,
             },
+            # The host tier is not ported (ROADMAP A9).
+            "tiering": {
+                "enabled": False,
+                "host_offload_blocks": self.scfg.host_offload_blocks,
+                "demoted_blocks": 0,
+                "promoted_blocks": 0,
+                "demoted_resident": self.allocator.demoted,
+                "pending_demotions": 0,
+            },
+            "kvfleet": {
+                "enabled": self._fleet is not None,
+                # Admission imports: blocks taken from (or missed in) the
+                # fleet plane instead of a local prefill.
+                "hit_blocks": self.fleet_hit_blocks,
+                "miss_blocks": self.fleet_miss_blocks,
+                "import_requests": self.fleet_import_requests,
+                "prefetch_blocks": self.fleet_prefetch_blocks,
+                # Publisher side, owned by the client.
+                "published_blocks": getattr(
+                    self._fleet, "published_blocks", 0),
+                "bytes_shipped": getattr(self._fleet, "bytes_shipped", 0),
+                "bytes_fetched": getattr(self._fleet, "bytes_fetched", 0),
+            },
             "spec": {
                 "k": self.scfg.spec_k,
                 "rounds": self.spec_rounds,
@@ -1374,6 +1563,25 @@ class ServingEngine:
                 "accept_rate": round(
                     self.spec_accepted / self.spec_proposed, 4)
                 if self.spec_proposed else 0.0,
+            },
+            "generation": self.generation,
+            # LoRA (ROADMAP A7) and weight hot-swap (A8) are not ported:
+            # one generation, no adapters; "generations" counts the
+            # in-flight streams of each.
+            "adapters": {
+                "enabled": False,
+                "rank": self.scfg.lora_rank,
+                "pool_blocks": self.scfg.n_adapter_blocks,
+                "registered": 0,
+                "resident": 0,
+                "loads": 0,
+                "evictions": 0,
+                "pool_high_water": 0,
+                "param_swaps": 0,
+                "stale_generation_streams": sum(
+                    c for g, c in in_flight.items() if g != self.generation),
+                "generations": {str(g): c
+                                for g, c in sorted(in_flight.items())},
             },
             "attention_launches": {
                 "cuda": pa.paged_decode_attention.launches,

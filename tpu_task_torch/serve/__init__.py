@@ -1,1 +1,2 @@
-"""Serving replicas: engine presets and the engine builder."""
+"""Serving replicas: engine presets, the engine builder and the replica
+half of the fleet KV plane."""

@@ -34,13 +34,16 @@ SERVING_PRESETS: Dict[str, dict] = {
 
 
 def build_engine(preset: str = "tiny", serving: Optional[dict] = None,
-                 rng_seed: int = 0, device=None) -> ServingEngine:
+                 rng_seed: int = 0, device=None,
+                 kv_client=None) -> ServingEngine:
     """A ServingEngine from a preset name: same name → same weights, same
     config, same streams, in any process and in either package. Weights
     are the JAX package's, bit for bit: ``init_from_key`` draws them at
     fp32 from ``PRNGKey(seed)`` of the preset's seed on the CPU (so they
     are the same on every device) and the engine moves them to ``device``
-    — CUDA unless the caller passes ``device="cpu"``."""
+    — CUDA unless the caller passes ``device="cpu"``. ``kv_client`` a
+    :class:`~tpu_task_torch.serve.kvfleet.FleetKvClient` for fleet-wide
+    prefix-cache sharing (None = replica-local cache only)."""
     device = resolve_device(device)
     if preset not in MODEL_PRESETS:
         raise ValueError(
@@ -52,4 +55,5 @@ def build_engine(preset: str = "tiny", serving: Optional[dict] = None,
     knobs = dict(SERVING_PRESETS[preset])
     knobs.update(serving or {})
     return ServingEngine(params, cfg, ServingConfig(**knobs),
-                         rng=jrandom.PRNGKey(rng_seed), device=device)
+                         rng=jrandom.PRNGKey(rng_seed), device=device,
+                         kv_fleet=kv_client)
