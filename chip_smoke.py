@@ -4,8 +4,8 @@ card: builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
 K-token micro-steps, speculative decoding, drain and resume, blocks
-imported from the fleet KV plane), and trains the flagship for a few
-steps.
+imported from the fleet KV plane, the HTTP replica), and trains the
+flagship for a few steps.
 
     python3 chip_smoke.py
 
@@ -229,12 +229,45 @@ start); any failed check raises and the script exits non-zero:
              request holds its first token against the publisher's,
              tokens/s, launches, and how many streams equal the
              publisher's (reported).
+25. parity replica — the HTTP replica (``ReplicaServer``) on ``micro``
+             and ``tiny`` at fp32 and int8 pools, through ``"cuda"``,
+             ``"pipelined"`` and ``"reference"``, driven over loopback by
+             this script's own ``http.client`` code: a wave of greedy and
+             keyed-sampled requests with trace and SLA headers, streamed
+             by offset, equals the same engine driven directly; ``/metrics``
+             parses and ``/obs`` holds one queue, prefill and decode span
+             a request under its header's trace; replica B's ``POST
+             /prefetch`` imports the chain A's ship thread published; the
+             wave again on A, ``POST /drain`` once every request holds
+             tokens, a 429 with ``Retry-After: 0``, and the records
+             re-dispatched to B with their tokens and key: the joined
+             streams equal the direct ones; two cases take a ``/profile``
+             capture that must name their kernel. Then ``python -m
+             tpu_task_torch.serve.replica --preset tiny --kv-bucket`` as its
+             own process on the card: ``endpoint.json``, a wave served,
+             SIGTERM with it twice more in flight, ``inflight.json``, exit
+             0, and the records resumed here with equal streams. Gates:
+             the engine's kernel ran and nothing else, no ``replica.errors``,
+             no drain nobody asked for, no 500.
+26. serve replica — the flagship engine of phase 6 (bf16, tile kernel)
+             and of phase 14 (int8, pipelined kernel), each with an obs
+             handle, warmed up and wrapped in ``ReplicaServer(engine=)``:
+             16 client threads submit phase 6's seed-2 wave over HTTP and
+             long-poll their streams while a probe times the replica's
+             lock every 10 ms: tokens/s against phase 6's (14's) direct
+             median, client time to first token and inter-token gap (p50,
+             p99), the engine's ``engine.ttft_s`` quantiles from
+             ``/metrics``, the lock waits, launches, and how many streams
+             equal phase 6's wave (reported). For bf16, first the seed-3
+             and seed-4 waves driven directly by the engine and an obs-off
+             twin in turns (off, on, on, off). Gates as phase 25's, phase 6's launch
+             gates, and every request ends with 64 tokens.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers; the paged rows and the combine's add
-their launches in phases 15, 17, 19, 20, 22 and 24 and the scoring
-step's timing),
+their launches in phases 15, 17, 19, 20, 22, 24, 25 and 26 and the
+scoring step's timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1042,19 +1075,27 @@ class StepRecorder:
         return out
 
 
-def _submit_wave(engine, seed: int, max_new: int = 64):
-    """16 requests of 256-1024 prompt tokens and ``max_new`` new tokens:
-    12 greedy, 4 sampled at temperature 0.8 / top_p 0.9 with raw keys."""
+def _wave_requests(vocab: int, seed: int):
+    """The serve wave's 16 requests as (prompt, sampling kwargs): 256-1024
+    prompt tokens, 12 greedy, 4 sampled at temperature 0.8 / top_p 0.9
+    with raw keys."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(256, 1025, size=16)
-    rids = []
+    wave = []
     for i, n in enumerate(lengths):
-        prompt = rng.integers(0, engine.cfg.vocab_size, size=int(n))
+        prompt = rng.integers(0, vocab, size=int(n))
         kw = ({"temperature": 0.8, "top_p": 0.9,
                "key": np.array([1000 + 100 * seed + i, i], np.uint32)}
               if i % 4 == 3 else {})
-        rids.append(engine.submit(prompt, max_new, **kw))
-    return rids, int(lengths.sum())
+        wave.append((prompt, kw))
+    return wave
+
+
+def _submit_wave(engine, seed: int, max_new: int = 64):
+    """The serve wave (``_wave_requests``) with ``max_new`` new tokens."""
+    wave = _wave_requests(engine.cfg.vocab_size, seed)
+    rids = [engine.submit(prompt, max_new, **kw) for prompt, kw in wave]
+    return rids, sum(len(prompt) for prompt, _ in wave)
 
 
 def _timed_drain(engine, seed: int, max_new: int = 64,
@@ -1286,12 +1327,13 @@ def phase_serve(device, smi: str, bucket: str) -> tuple:
     """The main path: the flagship with bf16 pools through the tile
     kernel; then the engine publishes its hot blocks into ``bucket`` for
     phase 24. Returns the kernel's and the combine kernel's launch counts
-    over the timed waves, the waves' streams by seed, and the publisher's
-    numbers (``publish_hot``)."""
+    over the timed waves, the waves' streams by seed, the publisher's
+    numbers (``publish_hot``) and the waves' median tokens/s."""
     engine, launches, line, streams, runs = serve_flagship(device, smi,
                                                            "serve")
     published = publish_hot(engine, bucket, "serve", runs[KVFLEET_SEED])
-    return launches, line["combine_launches"], streams, published
+    return (launches, line["combine_launches"], streams, published,
+            line["tokens_per_s_median"])
 
 
 def phase_serve_quant(device, smi: str, bucket: str) -> tuple:
@@ -1300,8 +1342,8 @@ def phase_serve_quant(device, smi: str, bucket: str) -> tuple:
     blocks into ``bucket``), then one shorter wave each of fp8 and int4
     through the pipelined kernel and int8 through the tile kernel. Returns
     the pipelined kernel's and its combine kernel's launch counts over the
-    three timed int8 waves, those waves' streams by seed, and the
-    publisher's numbers."""
+    three timed int8 waves, those waves' streams by seed, the publisher's
+    numbers and the waves' median tokens/s."""
     from tpu_task_torch.ml.serving.cache import ServingConfig, \
         paged_cache_bytes
     from tpu_task_torch.ml.serving.engine import ServingEngine
@@ -1335,7 +1377,8 @@ def phase_serve_quant(device, smi: str, bucket: str) -> tuple:
     if not all(wave_ok(r) for r in short):
         raise AssertionError(f"a short quantized wave failed its gates: "
                              f"{short}")
-    return launches, line["combine_launches"], streams, published
+    return (launches, line["combine_launches"], streams, published,
+            line["tokens_per_s_median"])
 
 
 def wave_ok(run: dict) -> bool:
@@ -3770,6 +3813,633 @@ def phase_serve_kvfleet(device, smi: str, bucket: str, published: dict,
                                   decode_impl="pipelined")}
 
 
+# -- the HTTP replica (phases 25 and 26) ---------------------------------------
+
+class HttpClient:
+    """This script's own loopback client of a replica: one keep-alive
+    connection, JSON in and out, every status it was answered kept (a 500
+    anywhere fails the phase)."""
+
+    def __init__(self, url: str, timeout: float = 300.0):
+        import http.client
+        from urllib.parse import urlsplit
+
+        parts = urlsplit(url)
+        self._conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                                timeout=timeout)
+        self.statuses = []
+
+    def call(self, method: str, path: str, body=None, headers=None):
+        """(status, headers, body): JSON parsed, Prometheus text as is."""
+        data = None if body is None else json.dumps(body).encode()
+        self._conn.request(method, path, body=data, headers={
+            "Content-Type": "application/json", **(headers or {})})
+        response = self._conn.getresponse()
+        raw = response.read()
+        self.statuses.append(response.status)
+        text = response.getheader("Content-Type", "").startswith("text/plain")
+        return (response.status, dict(response.getheaders()),
+                raw.decode() if text else json.loads(raw))
+
+    def stream(self, rid: int, offset: int = 0, times=None, calls=None):
+        """Long-poll ``/stream`` from ``offset`` until the request is done
+        or the replica drains: (the tokens past ``offset``, the last
+        answer). ``times`` gets each token's arrival, ``calls`` one entry a
+        poll."""
+        tokens = []
+        while True:
+            status, _, body = self.call(
+                "GET", f"/stream?rid={rid}&offset={offset + len(tokens)}"
+                       f"&wait_ms=2000")
+            if status != 200:
+                raise AssertionError(f"/stream answered {status}: {body}")
+            if times is not None:
+                times.extend([time.perf_counter()] * len(body["tokens"]))
+            if calls is not None:
+                calls.append(1)
+            tokens += body["tokens"]
+            if body["status"] == "done" or body["draining"]:
+                return tokens, body
+
+    def close(self) -> None:
+        self._conn.close()
+
+
+def parse_prometheus(text: str) -> dict:
+    """Sample name (with labels) → value, and under ``"# TYPE"`` each
+    metric's type; raises on a malformed line."""
+    samples, types = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            samples[key] = float(value)
+    samples["# TYPE"] = types
+    return samples
+
+
+def prometheus_ok(samples: dict) -> bool:
+    """Every histogram's buckets are cumulative and its ``+Inf`` bucket is
+    its ``_count``."""
+    for base, kind in samples["# TYPE"].items():
+        if kind != "histogram":
+            continue
+        count = samples.get(base + "_count")
+        buckets = sorted((float(k.split('le="')[1][:-2]), v)
+                         for k, v in samples.items()
+                         if k.startswith(base + "_bucket{")
+                         and "+Inf" not in k)
+        inf = samples.get(base + '_bucket{le="+Inf"}')
+        if inf != count or any(b[1] > a[1] for b, a in
+                               zip(buckets, buckets[1:])) \
+                or (buckets and buckets[-1][1] > count):
+            return False
+    return True
+
+
+def prometheus_quantile(before: dict, after: dict, name: str,
+                        q: float) -> float:
+    """The upper bound (``le``) of the bucket that holds quantile ``q`` of
+    what histogram ``name`` observed between two scrapes of ``/metrics``."""
+    def buckets(samples):
+        return {float(k.split('le="')[1][:-2]): v for k, v in samples.items()
+                if k.startswith(f"tpu_task_{name}_bucket{{")
+                and "+Inf" not in k}
+
+    was, now = buckets(before), buckets(after)
+    count = after[f"tpu_task_{name}_count"] \
+        - before.get(f"tpu_task_{name}_count", 0.0)
+    # cumulative counts: a bound absent in a scrape holds the last one below
+    for le in sorted(now):
+        below = [v for b, v in was.items() if b <= le]
+        if now[le] - (max(below) if below else 0.0) >= q * count:
+            return le
+    return math.inf
+
+
+def replica_faults(replica, asked_to_drain: bool) -> list:
+    """What phases 25 and 26 fail on besides their numbers: an error the
+    replica counted, a drain nobody asked for, a step loop that died."""
+    errors = 0.0
+    if replica.obs is not None:
+        errors = replica.obs.metrics.snapshot().get(
+            "replica.errors", {}).get("value", 0.0)
+    faults = []
+    if errors:
+        faults.append(f"replica.errors {errors}")
+    if replica.draining and not asked_to_drain:
+        faults.append("a drain nobody asked for")
+    if replica.step_error is not None:
+        faults.append(f"the step loop died:\n{replica.step_error}")
+    return faults
+
+
+#: Phase 25's configurations: (preset, kv_dtype, decode_impl).
+REPLICA_CASES = tuple((preset, kv_dtype, impl)
+                      for preset in ("micro", "tiny")
+                      for kv_dtype in (None, "int8")
+                      for impl in ("cuda", "pipelined", "reference"))
+#: The cases whose replica also takes a ``/profile`` capture.
+PROFILED = {("tiny", None, "cuda"), ("tiny", "int8", "pipelined")}
+
+
+def _replica_wave(vocab: int) -> list:
+    """Phase 25's requests as ``/submit`` bodies: six prompts of 3-13
+    tokens, 24 new tokens each, every other one sampled, each with the
+    raw key a router would send."""
+    rng = np.random.default_rng(25)
+    wave = []
+    for i in range(6):
+        body = {"prompt": rng.integers(0, vocab, size=int(
+                    rng.integers(3, 14))).tolist(),
+                "max_new_tokens": 24, "key": [250 + i, 25]}
+        if i % 2:
+            body.update(temperature=0.8, top_p=0.9)
+        wave.append(body)
+    return wave
+
+
+def direct_streams(engine, wave: list) -> list:
+    """``wave`` (``/submit`` bodies) through ``engine`` driven directly."""
+    rids = [engine.submit(b["prompt"], b["max_new_tokens"],
+                          temperature=b.get("temperature", 0.0),
+                          top_p=b.get("top_p"), key=b["key"])
+            for b in wave]
+    out = engine.drain(max_steps=5000)
+    return [out[r] for r in rids]
+
+
+def profile_kernels(client, replica, wave: list, impl: str) -> dict:
+    """``GET /profile?ms=200`` while the replica serves ``wave`` again and
+    again: the capture's Chrome trace and the paged kernels it names."""
+    status, _, body = client.call("GET", "/profile?ms=200")
+    if status != 200:
+        raise AssertionError(f"/profile answered {status}: {body}")
+    while replica._profile_thread.is_alive():
+        for rid in [client.call("POST", "/submit", b)[2]["rid"]
+                    for b in wave]:
+            client.stream(rid)
+    path = Path(body["dir"]) / "trace-cuda.json"
+    names = [e.get("name", "") for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"]
+    return dict(profile_trace=path.name, profile_kernels=len(names),
+                profile_walks=sum(any(w in n for w in WALK_NAMES[impl])
+                                  for n in names),
+                profile_combines=sum(COMBINE_NAME in n for n in names))
+
+
+def parity_replica_run(preset: str, kv_dtype, impl: str, device,
+                       root: str) -> dict:
+    """One configuration of phase 25: the wave driven directly, then over
+    HTTP through replica A (trace and SLA headers, streamed by offset);
+    ``/metrics`` and ``/obs``; A's published blocks prefetched by replica
+    B; the wave again on A, drained once every request holds tokens and
+    re-dispatched to B with its tokens and key; a 429 while draining;
+    ``/profile`` where the case is in PROFILED. Both replicas share a
+    fresh bucket under ``root``."""
+    import tempfile
+
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import chain_block_hashes
+    from tpu_task_torch.obs import SLA_HEADER, TRACE_HEADER, \
+        format_sla_header
+    from tpu_task_torch.serve.kvfleet import FleetKvClient
+    from tpu_task_torch.serve.replica import MODEL_PRESETS, \
+        SERVING_PRESETS, ReplicaServer, build_engine
+    from tpu_task_torch.storage.backends import LocalBackend
+
+    serving = {"decode_impl": impl}
+    if kv_dtype:
+        serving["kv_dtype"] = kv_dtype
+    wave = _replica_wave(MODEL_PRESETS[preset]["vocab_size"])
+    want = direct_streams(build_engine(preset, serving=serving,
+                                       device=device), wave)
+    backend = LocalBackend(tempfile.mkdtemp(dir=root))
+    clients = [FleetKvClient(backend, name, refresh_interval=0.0)
+               for name in ("a", "b")]
+    a, b = (ReplicaServer(preset=preset, serving=serving, device=device,
+                          kv_client=client, kv_publish_every=1,
+                          profile_dir=str(Path(root) / "profiles"))
+            for client in clients)
+    pa.reset_launch_counts()
+    a.start()
+    b.start()
+    ca, cb = HttpClient(a.url), HttpClient(b.url)
+    line = dict(preset=preset, kv_dtype=kv_dtype or "float32", impl=impl)
+    try:
+        headers = [{TRACE_HEADER: f"{0x25 + i:016x}:{0x250 + i:016x}",
+                    SLA_HEADER: format_sla_header(
+                        ("premium", "standard", "best_effort")[i % 3],
+                        600_000.0)} for i in range(len(wave))]
+        rids = [ca.call("POST", "/submit", body, head)[2]["rid"]
+                for body, head in zip(wave, headers)]
+        got = [ca.stream(rid)[0] for rid in rids]
+        line["http_streams_equal_direct"] = sum(
+            g == w for g, w in zip(got, want))
+
+        _, _, text = ca.call("GET", "/metrics")
+        samples = parse_prometheus(text)
+        _, _, obs = ca.call("GET", "/obs")
+        phases = {}
+        for span, head in ((s, h) for s in obs["spans"]
+                           for h in headers
+                           if s["name"].startswith("engine.")
+                           and s["trace_id"] == h[TRACE_HEADER][:16]):
+            phases.setdefault(span["attrs"]["rid"], []).append(
+                (span["name"], span["parent_id"] == head[TRACE_HEADER][17:]))
+        line.update(
+            metrics_samples=len(samples) - 1,
+            metrics_ok=prometheus_ok(samples) and samples.get(
+                "tpu_task_engine_ttft_s_count", 0) >= len(wave),
+            obs_spans_per_request_ok=all(sorted(phases.get(rid, [])) == [
+                ("engine.decode", True), ("engine.prefill", True),
+                ("engine.queue", True)] for rid in rids))
+
+        bs = {**SERVING_PRESETS[preset], **serving}["block_size"]
+        prompt = max(wave, key=lambda body: len(body["prompt"]))["prompt"]
+        chain = [h.hex() for h in chain_block_hashes(np.asarray(prompt), bs)]
+        deadline = time.monotonic() + 30
+        while not set(chain) <= set(clients[0]._published) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        imported = cb.call("POST", "/prefetch", {"hashes": chain})[2]
+        line.update(chain_blocks=len(chain),
+                    published_blocks=clients[0].published_blocks,
+                    prefetch_imported=imported["imported"])
+
+        rids = [ca.call("POST", "/submit", body)[2]["rid"] for body in wave]
+        for rid in rids:
+            ca.call("GET", f"/stream?rid={rid}&offset=0&wait_ms=2000")
+        drain = ca.call("POST", "/drain", {})
+        busy = ca.call("POST", "/submit", wave[0])
+        exported = ca.call("GET", "/export")[2]["inflight"]
+        prefixes = [ca.stream(rid)[0] for rid in rids]
+        joined = []
+        for body, prefix in zip(wave, prefixes):
+            if len(prefix) < body["max_new_tokens"]:
+                rid = cb.call("POST", "/submit",
+                              {**body, "tokens": prefix})[2]["rid"]
+                prefix = prefix + cb.stream(rid, offset=len(prefix))[0]
+            joined.append(prefix)
+        line.update(
+            drain_status=drain[0], exported_records=len(exported),
+            cut_mid_stream=sum(0 < len(p) < 24 for p in prefixes),
+            joined_streams_equal=sum(j == w for j, w in zip(joined, want)),
+            busy_status=busy[0], busy_retry_after=busy[1].get("Retry-After"),
+            busy_draining=busy[2].get("draining"))
+        if (preset, kv_dtype, impl) in PROFILED:    # A drains: B serves
+            line.update(profile_kernels(cb, b, wave, impl))
+    finally:
+        for replica in (a, b):
+            replica.stop()
+        ca.close()
+        cb.close()
+    torch.cuda.synchronize()
+    counts = attention_launches()
+    launches, combines = counts.pop(impl)
+    line.update(
+        kernel_launches=launches, combine_launches=combines,
+        other_kernel_launches=sum(n + c for n, c in counts.values()),
+        faults=replica_faults(a, True) + replica_faults(b, False),
+        http_500s=(ca.statuses + cb.statuses).count(500))
+    return line
+
+
+def replica_subprocess_run(device, root: str) -> dict:
+    """``python -m tpu_task_torch.serve.replica --preset tiny --kv-bucket``
+    on ``device`` with one slot: it announces ``endpoint.json``, serves
+    phase 25's wave at 64 new tokens, gets it twice more and SIGTERM at
+    once, writes
+    ``inflight.json`` and exits 0; a fresh engine here resumes the
+    records."""
+    import os
+    import signal
+    import tempfile
+
+    from tpu_task_torch.serve.replica import MODEL_PRESETS, build_engine
+
+    cwd = Path(tempfile.mkdtemp(dir=root))
+    serving = {"slots": 1}
+    cmd = [sys.executable, "-m", "tpu_task_torch.serve.replica",
+           "--preset", "tiny", "--kv-bucket", str(cwd / "bucket"),
+           "--serving", json.dumps(serving), "--device", device.type]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(cwd), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env={
+                                **os.environ, "PYTHONPATH": str(HERE),
+                                "TPU_TASK_SERVE_LINGER": "0.1"})
+    wave = [{**body, "max_new_tokens": 64}
+            for body in _replica_wave(MODEL_PRESETS["tiny"]["vocab_size"])]
+    try:
+        endpoint = cwd / "endpoint.json"
+        while not endpoint.exists():
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                raise AssertionError(f"the replica never announced: "
+                                     f"{proc.communicate(timeout=30)}")
+            time.sleep(0.05)
+        announce = json.loads(endpoint.read_text())
+        boot_s = time.perf_counter() - t0
+        client = HttpClient(announce["url"])
+        served = [client.stream(client.call("POST", "/submit", body)[2][
+            "rid"])[0] for body in wave]
+        stats = client.call("GET", "/stats")[2]
+        rids = [client.call("POST", "/submit", body)[2]["rid"]
+                for body in wave + wave]
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    drained = json.loads((cwd / "inflight.json").read_text())
+    records = drained["inflight"]
+    want = direct_streams(build_engine("tiny", serving=serving,
+                                       device=device), wave)
+    fresh = build_engine("tiny", serving=serving, device=device)
+    mapping = fresh.resume_inflight(records)
+    out = fresh.drain(max_steps=5000)
+    blocks = list((cwd / "bucket").glob("kvfleet/*/blocks/*"))
+    return dict(
+        endpoint_keys=sorted(announce), boot_s=boot_s,
+        returncode=proc.returncode, stderr_tail=err[-2000:],
+        served_streams_equal_direct=sum(s == w for s, w in zip(served,
+                                                               want)),
+        device=stats["device"], decode_impl=stats["decode_impl"],
+        attention_launches=stats["attention_launches"],
+        drained_boot_id_ok=drained["boot_id"] == announce["boot_id"],
+        records=len(records),
+        records_mid_stream=sum(0 < len(r["tokens"]) for r in records),
+        resumed_streams_equal=sum(
+            out[mapping[r["rid"]]] == want[rids.index(r["rid"]) % len(wave)]
+            for r in records),
+        published_blocks=len(blocks))
+
+
+def phase_parity_replica(device, cases=REPLICA_CASES) -> dict:
+    """Phase 25: every case of REPLICA_CASES (``parity_replica_run``), then
+    the replica as its own process (``replica_subprocess_run``). Gates,
+    each raising: the HTTP streams and the drained-and-re-dispatched
+    streams equal the direct ones, something was cut mid-stream, a 429
+    with ``Retry-After: 0`` while draining, ``/metrics`` parses and
+    ``/obs`` holds one queue, prefill and decode span a request under its
+    trace header, B imports A's published chain, the capture names the
+    case's kernel, the engine's kernel ran and nothing else did, and no
+    fault (``replica_faults``) or 500. Returns each kernel's launches
+    here."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="tpu-task-replica-")
+    totals = {"cuda": 0, "pipelined": 0, "combine": 0}
+    try:
+        for preset, kv_dtype, impl in cases:
+            run = parity_replica_run(preset, kv_dtype, impl, device, root)
+            n = len(_replica_wave(8))
+            failures = []
+            if not (run["http_streams_equal_direct"] == n
+                    == run["joined_streams_equal"]):
+                failures.append("a stream over HTTP differs from the "
+                                "direct engine's")
+            if not (run["cut_mid_stream"] > 0 and run["drain_status"] == 200
+                    and run["exported_records"] >= run["cut_mid_stream"]):
+                failures.append("the drain cut nothing mid-stream")
+            if (run["busy_status"], run["busy_retry_after"],
+                    run["busy_draining"]) != (429, "0", True):
+                failures.append("no 429 + Retry-After: 0 while draining")
+            if not (run["metrics_ok"] and run["obs_spans_per_request_ok"]):
+                failures.append("/metrics or /obs is wrong")
+            if not run["prefetch_imported"] == run["chain_blocks"] > 0:
+                failures.append("B did not import A's published chain")
+            if "profile_walks" in run and not run["profile_walks"]:
+                failures.append("the capture names no paged kernel")
+            if not (run["kernel_launches"] > 0
+                    and run["other_kernel_launches"] == 0):
+                failures.append("launches miss the engine's kernel")
+            if run["faults"] or run["http_500s"]:
+                failures.append("a replica fault or a 500")
+            emit("parity_replica", ok=not failures, **run,
+                 failures=failures)
+            if failures:
+                raise AssertionError(f"{preset}/{kv_dtype}/{impl}: "
+                                     f"{failures}: {run['faults']}")
+            if impl != "reference":
+                totals[impl] += run["kernel_launches"]
+                totals["combine"] += run["combine_launches"]
+        sub = replica_subprocess_run(device, root)
+        failures = []
+        if sub["endpoint_keys"] != ["boot_id", "generation", "pid",
+                                    "preset", "url"]:
+            failures.append("endpoint.json keys differ from JAX's")
+        if sub["returncode"] != 0 or not sub["drained_boot_id_ok"]:
+            failures.append("no clean drain on SIGTERM")
+        if not (sub["records"] > 0
+                and sub["resumed_streams_equal"] == sub["records"]
+                and sub["served_streams_equal_direct"] == n):
+            failures.append("served or resumed streams differ")
+        launched = sub["attention_launches"]
+        if device.type == "cuda" and not (launched["cuda"] > 0
+                                          and launched["reference"] == 0):
+            failures.append("the process's engine missed its kernel")
+        emit("parity_replica_process", ok=not failures, **sub,
+             failures=failures)
+        if failures:
+            raise AssertionError(f"replica process: {failures}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
+REPLICA_CLIENTS = 16
+
+
+def http_wave(replica, seed: int, max_new: int = 64) -> dict:
+    """Phase 6's ``seed`` wave over HTTP: one client thread a request,
+    each submitting with a trace header and long-polling its stream, while
+    a probe thread times an acquisition of the replica's lock every 10 ms.
+    Returns what each client saw and the probe's waits."""
+    import threading
+
+    from tpu_task_torch.obs import TRACE_HEADER, TraceContext
+
+    wave = _wave_requests(replica.engine.cfg.vocab_size, seed)
+    start, stop = threading.Barrier(len(wave)), threading.Event()
+    waits = []
+
+    def probe():
+        while not stop.wait(0.01):
+            t0 = time.perf_counter()
+            with replica._lock:
+                pass
+            waits.append(time.perf_counter() - t0)
+
+    def client(i):
+        prompt, kw = wave[i]
+        body = {"prompt": prompt.tolist(), "max_new_tokens": max_new}
+        if kw:
+            body.update(temperature=kw["temperature"], top_p=kw["top_p"],
+                        key=[int(w) for w in kw["key"]])
+        http = HttpClient(replica.url)
+        try:
+            start.wait()
+            t_submit = time.perf_counter()
+            status, _, reply = http.call(
+                "POST", "/submit", body,
+                {TRACE_HEADER: TraceContext.mint().to_header()})
+            times, calls = [], []
+            tokens, last = http.stream(reply["rid"], times=times, calls=calls)
+            return dict(tokens=tokens, status=last["status"],
+                        t_submit=t_submit, times=times, polls=len(calls),
+                        statuses=http.statuses)
+        finally:
+            http.close()
+
+    prober = threading.Thread(target=probe, daemon=True)
+    prober.start()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(wave)) as pool:
+        results = list(pool.map(client, range(len(wave))))
+    wall = time.perf_counter() - t0
+    stop.set()
+    prober.join(timeout=10)
+    return dict(results=results, wall_s=wall, lock_waits=waits,
+                prompt_tokens=sum(len(p) for p, _ in wave))
+
+
+def serve_replica(device, smi: str, phase: str, reference: list,
+                  direct_median: float, obs_turns: bool,
+                  **serving) -> dict:
+    """Phase 26 for one configuration: a flagship engine with ``serving``
+    over SERVE_KNOBS and an ``Obs``, warmed up, wrapped in
+    ``ReplicaServer(engine=...)``; one timed wave of phase 6's seed-2
+    traffic from REPLICA_CLIENTS client threads over HTTP. With
+    ``obs_turns``, first the engine and an obs-off twin each run two
+    other waves directly, in turns (off, on, on, off)."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.obs import Obs
+    from tpu_task_torch.serve.replica import ReplicaServer
+
+    cfg, params = flagship_model(device)
+    scfg = ServingConfig(**SERVE_KNOBS, **serving)
+    engine = ServingEngine(params, cfg, scfg, device=device,
+                           obs=Obs.create("replica:chip"))
+    warm_up(engine)
+    line = dict(kv_dtype=scfg.kv_dtype or "bfloat16",
+                decode_impl=engine.decode_impl, clients=REPLICA_CLIENTS,
+                direct_tokens_per_s_median=direct_median)
+    if obs_turns:
+        plain = ServingEngine(params, cfg, scfg, device=device)
+        warm_up(plain)
+        # Seeds 3 and 4, so the prefix cache holds none of the seed-2 wave
+        # the replica serves after them.
+        turns = []
+        for name, eng, seed in (("off", plain, 3), ("on", engine, 3),
+                                ("on", engine, 4), ("off", plain, 4)):
+            run = _timed_drain(eng, seed)
+            if not wave_ok(run):
+                raise AssertionError(f"{phase}: a direct wave (obs {name}) "
+                                     f"failed its gates: {run}")
+            turns.append((name, run["tokens_per_s"]))
+        del plain
+        on = [t for name, t in turns if name == "on"]
+        off = [t for name, t in turns if name == "off"]
+        line.update(obs_turns=turns, obs_on_tokens_per_s=on,
+                    obs_off_tokens_per_s=off,
+                    obs_on_over_off=float(np.mean(on) / np.mean(off)))
+    replica = ReplicaServer(engine=engine).start()
+    try:
+        http = HttpClient(replica.url)
+        before = parse_prometheus(http.call("GET", "/metrics")[2])
+        counters = (engine.chunk_steps, engine.decode_steps,
+                    engine.micro_steps)
+        pa.reset_launch_counts()
+        torch.cuda.synchronize()
+        wave = http_wave(replica, KVFLEET_SEED)
+        torch.cuda.synchronize()
+        after = parse_prometheus(http.call("GET", "/metrics")[2])
+        obs = http.call("GET", "/obs")[2]["metrics"]
+        statuses = http.statuses
+        http.close()
+    finally:
+        replica.stop()
+    results = wave["results"]
+    chunk_steps = engine.chunk_steps - counters[0]
+    micro_steps = engine.micro_steps - counters[2]
+    decode_calls = (engine.decode_steps - counters[1] - micro_steps
+                    + scfg.micro_k * micro_steps)
+    kernels = {"cuda": pa.paged_decode_attention,
+               "pipelined": pa.paged_decode_pipelined_attention}
+    kernel = kernels.pop(engine.decode_impl)
+    plans = step_splits(engine)
+    ttft = [(r["times"][0] - r["t_submit"]) * 1e3 for r in results]
+    gaps = [(b - a) * 1e3 for r in results
+            for a, b in zip(r["times"], r["times"][1:])]
+    generated = sum(len(r["tokens"]) for r in results)
+    waits = np.asarray(wave["lock_waits"]) * 1e3
+    run = dict(
+        all_finished=all(r["status"] == "done" and len(r["tokens"]) == 64
+                         for r in results),
+        kernel_launches=kernel.launches, combine_launches=kernel.combine_launches,
+        other_kernel_launches=sum(fn.launches + fn.combine_launches
+                                  for fn in kernels.values()),
+        plain_launches=pa.paged_reference_attention.launches,
+        expected_launches=cfg.n_layers * (chunk_steps + decode_calls),
+        expected_combine_launches=cfg.n_layers * (
+            decode_calls * (plans["decode"] > 1)
+            + chunk_steps * (plans["chunk"] > 1)))
+    line.update(
+        run, wall_s=wave["wall_s"], generated_tokens=generated,
+        tokens_per_s=generated / wave["wall_s"],
+        over_direct_median=generated / wave["wall_s"] / direct_median,
+        chunk_steps=chunk_steps, decode_steps=decode_calls,
+        client_ttft_ms_p50=float(np.percentile(ttft, 50)),
+        client_ttft_ms_p99=float(np.percentile(ttft, 99)),
+        client_ttft_ms_max=max(ttft),
+        client_intertoken_ms_p50=float(np.percentile(gaps, 50)),
+        client_intertoken_ms_p99=float(np.percentile(gaps, 99)),
+        tokens_per_poll=generated / sum(r["polls"] for r in results),
+        engine_ttft_s_p50_le=prometheus_quantile(before, after,
+                                                 "engine_ttft_s", 0.5),
+        engine_ttft_s_p99_le=prometheus_quantile(before, after,
+                                                 "engine_ttft_s", 0.99),
+        engine_ttft_s_p50_since_start=obs["engine.ttft_s"]["p50"],
+        engine_ttft_s_p99_since_start=obs["engine.ttft_s"]["p99"],
+        lock_probes=len(waits),
+        lock_wait_ms_p50=float(np.percentile(waits, 50)) if len(waits)
+        else None,
+        lock_wait_ms_p99=float(np.percentile(waits, 99)) if len(waits)
+        else None,
+        lock_wait_ms_max=float(waits.max()) if len(waits) else None,
+        streams_equal_direct_wave=sum(
+            r["tokens"] == want for r, want in zip(results, reference)),
+        step_splits=plans,
+        faults=replica_faults(replica, False),
+        http_500s=(statuses + [s for r in results
+                               for s in r["statuses"]]).count(500),
+        gpu=smi)
+    emit(phase, **line)
+    if not (wave_ok(run) and not line["faults"] and not line["http_500s"]):
+        raise AssertionError(f"{phase} failed its gates: {line}")
+    return line
+
+
+def phase_serve_replica(device, smi: str, serve_streams: dict,
+                        quant_streams: dict, medians: dict) -> dict:
+    """Phase 26: the flagship behind the HTTP replica, bf16 pools through
+    the tile kernel (with the obs on/off turns) and int8 through the
+    pipelined kernel. Returns both phase lines."""
+    return {"bf16": serve_replica(device, smi, "serve_replica",
+                                  serve_streams[KVFLEET_SEED],
+                                  medians["bf16"], True),
+            "int8": serve_replica(device, smi, "serve_replica_quant",
+                                  quant_streams[KVFLEET_SEED],
+                                  medians["int8"], False, kv_dtype="int8",
+                                  decode_impl="pipelined")}
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -3794,8 +4464,8 @@ def run_phases(bucket: str) -> int:
     timing = phase_timing(device, smi)
     spec_times = phase_timing_spec(device, smi)
     phase_parity(device)
-    launches, combine_launches, serve_streams, published = phase_serve(
-        device, smi, bucket)
+    launches, combine_launches, serve_streams, published, serve_median = \
+        phase_serve(device, smi, bucket)
     flash_err = phase_flash_kernel(device)
     flash_times = phase_flash_timing(device, smi)
     phase_flash_fwd_shapes(device, smi)
@@ -3806,7 +4476,8 @@ def run_phases(bucket: str) -> int:
     quant_times = phase_timing_quant(device, smi)
     phase_parity_quant(device)
     pipelined_launches, pipelined_combines, quant_streams, \
-        published_quant = phase_serve_quant(device, smi, bucket)
+        published_quant, quant_median = phase_serve_quant(device, smi,
+                                                          bucket)
     micro, traced = phase_serve_micro(device, smi)
     phase_serve_trace(traced, smi)
     del traced
@@ -3819,6 +4490,10 @@ def run_phases(bucket: str) -> int:
     phase_parity_kvfleet(device)
     kvfleet = phase_serve_kvfleet(device, smi, bucket, published,
                                   published_quant)
+    parity_replica = phase_parity_replica(device)
+    replica = phase_serve_replica(device, smi, serve_streams, quant_streams,
+                                  {"bf16": serve_median,
+                                   "int8": quant_median})
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -3857,6 +4532,8 @@ def run_phases(bucket: str) -> int:
                                 for name, line in spec.items()},
         "launches_serve_resume": resume["bf16"]["kernel_launches"],
         "launches_serve_kvfleet": kvfleet["bf16"]["kernel_launches"],
+        "launches_parity_replica": parity_replica["cuda"],
+        "launches_serve_replica": replica["bf16"]["kernel_launches"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -3895,6 +4572,8 @@ def run_phases(bucket: str) -> int:
         "launches_serve_spec_quant": spec_quant["kernel_launches"],
         "launches_serve_resume_quant": resume["int8"]["kernel_launches"],
         "launches_serve_kvfleet_quant": kvfleet["int8"]["kernel_launches"],
+        "launches_parity_replica": parity_replica["pipelined"],
+        "launches_serve_replica_quant": replica["int8"]["kernel_launches"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -3916,6 +4595,9 @@ def run_phases(bucket: str) -> int:
         "launches_serve_resume_quant": resume["int8"]["combine_launches"],
         "launches_serve_kvfleet": kvfleet["bf16"]["combine_launches"],
         "launches_serve_kvfleet_quant": kvfleet["int8"]["combine_launches"],
+        "launches_parity_replica": parity_replica["combine"],
+        "launches_serve_replica": replica["bf16"]["combine_launches"],
+        "launches_serve_replica_quant": replica["int8"]["combine_launches"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

@@ -369,7 +369,7 @@ def test_kvfleet_backend_layout_and_refusals(tmp_path):
         backend.read("../x")
     with pytest.raises(FileNotFoundError):
         backend.read("a/missing")
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(NotImplementedError, match="A11c"):
         open_backend(":googlecloudstorage:bucket/kv")
 
 

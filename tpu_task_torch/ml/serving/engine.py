@@ -87,8 +87,16 @@ Not ported yet (each raises at :class:`ServingConfig` construction or
 here, naming its ROADMAP item): bucketed prefill, the async loop, LoRA
 (so any ``adapter_id`` raises), the host tier, ``adopt_params`` and with
 it every param generation but 0, meshes. ``stats()`` carries their keys
-at the values of an engine that has them off. The obs registry and spans
-are left out too."""
+at the values of an engine that has them off.
+
+- **Observability** (``obs=``, a :class:`~tpu_task_torch.obs.Obs`): one
+  span per request phase (``engine.queue`` → ``engine.prefill`` →
+  ``engine.decode``, with the JAX engine's names, statuses and
+  attributes) under the request's trace (``submit(trace=)``, or one
+  minted here), the ``engine.step_s``/``ttft_s``/``intertoken_s``/
+  ``e2e_s`` histograms, the scheduler counters and the goodput names on
+  the registry, and ``stats()["obs"]``. ``obs=None`` is the
+  zero-overhead path: every recording site guards on it."""
 
 from __future__ import annotations
 
@@ -139,6 +147,7 @@ from tpu_task_torch.ml.serving.model import (
 from tpu_task_torch.ml.serving.step_graph import MicroStepGraphs
 from tpu_task_torch.obs.goodput import GoodputMeter
 from tpu_task_torch.obs.sla import DEFAULT_CLASS, class_rank
+from tpu_task_torch.obs.trace import Span, TraceContext
 
 QUEUED, RUNNING, DONE = "queued", "running", "done"
 
@@ -235,6 +244,9 @@ class Request:
     adapter_id: Optional[str] = None
     #: Param generation the stream is pinned to; always 0 until A8.
     generation: int = 0
+    #: The trace the request's phase spans join (obs on only): the
+    #: router's dispatch context, or one minted at the first span.
+    trace: Optional[TraceContext] = None
 
     @property
     def finished(self) -> bool:
@@ -251,14 +263,16 @@ class ServingEngine:
     ``device="cpu"``; params are moved there. ``rng`` is the raw (2,) base
     key a request's default key folds its id into. ``kv_fleet`` is a fleet
     KV client (duck-typed: ``bind``, ``lookup_chain``, ``fetch``), bound
-    here to this engine's pool layout."""
+    here to this engine's pool layout. ``obs`` an
+    :class:`~tpu_task_torch.obs.Obs` whose tracer and registry the engine
+    records into (None: nothing is recorded)."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  scfg: Optional[ServingConfig] = None,
                  rng: Optional[jrandom.KeyLike] = None, device=None,
                  draft_params: Optional[Params] = None,
                  draft_cfg: Optional[TransformerConfig] = None,
-                 kv_fleet=None):
+                 kv_fleet=None, obs=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg = scfg or ServingConfig()
@@ -324,8 +338,15 @@ class ServingEngine:
         self.quantized_block_writes = 0
         self.max_quant_error = 0.0       # debug mode only (readback cost)
         self.micro_steps = 0             # K-wide fused micro dispatches
-        self.goodput = GoodputMeter(cfg, device=self.device)
+        #: The replica's tracer and registry, or None (zero overhead).
+        self.obs = obs
+        self._phase_spans: Dict[int, Span] = {}
+        self.goodput = GoodputMeter(
+            cfg, device=self.device,
+            registry=None if obs is None else obs.metrics)
         self._init_spec(draft_params, draft_cfg)
+        if obs is not None:
+            self._init_obs(obs.metrics)
         #: The K-step programs (a CUDA graph each on a CUDA device, captured
         #: at first use), bound to self.params and self.pools: neither is
         #: ever rebound.
@@ -333,6 +354,48 @@ class ServingEngine:
             self.params, cfg, self.pools, slots=n, max_blocks=m,
             micro_k=scfg.micro_k, attn_impl=self.decode_impl,
             measure_qerr=self.debug, device=self.device)
+
+    def _init_obs(self, metrics) -> None:
+        """The JAX engine's registry names: the latency histograms, the
+        scheduler's plain counters as lazy counters (they sum in a fleet
+        merge), its instantaneous values as gauges, and the fleet-KV group
+        when a client is attached. LoRA's ``adapters.*`` group waits for
+        ROADMAP A7; the host tier's ``tier.*`` for A9."""
+        self._h_step = metrics.histogram("engine.step_s")
+        self._h_ttft = metrics.histogram("engine.ttft_s")
+        self._h_intertok = metrics.histogram("engine.intertoken_s")
+        self._h_e2e = metrics.histogram("engine.e2e_s")
+        for stat in ("steps", "decode_steps", "micro_steps", "chunk_steps",
+                     "prefills", "prefill_chunks", "preemption_count",
+                     "cow_copies", "prefix_hit_requests",
+                     "prefix_tokens_saved", "spec_rounds", "spec_accepted"):
+            metrics.counter_fn(f"engine.{stat}",
+                               lambda self=self, stat=stat:
+                               float(getattr(self, stat)))
+        for stat in ("n_active", "queue_depth"):
+            metrics.gauge_fn(f"engine.{stat}",
+                             lambda self=self, stat=stat:
+                             float(getattr(self, stat)))
+        metrics.gauge_fn("engine.micro_k",
+                         lambda scfg=self.scfg: float(scfg.micro_k))
+        metrics.gauge_fn("engine.param_generation",
+                         lambda self=self: float(self.generation))
+        metrics.counter_fn("engine.param_swaps", lambda: 0.0)
+        metrics.gauge_fn("engine.stale_generation_streams",
+                         lambda self=self:
+                         float(self.stale_generation_streams))
+        if self._fleet is not None:
+            self._h_kv_import = metrics.histogram("kvfleet.import_s")
+            for stat in ("fleet_hit_blocks", "fleet_miss_blocks",
+                         "fleet_import_requests", "fleet_prefetch_blocks"):
+                metrics.counter_fn(f"kvfleet.{stat.replace('fleet_', '')}",
+                                   lambda self=self, stat=stat:
+                                   float(getattr(self, stat)))
+            for stat in ("bytes_shipped", "bytes_fetched",
+                         "published_blocks"):
+                metrics.counter_fn(f"kvfleet.{stat}",
+                                   lambda fleet=self._fleet, stat=stat:
+                                   float(getattr(fleet, stat, 0)))
 
     def _init_spec(self, draft_params: Optional[Params],
                    draft_cfg: Optional[TransformerConfig]) -> None:
@@ -398,14 +461,16 @@ class ServingEngine:
                eos_token: Optional[int] = None, key=None,
                slo_class: str = DEFAULT_CLASS,
                deadline_s: Optional[float] = None,
-               adapter_id: Optional[str] = None) -> int:
+               adapter_id: Optional[str] = None,
+               trace: Optional[TraceContext] = None) -> int:
         """Queue a generation request; returns its id. Temperature 0 is
         greedy; ``top_p`` needs temperature > 0. ``key`` (two raw uint32
         words) overrides the engine-derived ``fold_in(base, rid)`` — a
         router passes one so the same request draws the same sampled
         stream on any replica. ``slo_class`` and ``deadline_s`` (seconds
         from now) order admission and preemption; ``adapter_id`` raises,
-        because this engine has no LoRA (``lora_rank`` 0)."""
+        because this engine has no LoRA (``lora_rank`` 0). ``trace`` is
+        the parent of the request's phase spans (obs on)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("prompt must hold at least one token")
@@ -442,9 +507,10 @@ class ServingEngine:
             eos_token=eos_token, key=key, submit_t=now,
             slo_class=str(slo_class),
             deadline=None if deadline_s is None else now + float(deadline_s),
-            generation=self.generation)
+            generation=self.generation, trace=trace)
         self._requests[rid] = req
         self._queue.append(req)
+        self._obs_queue(req)
         return rid
 
     def poll(self, rid: int) -> dict:
@@ -473,6 +539,13 @@ class ServingEngine:
     def has_work(self) -> bool:
         return bool(self._queue) or self.n_active > 0
 
+    @property
+    def stale_generation_streams(self) -> int:
+        """In-flight streams pinned to a generation other than the active
+        one: always 0 until weight hot-swap (ROADMAP A8)."""
+        return sum(1 for r in self._requests.values()
+                   if r.status != DONE and r.generation != self.generation)
+
     def step(self) -> dict:
         """One scheduler iteration: admit → (chunk | decode) → retire.
         Returns the request ids admitted and finished. A pure-decode step
@@ -500,7 +573,10 @@ class ServingEngine:
                     self._micro_decode(finished)
                 else:
                     self._decode(finished)
-        self.goodput.end_step(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        self.goodput.end_step(wall)
+        if self.obs is not None:
+            self._h_step.observe(wall)
         return {"admitted": admitted, "finished": finished,
                 "active": self.n_active, "queued": len(self._queue)}
 
@@ -552,9 +628,14 @@ class ServingEngine:
                 record["deadline_s"] = max(
                     0.0, req.deadline - time.monotonic())
             records.append(record)
+            # The open phase span ends "exported": the drain is part of
+            # the request's trace; the request itself is untouched.
+            self._obs_interrupt(req, "exported")
         return records
 
-    def resume_inflight(self, records: List[dict]) -> Dict[int, int]:
+    def resume_inflight(self, records: List[dict],
+                        trace: Optional[TraceContext] = None
+                        ) -> Dict[int, int]:
         """Import :meth:`export_inflight` records (from this package's
         engine or the JAX package's, possibly in another process); returns
         {exported rid: local rid}. A resumed request re-ingests prompt +
@@ -565,7 +646,8 @@ class ServingEngine:
         absolute position instead, so the token a resumed spec engine
         samples at ``len(tokens)`` (the chunk step's) differs from the
         uninterrupted spec stream's there, as in the JAX engine. A record
-        that already met its stopping condition imports as done."""
+        that already met its stopping condition imports as done. ``trace``
+        is the parent of the imported requests' phase spans (obs on)."""
         mapping: Dict[int, int] = {}
         for record in records:
             prompt = np.asarray(record["prompt"], np.int32).reshape(-1)
@@ -613,7 +695,7 @@ class ServingEngine:
                 slo_class=str(record.get("slo_class", DEFAULT_CLASS)),
                 deadline=None if deadline_s is None
                 else now + float(deadline_s),
-                generation=gen)
+                generation=gen, trace=trace)
             if not req.finished and gen != self.generation:
                 raise ValueError(
                     f"resume record pins param generation {gen}, but this "
@@ -631,12 +713,89 @@ class ServingEngine:
                 # produced: re-ingesting it is work the ratio discounts.
                 self.goodput.wasted_reingest(len(tokens))
                 self._queue.append(req)
+                self._obs_queue(req)
             mapping[int(record.get("rid", req.rid))] = req.rid
         return mapping
 
     def adopt_params(self, params, generation=None):
         raise NotImplementedError(
             "adopt_params (weight hot-swap) is not ported yet: ROADMAP A8")
+
+    def register_adapter(self, adapter_id: str, layers, scale: float = 1.0):
+        """What the JAX engine answers with ``lora_rank`` 0: a ValueError
+        (a replica's ``POST /adapter`` gives 400). LoRA is ROADMAP A7."""
+        raise ValueError(
+            "register_adapter needs lora_rank > 0 (and n_adapter_blocks) in "
+            "the ServingConfig; LoRA is not ported yet (ROADMAP A7)")
+
+    # -- observability hooks (every one returns at once when obs is None) ------
+
+    def _obs_queue(self, req: Request, requeued: bool = False) -> None:
+        """Open the queue-phase span (a submit, a resume import, or a
+        recompute preemption sending the request back to the head)."""
+        if self.obs is None:
+            return
+        if req.trace is None:
+            # No upstream context: one minted trace keeps the request's
+            # three phases together.
+            req.trace = TraceContext.mint()
+        self._phase_spans[req.rid] = self.obs.tracer.start(
+            "engine.queue", parent=req.trace, rid=req.rid,
+            requeued=requeued)
+
+    def _obs_admit(self, req: Request, cached_tokens: int = 0) -> None:
+        if self.obs is None:
+            return
+        span = self._phase_spans.pop(req.rid, None)
+        if span is not None:
+            self.obs.tracer.end(span)
+        prefill = self.obs.tracer.start(
+            "engine.prefill", parent=req.trace, rid=req.rid,
+            prompt_tokens=len(req.prompt) + len(req.tokens),
+            cached_tokens=cached_tokens)
+        # The span's `chunks` is this request's chunk count: a delta.
+        prefill._chunk_base = self.prefill_chunks
+        self._phase_spans[req.rid] = prefill
+
+    def _obs_first_token(self, req: Request) -> None:
+        """Called where ``first_token_t`` is stamped: close the prefill
+        span (its duration is the engine-side TTFT) and open the decode
+        span at the first token index this engine emitted
+        (``token_start``; a resumed import starts past its prefix)."""
+        if self.obs is None:
+            return
+        self._h_ttft.observe(req.first_token_t - req.submit_t)
+        span = self._phase_spans.pop(req.rid, None)
+        if span is not None:
+            self.obs.tracer.end(
+                span, chunks=self.prefill_chunks
+                - getattr(span, "_chunk_base", self.prefill_chunks))
+        self._phase_spans[req.rid] = self.obs.tracer.start(
+            "engine.decode", parent=req.trace, rid=req.rid,
+            token_start=len(req.tokens) - 1)
+
+    def _obs_interrupt(self, req: Request, status: str) -> None:
+        """A request leaving its slot unfinished (preemption, drain
+        export): close its open phase span with ``status`` and the token
+        range it covered."""
+        if self.obs is None:
+            return
+        span = self._phase_spans.pop(req.rid, None)
+        if span is not None:
+            self.obs.tracer.end(span, status=status,
+                                token_end=len(req.tokens))
+
+    def _obs_retire(self, req: Request) -> None:
+        if self.obs is None:
+            return
+        span = self._phase_spans.pop(req.rid, None)
+        if span is not None:
+            self.obs.tracer.end(span, token_end=len(req.tokens))
+        self._h_e2e.observe(req.finish_t - req.submit_t)
+        emitted = len(req.tokens) - req.resume_from
+        if emitted > 1 and req.first_token_t is not None:
+            self._h_intertok.observe(
+                (req.finish_t - req.first_token_t) / (emitted - 1))
 
     # -- scheduling ------------------------------------------------------------
 
@@ -739,6 +898,7 @@ class ServingEngine:
             self._last_token[slot] = 0
             self._draft_pos[slot] = 0
             admitted.append(req.rid)
+            self._obs_admit(req, cached_tokens=cached_len)
 
     def _ensure_blocks(self, widths: Optional[np.ndarray] = None) -> None:
         """Every active slot gets blocks covering its next ``widths[i]``
@@ -794,6 +954,7 @@ class ServingEngine:
         req.preemptions += 1
         self.preemption_count += 1
         req.status = QUEUED
+        self._obs_interrupt(req, "preempted")
         # The rolled-back tokens were emitted work the recompute repeats.
         self.goodput.wasted_preempt(len(req.tokens) - req.resume_from)
         # Release BEFORE rolling back: _release registers full blocks under
@@ -803,6 +964,7 @@ class ServingEngine:
         del req.tokens[req.resume_from:]
         req.first_token_t = None
         self._queue.appendleft(req)
+        self._obs_queue(req, requeued=True)
 
     # -- fused steps -----------------------------------------------------------
 
@@ -911,6 +1073,7 @@ class ServingEngine:
             req.tokens.append(tok)
             if req.first_token_t is None:
                 req.first_token_t = now
+                self._obs_first_token(req)
             self._positions[slot] += 1
             self._last_token[slot] = tok
             if req.finished:
@@ -1012,6 +1175,7 @@ class ServingEngine:
             self.goodput.emitted(1)
             if req.first_token_t is None:
                 req.first_token_t = now
+                self._obs_first_token(req)
             self._last_token[i] = tok
             if req.finished:
                 self._retire(i)
@@ -1089,6 +1253,7 @@ class ServingEngine:
                 self._last_token[slot] = tok
                 if req.first_token_t is None:
                     req.first_token_t = now
+                    self._obs_first_token(req)
                 if req.finished:
                     break
             if req.finished:
@@ -1222,6 +1387,7 @@ class ServingEngine:
             self.goodput.wasted_spec(ke - a)
             if req.first_token_t is None:
                 req.first_token_t = now
+                self._obs_first_token(req)
             self._positions[i] = pos + m
             self._last_token[i] = emitted[-1]
             # Draft KV is valid through pos + min(m, ke) - 1: a full accept
@@ -1359,6 +1525,7 @@ class ServingEngine:
         req.status = DONE
         req.finish_t = time.monotonic()
         self._release(slot)
+        self._obs_retire(req)
 
     # -- fleet KV --------------------------------------------------------------
 
@@ -1372,11 +1539,14 @@ class ServingEngine:
         want = chain_block_hashes(ctx, self.scfg.block_size)[have:]
         if not want:
             return []
+        t0 = time.perf_counter()
         imported = self._import_hash_chain(want)
         self.fleet_hit_blocks += len(imported)
         self.fleet_miss_blocks += len(want) - len(imported)
         if imported:
             self.fleet_import_requests += 1
+            if self.obs is not None:
+                self._h_kv_import.observe(time.perf_counter() - t0)
         return imported
 
     def _import_hash_chain(self, want: List[bytes]) -> List[int]:
@@ -1478,7 +1648,7 @@ class ServingEngine:
         n_blocks, high = self.scfg.n_blocks, self.allocator.high_water
         in_flight = collections.Counter(
             r.generation for r in self._requests.values() if r.status != DONE)
-        return {
+        out = {
             "decode_impl": self.decode_impl,
             # The draft's paged attention: the target's, or None (spec off).
             "draft_decode_impl": self.draft_decode_impl,
@@ -1578,8 +1748,7 @@ class ServingEngine:
                 "evictions": 0,
                 "pool_high_water": 0,
                 "param_swaps": 0,
-                "stale_generation_streams": sum(
-                    c for g, c in in_flight.items() if g != self.generation),
+                "stale_generation_streams": self.stale_generation_streams,
                 "generations": {str(g): c
                                 for g, c in sorted(in_flight.items())},
             },
@@ -1590,3 +1759,8 @@ class ServingEngine:
             },
             "goodput": self.goodput.snapshot(),
         }
+        if self.obs is not None:
+            # The registry: the latency histograms and every counter above
+            # under its registry name.
+            out["obs"] = self.obs.metrics.snapshot()
+        return out

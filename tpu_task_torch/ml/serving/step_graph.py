@@ -41,6 +41,7 @@ Nothing falls back: a capture or replay that fails raises."""
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, Optional, Tuple
 
@@ -181,8 +182,18 @@ class MicroStepGraphs:
         torch.cuda.synchronize(self.device)
         mark = _read_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            out = self._program(sampled, bufs)
+        # A dead engine's graphs freed by the cycle collector in the middle
+        # of this capture would invalidate it (a graph's destruction is not
+        # permitted while a stream captures): collect first, none during.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                out = self._program(sampled, bufs)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(self.device)
         launches = tuple(b - a for a, b in zip(mark, _read_counts()))
         _write_counts(before)

@@ -19,12 +19,14 @@ Where the JAX package differs: its meter lives on an ``obs`` registry and
 exists only when the engine has one; here it is always on (two
 ``perf_counter`` calls per dispatch and a few integer sums per step) and
 ``stats()["goodput"]`` is its :meth:`GoodputMeter.snapshot` as a plain
-dict. The peak is ``TPU_TASK_PEAK_FLOPS`` when set, else the H100 data
-sheet's dense bf16 989 TFLOP/s on a CUDA device and the JAX package's
-nominal 1 TFLOP/s elsewhere. ``decode_step_cost_analysis_flops`` asks
-XLA's cost analysis and has no counterpart here. Mixture-of-experts
-layers are not ported (ROADMAP A13), so the FLOP model counts dense FFNs
-only."""
+dict. An engine with an ``obs`` handle also puts the JAX meter's
+``goodput.*`` names on its registry (``registry=``), so a replica's
+``/metrics`` carries them. The peak is ``TPU_TASK_PEAK_FLOPS`` when set,
+else the H100 data sheet's dense bf16 989 TFLOP/s on a CUDA device and
+the JAX package's nominal 1 TFLOP/s elsewhere.
+``decode_step_cost_analysis_flops`` asks XLA's cost analysis and has no
+counterpart here. Mixture-of-experts layers are not ported (ROADMAP A13),
+so the FLOP model counts dense FFNs only."""
 
 from __future__ import annotations
 
@@ -99,13 +101,32 @@ class GoodputMeter:
     :meth:`wasted_spec` where a speculative round rejects proposals and
     :meth:`wasted_reingest` where it imports a resumed request."""
 
-    def __init__(self, cfg, peak_flops: Optional[float] = None, device=None):
+    def __init__(self, cfg, peak_flops: Optional[float] = None, device=None,
+                 registry=None):
         self.cfg = cfg
         self.peak_flops = float(peak_flops if peak_flops is not None
                                 else peak_flops_per_s(device))
         self._base_flops = 2.0 * matmul_params(cfg)
         self._attn_flops = 4.0 * cfg.n_layers * cfg.d_attn
         self.reset()
+        if registry is None:
+            return
+        # The JAX meter's registry names: totals as counters (they sum in a
+        # fleet merge), the ratios as gauges. The overlapped loop is A5.
+        for stat in ("program_s", "host_s", "dispatches", "model_flops",
+                     "tokens_emitted", "tokens_preempted",
+                     "tokens_spec_rejected", "tokens_reingested"):
+            registry.counter_fn(f"goodput.{stat}",
+                                lambda self=self, stat=stat:
+                                float(getattr(self, stat)))
+        registry.counter_fn("goodput.overlapped_host_s", lambda: 0.0)
+        registry.gauge_fn("goodput.ratio", lambda: self.ratio)
+        registry.gauge_fn("goodput.mfu", lambda: self.mfu)
+        registry.gauge_fn("goodput.host_gap_frac",
+                          lambda: self.host_gap_frac)
+        registry.gauge_fn("goodput.dispatches_per_token",
+                          lambda: self.dispatches_per_token)
+        registry.gauge_fn("goodput.peak_flops", lambda: self.peak_flops)
 
     def reset(self) -> None:
         """Zero the accumulators (after a warm-up, so capture and first-use

@@ -1,5 +1,5 @@
-"""A local-filesystem bucket for the port's fleet KV client — this
-package's copy of the JAX package's ``LocalBackend``
+"""A local-filesystem bucket for the port's fleet KV client and the
+replica's obs export — this package's copy of the JAX package's ``LocalBackend``
 (``tpu_task/storage/backends.py``), trimmed to the calls the client makes:
 ``list``, ``read``, ``read_conditional``, ``write``, ``write_if_absent``
 and ``delete``. Keys are '/'-separated paths under the root, and a key
@@ -7,7 +7,7 @@ that would leave the root is refused.
 
 The layout on disk is the JAX package's, so a JAX replica and a port
 replica pointed at one directory share it. Object-store buckets (GCS, S3,
-Azure) come with the HTTP replica (ROADMAP A11b)."""
+Azure) are ROADMAP A11c."""
 
 from __future__ import annotations
 
@@ -116,5 +116,5 @@ def open_backend(remote: str) -> LocalBackend:
     if remote.startswith(":"):
         raise NotImplementedError(
             f"object-store buckets are not ported to tpu_task_torch yet "
-            f"({remote.split(':')[1].split(',')[0]!r}): ROADMAP A11b")
+            f"({remote.split(':')[1].split(',')[0]!r}): ROADMAP A11c")
     return LocalBackend(remote or ".")
