@@ -5,7 +5,7 @@ its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
 K-token micro-steps, speculative decoding, drain and resume, blocks
 imported from the fleet KV plane, the HTTP replica), and trains the
-flagship for a few steps.
+flagship for a few steps, checkpointing, killing and restoring it.
 
     python3 chip_smoke.py
 
@@ -99,6 +99,29 @@ start); any failed check raises and the script exits non-zero:
              plain versions in fp32, then ten timed steps on one batch:
              step ms, tokens/s, MFU, peak memory, one profiled step, and
              launch counts that prove every layer ran the three kernels.
+10a. train checkpoint — the flagship state on the card (2,416,128,008
+             bytes): two steps, a sync ``save_checkpoint_sharded`` at step
+             2, then ``AsyncCheckpointer(keep=2).save`` at steps 4 and 6
+             with steps between and after, ``wait()``. The restore of step
+             6 into a fresh ``init_state`` equals a device clone of the
+             state at step 6 bit for bit; three more steps from it and from
+             the original give losses within ``RESUME_LOSS_RTOL``; every
+             step runs each flash kernel n_layers times and no plain
+             version. Blocked ms a save (sync, async), save →
+             ``LATEST_SHARDED`` ms, steps overlapped by the writer against
+             steps not, pinned host bytes, the snapshot's device bytes.
+10b. train resume process — ``TRAINER_SCRIPT`` as its own process on the
+             card (``epoch_batches`` + ``prefetch_to_device`` over seeded
+             tokens, ``AsyncCheckpointer``), SIGKILLed once its first
+             ``LATEST_SHARDED`` is published, before its last step, and
+             started again: it restores that step, runs the rest, and its
+             losses are the uninterrupted in-process run's within
+             ``RESUME_LOSS_RTOL``; the steps lost at the kill and the
+             recovery split (restart → imported → CUDA ready → npz read →
+             host→device → first step done).
+10c. train profile window — ``profiling.step_window`` over two flagship
+             steps: two traces, each naming the three wgmma flash kernels;
+             ``device_memory_summary()`` is not empty.
 
 11. kernel quant — both paged kernels (``paged_decode.cu``'s int8, fp8 and
              int4 variants; ``paged_decode_pipelined.cu`` over all five
@@ -265,9 +288,9 @@ start); any failed check raises and the script exits non-zero:
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
-their kernel and its registers; the paged rows and the combine's add
-their launches in phases 15, 17, 19, 20, 22, 24, 25 and 26 and the
-scoring step's timing),
+their kernel and its registers, and add their launches in phases 10a-10c;
+the paged rows and the combine's add their launches in phases 15, 17, 19,
+20, 22, 24, 25 and 26 and the scoring step's timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -277,9 +300,11 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2252,6 +2277,407 @@ def phase_train(device, smi: str) -> dict:
     return counts
 
 
+# -- checkpoint, restore and the input pipeline ---------------------------------
+
+#: Losses of a restored run against the original's, relative: the embed
+#: backward's ``index_add_`` adds atomically on CUDA, so the fp32 sums of
+#: repeated tokens' rows come out in another order from run to run, and
+#: AdamW moves the master weights by about lr x that last-bit difference.
+RESUME_LOSS_RTOL = 1e-4
+
+#: The task script of phase 10b (and of ``tests/test_torch_train_resume.py``
+#: on the CPU at a tiny size): a trainer that imports only tpu_task_torch,
+#: restores its newest published checkpoint when there is one, and feeds
+#: seeded token data through ``epoch_batches`` + ``prefetch_to_device``,
+#: checkpointing through ``AsyncCheckpointer``. Its one argument is a JSON
+#: config; it prints one JSON line an event, each with its wall time.
+TRAINER_SCRIPT = r'''
+import json, os, sys, time
+
+config = json.loads(sys.argv[1])
+sys.path.insert(0, config["repo"])
+import numpy as np
+import torch
+
+from tpu_task_torch.ml import AsyncCheckpointer, restore_checkpoint_sharded
+from tpu_task_torch.ml import train
+from tpu_task_torch.ml.data import epoch_batches, prefetch_to_device
+from tpu_task_torch.ml.models import transformer
+from tpu_task_torch.ml.ops import attention
+from tpu_task_torch.ml.tree import leaves, tree_map
+
+
+def log(event, **fields):
+    print(json.dumps({"event": event, "t": time.time(), **fields}),
+          flush=True)
+
+
+log("imported")
+device = torch.device(config["device"])
+if device.type == "cuda":
+    torch.empty(1, device=device)
+    torch.cuda.synchronize()
+log("device_ready")
+cfg = transformer.TransformerConfig(dtype=getattr(torch, config["dtype"]),
+                                    **config["model"])
+state = train.init_state(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device)
+tokens = np.random.default_rng(config["seed"]).integers(
+    0, cfg.vocab_size, size=(config["rows"], config["seq"] + 1))
+if os.path.exists(os.path.join("checkpoints", "LATEST_SHARDED")):
+    t0 = time.perf_counter()
+    host = restore_checkpoint_sharded("checkpoints", tree_map(
+        lambda t: torch.empty_like(t, device="cpu")
+        if torch.is_tensor(t) else t, state))
+    t1 = time.perf_counter()
+    state = tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t,
+                     host)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    log("restored", step=state.step, read_s=t1 - t0,
+        host_to_device_s=time.perf_counter() - t1,
+        bytes=sum(t.numel() * t.element_size() for t in leaves(state)
+                  if torch.is_tensor(t)))
+step_fn = train.make_train_step(cfg)
+batches = prefetch_to_device(
+    epoch_batches(tokens, None, config["batch"], seed=config["seed"],
+                  start_step=state.step), device)
+attention.reset_launch_counts()
+with AsyncCheckpointer("checkpoints", keep=2) as saver:
+    while state.step < config["steps"]:
+        state, metrics = step_fn(state, next(batches))
+        log("step", step=state.step, loss=metrics["loss"].item())
+        if state.step % config["save_every"] == 0:
+            saver.save(state.step, state)
+log("done", step=state.step, launches={
+    "flash_fwd": attention.flash_attention.launches,
+    "flash_bwd_dq": attention.flash_bwd_dq.launches,
+    "flash_bwd_dkv": attention.flash_bwd_dkv.launches,
+    "plain_fwd": attention.flash_attention_reference.launches,
+    "plain_bwd": attention.flash_bwd_reference.launches,
+    "plain_mha": attention.mha_reference.launches})
+'''
+
+
+def trainer_events(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()
+            if line.startswith("{")]
+
+
+def run_trainer(workdir: Path, config: dict, log_name: str, *,
+                kill_after_publish: bool = False, timeout_s: float = 600):
+    """The trainer as its own process in ``workdir``: (events, the spawn's
+    wall time, the LATEST_SHARDED step when it was killed or None). With
+    ``kill_after_publish`` it is SIGKILLed as soon as its first
+    LATEST_SHARDED exists."""
+    import signal
+
+    script = workdir / "train_task.py"
+    script.write_text(TRAINER_SCRIPT)
+    log_path = workdir / log_name
+    pointer = workdir / "checkpoints" / "LATEST_SHARDED"
+    killed_at = None
+    with open(log_path, "w") as out:
+        t_spawn = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, str(script), json.dumps(config)], cwd=workdir,
+            stdout=out, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + timeout_s
+            while proc.poll() is None and time.monotonic() < deadline:
+                if kill_after_publish and pointer.exists():
+                    proc.send_signal(signal.SIGKILL)
+                    proc.wait()
+                    killed_at = json.loads(pointer.read_text())["step"]
+                    break
+                time.sleep(0.01)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if killed_at is None and proc.returncode != 0:
+        raise AssertionError(f"trainer exited {proc.returncode}: "
+                             f"{log_path.read_text()[-4000:]}")
+    return trainer_events(log_path), t_spawn, killed_at
+
+
+def train_tokens(cfg, device, step: int) -> torch.Tensor:
+    """Phase 10a's batch for ``step``: seeded, one a step."""
+    return torch.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), device=device,
+        generator=torch.Generator(device=device).manual_seed(100 + step))
+
+
+def state_leaves(state) -> list:
+    from tpu_task_torch.ml.tree import leaves
+
+    return leaves(state)
+
+
+def phase_train_checkpoint(device, smi: str, root: Path) -> dict:
+    """The flagship state on the card saved synchronously at step 2 and
+    asynchronously at steps 4 and 6 with steps between, restored, and run
+    on; the flash launch counts set to 0 just before the first step and
+    read after the last."""
+    from tpu_task_torch.ml import (AsyncCheckpointer,
+                                   restore_checkpoint_sharded,
+                                   save_checkpoint_sharded, train)
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.ops import attention as fa
+
+    cfg = transformer.TransformerConfig(dtype=torch.bfloat16,
+                                        **TRAIN_FLAGSHIP)
+    state = train.init_state(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    state_bytes = sum(
+        t.numel() * t.element_size() if torch.is_tensor(t) else 4
+        for t in state_leaves(state))
+    step = train.make_train_step(cfg)
+    directory = root / "ckpt"
+    meta = directory / "ckpt-6.meta"
+    per_step, losses = [], {}
+
+    def run(state, index: int, key: str, times: list):
+        before = flash_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, train_tokens(cfg, device, index))
+        loss = m["loss"].item()
+        times.append(((time.perf_counter() - t0) * 1e3, not meta.exists()))
+        after = flash_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.setdefault(key, []).append(loss)
+        return state
+
+    fa.reset_launch_counts()
+    warm, plain, overlap, restored_times = [], [], [], []
+    for i in (1, 2):
+        state = run(state, i, "original", warm)
+    t0 = time.perf_counter()
+    save_checkpoint_sharded(directory, 2, state)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    saver = AsyncCheckpointer(directory, keep=2)
+    for i in (3, 4):
+        state = run(state, i, "original", plain)
+    blocked, saved_at, snapshot_bytes = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    peak_before = torch.cuda.max_memory_allocated()
+    for save_step, follow in ((4, (5, 6)), (6, (7, 8, 9))):
+        in_use = torch.cuda.memory_allocated()
+        saved_at[save_step] = time.time()
+        t0 = time.perf_counter()
+        saver.save(save_step, state)
+        blocked[save_step] = (time.perf_counter() - t0) * 1e3
+        snapshot_bytes[save_step] = torch.cuda.memory_allocated() - in_use
+        if save_step == 6:
+            # Gate 1's reference, outside the timed steps.
+            reference = [t.clone() if torch.is_tensor(t) else t
+                         for t in state_leaves(state)]
+            torch.cuda.synchronize()
+        for i in follow:
+            state = run(state, i, "original", overlap)
+    overlap_peak = torch.cuda.max_memory_allocated()
+    saver.wait()
+    durable_ms = {s: (os.path.getmtime(directory / f"ckpt-{s}.meta")
+                      - saved_at[s]) * 1e3 for s in saved_at}
+    pinned = saver.pinned_bytes
+    saver.close()
+    t0 = time.perf_counter()
+    restored = restore_checkpoint_sharded(directory, train.init_state(
+        torch.Generator(device=device).manual_seed(3), cfg, device=device))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    got = state_leaves(restored)
+    bit_equal = restored.step == 6 and len(got) == len(reference) and all(
+        (torch.is_tensor(a) and a.device == b.device and a.dtype == b.dtype
+         and torch.equal(a, b)) or (not torch.is_tensor(a) and a == b)
+        for a, b in zip(got, reference))
+    del reference
+    for i in (7, 8, 9):
+        restored = run(restored, i, "restored", restored_times)
+    counts = flash_counts()
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "plain_fwd": 0, "plain_bwd": 0,
+            "plain_mha": 0}
+    after = losses["original"][-3:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["restored"], after))
+    overlapped = [ms for ms, busy in overlap if busy]
+    line = dict(
+        ok=bit_equal and rel <= RESUME_LOSS_RTOL
+        and all(p == want for p in per_step),
+        state_bytes=state_bytes, leaves=len(got), sync_save_ms=sync_ms,
+        async_blocked_ms=blocked, save_to_latest_sharded_ms=durable_ms,
+        restore_ms=restore_ms, plain_step_ms=[ms for ms, _ in plain],
+        overlapped_step_ms=overlapped,
+        steps_after_publish_ms=[ms for ms, busy in overlap if not busy],
+        restored_step_ms=[ms for ms, _ in restored_times],
+        step_ms_median={"plain": float(np.median([ms for ms, _ in plain]
+                                                 + [ms for ms, _ in
+                                                    restored_times])),
+                        "overlapped": float(np.median(overlapped))
+                        if overlapped else None},
+        pinned_host_bytes=pinned, snapshot_device_bytes=snapshot_bytes,
+        peak_memory_gb={"before_saves": peak_before / 1e9,
+                        "overlapped": overlap_peak / 1e9},
+        restored_bit_equal=bit_equal, losses=losses,
+        first_restored_loss_bit_equal=losses["restored"][0] == after[0],
+        max_loss_rel_diff=rel, tolerance=f"losses {RESUME_LOSS_RTOL} rel",
+        launches_every_step_as_expected=all(p == want for p in per_step),
+        launches=counts, gpu=smi)
+    emit("train_checkpoint", **line)
+    if not line["ok"]:
+        raise AssertionError(f"checkpoint phase failed its gates: {line}")
+    return counts
+
+
+#: Phase 10b's run: a save every 4 steps of 20. The writer takes the step-4
+#: save; saves 8 and 12 queue (``max_pending`` 2), and the one at step 16
+#: waits until the writer has published step 4 and taken step 8. So the
+#: kill, as soon as ``LATEST_SHARDED`` names step 4, lands inside the
+#: loop, at step 16 or 17 of 20, however long the writer takes.
+RESUME_STEPS, RESUME_SAVE_EVERY = 20, 4
+
+
+def trainer_config(device: str, model: dict, dtype: str, batch: int,
+                   seq: int, steps: int, save_every: int) -> dict:
+    """``TRAINER_SCRIPT``'s argument: one epoch of ``steps`` batches."""
+    return dict(repo=str(HERE), device=device, model=model, dtype=dtype,
+                batch=batch, seq=seq, rows=batch * steps, steps=steps,
+                save_every=save_every, seed=11)
+
+
+def uninterrupted_losses(device, config: dict) -> list:
+    """The trainer's loop in this process, without checkpoints: the loss
+    of every step."""
+    from tpu_task_torch.ml import train
+    from tpu_task_torch.ml.data import epoch_batches, prefetch_to_device
+    from tpu_task_torch.ml.models import transformer
+
+    cfg = transformer.TransformerConfig(dtype=getattr(torch,
+                                                      config["dtype"]),
+                                        **config["model"])
+    state = train.init_state(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    tokens = np.random.default_rng(config["seed"]).integers(
+        0, cfg.vocab_size, size=(config["rows"], config["seq"] + 1))
+    batches = prefetch_to_device(epoch_batches(
+        tokens, None, config["batch"], seed=config["seed"]), device)
+    step, out = train.make_train_step(cfg), []
+    for _ in range(config["steps"]):
+        state, m = step(state, next(batches))
+        out.append(m["loss"].item())
+    return out
+
+
+def phase_train_resume_process(device, smi: str, root: Path) -> dict:
+    """The trainer as its own process on the card: SIGKILLed once its first
+    LATEST_SHARDED is published, which must come before its last step,
+    started again; it must restore that step and continue the
+    uninterrupted run's losses."""
+    workdir = root / "resume"
+    workdir.mkdir()
+    config = trainer_config(device.type, TRAIN_FLAGSHIP, "bfloat16",
+                            TRAIN_BATCH, TRAIN_SEQ, RESUME_STEPS,
+                            RESUME_SAVE_EVERY)
+    reference = uninterrupted_losses(device, config)
+    torch.cuda.empty_cache()
+    first, _, killed_at = run_trainer(workdir, config, "first.log",
+                                      kill_after_publish=True)
+    second, t_spawn, _ = run_trainer(workdir, config, "second.log")
+    at = {e["event"]: e for e in reversed(second)}
+    steps = [e for e in second if e["event"] == "step"]
+    restored = at.get("restored", {})
+    start = restored.get("step")
+    rel = max((abs(e["loss"] - reference[e["step"] - 1])
+               / abs(reference[e["step"] - 1]) for e in steps),
+              default=math.inf)
+    n_steps = len(steps)
+    killed_after = max((e["step"] for e in first if e["event"] == "step"),
+                       default=None)
+    launches = at.get("done", {}).get("launches", {})
+    want = {name: n_steps * TRAIN_FLAGSHIP["n_layers"] for name in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    line = dict(
+        ok=killed_at is not None and killed_after is not None
+        and killed_at <= killed_after < RESUME_STEPS
+        and start == killed_at
+        and [e["step"] for e in steps] == list(range(start + 1,
+                                                     RESUME_STEPS + 1))
+        and rel <= RESUME_LOSS_RTOL
+        and all(launches.get(k) == v for k, v in want.items())
+        and all(launches.get(k) == 0 for k in
+                ("plain_fwd", "plain_bwd", "plain_mha")),
+        steps=RESUME_STEPS, save_every=RESUME_SAVE_EVERY,
+        killed_after_step=killed_after, published_at_kill=killed_at,
+        steps_lost=None if None in (killed_after, killed_at)
+        else killed_after - killed_at, restored_from=start,
+        recovery_s=dict(
+            to_imported=at["imported"]["t"] - t_spawn,
+            to_device_ready=at["device_ready"]["t"] - t_spawn,
+            npz_read=restored.get("read_s"),
+            host_to_device=restored.get("host_to_device_s"),
+            to_restored=restored["t"] - t_spawn if restored else None,
+            to_first_step_done=steps[0]["t"] - t_spawn if steps else None),
+        restored_bytes=restored.get("bytes"),
+        losses=[e["loss"] for e in steps], uninterrupted_losses=reference,
+        max_loss_rel_diff=rel, tolerance=f"losses {RESUME_LOSS_RTOL} rel",
+        launches=launches, gpu=smi)
+    emit("train_resume_process", **line)
+    if not line["ok"]:
+        raise AssertionError(f"resumed trainer failed its gates: {line}")
+    return launches
+
+
+FLASH_KERNEL_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                      "flash_bwd_dkv_wgmma_kernel")
+
+
+def phase_train_profile_window(device, smi: str, root: Path) -> dict:
+    """``profiling.step_window`` over flagship steps 1 and 2 of 0-3: one
+    trace a step, each naming the three flash kernels."""
+    from tpu_task_torch.ml import profiling, train
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.ops import attention as fa
+
+    cfg = transformer.TransformerConfig(dtype=torch.bfloat16,
+                                        **TRAIN_FLAGSHIP)
+    state = train.init_state(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    step = train.make_train_step(cfg)
+    log_dir = root / "profile"
+    fa.reset_launch_counts()
+    for i in range(4):
+        with profiling.step_window(i, start=1, stop=3, log_dir=str(log_dir)):
+            with profiling.annotate(f"train-step-{i}"):
+                prime_tracer(device)
+                state, _ = step(state, train_tokens(cfg, device, i))
+                torch.cuda.synchronize()
+    counts = flash_counts()
+    traces = sorted(log_dir.glob("trace-*-cuda.json"))
+    found = []
+    for path in traces:
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        kernels = [e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"]
+        found.append({
+            "kernels": len(kernels),
+            "flash": {n: sum(n in k for k in kernels)
+                      for n in FLASH_KERNEL_NAMES},
+            "annotated": sorted({e["name"] for e in events
+                                 if str(e.get("name", "")).startswith(
+                                     "train-step-")})})
+    summary = profiling.device_memory_summary()
+    line = dict(
+        ok=len(traces) == 2 and bool(summary) and all(
+            f["flash"][n] >= cfg.n_layers for f in found
+            for n in FLASH_KERNEL_NAMES),
+        traces=[p.name for p in traces], per_trace=found,
+        device_memory_summary=summary, launches=counts, gpu=smi)
+    emit("train_profile_window", **line)
+    if not line["ok"]:
+        raise AssertionError(f"profile window failed its gates: {line}")
+    return counts
+
+
 # -- quantized KV: both paged kernels ------------------------------------------
 
 #: (name, geometry) of the kernel_quant cases: the flagship's, and the head
@@ -3982,9 +4408,12 @@ def profile_kernels(client, replica, wave: list, impl: str) -> dict:
                     for b in wave]:
             client.stream(rid)
     path = Path(body["dir"]) / "trace-cuda.json"
-    names = [e.get("name", "") for e in json.loads(path.read_text())[
-        "traceEvents"] if e.get("cat") == "kernel"]
-    return dict(profile_trace=path.name, profile_kernels=len(names),
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return dict(profile_trace=path.name, profile_events=len(events),
+                profile_runtime_calls=sum(e.get("cat") == "cuda_runtime"
+                                          for e in events),
+                profile_kernels=len(names),
                 profile_walks=sum(any(w in n for w in WALK_NAMES[impl])
                                   for n in names),
                 profile_combines=sum(COMBINE_NAME in n for n in names))
@@ -4442,7 +4871,6 @@ def phase_serve_replica(device, smi: str, serve_streams: dict,
 
 def main() -> int:
     import shutil
-    import tempfile
 
     # The bucket phases 6 and 14 publish into and phase 24 imports from.
     bucket = tempfile.mkdtemp(prefix="tpu-task-kvfleet-")
@@ -4472,6 +4900,10 @@ def run_phases(bucket: str) -> int:
     phase_flash_bwd_shapes(device, smi)
     phase_train_parity(device)
     train_counts = phase_train(device, smi)
+    with tempfile.TemporaryDirectory(prefix="tpu-task-train-") as root:
+        ckpt_counts = phase_train_checkpoint(device, smi, Path(root))
+        resume_counts = phase_train_resume_process(device, smi, Path(root))
+        window_counts = phase_train_profile_window(device, smi, Path(root))
     quant_err = phase_kernel_quant(device)
     quant_times = phase_timing_quant(device, smi)
     phase_parity_quant(device)
@@ -4546,7 +4978,10 @@ def run_phases(bucket: str) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "fraction_of_bound": row["fraction_of_bound"]})
+            "fraction_of_bound": row["fraction_of_bound"],
+            "launches_train_checkpoint": ckpt_counts[name],
+            "launches_train_resume_process": resume_counts[name],
+            "launches_train_profile_window": window_counts[name]})
         # B1, B2 and B3 v3: wgmma fed by TMA rings
         build = fwd_build if name == "flash_fwd" else bwd_build[name]
         kernels[-1].update(version="v3", kernel=f"{name}_wgmma_kernel",

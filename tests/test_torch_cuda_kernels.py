@@ -4,7 +4,9 @@ one's split-KV walk and its combine kernel, and the three flash-attention
 kernels of training; the serving engine's K-step loop captured as a
 CUDA graph through the paged kernels; and both paged kernels at the
 speculative scoring widths, with a spec engine's target and draft steps
-through them; and a drained engine's requests resumed through both.
+through them; and a drained engine's requests resumed through both. Then
+the train path's card work beside the kernels: ``AsyncCheckpointer``'s
+device snapshot and ``prefetch_to_device``'s pinned side-stream copies.
 
 These tests need an NVIDIA card and skip elsewhere: a CUDA kernel has no
 interpret mode. They import no JAX, so they run where only PyTorch is
@@ -782,3 +784,46 @@ def test_bf16_train_step_runs_the_tensor_core_kernels(cuda_device):
             assert fa.mha_reference.launches == 0
     for a, b in zip(metrics["kernels"], metrics["plain"]):
         assert abs(a - b) <= 2.0 ** -10 * abs(b)
+
+
+@pytest.mark.cuda
+def test_async_snapshot_on_the_card_survives_in_place_updates(cuda_device,
+                                                              tmp_path):
+    """save() returns after the device clone; the leaves are then changed
+    in place on the compute stream, and the files hold the values at
+    save() (bf16 as its bits), restored onto the card."""
+    from tpu_task_torch.ml import AsyncCheckpointer, restore_checkpoint_sharded
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn(1024, 4096, device=cuda_device, generator=gen),
+            "b": torch.randn(333, device=cuda_device,
+                             generator=gen).to(torch.bfloat16),
+            "n": 5}
+    expected = {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in tree.items()}
+    with AsyncCheckpointer(tmp_path, keep=2) as saver:
+        for step in (1, 2):
+            saver.save(step, tree)
+            tree["w"].mul_(3.0).add_(1.0)
+            tree["b"].add_(1.0)
+        assert saver.pinned_bytes >= 1024 * 4096 * 4 + 333 * 2
+    template = {k: torch.zeros_like(v) if torch.is_tensor(v) else 0
+                for k, v in tree.items()}
+    got = restore_checkpoint_sharded(tmp_path, template, step=1)
+    assert got["n"] == 5 and got["w"].is_cuda
+    assert torch.equal(got["w"], expected["w"])
+    assert torch.equal(got["b"], expected["b"])
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_on_the_card(cuda_device):
+    from tpu_task_torch.ml.data import prefetch_to_device
+
+    batches = [(np.full((256, 1025), i, np.int64), np.arange(3) + i)
+               for i in range(5)]
+    got = list(prefetch_to_device(iter(batches), depth=2))
+    assert len(got) == 5
+    for i, (x, y) in enumerate(got):
+        assert x.is_cuda and y.is_cuda
+        assert torch.equal(x.cpu(), torch.from_numpy(batches[i][0]))
+        assert torch.equal(y.cpu(), torch.from_numpy(batches[i][1]))

@@ -123,11 +123,11 @@ def test_loss_fn_matches_jax_fused_and_unfused():
     _close(fused, unfused.detach().numpy())
 
 
-def _port_state(jstate, cfg, optimizer):
-    params = ttf.params_from_jax(jax.tree.map(np.asarray, jstate.params),
-                                 cfg, param_dtype=torch.float32)
-    return ttrain.TrainState(step=0, params=params,
-                             opt_state=optimizer.init(params))
+def _port_state(jstate, cfg):
+    """JAX's state on the port: step, params, AdamW's count and both
+    moments."""
+    return ttrain.state_from_jax(jax.tree.map(np.asarray, jstate), cfg,
+                                 device="cpu")
 
 
 def test_three_train_steps_match_jax():
@@ -136,7 +136,7 @@ def test_three_train_steps_match_jax():
     jcfg, cfg = _configs()
     jstate = jtrain.init_state(jax.random.PRNGKey(0), jcfg)
     optimizer = ttrain.make_optimizer()
-    state = _port_state(jstate, cfg, optimizer)
+    state = _port_state(jstate, cfg)
     jstep = jtrain.make_train_step(jcfg, attn_fn=_jax_attn(jcfg),
                                    donate=False)
     step = ttrain.make_train_step(cfg, optimizer)
@@ -166,7 +166,7 @@ def test_accum_steps_equal_the_full_batch():
     runs = []
     for accum in (1, 2):
         optimizer = ttrain.make_optimizer()
-        state = _port_state(jstate, cfg, optimizer)
+        state = _port_state(jstate, cfg)
         step = ttrain.make_train_step(cfg, optimizer, accum_steps=accum)
         state, m = step(state, tokens)
         runs.append((m, ttf.params_to_numpy(state.params)))

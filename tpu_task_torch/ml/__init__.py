@@ -1,1 +1,26 @@
-"""Models, ops, the JAX key schedule and the paged serving engine."""
+"""Models, ops, the JAX key schedule, the paged serving engine, training,
+checkpoints and the input pipeline. The names below are those
+``tpu_task/ml/__init__.py`` exports, each from the port's own module; the
+mesh helpers are ROADMAP A14."""
+
+from tpu_task_torch.ml.checkpoint import (
+    AsyncCheckpointer,
+    AsyncCheckpointError,
+    latest_step,
+    restore_checkpoint,
+    restore_checkpoint_sharded,
+    save_checkpoint,
+    save_checkpoint_sharded,
+)
+from tpu_task_torch.ml import profiling
+
+__all__ = [
+    "AsyncCheckpointer",
+    "AsyncCheckpointError",
+    "profiling",
+    "latest_step",
+    "restore_checkpoint",
+    "restore_checkpoint_sharded",
+    "save_checkpoint",
+    "save_checkpoint_sharded",
+]

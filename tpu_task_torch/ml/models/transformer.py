@@ -197,13 +197,18 @@ def params_to_numpy(params: Params) -> Dict[str, Any]:
     }
 
 
-def params_to(params: Params, device) -> Params:
-    """The same params on ``device`` (no copy for leaves already there)."""
+def map_params(fn: Callable, params: Params) -> Params:
+    """A params-shaped tree of ``fn`` over each leaf."""
     return {
-        **{k: v.to(device) for k, v in params.items() if k != "layers"},
-        "layers": [{k: v.to(device) for k, v in layer.items()}
+        **{k: fn(v) for k, v in params.items() if k != "layers"},
+        "layers": [{k: fn(v) for k, v in layer.items()}
                    for layer in params["layers"]],
     }
+
+
+def params_to(params: Params, device) -> Params:
+    """The same params on ``device`` (no copy for leaves already there)."""
+    return map_params(lambda v: v.to(device), params)
 
 
 # -- forward -------------------------------------------------------------------

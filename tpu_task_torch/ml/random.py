@@ -285,3 +285,28 @@ def normal(key: KeyLike, shape: Sequence[int]) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
     return erf_inv(u) * _f32(math.sqrt(2.0))
+
+
+def randint(key: KeyLike, shape: Sequence[int], minval, maxval
+            ) -> torch.Tensor:
+    """int32 ``jax.random.randint(key, shape, minval, maxval)``, bit for bit
+    (jax 0.9.0, 64-bit mode off): the key split in two, two 32-bit
+    ``random_bits`` draws ``hi`` and ``lo``, and ``(hi % span * m + lo %
+    span) % span`` in wrapping uint32 arithmetic with ``m = (2^16 % span)^2
+    % span``, added to ``minval``. The square wraps too: past a span of
+    2^16 it is 2^32, so ``m`` is 0 and the draw is ``lo % span``, as in
+    JAX. ``minval`` and ``maxval`` are int32 values (JAX refuses wider
+    ones) that broadcast against ``shape``; a span of 0 or less draws
+    ``minval``."""
+    key = as_key(key)
+    k1, k2 = split(key)
+    shape = tuple(shape)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    low = torch.as_tensor(minval, device=key.device).to(torch.int64)
+    high = torch.as_tensor(maxval, device=key.device).to(torch.int64)
+    span = torch.where(high <= low, torch.ones_like(high), high - low)
+    multiplier = (1 << 16) % span
+    multiplier = ((multiplier * multiplier) & MASK) % span
+    offset = (((hi % span) * multiplier) & MASK) + lo % span
+    offset = (offset & MASK) % span
+    return (low + offset).to(torch.int32)

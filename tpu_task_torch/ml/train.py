@@ -8,6 +8,11 @@ port updates the state's tensors in place instead: a step returns the same
 tensors it was given, changed. Parameters are float32 master weights; the
 model casts each to ``cfg.dtype`` where it is used.
 
+The state flattens to the JAX ``TrainState``'s leaves in their order
+(``step``, the params with dict keys sorted, AdamW's ``count``, ``mu``,
+``nu``; optax's empty states hold none), so a checkpoint of either package
+restores into the other (``tpu_task_torch.ml.checkpoint``).
+
 The sharded steps (a ``mesh``, pipeline, MoE and sequence parallelism) are
 not ported yet (ROADMAP A14) and raise."""
 
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from tpu_task_torch.device import resolve_device
@@ -24,16 +30,21 @@ Params = transformer.Params
 
 
 class TrainState(NamedTuple):
+    """``step`` and ``opt_state["count"]`` are Python ints; a checkpoint
+    writes each as JAX's int32 0-d leaf. ``opt_state`` is ``{"count",
+    "mu", "nu"}`` with ``mu`` and ``nu`` shaped like ``params``."""
     step: int
     params: Params
     opt_state: Any
 
 
 def _leaves(params: Params) -> List[torch.Tensor]:
-    """Every parameter tensor, in one fixed order."""
-    out = [params["embed"], params["unembed"], params["final_norm"]]
+    """Every tensor of a params-shaped tree in ``jax.tree.leaves`` order:
+    dict keys sorted (``embed``, ``final_norm``, the layers, ``unembed``)."""
+    out = [params["embed"], params["final_norm"]]
     for layer in params["layers"]:
         out.extend(layer[name] for name in sorted(layer))
+    out.append(params["unembed"])
     return out
 
 
@@ -66,10 +77,9 @@ class AdamW:
         self.lr, self.weight_decay = lr, weight_decay
 
     def init(self, params: Params) -> Dict[str, Any]:
-        leaves = _leaves(params)
         return {"count": 0,
-                "mu": [torch.zeros_like(p) for p in leaves],
-                "nu": [torch.zeros_like(p) for p in leaves]}
+                "mu": transformer.map_params(torch.zeros_like, params),
+                "nu": transformer.map_params(torch.zeros_like, params)}
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], opt_state: Dict[str, Any],
@@ -84,8 +94,8 @@ class AdamW:
         opt_state["count"] = count
         c1 = 1.0 - B1 ** count
         c2 = 1.0 - B2 ** count
-        for p, g, mu, nu in zip(leaves, grads, opt_state["mu"],
-                                opt_state["nu"]):
+        for p, g, mu, nu in zip(leaves, grads, _leaves(opt_state["mu"]),
+                                _leaves(opt_state["nu"])):
             g.copy_(torch.where(keep, g, g / norm * MAX_NORM))
             mu.mul_(B1).add_((1.0 - B1) * g)
             nu.mul_(B2).add_((1.0 - B2) * g.square())
@@ -112,6 +122,41 @@ def init_state(generator: torch.Generator,
     params = transformer.params_to(
         transformer.init(generator, cfg, param_dtype=torch.float32), device)
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))
+
+
+def state_from_jax(tree, cfg: transformer.TransformerConfig,
+                   device=None) -> TrainState:
+    """The JAX ``TrainState`` (leaves as numpy arrays: ``jax.tree.map(
+    np.asarray, state)``) of ``make_optimizer``'s chain as the port's state
+    on ``device`` (CUDA unless the caller passes ``device="cpu"``): step,
+    float32 params, AdamW's count and both moments. The moments sit at
+    ``opt_state[1][0]``, the ``ScaleByAdamState`` after the clip's empty
+    state."""
+    device = resolve_device(device)
+    adam = tree.opt_state[1][0]
+
+    def tensors(value) -> Params:
+        return transformer.params_from_jax(value, cfg, device,
+                                           param_dtype=torch.float32)
+
+    return TrainState(step=int(tree.step), params=tensors(tree.params),
+                      opt_state={"count": int(adam.count),
+                                 "mu": tensors(adam.mu),
+                                 "nu": tensors(adam.nu)})
+
+
+def state_to_numpy(state: TrainState) -> TrainState:
+    """The state with numpy leaves, the ints as int32 0-d arrays:
+    ``jax.tree.leaves`` of it are the JAX ``TrainState``'s leaves in their
+    order, so ``jax.tree.unflatten(jax.tree.structure(jax_state),
+    jax.tree.leaves(state_to_numpy(state)))`` is a JAX state."""
+    opt = state.opt_state
+    return TrainState(
+        step=np.asarray(state.step, np.int32),
+        params=transformer.params_to_numpy(state.params),
+        opt_state={"count": np.asarray(opt["count"], np.int32),
+                   "mu": transformer.params_to_numpy(opt["mu"]),
+                   "nu": transformer.params_to_numpy(opt["nu"])})
 
 
 def _not_ported(what: str):

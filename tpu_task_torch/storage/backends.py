@@ -1,8 +1,9 @@
-"""A local-filesystem bucket for the port's fleet KV client and the
-replica's obs export — this package's copy of the JAX package's ``LocalBackend``
-(``tpu_task/storage/backends.py``), trimmed to the calls the client makes:
-``list``, ``read``, ``read_conditional``, ``write``, ``write_if_absent``
-and ``delete``. Keys are '/'-separated paths under the root, and a key
+"""A local-filesystem bucket for the port's fleet KV client, the
+replica's obs export and the checkpointer's upload — this package's copy of
+the JAX package's ``LocalBackend`` (``tpu_task/storage/backends.py``),
+trimmed to the calls they make: ``list``, ``read``, ``read_conditional``,
+``write``, ``write_from_file``, ``write_if_absent``, ``set_mtime`` and
+``delete``. Keys are '/'-separated paths under the root, and a key
 that would leave the root is refused.
 
 The layout on disk is the JAX package's, so a JAX replica and a port
@@ -12,6 +13,7 @@ Azure) are ROADMAP A11c."""
 from __future__ import annotations
 
 import os
+import shutil
 from typing import List, Tuple
 
 
@@ -88,6 +90,17 @@ class LocalBackend:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as handle:
             handle.write(data)
+
+    def write_from_file(self, key: str, path: str) -> None:
+        destination = self._abs(key)
+        os.makedirs(os.path.dirname(destination), exist_ok=True)
+        shutil.copyfile(path, destination)
+
+    def set_mtime(self, key: str, mtime: float) -> None:
+        try:
+            os.utime(self._abs(key), (mtime, mtime))
+        except OSError:
+            pass
 
     def write_if_absent(self, key: str, data: bytes) -> bool:
         """Write ``data`` unless ``key`` exists; whether it wrote. The key
