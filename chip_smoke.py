@@ -285,12 +285,33 @@ start); any failed check raises and the script exits non-zero:
              and seed-4 waves driven directly by the engine and an obs-off
              twin in turns (off, on, on, off). Gates as phase 25's, phase 6's launch
              gates, and every request ends with 64 tokens.
+27. serve roll — weight hot-swap on the flagship of phase 6, warmed up:
+             bf16 through the tile kernel at K = 1, int8 through the
+             pipelined kernel at K = 1, and bf16 at K = 4 (graphs per
+             generation). Each serves phase 6's seed-2 wave at 32 and 96
+             new tokens in turn, calls ``adopt_params(generation=1)`` with
+             weights from another seed once every request holds 8 tokens,
+             submits the seed-3 wave and drains. Gates: every request ends
+             with its ``max_new_tokens``, a step dispatched two
+             generations, one swap, no stale stream and generation 1 alone
+             at the end (at K = 4, generation 0's graphs gone), the last
+             old stream's retirement frees at least 0.9 of generation 0's
+             param bytes (bf16: 377.5 MB), and phase 6's launch gates.
+             Reported: adopt and capture ms, tokens/s against phase 6's
+             median, the longest step mid-roll, and the streams equal to
+             single-generation runs. Then the replica
+             roll: ``ReplicaServer(ckpt_dir=, ckpt_poll_s=0.05)`` over the
+             bf16 engine while 16 HTTP clients stream the seed-2 wave and
+             this script publishes steps 1 and 2; gates: 64 tokens a
+             stream, ``/healthz`` generation 2, ``replica.param_rolls``
+             2, no error or 500, the launch gates; reported: restore and
+             lock-held times, inter-token p99 against phase 26's.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
-20, 22, 24, 25 and 26 and the scoring step's timing),
+20, 22, 24, 25, 26 and 27 and the scoring step's timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -4869,6 +4890,319 @@ def phase_serve_replica(device, smi: str, serve_streams: dict,
                                   decode_impl="pipelined")}
 
 
+# -- phase 27: the weight roll -----------------------------------------------
+
+#: Phase 27's engine rolls: (kv_dtype, decode_impl, micro_k).
+ROLL_CASES = ((None, "cuda", 1), ("int8", "pipelined", 1), (None, "cuda", 4))
+#: The new wave of a roll, submitted once every old stream holds
+#: ROLL_AT tokens; the old wave is phase 6's seed-2 wave.
+ROLL_NEW_SEED, ROLL_AT, ROLL_NEW_MAX = 3, 8, 32
+#: The share of generation 0's param bytes (the flagship serves bf16
+#: weights: 377,522,176 bytes) that the last old stream's retirement must
+#: free; at K = 4 its graphs go too, and generation 1's first capture may
+#: land in the same step.
+ROLL_FREED_SHARE = 0.9
+
+
+def roll_new_params(cfg, device, seed: int):
+    """The port's ``init`` from another ``torch.Generator`` seed: the
+    flagship's shapes, other values."""
+    from tpu_task_torch.ml.models import transformer
+
+    return transformer.init(torch.Generator(device=device).manual_seed(seed),
+                            cfg)
+
+
+def engine_roll(device, smi: str, kv_dtype, impl: str, micro_k: int,
+                reference: list, direct_median: float) -> dict:
+    """One engine roll of phase 27: a warmed-up flagship engine serves
+    phase 6's seed-2 wave at ``max_new_tokens`` 32 and 96 in turn; once
+    every request holds ROLL_AT tokens, ``adopt_params(generation=1)``
+    with weights from another seed; then the seed-3 wave at ROLL_NEW_MAX;
+    drained. Then the seed-3 wave again on the engine, which now holds
+    generation 1 alone. Launch counts from the roll's submission to its
+    drain."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.ml.tree import leaves
+
+    cfg, params = flagship_model(device)
+    scfg = ServingConfig(**SERVE_KNOBS, decode_impl=impl, micro_k=micro_k,
+                         **({"kv_dtype": kv_dtype} if kv_dtype else {}))
+    engine = ServingEngine(params, cfg, scfg, device=device)
+    del params                 # the engine holds generation 0's weights alone
+    old_bytes = sum(t.numel() * t.element_size()
+                    for t in leaves(engine.params))
+    warm_up(engine)
+    new_params = roll_new_params(cfg, device, 1)
+    old_wave = _wave_requests(cfg.vocab_size, KVFLEET_SEED)
+    new_wave = _wave_requests(cfg.vocab_size, ROLL_NEW_SEED)
+    old_max = [(32, 96)[i % 2] for i in range(len(old_wave))]
+    counters = (engine.chunk_steps, engine.decode_steps, engine.micro_steps)
+    captures0 = engine.stats()["step_graph"]["captures"]
+    pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    old = [engine.submit(prompt, n, **kw)
+           for (prompt, kw), n in zip(old_wave, old_max)]
+    steps = []                   # (ms, generations dispatched, phase)
+
+    def step(phase: str) -> None:
+        gens = len({r.generation for r in engine._slots if r is not None})
+        s0 = time.perf_counter()
+        engine.step()
+        steps.append(((time.perf_counter() - s0) * 1e3, gens, phase))
+
+    while min(len(engine.request(r).tokens) for r in old) < ROLL_AT:
+        step("before")
+    a0 = time.perf_counter()
+    engine.adopt_params(new_params, generation=1)
+    adopt_ms = (time.perf_counter() - a0) * 1e3
+    del new_params
+    new = [engine.submit(prompt, ROLL_NEW_MAX, **kw)
+           for prompt, kw in new_wave]
+    freed = None
+    while engine.has_work:
+        stale = engine.stale_generation_streams
+        before = torch.cuda.memory_allocated()
+        step("roll" if stale else "after")
+        if stale and not engine.stale_generation_streams:
+            freed = before - torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    graphs = {g: runner.stats() for g, runner in engine._micro_graphs.items()}
+    kernels = {"cuda": pa.paged_decode_attention,
+               "pipelined": pa.paged_decode_pipelined_attention}
+    kernel = kernels.pop(engine.decode_impl)
+    chunk_steps = engine.chunk_steps - counters[0]
+    micro_steps = engine.micro_steps - counters[2]
+    decode_calls = (engine.decode_steps - counters[1] - micro_steps
+                    + micro_k * micro_steps)
+    plans = step_splits(engine)
+    results = [engine.request(r) for r in old + new]
+    run = dict(
+        all_finished=all(r.status == "done" and len(r.tokens)
+                         == r.max_new_tokens for r in results),
+        kernel_launches=kernel.launches,
+        combine_launches=kernel.combine_launches,
+        other_kernel_launches=sum(fn.launches + fn.combine_launches
+                                  for fn in kernels.values()),
+        plain_launches=pa.paged_reference_attention.launches,
+        expected_launches=cfg.n_layers * (chunk_steps + decode_calls),
+        expected_combine_launches=cfg.n_layers * (
+            decode_calls * (plans["decode"] > 1)
+            + chunk_steps * (plans["chunk"] > 1)))
+    stats = engine.stats()
+    generated = sum(len(r.tokens) for r in results)
+    new_tokens = [engine.request(r).tokens for r in new]
+    alone = _timed_drain(engine, ROLL_NEW_SEED, max_new=ROLL_NEW_MAX)
+    alone_tokens = [engine.request(r).tokens for r in alone["rids"]]
+    roll_ms = [ms for ms, _, phase in steps if phase == "roll"]
+    before_ms = [ms for ms, _, phase in steps if phase == "before"]
+    line = dict(
+        run, kv_dtype=scfg.kv_dtype or "bfloat16",
+        decode_impl=engine.decode_impl, micro_k=micro_k,
+        generated_tokens=generated, wall_s=wall,
+        tokens_per_s=generated / wall,
+        over_phase6_median=generated / wall / direct_median,
+        adopt_ms=adopt_ms, steps=len(steps),
+        two_generation_steps=sum(g > 1 for _, g, _ in steps),
+        roll_steps=len(roll_ms),
+        max_step_ms_before_roll=max(before_ms),
+        max_step_ms_mid_roll=max(roll_ms) if roll_ms else None,
+        median_step_ms_mid_roll=float(np.median(roll_ms)) if roll_ms
+        else None,
+        old_param_bytes=old_bytes,
+        freed_bytes_at_last_old_retire=freed,
+        param_swaps=stats["adapters"]["param_swaps"],
+        stale_generation_streams=stats["adapters"][
+            "stale_generation_streams"],
+        generations_held=sorted(engine._gen_params),
+        graph_generations=sorted(graphs),
+        graph_captures=stats["step_graph"]["captures"] - captures0,
+        new_generation_capture_ms=(graphs[1]["capture_ms"]
+                                   if 1 in graphs else None),
+        # A report, not a gate (as phase 26's): the split plan follows
+        # the step's shape, and a bf16 stream can part at a near tie.
+        old_streams_equal_phase6_prefix=sum(
+            engine.request(r).tokens[:64] == want[:len(
+                engine.request(r).tokens[:64])]
+            for r, want in zip(old, reference)),
+        new_streams_equal_single_generation=sum(
+            a == b for a, b in zip(new_tokens, alone_tokens)),
+        single_generation_wave_ok=wave_ok(alone), gpu=smi)
+    failures = []
+    if not wave_ok(run):
+        failures.append("a request fell short or the launches miss the "
+                        "engine's kernel")
+    if not line["two_generation_steps"]:
+        failures.append("no step dispatched two generations")
+    if (line["param_swaps"], line["stale_generation_streams"],
+            line["generations_held"]) != (1, 0, [1]):
+        failures.append("the roll did not end on generation 1 alone")
+    if micro_k > 1 and (line["graph_generations"] != [1]
+                        or line["new_generation_capture_ms"] is None):
+        failures.append("generation 0's graphs outlived it, or generation "
+                        "1 never captured")
+    if freed is None or freed < ROLL_FREED_SHARE * old_bytes:
+        failures.append(f"the last old stream's retirement freed {freed} "
+                        f"of generation 0's {old_bytes} param bytes")
+    if not line["single_generation_wave_ok"]:
+        failures.append("the single-generation wave failed its gates")
+    line["failures"] = failures
+    emit("serve_roll", **line)
+    if failures:
+        raise AssertionError(f"serve_roll {kv_dtype}/{impl}/K{micro_k}: "
+                             f"{failures}")
+    return line
+
+
+def replica_roll(device, smi: str, replica_line: dict) -> dict:
+    """Phase 27's replica roll: a warmed-up bf16 flagship engine at K = 1
+    behind ``ReplicaServer(ckpt_dir=, ckpt_poll_s=0.05)``; 16 HTTP
+    clients stream phase 6's seed-2 wave while this script publishes
+    steps 1 and 2 (``save_checkpoint``, weights from other seeds) into the
+    directory. Gates: every stream ends with 64 tokens, ``/healthz`` names
+    generation 2 and ``replica.param_rolls`` counts 2, no error and no
+    500, and the engine's kernel ran and nothing else."""
+    import shutil
+    import threading
+
+    from tpu_task_torch.ml.checkpoint import save_checkpoint
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.obs import Obs
+    from tpu_task_torch.serve.replica import ReplicaServer
+
+    cfg, params = flagship_model(device)
+    engine = ServingEngine(params, cfg, ServingConfig(**SERVE_KNOBS),
+                           device=device, obs=Obs.create("replica:roll"))
+    del params
+    warm_up(engine)
+    # The published weights, on the host before the wave: the script only
+    # writes them while the streams flow.
+    steps = {step: transformer.map_params(
+        lambda v: v.cpu(), roll_new_params(cfg, device, 10 + step))
+        for step in (1, 2)}
+    root = tempfile.mkdtemp(prefix="tpu-task-roll-")
+    replica = ReplicaServer(engine=engine, ckpt_dir=root,
+                            ckpt_poll_s=0.05).start()
+    published = {}
+
+    def publish():
+        for step, tree in steps.items():
+            # Step 2 only once the replica has seen step 1 (it reads a
+            # step by number, so step 2's pointer cannot hide it).
+            while not (replica._ckpt_read is not None or replica.rolls) \
+                    and step > 1 and time.monotonic() - t_wave < 60:
+                time.sleep(0.005)
+            t0 = time.perf_counter()
+            save_checkpoint(root, step, tree)
+            published[step] = dict(save_s=time.perf_counter() - t0,
+                                   at_s=time.monotonic() - t_wave)
+
+    try:
+        http = HttpClient(replica.url)
+        counters = (engine.chunk_steps, engine.decode_steps)
+        pa.reset_launch_counts()
+        torch.cuda.synchronize()
+        publisher = threading.Thread(target=publish, daemon=True)
+        t_wave = time.monotonic()
+        publisher.start()
+        wave = http_wave(replica, KVFLEET_SEED)
+        t_end = time.monotonic()
+        publisher.join(timeout=120)
+        deadline = time.monotonic() + 60
+        while http.call("GET", "/healthz")[2]["generation"] != 2 \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        health = http.call("GET", "/healthz")[2]
+        torch.cuda.synchronize()
+        metrics = http.call("GET", "/obs")[2]["metrics"]
+        statuses = http.statuses
+        http.close()
+    finally:
+        replica.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    results = wave["results"]
+    chunk_steps = engine.chunk_steps - counters[0]
+    decode_calls = engine.decode_steps - counters[1]
+    kernel = pa.paged_decode_attention
+    plans = step_splits(engine)
+    run = dict(
+        all_finished=all(r["status"] == "done" and len(r["tokens"]) == 64
+                         for r in results),
+        kernel_launches=kernel.launches,
+        combine_launches=kernel.combine_launches,
+        other_kernel_launches=(pa.paged_decode_pipelined_attention.launches
+                               + pa.paged_decode_pipelined_attention
+                               .combine_launches),
+        plain_launches=pa.paged_reference_attention.launches,
+        expected_launches=cfg.n_layers * (chunk_steps + decode_calls),
+        expected_combine_launches=cfg.n_layers * (
+            decode_calls * (plans["decode"] > 1)
+            + chunk_steps * (plans["chunk"] > 1)))
+    gaps = [(b - a) * 1e3 for r in results
+            for a, b in zip(r["times"], r["times"][1:])]
+    rolls = [dict(roll, adopted_before_wave_end=roll["at"] < t_end,
+                  at_s=roll["at"] - t_wave) for roll in replica.rolls]
+    line = dict(
+        run, wall_s=wave["wall_s"],
+        generated_tokens=sum(len(r["tokens"]) for r in results),
+        healthz_generation=health["generation"],
+        param_rolls=metrics.get("replica.param_rolls", {}).get("value", 0),
+        replica_errors=metrics.get("replica.errors", {}).get("value", 0),
+        rolls=[{k: v for k, v in roll.items() if k != "at"}
+               for roll in rolls],
+        restore_s=[roll["read_s"] for roll in rolls],
+        lock_held_ms=[roll["adopt_s"] * 1e3 for roll in rolls],
+        published=published,
+        client_intertoken_ms_p50=float(np.percentile(gaps, 50)),
+        client_intertoken_ms_p99=float(np.percentile(gaps, 99)),
+        client_intertoken_ms_max=max(gaps),
+        phase26_intertoken_ms_p99=replica_line["client_intertoken_ms_p99"],
+        faults=replica_faults(replica, False),
+        http_500s=(statuses + [s for r in results
+                               for s in r["statuses"]]).count(500),
+        gpu=smi)
+    failures = []
+    if not wave_ok(run):
+        failures.append("a stream fell short or the launches miss the "
+                        "engine's kernel")
+    if (line["healthz_generation"], line["param_rolls"]) != (2, 2):
+        failures.append("the replica did not roll to step 1, then step 2")
+    if line["replica_errors"] or line["faults"] or line["http_500s"]:
+        failures.append("a replica fault or a 500")
+    line["failures"] = failures
+    emit("serve_roll_replica", **line)
+    if failures:
+        raise AssertionError(f"serve_roll_replica: {failures}")
+    return line
+
+
+def phase_serve_roll(device, smi: str, serve_streams: dict,
+                     quant_streams: dict, medians: dict,
+                     replica_line: dict) -> dict:
+    """Phase 27: the three engine rolls of ROLL_CASES, then the replica
+    roll. Returns each kernel's and the combine's launches here."""
+    totals = {"cuda": 0, "pipelined": 0, "cuda_combine": 0,
+              "pipelined_combine": 0}
+    for kv_dtype, impl, micro_k in ROLL_CASES:
+        streams = quant_streams if kv_dtype else serve_streams
+        line = engine_roll(device, smi, kv_dtype, impl, micro_k,
+                           streams[KVFLEET_SEED],
+                           medians["int8" if kv_dtype else "bf16"])
+        totals[impl] += line["kernel_launches"]
+        totals[f"{impl}_combine"] += line["combine_launches"]
+    line = replica_roll(device, smi, replica_line)
+    totals["cuda"] += line["kernel_launches"]
+    totals["cuda_combine"] += line["combine_launches"]
+    return totals
+
+
 def main() -> int:
     import shutil
 
@@ -4926,6 +5260,9 @@ def run_phases(bucket: str) -> int:
     replica = phase_serve_replica(device, smi, serve_streams, quant_streams,
                                   {"bf16": serve_median,
                                    "int8": quant_median})
+    roll = phase_serve_roll(device, smi, serve_streams, quant_streams,
+                            {"bf16": serve_median, "int8": quant_median},
+                            replica["bf16"])
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -4966,6 +5303,7 @@ def run_phases(bucket: str) -> int:
         "launches_serve_kvfleet": kvfleet["bf16"]["kernel_launches"],
         "launches_parity_replica": parity_replica["cuda"],
         "launches_serve_replica": replica["bf16"]["kernel_launches"],
+        "launches_serve_roll": roll["cuda"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -5009,6 +5347,7 @@ def run_phases(bucket: str) -> int:
         "launches_serve_kvfleet_quant": kvfleet["int8"]["kernel_launches"],
         "launches_parity_replica": parity_replica["pipelined"],
         "launches_serve_replica_quant": replica["int8"]["kernel_launches"],
+        "launches_serve_roll_quant": roll["pipelined"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -5033,6 +5372,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_replica": parity_replica["combine"],
         "launches_serve_replica": replica["bf16"]["combine_launches"],
         "launches_serve_replica_quant": replica["int8"]["combine_launches"],
+        "launches_serve_roll": roll["cuda_combine"],
+        "launches_serve_roll_quant": roll["pipelined_combine"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

@@ -4,7 +4,10 @@ one's split-KV walk and its combine kernel, and the three flash-attention
 kernels of training; the serving engine's K-step loop captured as a
 CUDA graph through the paged kernels; and both paged kernels at the
 speculative scoring widths, with a spec engine's target and draft steps
-through them; and a drained engine's requests resumed through both. Then
+through them; a drained engine's requests resumed through both; and a
+weight roll at micro_k 4, each generation with its own graphs; and a
+replica's graphs replayed from the thread a profiler capture hands its
+step loop to. Then
 the train path's card work beside the kernels: ``AsyncCheckpointer``'s
 device snapshot and ``prefetch_to_device``'s pinned side-stream copies.
 
@@ -262,6 +265,120 @@ def test_micro_step_graphs_read_as_k1(cuda_device, kv_dtype, impl):
     assert graphs["replays"] == stats[4]["micro_steps"]
     assert graphs["captures"] in (1, 2)
     assert stats[1]["step_graph"]["captures"] == 0
+
+
+@pytest.mark.cuda
+def test_profile_hand_over_replays_the_graphs_on_the_new_thread(
+        cuda_device, tmp_path):
+    """A replica at micro_k 4 through the tile kernel captures both K-step
+    graphs (greedy, sampled) on its first step-loop thread; a ``/profile``
+    capture moves the step loop to a new thread, where the same graphs
+    replay with no capture again, the streams equal a direct engine's, the
+    trace names the tile kernel's walk, and nothing fails."""
+    import json
+    import time
+    from pathlib import Path
+
+    from tpu_task_torch.serve.replica import ReplicaServer
+
+    serving = {"decode_impl": "cuda", "micro_k": 4}
+    greedy = {"prompt": list(range(1, 30)), "max_new_tokens": 24}
+    sampled = {"prompt": list(range(5, 14)), "max_new_tokens": 20,
+               "temperature": 0.8, "key": [4, 5]}
+    bodies = [greedy, sampled,
+              {"prompt": list(range(40, 57)), "max_new_tokens": 16}]
+    direct = build_engine("tiny", serving=serving, device=cuda_device)
+    ids = [direct.submit(b["prompt"], b["max_new_tokens"],
+                         temperature=b.get("temperature", 0.0),
+                         key=b.get("key")) for b in bodies]
+    out = direct.drain()
+    want = [out[i] for i in ids]
+    replica = ReplicaServer(preset="tiny", serving=serving,
+                            profile_dir=str(tmp_path)).start()
+
+    def wave(wave_bodies):
+        rids = [replica.submit(b) for b in wave_bodies]
+        deadline = time.monotonic() + 120
+        for rid in rids:
+            got = replica.stream(rid, 0, wait_ms=2000)
+            while got["status"] != "done":
+                assert not got["draining"], replica.step_error
+                assert time.monotonic() < deadline, "a stream stalled"
+                got = replica.stream(rid, 0, wait_ms=2000)
+        return [replica.stream(rid, 0)["tokens"] for rid in rids]
+
+    try:
+        wave([greedy])                   # each program alone: both captured
+        wave([sampled])
+        assert wave(bodies) == want
+        first = replica._step_thread
+        graphs = replica.engine.stats()["step_graph"]
+        runner = replica.engine._micro_graphs[0]
+        captured = dict(runner._graphs)
+        assert graphs["captures"] == len(captured) == 2
+        reply = replica.profile(500)
+        assert reply is not None
+        waves, deadline = [], time.monotonic() + 120
+        while replica._profile_thread.is_alive():
+            assert time.monotonic() < deadline, "the capture never ended"
+            waves.append(wave(bodies))
+        replica._profile_thread.join(timeout=60)
+        assert waves and all(w == want for w in waves)
+        assert replica._step_thread is not first and not first.is_alive()
+        after = replica.engine.stats()["step_graph"]
+        assert runner._graphs == captured and after["captures"] == 2
+        assert after["replays"] > graphs["replays"]
+        events = json.loads((Path(reply["dir"]) / "trace-cuda.json")
+                            .read_text())["traceEvents"]
+        assert any("paged_decode_kernel" in e.get("name", "")
+                   for e in events if e.get("cat") == "kernel")
+        assert replica.step_error is None and not replica.draining
+    finally:
+        replica.stop()
+
+
+@pytest.mark.cuda
+def test_roll_at_k4_keeps_each_stream_on_its_generation(cuda_device):
+    """The tiny preset at micro_k 4 through the tile kernel, rolled to new
+    weights mid-wave: every generation captures its own K-step graphs,
+    the old streams equal an engine that holds the old weights alone and
+    the new ones an engine that holds the new weights alone, the old
+    generation's weights and graphs are freed with its last stream, and
+    the launch counts are those of the steps that ran."""
+    old = [(np.arange(1, 30), 14, {}),
+           (np.arange(5, 14), 12, {"temperature": 0.8, "key": [4, 5]})]
+    new = [(np.arange(2, 9), 9, {}),
+           (np.arange(40, 57), 7, {"temperature": 0.7, "key": [6, 7]})]
+    serving = {"decode_impl": "cuda", "micro_k": 4}
+    engine = build_engine("tiny", serving=serving, device=cuda_device)
+    fresh = transformer.init(
+        torch.Generator(device=cuda_device).manual_seed(5), engine.cfg)
+    tpa.reset_launch_counts()
+    rids = [engine.submit(p, n, **kw) for p, n, kw in old]
+    while min(len(engine.request(r).tokens) for r in rids) < 5:
+        engine.step()
+    engine.adopt_params(fresh, generation=3)
+    rids += [engine.submit(p, n, **kw) for p, n, kw in new]
+    out = engine.drain()
+    s = engine.stats()
+    calls = s["chunk_steps"] + s["decode_steps"] + 3 * s["micro_steps"]
+    assert s["attention_launches"] == {
+        "cuda": engine.cfg.n_layers * calls, "pipelined": 0, "reference": 0}
+    assert s["step_graph"]["captures"] >= 2
+    assert s["step_graph"]["replays"] == s["micro_steps"]
+    assert set(engine._gen_params) == set(engine._micro_graphs) == {3}
+    assert s["adapters"]["param_swaps"] == 1
+
+    def alone(params, wave):
+        single = build_engine("tiny", serving=serving, device=cuda_device)
+        if params is not None:
+            single.adopt_params(params)
+        ids = [single.submit(p, n, **kw) for p, n, kw in wave]
+        got = single.drain()
+        return [got[i] for i in ids]
+
+    assert [out[r] for r in rids[:2]] == alone(None, old)
+    assert [out[r] for r in rids[2:]] == alone(fresh, new)
 
 
 @pytest.mark.cuda

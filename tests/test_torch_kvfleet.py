@@ -12,12 +12,10 @@ JAX's only where a value sits at a rounding boundary (and downstream of
 it), by a step or two of the grid, and values and scales agree within the
 stated tolerances.
 
-Blocks one package publishes import into the other's engine with the
-streams the publisher's bytes give: the unshared engine's of the
-publishing package, which are the JAX engine's except where a sampled
-token parts at such a tie. Both importers count the same ``kvfleet``
-counters. A torn, foreign or deleted object is a miss that prefills
-locally."""
+An importing engine counts the ``kvfleet`` counters the chain predicts; a
+torn, foreign or deleted object is a miss that prefills locally; a
+prefetched chain warms the local cache. Blocks crossing between the two
+packages' engines are in ``tests/test_torch_kvfleet_cross.py``."""
 
 import json
 import os
@@ -30,21 +28,20 @@ import pytest
 import torch
 
 from tpu_task.ml.serving import ServingConfig as JaxServingConfig
-from tpu_task.ml.serving import ServingEngine as JaxServingEngine
 from tpu_task.ml.serving import cache as jcache
 from tpu_task.serve.kvfleet import FleetKvClient as JaxFleetKvClient
 from tpu_task.serve.replica import build_engine as jax_build_engine
 from tpu_task.storage.backends import LocalBackend as JaxLocalBackend
-from tpu_task_torch.ml import random as R
 from tpu_task_torch.ml.serving import cache as tcache
 from tpu_task_torch.ml.serving.cache import ServingConfig
-from tpu_task_torch.ml.serving.engine import ServingEngine
 from tpu_task_torch.serve.kvfleet import FleetKvClient, FleetKvIndex
 from tpu_task_torch.serve.replica import build_engine
 from tpu_task_torch.storage.backends import LocalBackend, open_backend
+from torch_kvfleet_util import (KV_DTYPES, fleet_counters, fleet_wave,
+                                jax_fleet_engine, port_fleet_engine,
+                                publish_all, run_wave)
 from torch_port_util import CPU, port_config, serving_knobs
 
-KV_DTYPES = [None, "int8", "fp8", "int4"]
 #: fp32 k/v values: the two frameworks' projections round an ulp apart.
 POOL_ATOL = 1e-5
 #: A scale is a block's amax, so it inherits that ulp.
@@ -61,63 +58,6 @@ MAX_STEPS = {"int8": 1, "int4": 1, "fp8": 2}
 #: (tiny at block 4, fp8: 244 of 18,432, 1.3%).
 MAX_OFF_GRID = {"int8": 0.01, "int4": 0.01, "fp8": 0.02}
 TOP_STEP = {"int8": 1 / 127, "int4": 1 / 7, "fp8": 32 / 448}
-
-
-def _knobs(preset, **over):
-    return serving_knobs(preset, **over)
-
-
-def _jax_engine(preset, client=None, **over):
-    jb = jax_build_engine(preset)
-    knobs = _knobs(preset, **over)
-    spec = knobs.get("spec_k", 0) > 0
-    return JaxServingEngine(
-        jb.params, jb.cfg,
-        JaxServingConfig(**{**knobs, "decode_impl": "xla"}),
-        rng=jax.random.PRNGKey(0), kv_fleet=client,
-        draft_params=jb.params if spec else None,
-        draft_cfg=jb.cfg if spec else None)
-
-
-def _port_engine(preset, client=None, **over):
-    pb = build_engine(preset, device="cpu")
-    knobs = _knobs(preset, **over)
-    spec = knobs.get("spec_k", 0) > 0
-    return ServingEngine(pb.params, pb.cfg, ServingConfig(**knobs),
-                         rng=R.PRNGKey(0), device=CPU, kv_fleet=client,
-                         draft_params=pb.params if spec else None,
-                         draft_cfg=pb.cfg if spec else None)
-
-
-def _wave(vocab, bs, seed=3, sampled=True):
-    """Greedy and (unless ``sampled`` is False) keyed-sampled requests;
-    two share a three-block prefix, and one prompt is exactly two blocks
-    (its import ends in a copy)."""
-    rng = np.random.default_rng(seed)
-    shared = rng.integers(0, vocab, size=3 * bs)
-    prompts = [np.concatenate([shared, rng.integers(0, vocab, size=2)]),
-               rng.integers(0, vocab, size=2 * bs + 3),
-               np.concatenate([shared, rng.integers(0, vocab, size=bs + 1)]),
-               rng.integers(0, vocab, size=2 * bs),
-               rng.integers(0, vocab, size=5)]
-    wave = []
-    for i, p in enumerate(prompts):
-        kw = ({"temperature": 0.9, "top_p": 0.85, "key": [40 + i, 9]}
-              if sampled and i % 2 else {})
-        wave.append((p.astype(np.int32), 8, kw))
-    return wave
-
-
-def _run(engine, wave):
-    rids = [engine.submit(p, n, **kw) for p, n, kw in wave]
-    out = engine.drain(max_steps=5000)
-    return [out[r] for r in rids]
-
-
-def _fleet_counters(engine) -> dict:
-    fleet = engine.stats()["kvfleet"]
-    return {k: fleet[k] for k in ("hit_blocks", "miss_blocks",
-                                  "import_requests", "prefetch_blocks")}
 
 
 def _to_torch(arr, dtype) -> torch.Tensor:
@@ -137,7 +77,7 @@ def test_kvfleet_fingerprint_and_payload_length_equal_jax(preset, block_size,
                                                           kv_dtype):
     jb = jax_build_engine(preset)
     cfg = build_engine(preset, device="cpu").cfg
-    knobs = _knobs(preset, block_size=block_size, kv_dtype=kv_dtype)
+    knobs = serving_knobs(preset, block_size=block_size, kv_dtype=kv_dtype)
     jscfg, scfg = JaxServingConfig(**knobs), ServingConfig(**knobs)
     assert tcache.kv_fingerprint(cfg, scfg) == \
         jcache.kv_fingerprint(jb.cfg, jscfg)
@@ -155,7 +95,7 @@ def test_kvfleet_fingerprint_names_the_model_dtype_as_jax(dtype):
     jcfg = jax_build_engine("micro").cfg
     jcfg = type(jcfg)(**{**jcfg.__dict__, "dtype": getattr(jnp, dtype)})
     cfg = port_config(jcfg, dtype=getattr(torch, dtype))
-    knobs = _knobs("micro")
+    knobs = serving_knobs("micro")
     assert tcache.kv_fingerprint(cfg, ServingConfig(**knobs)) == \
         jcache.kv_fingerprint(jcfg, JaxServingConfig(**knobs))
     assert tcache.block_payload_nbytes(cfg, ServingConfig(**knobs)) == \
@@ -180,10 +120,10 @@ def test_kvfleet_payloads_after_the_same_wave_match_jax(preset, block_size,
     cross-package test below meets one), and the blocks' hashes then part
     with it."""
     over = dict(block_size=block_size, kv_dtype=kv_dtype)
-    jax_engine, port = _jax_engine(preset, **over), _port_engine(
-        preset, **over)
-    wave = _wave(port.cfg.vocab_size, block_size, sampled=False)
-    assert _run(port, wave) == _run(jax_engine, wave)
+    jax_engine = jax_fleet_engine(preset, **over)
+    port = port_fleet_engine(preset, **over)
+    wave = fleet_wave(port.cfg.vocab_size, block_size, sampled=False)
+    assert run_wave(port, wave) == run_wave(jax_engine, wave)
     hot = port._pcache.hot_entries()
     assert hot == jax_engine._pcache.hot_entries()
     assert len(hot) >= 6
@@ -354,7 +294,7 @@ def test_kvfleet_port_client_reads_through_the_jax_backend(tmp_path):
     assert "aa" in index and len(index) == 1
     client = FleetKvClient(jb, "rb", refresh_interval=0.0)
     client.bind(build_engine("micro", device="cpu").cfg,
-                ServingConfig(**_knobs("micro")))
+                ServingConfig(**serving_knobs("micro")))
     assert client.fetch(bytes(16)) is None and client.fetch_misses == 1
 
 
@@ -385,77 +325,6 @@ def test_kvfleet_needs_the_prefix_cache():
 # -- engine to engine ----------------------------------------------------------
 
 
-def _publish_all(client, engine) -> int:
-    return client.publish(engine, limit=10_000)
-
-
-def _expected_imports(wave, bs) -> dict:
-    """The ``kvfleet`` counters of an importer of ``wave`` from a bucket
-    that holds every full prompt block: a block that an earlier request of
-    the wave already brought into the local cache is a local hit."""
-    local, hits, requests = set(), 0, 0
-    for prompt, _, _ in wave:
-        chain = tcache.chain_block_hashes(prompt, bs)
-        have = 0
-        while have < len(chain) and chain[have] in local:
-            have += 1
-        hits += len(chain) - have
-        requests += len(chain) > have
-        local.update(chain)
-    return dict(hit_blocks=hits, miss_blocks=0, import_requests=requests,
-                prefetch_blocks=0)
-
-
-@pytest.mark.parametrize("preset", ["micro", "tiny"])
-@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
-@pytest.mark.parametrize("publisher", ["jax", "port"])
-def test_kvfleet_blocks_cross_between_the_packages(preset, kv_dtype,
-                                                   publisher):
-    """One package's engine serves a wave and publishes every hot block;
-    a fresh JAX engine and a fresh port engine each import the same wave
-    from that bucket. Both importers' greedy and sampled streams equal the
-    publishing package's unshared streams (an import reproduces the
-    publisher's bytes), and their ``kvfleet`` counters are equal and as
-    the chain predicts. The two packages' unshared streams are equal too,
-    except where a sampled token parts at a rounding tie of the two
-    frameworks' values (on tiny at int8 one request does: an int8 code of
-    layer 1's v at two scales an ulp apart); there the port's importer of
-    JAX's blocks follows JAX, and JAX's importer of the port's blocks
-    follows the port."""
-    if kv_dtype == "fp8" and not tcache.fp8_supported():
-        pytest.skip("float8_e4m3fn is not supported here")
-    tmp = tempfile.mkdtemp()
-    over = {"kv_dtype": kv_dtype}
-    if publisher == "jax":
-        pub = JaxFleetKvClient(JaxLocalBackend(tmp), "pub",
-                               refresh_interval=0.0)
-        first, unshared = _jax_engine(preset, pub, **over), _jax_engine
-    else:
-        pub = FleetKvClient(LocalBackend(tmp), "pub", refresh_interval=0.0)
-        first, unshared = _port_engine(preset, pub, **over), _port_engine
-    bs = first.scfg.block_size
-    wave = _wave(first.cfg.vocab_size, bs)
-    reference = _run(unshared(preset, **over), wave)
-    assert _run(first, wave) == reference
-    assert _publish_all(pub, first) == len(first._pcache.hot_entries())
-    port = _port_engine(preset, FleetKvClient(
-        LocalBackend(tmp), "port", refresh_interval=0.0), **over)
-    jax_engine = _jax_engine(preset, JaxFleetKvClient(
-        JaxLocalBackend(tmp), "jax", refresh_interval=0.0), **over)
-    assert _run(port, wave) == reference
-    assert _run(jax_engine, wave) == reference
-    assert _fleet_counters(port) == _fleet_counters(jax_engine) == \
-        _expected_imports(wave, bs)
-    assert port.stats()["kvfleet"]["bytes_fetched"] == \
-        jax_engine.stats()["kvfleet"]["bytes_fetched"] > 0
-    assert port.allocator.referenced == 0
-    other = _run((_port_engine if publisher == "jax" else _jax_engine)(
-        preset, **over), wave)
-    parted = [i for i, (a, b) in enumerate(zip(reference, other)) if a != b]
-    assert all("temperature" in wave[i][2] for i in parted)
-    assert parted == ([1] if (preset, kv_dtype) == ("tiny", "int8") else [])
-
-
 @pytest.mark.parametrize("kind", ["torn", "foreign", "deleted"])
 def test_kvfleet_bad_objects_are_misses_that_prefill(kind):
     """A torn (short), foreign (another layout's length) or deleted block
@@ -464,10 +333,10 @@ def test_kvfleet_bad_objects_are_misses_that_prefill(kind):
     tmp = tempfile.mkdtemp()
     backend = LocalBackend(tmp)
     pub = FleetKvClient(backend, "pub", refresh_interval=0.0)
-    first = _port_engine("micro", pub)
+    first = port_fleet_engine("micro", pub)
     prompt = np.arange(1, 23, dtype=np.int32)         # five full blocks
-    want = _run(first, [(prompt, 8, {})])
-    _publish_all(pub, first)
+    want = run_wave(first, [(prompt, 8, {})])
+    publish_all(pub, first)
     hashes = tcache.chain_block_hashes(prompt, 4)
     key = pub.index.block_key(hashes[2].hex())
     path = os.path.join(tmp, key)
@@ -478,9 +347,9 @@ def test_kvfleet_bad_objects_are_misses_that_prefill(kind):
         with open(path, "wb") as handle:
             handle.write(data[:-3] if kind == "torn" else data * 2)
     client = FleetKvClient(backend, "b", refresh_interval=0.0)
-    engine = _port_engine("micro", client)
-    assert _run(engine, [(prompt, 8, {})]) == want
-    assert _fleet_counters(engine) == dict(
+    engine = port_fleet_engine("micro", client)
+    assert run_wave(engine, [(prompt, 8, {})]) == want
+    assert fleet_counters(engine) == dict(
         hit_blocks=2, miss_blocks=3, import_requests=1, prefetch_blocks=0)
     assert client.fetch_misses == 1
     assert engine.stats()["prefix_cache"]["blocks_saved"] == 2
@@ -494,60 +363,28 @@ def test_kvfleet_prefetch_chain_warms_the_local_cache():
     of an unshared engine."""
     tmp = tempfile.mkdtemp()
     pub = FleetKvClient(LocalBackend(tmp), "ra", refresh_interval=0.0)
-    first = _port_engine("micro", pub)
+    first = port_fleet_engine("micro", pub)
     prompt = np.arange(1, 17, dtype=np.int32)
-    out = _run(first, [(prompt, 8, {})])[0]
+    out = run_wave(first, [(prompt, 8, {})])[0]
     assert pub.publish(first) > 0
     session = np.concatenate([prompt, np.asarray(out, np.int32)])
     hashes = tcache.chain_block_hashes(session, 4)
-    engine = _port_engine("micro", FleetKvClient(LocalBackend(tmp), "rb",
-                                                 refresh_interval=0.0))
+    engine = port_fleet_engine("micro", FleetKvClient(
+        LocalBackend(tmp), "rb", refresh_interval=0.0))
     imported = engine.prefetch_chain(hashes)
     assert imported == len(hashes) - 1
     assert engine.stats()["kvfleet"]["prefetch_blocks"] == imported
     assert engine.allocator.referenced == 0
     assert engine.prefetch_chain(hashes) == 0
     turn2 = np.concatenate([session, np.asarray([30, 31], np.int32)])
-    got = _run(engine, [(turn2, 6, {})])
+    got = run_wave(engine, [(turn2, 6, {})])
     assert engine.stats()["kvfleet"]["import_requests"] == 0
     assert engine.stats()["prefix_cache"]["blocks_saved"] >= imported
-    assert got == _run(_jax_engine("micro"), [(turn2, 6, {})])
+    assert got == run_wave(jax_fleet_engine("micro"), [(turn2, 6, {})])
     # JAX's engine prefetches the same chain from the same bucket.
-    jax_engine = _jax_engine("micro", JaxFleetKvClient(
+    jax_engine = jax_fleet_engine("micro", JaxFleetKvClient(
         JaxLocalBackend(tmp), "rc", refresh_interval=0.0))
     assert jax_engine.prefetch_chain(hashes) == imported
-
-
-@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8", "int4"])
-@pytest.mark.parametrize("path", ["micro_k4", "spec_k2"])
-def test_kvfleet_import_under_micro_steps_and_spec(kv_dtype, path):
-    """An importing engine at ``micro_k`` 4, or ``spec_k`` 2 with the
-    target as its own draft (whose pools are never imported into: its
-    catch-up re-ingests the context): streams equal the JAX engine's of
-    the same configuration without a fleet, and equal counters."""
-    if kv_dtype == "fp8" and not tcache.fp8_supported():
-        pytest.skip("float8_e4m3fn is not supported here")
-    over = {"kv_dtype": kv_dtype,
-            **({"micro_k": 4} if path == "micro_k4" else {"spec_k": 2})}
-    tmp = tempfile.mkdtemp()
-    pub = FleetKvClient(LocalBackend(tmp), "pub", refresh_interval=0.0)
-    first = _port_engine("micro", pub, **over)
-    wave = _wave(first.cfg.vocab_size, 4)
-    want = _run(_jax_engine("micro", **over), wave)
-    assert _run(first, wave) == want
-    _publish_all(pub, first)
-    port = _port_engine("micro", FleetKvClient(
-        LocalBackend(tmp), "b", refresh_interval=0.0), **over)
-    jax_engine = _jax_engine("micro", JaxFleetKvClient(
-        JaxLocalBackend(tmp), "c", refresh_interval=0.0), **over)
-    assert _run(port, wave) == want
-    assert _run(jax_engine, wave) == want
-    assert _fleet_counters(port) == _fleet_counters(jax_engine)
-    assert _fleet_counters(port)["hit_blocks"] > 0
-    if path == "micro_k4":
-        assert port.micro_steps > 0
-    else:
-        assert port.spec_rounds > 0
 
 
 def test_kvfleet_index_shard_body_is_jax_json(tmp_path):
@@ -556,16 +393,16 @@ def test_kvfleet_index_shard_body_is_jax_json(tmp_path):
     reads the other's."""
     pub = FleetKvClient(LocalBackend(str(tmp_path)), "ra",
                         refresh_interval=0.0)
-    first = _port_engine("micro", pub)
-    _run(first, [(np.arange(1, 11, dtype=np.int32), 4, {})])
-    assert _publish_all(pub, first) == 3
+    first = port_fleet_engine("micro", pub)
+    run_wave(first, [(np.arange(1, 11, dtype=np.int32), 4, {})])
+    assert publish_all(pub, first) == 3
     key = f"{pub.index.namespace}/index/ra.json"
     body = (tmp_path / key).read_bytes()
     assert body == json.dumps(pub._published, sort_keys=True).encode()
     jax_client = JaxFleetKvClient(JaxLocalBackend(str(tmp_path)), "x",
                                   refresh_interval=0.0)
     jax_client.bind(jax_build_engine("micro").cfg,
-                    JaxServingConfig(**_knobs("micro")))
+                    JaxServingConfig(**serving_knobs("micro")))
     assert jax_client.index.namespace == pub.index.namespace
     assert jax_client.lookup_chain(
         [bytes.fromhex(h) for h in pub._published]) == 3

@@ -213,6 +213,46 @@ def test_replica_second_profile_is_409_as_jax(pair):
     assert os.listdir(port_dir) == ["trace-cpu.json"]
 
 
+def test_replica_profile_hands_the_step_loop_to_a_thread_it_traces(
+        tmp_path):
+    """Once the capture records, the step loop moves to a new thread at a
+    step boundary (the profiler keeps the kernels of a thread that starts
+    inside it), and the replica serves on, over and over: no error, no
+    drain, and each request's stream is the one a replica that never
+    profiled gives."""
+    import threading
+
+    body = {"prompt": [1, 2, 3], "max_new_tokens": 12, "temperature": 0.7,
+            "key": [3, 4]}
+    plain = ReplicaServer(preset="micro", device="cpu").start()
+    server = ReplicaServer(preset="micro", device="cpu",
+                           profile_dir=str(tmp_path)).start()
+    try:
+        rid = plain.submit(body)
+        want = plain.stream(rid, 0, wait_ms=2000)
+        while want["status"] != "done":
+            want = plain.stream(rid, 0, wait_ms=2000)
+        threads = [server._step_thread]
+        for _ in range(3):
+            rid = server.submit(body)
+            assert call(server.url, "GET", "/profile?ms=50")[0] == 200
+            got = server.stream(rid, 0, wait_ms=2000)
+            while got["status"] != "done":
+                got = server.stream(rid, 0, wait_ms=2000)
+            assert got["tokens"] == want["tokens"]
+            server._profile_thread.join(timeout=30)
+            threads.append(server._step_thread)
+        assert len({id(t) for t in threads}) == 4
+        assert threads[-1].is_alive() and not any(
+            t.is_alive() for t in threads[:-1])
+        assert threading.active_count() < 64
+        assert server.step_error is None and not server.draining
+        assert call(server.url, "GET", "/healthz")[2]["ok"]
+    finally:
+        plain.stop()
+        server.stop()
+
+
 def test_replica_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A14"):
         ReplicaServer(preset="micro", device="cpu", tp=2)

@@ -4,8 +4,8 @@ JAX replica's keys, serves over HTTP, drains on SIGTERM into
 ``inflight.json`` records that the JAX package's engine resumes with the
 uninterrupted JAX streams, exits 0, and leaves ``obs/`` files that the
 JAX package's ``read_spans``/``read_metrics`` read. What the port does not
-have (an object-store bucket, a mesh, the MoE preset, weight hot-swap)
-exits non-zero at argv time naming its ROADMAP item."""
+have (an object-store bucket, a mesh, the MoE preset) exits non-zero at
+argv time naming its ROADMAP item; ``--ckpt-dir`` is accepted."""
 
 import json
 import os
@@ -107,10 +107,29 @@ def test_replica_main_announces_drains_on_sigterm_and_exports_obs(tmp_path):
     (["--kv-bucket", ":googlecloudstorage:bucket/kv"], "A11c"),
     (["--tp", "2"], "A14"),
     (["--preset", "moe"], "A13"),
-    (["--ckpt-dir", "ckpts"], "A8"),
+    # Ported: JAX's argv, accepted (the roll itself:
+    # tests/test_torch_hot_swap_replica.py).
+    (["--ckpt-dir", "ckpts"], None),
 ])
 def test_replica_main_refuses_what_is_not_ported(tmp_path, argv, item):
     proc = _replica(tmp_path, "--device", "cpu", "--preset", "micro", *argv)
+    if item is None:
+        try:
+            endpoint = tmp_path / "endpoint.json"
+            deadline = time.monotonic() + 60
+            while not endpoint.exists():
+                assert proc.poll() is None, proc.communicate()
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+            assert json.loads(endpoint.read_text())["generation"] == 0
+            proc.send_signal(signal.SIGTERM)
+            proc.communicate(timeout=60)
+            assert proc.returncode == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        return
     _, err = proc.communicate(timeout=60)
     assert proc.returncode != 0
     assert item in err

@@ -20,7 +20,8 @@ from tpu_task_torch.ml.serving.cache import ServingConfig
 from tpu_task_torch.ml.serving.engine import DrainTimeout, ServingEngine
 from tpu_task_torch.ml.ops import paged_attention as tpa
 from tpu_task_torch.serve.replica import build_engine
-from torch_port_util import CPU, jax_model, port_model, serving_knobs
+from torch_port_util import CPU, jax_model, port_model, serving_knobs, \
+    share_jax_programs
 
 #: Counters both engines keep that say what the scheduler decided.
 SCHEDULE_KEYS = ("steps", "decode_steps", "chunk_steps", "prefills",
@@ -31,8 +32,8 @@ PREFIX_KEYS = ("miss_blocks", "hit_requests", "tokens_saved", "blocks_saved",
 
 def _engines(preset, **over):
     knobs = serving_knobs(preset, **over)
-    jax_engine = jax_build_engine(preset, serving={**knobs,
-                                                   "decode_impl": "xla"})
+    jax_engine = share_jax_programs(jax_build_engine(preset, serving={**knobs,
+                                                   "decode_impl": "xla"}))
     jcfg, jparams = jax_model(preset)
     cfg, params = port_model(jcfg, jparams)
     port_engine = ServingEngine(params, cfg, ServingConfig(**knobs),
@@ -190,10 +191,20 @@ def test_submit_checks_drain_timeout_and_unported_calls():
     engine.drain()
     assert len(engine.result(rid)) == 20
     assert engine.allocator.referenced == 0
-    # Export and resume are ported (tests/test_torch_serving_resume.py);
-    # weight hot-swap is not.
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        engine.adopt_params(engine.params)
+    # Weight hot-swap is ported (tests/test_torch_hot_swap.py): a roll
+    # with no stream in flight frees the old generation at once, and a
+    # generation that does not grow is refused, as in the JAX engine.
+    jax_engine = jax_build_engine("micro")
+    jax_engine.submit([1, 2, 3], 20)
+    jax_engine.drain()
+    for eng in (engine, jax_engine):
+        assert eng.adopt_params(eng.params) == 1
+        assert eng.adopt_params(eng.params, generation=5) == 5
+        assert set(eng._gen_params) == {5} and eng.generation == 5
+        with pytest.raises(ValueError, match="monotonically: got 5, "
+                                             "active is 5"):
+            eng.adopt_params(eng.params, generation=5)
+    assert engine.stats()["adapters"] == jax_engine.stats()["adapters"]
     with pytest.raises(ValueError, match="CUDA device"):
         ServingEngine(engine.params, engine.cfg,
                       ServingConfig(decode_impl="cuda"), device="cpu")

@@ -29,7 +29,8 @@ from tpu_task_torch.ml.serving import model as tmodel
 from tpu_task_torch.ml.serving.cache import ServingConfig
 from tpu_task_torch.ml.serving.engine import ServingEngine
 from tpu_task_torch.serve.replica import build_engine
-from torch_port_util import CPU, jax_model, port_model, serving_knobs
+from torch_port_util import CPU, jax_model, port_model, serving_knobs, \
+    share_jax_programs
 
 SCHEDULE_KEYS = ("steps", "decode_steps", "micro_k", "micro_steps",
                  "chunk_steps", "prefills", "prefill_chunks",
@@ -159,10 +160,10 @@ def _engines(preset, micro_k, kv_dtype, n_blocks):
         knobs["n_blocks"] = n_blocks
     jcfg, jparams = jax_model(preset)
     cfg, params = port_model(jcfg, jparams)
-    jax_engine = JaxServingEngine(
+    jax_engine = share_jax_programs(JaxServingEngine(
         jparams, jcfg, JaxServingConfig(**knobs, micro_k=micro_k,
                                         decode_impl="xla"),
-        rng=jax.random.PRNGKey(0))
+        rng=jax.random.PRNGKey(0)))
     ports = [ServingEngine(params, cfg, ServingConfig(**knobs, micro_k=k),
                            rng=R.PRNGKey(0), device=CPU)
              for k in (micro_k, 1)]

@@ -28,7 +28,8 @@ from tpu_task_torch.ml.serving.cache import ServingConfig
 from tpu_task_torch.ml.serving.engine import ServingEngine
 from tpu_task_torch.ml.serving.model import paged_decode_step
 from tpu_task_torch.serve.replica import build_engine
-from torch_port_util import CPU, jax_model, port_config, serving_knobs
+from torch_port_util import CPU, jax_model, port_config, serving_knobs, \
+    share_jax_programs
 
 SCHEDULE_KEYS = ("steps", "decode_steps", "chunk_steps", "prefills",
                  "prefill_chunks", "recompute_preemptions")
@@ -54,9 +55,9 @@ def _engines(geometry, kv_dtype, **over):
              else dict(PIN_SERVING))
     knobs.update(kv_dtype=kv_dtype, **over)
     jcfg, jparams = _models(geometry)
-    jax_engine = JaxServingEngine(
+    jax_engine = share_jax_programs(JaxServingEngine(
         jparams, jcfg, JaxServingConfig(**knobs, decode_impl="xla"),
-        rng=jax.random.PRNGKey(0))
+        rng=jax.random.PRNGKey(0)))
     cfg = port_config(jcfg)
     params = ttf.params_from_jax(jax.tree.map(np.asarray, jparams), cfg, CPU)
     port_engine = ServingEngine(params, cfg, ServingConfig(**knobs),

@@ -32,7 +32,7 @@ from tpu_task_torch.ml.serving.cache import ServingConfig
 from tpu_task_torch.ml.serving.engine import DONE, ServingEngine
 from tpu_task_torch.obs.sla import SLO_CLASSES, class_rank
 from tpu_task_torch.serve.replica import build_engine
-from torch_port_util import CPU, serving_knobs
+from torch_port_util import CPU, serving_knobs, share_jax_programs
 
 
 def _pair(preset="micro", obs=None, **over):
@@ -43,11 +43,11 @@ def _pair(preset="micro", obs=None, **over):
     jb = jax_build_engine(preset)
     pb = build_engine(preset, device="cpu")
     spec = knobs.get("spec_k", 0) > 0
-    jax_engine = JaxServingEngine(
+    jax_engine = share_jax_programs(JaxServingEngine(
         jb.params, jb.cfg, JaxServingConfig(**{**knobs, "decode_impl": "xla"}),
         rng=jax.random.PRNGKey(0), obs=obs,
         draft_params=jb.params if spec else None,
-        draft_cfg=jb.cfg if spec else None)
+        draft_cfg=jb.cfg if spec else None))
     port = ServingEngine(pb.params, pb.cfg, ServingConfig(**knobs),
                          rng=R.PRNGKey(0), device=CPU,
                          draft_params=pb.params if spec else None,
@@ -294,8 +294,8 @@ RECORD = dict(rid=4, prompt=[1, 2, 3], tokens=[5, 6], key=[1, 2],
     ({"prompt": [1] * 40, "max_new_tokens": 9}, "exceeds max_len", "same"),
     ({"prompt": [1] * 20, "max_new_tokens": 20}, "pool holds", "same"),
     ({"adapter_id": "tenant-a"}, "lora_rank 0", "same"),
-    # JAX has a param loader's message; the port has no hot-swap yet.
-    ({"generation": 1}, "ROADMAP A8", "other"),
+    # Neither engine holds generation 1 nor has a param loader.
+    ({"generation": 1}, "different weights", "same"),
     ({"key": [1, 2, 3]}, "uint32", "other"),
     # The port's own check: an out-of-vocab id would fault on the card.
     ({"tokens": [64]}, "must lie in", None),

@@ -49,7 +49,7 @@ from tpu_task_torch.ml.serving import model as tmodel
 from tpu_task_torch.ml.serving.cache import ServingConfig
 from tpu_task_torch.ml.serving.engine import ServingEngine, spec_uniforms
 from torch_port_util import (CPU, jax_model, port_config, port_model,
-                             serving_knobs)
+                             serving_knobs, share_jax_programs)
 
 ATOL = 1e-5
 SCALE_RTOL = 1e-6
@@ -338,10 +338,10 @@ def test_multitoken_quantized_needs_its_layout():
 
 def test_spec_uniforms_match_jax_bit_for_bit():
     jcfg, jparams = jax_model("micro")
-    jax_engine = JaxServingEngine(
+    jax_engine = share_jax_programs(JaxServingEngine(
         jparams, jcfg, JaxServingConfig(**serving_knobs("micro"), spec_k=2,
                                         decode_impl="xla"),
-        draft_params=jparams, draft_cfg=jcfg)
+        draft_params=jparams, draft_cfg=jcfg))
     rng = np.random.default_rng(4)
     keys = rng.integers(0, 2**32, size=(6, 2), dtype=np.uint64) \
         .astype(np.uint32)
@@ -384,9 +384,9 @@ def _spec_engines(geometry, draft, knobs, slots_list=None):
     else:
         jd = _weak_draft(jcfg)
     dcfg, dparams = port_model(*jd)
-    jax_engine = JaxServingEngine(
+    jax_engine = share_jax_programs(JaxServingEngine(
         jparams, jcfg, JaxServingConfig(**knobs, decode_impl="xla"),
-        rng=jax.random.PRNGKey(0), draft_params=jd[1], draft_cfg=jd[0])
+        rng=jax.random.PRNGKey(0), draft_params=jd[1], draft_cfg=jd[0]))
     port = ServingEngine(params, cfg, ServingConfig(**knobs),
                          rng=R.PRNGKey(0), device=CPU, draft_params=dparams,
                          draft_cfg=dcfg)

@@ -23,7 +23,7 @@ from tpu_task_torch.ml.serving.engine import ServingEngine
 from tpu_task_torch.serve.kvfleet import FleetKvClient
 from tpu_task_torch.serve.replica import build_engine
 from tpu_task_torch.storage.backends import LocalBackend
-from torch_port_util import CPU, serving_knobs
+from torch_port_util import CPU, serving_knobs, share_jax_programs
 
 #: Keys whose values name the implementation, not a count.
 IMPL_KEYS = {"decode_impl", "draft_decode_impl"}
@@ -51,11 +51,11 @@ def _engines(preset, over, fleet):
                                    refresh_interval=0.0)
         pclient = FleetKvClient(LocalBackend(tempfile.mkdtemp()), "p",
                                 refresh_interval=0.0)
-    jax_engine = JaxServingEngine(
+    jax_engine = share_jax_programs(JaxServingEngine(
         jb.params, jb.cfg, JaxServingConfig(**{**knobs, "decode_impl": "xla"}),
         rng=jax.random.PRNGKey(0), kv_fleet=jclient,
         draft_params=jb.params if spec else None,
-        draft_cfg=jb.cfg if spec else None)
+        draft_cfg=jb.cfg if spec else None))
     port = ServingEngine(pb.params, pb.cfg, ServingConfig(**knobs),
                          rng=R.PRNGKey(0), device=CPU, kv_fleet=pclient,
                          draft_params=pb.params if spec else None,

@@ -13,6 +13,12 @@ from tpu_task_torch.ml.models import transformer as ttf
 
 CPU = torch.device("cpu")
 
+# The tier-1 run puts 6 pytest-xdist workers on 8 cores. torch's default of
+# one intra-op thread a core then oversubscribes them, and these tests'
+# small CPU ops spend their time handing work between threads: one thread
+# a worker (every worker imports this module while it collects the tests).
+torch.set_num_threads(1)
+
 
 def jax_model(preset: str):
     """(cfg, params) of a JAX preset at fp32, as ``build_engine`` makes
@@ -42,3 +48,27 @@ def serving_knobs(preset: str, **over) -> dict:
     knobs = dict(SERVING_PRESETS[preset])
     knobs.update(over)
     return knobs
+
+
+#: The JAX engines' jitted step programs, by what each closes over
+#: (:func:`share_jax_programs`).
+_JAX_PROGRAMS: dict = {}
+
+
+def share_jax_programs(engine):
+    """``engine``, a JAX package ``ServingEngine``, made to run the jitted
+    step programs that earlier engines of this process compiled, and
+    returned. ``jax.jit`` keeps what it compiles on the function object,
+    and every engine wraps its own programs, so each new engine would
+    compile the same programs again. A program takes the params and pools
+    as arguments and closes over configuration alone (the model config,
+    the decode impl, K, the mesh, the debug flag): two programs with the
+    same code over equal closed-over values are the same program."""
+    for name, fn in list(vars(engine).items()):
+        inner = getattr(fn, "__wrapped__", None)
+        if not name.endswith("_fn") or inner is None:
+            continue
+        key = (name, inner.__code__, repr(
+            [cell.cell_contents for cell in inner.__closure__ or ()]))
+        setattr(engine, name, _JAX_PROGRAMS.setdefault(key, fn))
+    return engine

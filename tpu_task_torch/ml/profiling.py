@@ -32,7 +32,7 @@ import os
 import threading
 import time
 from contextlib import contextmanager, nullcontext
-from typing import List, Optional
+from typing import Callable, ContextManager, List, Optional
 
 import torch
 
@@ -84,16 +84,25 @@ def acquire_capture() -> bool:
     return _capture_lock.acquire(blocking=False)
 
 
-def capture_reserved(log_dir: str, duration_s: float, device=None) -> str:
+def capture_reserved(log_dir: str, duration_s: float, device=None,
+                     on_start: Optional[Callable[[], None]] = None,
+                     hold: Optional[ContextManager] = None) -> str:
     """Run one capture under a reservation taken with
     :func:`acquire_capture`, released on completion (success or failure).
-    Returns the Chrome trace's path: ``trace-cuda.json`` when the
-    device's activity was recorded, ``trace-cpu.json`` when the host's
-    alone was."""
+    ``on_start`` runs once the profiler records, before the
+    ``duration_s`` window. ``hold`` (a lock) is held while the profiler
+    starts and while it stops: a replica passes its engine lock, so that
+    neither happens while another thread launches kernels (on the card,
+    stopping the profiler while another thread replayed a CUDA graph has
+    deadlocked both). Returns the Chrome trace's path:
+    ``trace-cuda.json`` when the device's activity was recorded,
+    ``trace-cpu.json`` when the host's alone was."""
     try:
         wanted = activities(device)
         path = os.path.join(log_dir, f"trace-{wanted[-1]}.json")
-        with _recording(wanted, path):
+        with _recording(wanted, path, hold):
+            if on_start is not None:
+                on_start()
             time.sleep(duration_s)
     finally:
         _capture_lock.release()
@@ -101,14 +110,22 @@ def capture_reserved(log_dir: str, duration_s: float, device=None) -> str:
 
 
 @contextmanager
-def _recording(wanted: List[str], path: str):
-    """``torch.profiler`` over ``wanted`` for the enclosed block, its
-    Chrome trace written to ``path``."""
+def _recording(wanted: List[str], path: str,
+               hold: Optional[ContextManager] = None):
+    """``torch.profiler`` over ``wanted`` for the enclosed block, started
+    and stopped under ``hold``; its Chrome trace written to ``path``."""
     kinds = [getattr(torch.profiler.ProfilerActivity, name.upper())
              for name in wanted]
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with torch.profiler.profile(activities=kinds) as prof:
+    hold = nullcontext() if hold is None else hold
+    prof = torch.profiler.profile(activities=kinds)
+    with hold:
+        prof.start()
+    try:
         yield
+    finally:
+        with hold:
+            prof.stop()
     prof.export_chrome_trace(path)
 
 

@@ -82,12 +82,20 @@ for), the plain version on the CPU.
   packages share one bucket. The draft's pools are never imported into:
   its catch-up re-ingests the context from position 0, as after a local
   prefix hit.
+- **Weight hot-swap** (:meth:`ServingEngine.adopt_params`): the params
+  are held by GENERATION. Adopting a new generation leaves every
+  in-flight stream on the weights it started with, new admissions take
+  the new ones, and while slots hold more than one generation each step
+  runs its fused programs once per generation, the other generations'
+  slots masked like empty ones (their rows write only the scratch
+  block). A generation's params, and its K-step graphs, are freed when
+  its last stream retires. ``param_loader(generation)`` restores a
+  generation a resumed record pins that the engine no longer holds.
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
 here, naming its ROADMAP item): bucketed prefill, the async loop, LoRA
-(so any ``adapter_id`` raises), the host tier, ``adopt_params`` and with
-it every param generation but 0, meshes. ``stats()`` carries their keys
-at the values of an engine that has them off.
+(so any ``adapter_id`` raises), the host tier, meshes. ``stats()``
+carries their keys at the values of an engine that has them off.
 
 - **Observability** (``obs=``, a :class:`~tpu_task_torch.obs.Obs`): one
   span per request phase (``engine.queue`` → ``engine.prefill`` →
@@ -242,7 +250,8 @@ class Request:
     deadline: Optional[float] = None
     #: LoRA adapter of the stream; always None here (lora_rank 0).
     adapter_id: Optional[str] = None
-    #: Param generation the stream is pinned to; always 0 until A8.
+    #: Param generation the stream is pinned to: the active one at its
+    #: submission, or the one its resume record names.
     generation: int = 0
     #: The trace the request's phase spans join (obs on only): the
     #: router's dispatch context, or one minted at the first span.
@@ -265,18 +274,23 @@ class ServingEngine:
     KV client (duck-typed: ``bind``, ``lookup_chain``, ``fetch``), bound
     here to this engine's pool layout. ``obs`` an
     :class:`~tpu_task_torch.obs.Obs` whose tracer and registry the engine
-    records into (None: nothing is recorded)."""
+    records into (None: nothing is recorded). ``param_loader(generation)``
+    returns the params of a generation a resumed record pins (None when it
+    cannot); a replica sets it to restore checkpoint steps."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  scfg: Optional[ServingConfig] = None,
                  rng: Optional[jrandom.KeyLike] = None, device=None,
                  draft_params: Optional[Params] = None,
                  draft_cfg: Optional[TransformerConfig] = None,
-                 kv_fleet=None, obs=None):
+                 kv_fleet=None, obs=None, param_loader=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg = scfg or ServingConfig()
-        self.params = params_to(params, self.device)
+        #: The params of every generation a stream is pinned to, and of
+        #: the active one (:attr:`params`).
+        self._gen_params: Dict[int, Params] = {
+            0: params_to(params, self.device)}
         self._quantized = scfg.kv_dtype in QUANT_DTYPES
         if scfg.kv_dtype == "fp8" and not fp8_supported():
             raise ValueError(
@@ -321,9 +335,17 @@ class ServingEngine:
         self._next_rid = 0
         self._base_key = (jrandom.PRNGKey(0) if rng is None
                           else jrandom.as_key(rng))
-        #: The param generation this engine serves: 0, the only one it
-        #: holds until weight hot-swap (ROADMAP A8).
+        #: The active param generation: new admissions take its weights.
         self.generation = 0
+        #: Unfinished streams a generation (queued ones too): a
+        #: generation other than the active one is freed when its count
+        #: reaches 0.
+        self._gen_streams: Dict[int, int] = {}
+        #: The generation a mid-roll step is dispatching (None outside a
+        #: step): the other generations' slots are masked out.
+        self._gen_filter: Optional[int] = None
+        self.param_swaps = 0
+        self.param_loader = param_loader
         self.steps = 0
         self.decode_steps = 0
         self.prefills = 0
@@ -347,13 +369,14 @@ class ServingEngine:
         self._init_spec(draft_params, draft_cfg)
         if obs is not None:
             self._init_obs(obs.metrics)
-        #: The K-step programs (a CUDA graph each on a CUDA device, captured
-        #: at first use), bound to self.params and self.pools: neither is
-        #: ever rebound.
-        self._micro = MicroStepGraphs(
-            self.params, cfg, self.pools, slots=n, max_blocks=m,
-            micro_k=scfg.micro_k, attn_impl=self.decode_impl,
-            measure_qerr=self.debug, device=self.device)
+        #: The K-step programs of each generation (a CUDA graph each on a
+        #: CUDA device, captured at the generation's first micro-step),
+        #: bound to its params and to self.pools, never rebound; dropped
+        #: between steps once the generation is freed.
+        self._micro_graphs: Dict[int, MicroStepGraphs] = {}
+        #: Captures, capture time and replays of dropped generations.
+        self._dropped_graph_stats = {"captures": 0, "capture_ms": 0.0,
+                                     "replays": 0}
 
     def _init_obs(self, metrics) -> None:
         """The JAX engine's registry names: the latency histograms, the
@@ -380,7 +403,8 @@ class ServingEngine:
                          lambda scfg=self.scfg: float(scfg.micro_k))
         metrics.gauge_fn("engine.param_generation",
                          lambda self=self: float(self.generation))
-        metrics.counter_fn("engine.param_swaps", lambda: 0.0)
+        metrics.counter_fn("engine.param_swaps",
+                           lambda self=self: float(self.param_swaps))
         metrics.gauge_fn("engine.stale_generation_streams",
                          lambda self=self:
                          float(self.stale_generation_streams))
@@ -509,6 +533,8 @@ class ServingEngine:
             deadline=None if deadline_s is None else now + float(deadline_s),
             generation=self.generation, trace=trace)
         self._requests[rid] = req
+        self._gen_streams[req.generation] = \
+            self._gen_streams.get(req.generation, 0) + 1
         self._queue.append(req)
         self._obs_queue(req)
         return rid
@@ -529,7 +555,9 @@ class ServingEngine:
 
     @property
     def n_active(self) -> int:
-        return sum(r is not None for r in self._slots)
+        """Occupied slots; inside a mid-roll step, those of the generation
+        being dispatched."""
+        return sum(self._gen_ok(r) for r in self._slots)
 
     @property
     def queue_depth(self) -> int:
@@ -540,45 +568,71 @@ class ServingEngine:
         return bool(self._queue) or self.n_active > 0
 
     @property
+    def params(self) -> Params:
+        """The active generation's weights, which new admissions take."""
+        return self._gen_params[self.generation]
+
+    @property
     def stale_generation_streams(self) -> int:
-        """In-flight streams pinned to a generation other than the active
-        one: always 0 until weight hot-swap (ROADMAP A8)."""
-        return sum(1 for r in self._requests.values()
-                   if r.status != DONE and r.generation != self.generation)
+        """Unfinished streams pinned to a generation other than the
+        active one: 0 once a roll is complete."""
+        return sum(c for g, c in self._gen_streams.items()
+                   if g != self.generation)
 
     def step(self) -> dict:
         """One scheduler iteration: admit → (chunk | decode) → retire.
         Returns the request ids admitted and finished. A pure-decode step
-        at ``micro_k`` > 1 is one K-token micro-step."""
+        at ``micro_k`` > 1 is one K-token micro-step.
+
+        The fused programs run once for each param generation the slots
+        hold (one, except mid-roll after :meth:`adopt_params`), each under
+        its own weights with the other generations' slots masked out like
+        empty ones. Keyed sampling makes a stream independent of who
+        shares its steps, so each stream's tokens are those of an engine
+        that holds its generation alone."""
         t0 = time.perf_counter()
         self.goodput.begin_step()
         self.steps += 1
         admitted: List[int] = []
         finished: List[int] = []
         self._admit_chunked(admitted)
+        gens = sorted({r.generation for r in self._slots if r is not None})
         with torch.no_grad():
-            prefilling = any(self._prefilling(i)
-                             for i in range(self.scfg.slots))
-            if prefilling:
-                # With spec on, the chunk step advances only the ingesting
-                # slots and the spec round below advances the decoders, so
-                # a request's later tokens always come from the spec path.
-                self._chunk_step(finished)
-            if self._spec_on:
-                self._spec_step(finished)
-            elif not prefilling and self.n_active:
-                # Spec rounds are the multi-token path when spec is on;
-                # otherwise a pure-decode step is a K-token micro-step.
-                if self.scfg.micro_k > 1:
-                    self._micro_decode(finished)
-                else:
-                    self._decode(finished)
+            for gen in gens:
+                self._gen_filter = gen
+                try:
+                    self._step_generation(finished)
+                finally:
+                    self._gen_filter = None
+        # Between steps: no K-step graph is being captured or replayed.
+        self._drop_freed_graphs()
         wall = time.perf_counter() - t0
         self.goodput.end_step(wall)
         if self.obs is not None:
             self._h_step.observe(wall)
         return {"admitted": admitted, "finished": finished,
                 "active": self.n_active, "queued": len(self._queue)}
+
+    def _step_generation(self, finished: list) -> None:
+        """The step's fused programs for the slots of the generation in
+        ``_gen_filter``."""
+        if not self.n_active:
+            return      # a preemption of the partition before emptied it
+        prefilling = any(self._prefilling(i) for i in range(self.scfg.slots))
+        if prefilling:
+            # With spec on, the chunk step advances only the ingesting
+            # slots and the spec round below advances the decoders, so a
+            # request's later tokens always come from the spec path.
+            self._chunk_step(finished)
+        if self._spec_on:
+            self._spec_step(finished)
+        elif not prefilling and self.n_active:
+            # Spec rounds are the multi-token path when spec is on;
+            # otherwise a pure-decode step is a K-token micro-step.
+            if self.scfg.micro_k > 1:
+                self._micro_decode(finished)
+            else:
+                self._decode(finished)
 
     def drain(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
         """Step until queue and slots are empty; returns {rid: tokens} for
@@ -696,19 +750,15 @@ class ServingEngine:
                 deadline=None if deadline_s is None
                 else now + float(deadline_s),
                 generation=gen, trace=trace)
-            if not req.finished and gen != self.generation:
-                raise ValueError(
-                    f"resume record pins param generation {gen}, but this "
-                    f"engine holds only generation {self.generation} and "
-                    "cannot restore another until weight hot-swap is "
-                    "ported (ROADMAP A8) — refusing to decode the stream "
-                    "under different weights")
+            if not req.finished and gen not in self._gen_params:
+                self._restore_generation(gen)
             self._next_rid += 1
             self._requests[req.rid] = req
             if req.finished:
                 req.status = DONE
                 req.finish_t = now
             else:
+                self._gen_streams[gen] = self._gen_streams.get(gen, 0) + 1
                 # The imported prefix is context another engine already
                 # produced: re-ingesting it is work the ratio discounts.
                 self.goodput.wasted_reingest(len(tokens))
@@ -717,9 +767,105 @@ class ServingEngine:
             mapping[int(record.get("rid", req.rid))] = req.rid
         return mapping
 
-    def adopt_params(self, params, generation=None):
-        raise NotImplementedError(
-            "adopt_params (weight hot-swap) is not ported yet: ROADMAP A8")
+    def _restore_generation(self, gen: int) -> None:
+        """A resumed record pins generation ``gen``, which this engine
+        does not hold: restore it through ``param_loader`` rather than
+        decode the stream under different weights."""
+        if self.param_loader is None:
+            raise ValueError(
+                f"resume record pins param generation {gen}, which is not "
+                "resident and no param_loader could restore it — refusing "
+                "to decode the stream under different weights")
+        restored = self.param_loader(gen)
+        if restored is None:
+            raise ValueError(
+                f"resume record pins param generation {gen} and the "
+                "param_loader returned nothing — refusing to decode the "
+                "stream under different weights")
+        self._gen_params[gen] = params_to(restored, self.device)
+
+    def adopt_params(self, params: Params,
+                     generation: Optional[int] = None) -> int:
+        """Install a new weight generation without dropping a stream: new
+        admissions take ``params`` at once, every in-flight stream keeps
+        the generation it started on (:meth:`step` dispatches by
+        generation until the old streams retire), and an old generation
+        is freed with its last stream. ``generation`` defaults to the next
+        integer (a replica passes the checkpoint step) and must grow.
+        The params move to the engine's device. Returns the installed
+        generation. (A sharded engine re-shards by building a new one,
+        ROADMAP A14; the async loop, whose in-flight program would have to
+        be swept first, is ROADMAP A5.)"""
+        gen = self.generation + 1 if generation is None else int(generation)
+        if gen <= self.generation:
+            raise ValueError(
+                f"param generation must grow monotonically: got {gen}, "
+                f"active is {self.generation}")
+        self._gen_params[gen] = params_to(params, self.device)
+        self.generation = gen
+        self.param_swaps += 1
+        # Free every other generation that no stream holds: a roll with
+        # no old stream in flight frees the old weights here.
+        for g in [g for g in self._gen_params
+                  if g != gen and not self._gen_streams.get(g, 0)]:
+            del self._gen_params[g]
+        self._drop_freed_graphs()
+        return gen
+
+    def _gen_release(self, req: Request) -> None:
+        """A stream retired: drop its generation's count, and free a
+        generation other than the active one that just lost its last
+        stream."""
+        g = req.generation
+        left = self._gen_streams.get(g, 0) - 1
+        if left > 0:
+            self._gen_streams[g] = left
+            return
+        self._gen_streams.pop(g, None)
+        if g != self.generation:
+            self._gen_params.pop(g, None)
+
+    def _drop_freed_graphs(self) -> None:
+        """Drop the K-step graphs of freed generations (between steps, so
+        never while a graph is captured), keeping their counts."""
+        for g in [g for g in self._micro_graphs if g not in self._gen_params]:
+            for key, value in self._micro_graphs.pop(g).stats().items():
+                self._dropped_graph_stats[key] += value
+
+    def _gen_ok(self, req: Optional[Request]) -> bool:
+        """Does this slot take part in the program being built? Inside a
+        mid-roll step only the dispatched generation's slots do."""
+        return req is not None and (self._gen_filter is None
+                                    or req.generation == self._gen_filter)
+
+    def _dispatch_gen(self) -> int:
+        """The generation whose weights the next program runs under."""
+        return (self.generation if self._gen_filter is None
+                else self._gen_filter)
+
+    def _model_params(self) -> Params:
+        return self._gen_params[self._dispatch_gen()]
+
+    def _micro_runner(self) -> MicroStepGraphs:
+        """The dispatched generation's K-step programs, made at its first
+        micro-step."""
+        gen = self._dispatch_gen()
+        runner = self._micro_graphs.get(gen)
+        if runner is None:
+            runner = self._micro_graphs[gen] = MicroStepGraphs(
+                self._gen_params[gen], self.cfg, self.pools,
+                slots=self.scfg.slots,
+                max_blocks=self.scfg.max_blocks_per_slot,
+                micro_k=self.scfg.micro_k, attn_impl=self.decode_impl,
+                measure_qerr=self.debug, device=self.device)
+        return runner
+
+    def _graph_stats(self) -> dict:
+        out = dict(self._dropped_graph_stats)
+        for runner in self._micro_graphs.values():
+            for key, value in runner.stats().items():
+                out[key] += value
+        return out
 
     def register_adapter(self, adapter_id: str, layers, scale: float = 1.0):
         """What the JAX engine answers with ``lora_rank`` 0: a ValueError
@@ -800,7 +946,7 @@ class ServingEngine:
     # -- scheduling ------------------------------------------------------------
 
     def _prefilling(self, slot: int) -> bool:
-        return self._slots[slot] is not None and \
+        return self._gen_ok(self._slots[slot]) and \
             int(self._positions[slot]) < int(self._prefill_target[slot])
 
     def _context_ids(self, req: Request) -> np.ndarray:
@@ -969,7 +1115,8 @@ class ServingEngine:
     # -- fused steps -----------------------------------------------------------
 
     def _all_greedy(self) -> bool:
-        return all(r is None or r.temperature == 0 for r in self._slots)
+        return all(not self._gen_ok(r) or r.temperature == 0
+                   for r in self._slots)
 
     def _quant_layout(self, tables: np.ndarray, positions: np.ndarray,
                       valid: np.ndarray):
@@ -1024,7 +1171,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         qa = (tuple(put(a, torch.int64) for a in layout)
               if self._quantized else None)
-        args = (self.params, self.cfg, put(tokens, torch.int64),
+        args = (self._model_params(), self.cfg, put(tokens, torch.int64),
                 put(positions, torch.int32), put(tables, torch.int32),
                 put(active, torch.bool))
         kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
@@ -1051,7 +1198,7 @@ class ServingEngine:
 
     def _decode(self, finished: list) -> None:
         self._ensure_blocks()
-        active = np.array([r is not None for r in self._slots])
+        active = np.array([self._gen_ok(r) for r in self._slots])
         if not active.any():
             return
         positions = np.where(active, self._positions, 0)
@@ -1067,7 +1214,7 @@ class ServingEngine:
         self.goodput.emitted(n_act)
         now = time.monotonic()
         for slot, req in enumerate(self._slots):
-            if req is None:
+            if not self._gen_ok(req):
                 continue
             tok = int(toks[slot])
             req.tokens.append(tok)
@@ -1096,7 +1243,7 @@ class ServingEngine:
             w = np.zeros((n,), np.int32)
             budget = W
             for i in order:
-                if self._slots[i] is None:
+                if not self._gen_ok(self._slots[i]):
                     continue
                 pos, target = int(self._positions[i]), \
                     int(self._prefill_target[i])
@@ -1187,7 +1334,7 @@ class ServingEngine:
         the block-reservation widths and the retirement limits."""
         spans = np.zeros((self.scfg.slots,), np.int32)
         for i, req in enumerate(self._slots):
-            if req is not None:
+            if self._gen_ok(req):
                 spans[i] = min(self.scfg.micro_k,
                                req.max_new_tokens - len(req.tokens))
         return spans
@@ -1233,7 +1380,7 @@ class ServingEngine:
         if self._quantized:
             inputs.update(self._micro_quant_layout(positions, spans))
         t0 = time.perf_counter()
-        toks, qerr = self._micro.run(sampled, inputs)    # (micro_k, slots)
+        toks, qerr = self._micro_runner().run(sampled, inputs)  # (K, slots)
         self.goodput.program(time.perf_counter() - t0)
         if qerr is not None:
             self._note_qerr(qerr)
@@ -1279,8 +1426,9 @@ class ServingEngine:
         bs = self.scfg.block_size
 
         def live(i: int) -> bool:
-            # Mid-prompt slots advance through the chunk step, never here.
-            return self._slots[i] is not None and not self._prefilling(i)
+            # Mid-prompt slots advance through the chunk step, never here;
+            # mid-roll, another generation's slots wait for their turn.
+            return self._gen_ok(self._slots[i]) and not self._prefilling(i)
 
         def eff() -> np.ndarray:
             ke = np.zeros((n,), np.int32)
@@ -1329,7 +1477,9 @@ class ServingEngine:
             return torch.as_tensor(a, device=dev, dtype=dtype)
 
         t0 = time.perf_counter()
-        args = (self.params, self.cfg, put(tokens, torch.int64),
+        # The target scores under the dispatched generation's weights; the
+        # draft keeps its own.
+        args = (self._model_params(), self.cfg, put(tokens, torch.int64),
                 put(positions, torch.int32), put(valid, torch.bool),
                 put(self._tables, torch.int32))
         qa = (tuple(put(a, torch.int64) for a in layout)
@@ -1525,6 +1675,7 @@ class ServingEngine:
         req.status = DONE
         req.finish_t = time.monotonic()
         self._release(slot)
+        self._gen_release(req)
         self._obs_retire(req)
 
     # -- fleet KV --------------------------------------------------------------
@@ -1646,8 +1797,6 @@ class ServingEngine:
         groups of what the port does not run yet (tp/ep meshes, the async
         loop, the host tier, LoRA) hold an engine's values with them off."""
         n_blocks, high = self.scfg.n_blocks, self.allocator.high_water
-        in_flight = collections.Counter(
-            r.generation for r in self._requests.values() if r.status != DONE)
         out = {
             "decode_impl": self.decode_impl,
             # The draft's paged attention: the target's, or None (spec off).
@@ -1659,7 +1808,7 @@ class ServingEngine:
             "micro_k": self.scfg.micro_k,
             "micro_steps": self.micro_steps,
             # Graph captures and replays of the K-step programs (CUDA).
-            "step_graph": self._micro.stats(),
+            "step_graph": self._graph_stats(),
             "chunk_steps": self.chunk_steps,
             # The async loop is not ported (ROADMAP A5).
             "overlap": False,
@@ -1735,9 +1884,9 @@ class ServingEngine:
                 if self.spec_proposed else 0.0,
             },
             "generation": self.generation,
-            # LoRA (ROADMAP A7) and weight hot-swap (A8) are not ported:
-            # one generation, no adapters; "generations" counts the
-            # in-flight streams of each.
+            # LoRA is not ported (ROADMAP A7): no adapters. The param
+            # roll's counts share the group, as in the JAX engine;
+            # "generations" counts the unfinished streams of each.
             "adapters": {
                 "enabled": False,
                 "rank": self.scfg.lora_rank,
@@ -1747,10 +1896,10 @@ class ServingEngine:
                 "loads": 0,
                 "evictions": 0,
                 "pool_high_water": 0,
-                "param_swaps": 0,
+                "param_swaps": self.param_swaps,
                 "stale_generation_streams": self.stale_generation_streams,
-                "generations": {str(g): c
-                                for g, c in sorted(in_flight.items())},
+                "generations": {str(g): c for g, c in
+                                sorted(self._gen_streams.items())},
             },
             "attention_launches": {
                 "cuda": pa.paged_decode_attention.launches,

@@ -26,18 +26,23 @@ scratch block). The warm-up also loads the kernels' libraries, their
 occupancy queries and the cuBLAS handles, none of which may happen
 inside a capture.
 
-A graph is bound to the addresses it captured: the engine's params and
-pools are updated in place (the pools' ``index_copy_`` in
+A graph is bound to the addresses it captured: the engine's pools are
+updated in place (the pools' ``index_copy_`` in
 ``model.paged_decode_step``, ``cache.quantized_append``'s indexed writes,
-``cache.copy_block``) and never rebound while a graph exists. Weight
-hot-swap (ROADMAP A8) replaces the params and will have to capture
-again.
+``cache.copy_block``) and never rebound while a graph exists, and one
+runner holds one param generation's weights. Weight hot-swap therefore
+gives each generation its own runner: the engine makes it at the
+generation's first micro-step, which captures that generation's graphs,
+and drops it between two steps once the generation's last stream has
+retired, which frees its graphs and, with them, the last reference to its
+weights.
 
 The paged-attention wrappers count their launches in Python, so under a
-graph they count once, at capture. The runner puts the counters back to
-what they were before the warm-up, and adds what the capture counted at
-every replay: the counts then read as an eager run of the same steps.
-Nothing falls back: a capture or replay that fails raises."""
+graph they count once, at capture. Each capture puts the counters back to
+what they were before its warm-up, and its runner adds what the capture
+counted at every replay: the counts then read as an eager run of the same
+steps, however many runners capture. Nothing falls back: a capture or
+replay that fails raises."""
 
 from __future__ import annotations
 

@@ -33,6 +33,19 @@ the step in flight, export every unfinished request to ``--drain-file``
 true`` so the router re-dispatches mid-stream requests to a sibling with
 no token lost.
 
+Weight roll (``--ckpt-dir``): the step loop polls the directory's
+published step (``latest_step``) every ``ckpt_poll_s``, outside the
+has-work gate, and rolls each step published after boot into the engine
+with ``ServingEngine.adopt_params``: in-flight streams finish under the
+weights they started with, new admissions take the new ones, nothing
+drains. A reader thread loads the checkpoint into host memory off the
+lock; the step loop then copies it to the device and adopts it under the
+lock, so the streams stall for the copy, not for the file read. A torn or
+unreadable checkpoint is a skipped beat (``replica.errors``), retried at
+the next poll. The engine's ``param_loader`` restores a checkpoint step
+that a resumed record pins and the engine no longer holds. ``/healthz``
+and ``endpoint.json`` carry the active generation.
+
 The step loop, the HTTP handler threads, the ship thread and the SIGTERM
 path share the engine under one lock, as in the JAX replica, but one that
 hands itself to its waiters in arrival order (:class:`FairLock`): with
@@ -45,8 +58,8 @@ batch carries an event that the ship thread waits on before it reads the
 copies back.
 
 Not ported, each refused at construction or argv time and naming its
-item: ``tp``/``ep`` meshes (A14), the ``moe`` preset (A13), ``--ckpt-dir``
-weight hot-swap (A8), object-store ``--kv-bucket`` strings (A11c).
+item: ``tp``/``ep`` meshes (A14), the ``moe`` preset (A13), object-store
+``--kv-bucket`` strings (A11c).
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ import torch
 
 from tpu_task_torch.device import resolve_device
 from tpu_task_torch.ml import random as jrandom
+from tpu_task_torch.ml.checkpoint import latest_step, restore_checkpoint
 from tpu_task_torch.ml.models import transformer
 from tpu_task_torch.ml.serving.cache import ServingConfig
 from tpu_task_torch.ml.serving.engine import ServingEngine
@@ -338,7 +352,8 @@ class ReplicaServer:
     ``obs``, when it has one, becomes the replica's, so front end and
     engine share one registry); otherwise :func:`build_engine` makes one
     from ``preset`` on ``device`` — CUDA unless the caller passes
-    ``device="cpu"``."""
+    ``device="cpu"``. ``ckpt_dir`` turns on the weight roll (the module
+    docstring), polled every ``ckpt_poll_s`` seconds (at least 0.05)."""
 
     def __init__(self, engine=None, *, preset: str = "tiny",
                  serving: Optional[dict] = None, host: str = "127.0.0.1",
@@ -346,7 +361,8 @@ class ReplicaServer:
                  obs_enabled: bool = True, profile_dir: str = "profiles",
                  kv_client=None, kv_publish_every: int = 20,
                  tp: int = 1, ep: int = 1,
-                 max_queue: Optional[int] = None, device=None):
+                 max_queue: Optional[int] = None, device=None,
+                 ckpt_dir: Optional[str] = None, ckpt_poll_s: float = 0.5):
         self.boot_id = uuid.uuid4().hex[:12]
         self.obs = None
         if obs_enabled:
@@ -379,6 +395,20 @@ class ReplicaServer:
         #: device work stays in one order); None on the CPU.
         self._stream = (torch.cuda.current_stream(self.engine.device)
                         if self.engine.device.type == "cuda" else None)
+        #: The weight roll: the step published at boot is the baseline
+        #: (the engine's own weights are generation 0); each later one
+        #: rolls in. ``rolls`` records each roll's step and generation,
+        #: its read off the lock and its adopt under the lock in seconds,
+        #: and its ``time.monotonic()``.
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_poll_s = max(0.05, float(ckpt_poll_s))
+        self._ckpt_next_poll = 0.0
+        self._ckpt_step: Optional[int] = None
+        self._ckpt_read: Optional[dict] = None
+        self.rolls: list = []
+        if ckpt_dir is not None:
+            self._ckpt_step = latest_step(ckpt_dir)
+            self.engine.param_loader = self._load_generation
         self.draining = False
         #: With this many requests waiting in the engine's queue, /submit
         #: answers 429 (None = unbounded).
@@ -389,6 +419,9 @@ class ReplicaServer:
         #: one did (it drains the replica instead of wedging it).
         self.step_error: Optional[str] = None
         self._profile_thread: Optional[threading.Thread] = None
+        #: Set by a profiler capture: the step loop hands itself to a new
+        #: thread at its next step boundary and sets the event.
+        self._handover: Optional[threading.Event] = None
         self._lock = FairLock()
         self._stop = threading.Event()
         self._exported: Optional[list] = None
@@ -396,10 +429,12 @@ class ReplicaServer:
         self._server.replica = self
         self.port = self._server.server_address[1]
         self.url = f"http://{host}:{self.port}"
+        self._step_thread = threading.Thread(target=self._step_loop,
+                                             daemon=True)
         self._threads = [
             threading.Thread(target=self._server.serve_forever,
                              kwargs={"poll_interval": 0.05}, daemon=True),
-            threading.Thread(target=self._step_loop, daemon=True),
+            self._step_thread,
         ]
         if kv_client is not None:
             self._ship_thread = threading.Thread(
@@ -440,13 +475,30 @@ class ReplicaServer:
         return (torch.cuda.stream(self._stream) if self._stream is not None
                 else contextlib.nullcontext())
 
-    def _step_loop(self) -> None:
+    def _step_loop(self, started: Optional[threading.Event] = None) -> None:
+        """Step the engine while it has work; ``started`` is set once this
+        thread runs (a hand-over, :meth:`_hand_over_step_loop`)."""
         with self._on_engine_stream():
+            if started is not None:
+                started.set()
             while not self._stop.is_set():
                 stepped = False
                 staged = None
                 try:
                     with self._lock:
+                        if self._handover is not None:
+                            # A capture wants the launching thread to
+                            # start inside it: hand over at this boundary.
+                            self._step_thread = threading.Thread(
+                                target=self._step_loop,
+                                args=(self._handover,), daemon=True)
+                            self._handover = None
+                            self._step_thread.start()
+                            return
+                        if self.ckpt_dir is not None:
+                            # The roll's beat, outside the has-work gate:
+                            # an idle replica rolls too.
+                            self._poll_checkpoint()
                         if not self.draining and self.engine.has_work:
                             result = self.engine.step()
                             stepped = True
@@ -476,6 +528,97 @@ class ReplicaServer:
                     return
                 if not stepped:
                     time.sleep(0.002)
+
+    def _hand_over_step_loop(self) -> None:
+        """Called by a profiler capture once it records: the running step
+        loop exits at its next step boundary and a new thread, started
+        inside the capture, takes over with the same stream (graphs
+        captured on the old thread replay from the new one). torch's
+        profiler can drop every kernel record of a capture whose kernels
+        come from a thread that launched before it started. Returns once
+        the new thread runs, or at once when no step loop runs."""
+        if not self._started or self._stop.is_set() \
+                or not self._step_thread.is_alive():
+            return
+        started = threading.Event()
+        self._handover = started
+        started.wait(5.0)
+
+    # -- the weight roll -------------------------------------------------------
+    def _poll_checkpoint(self) -> None:
+        """One beat of the roll (the step loop, under the lock): adopt a
+        checkpoint the reader thread has loaded, or, every
+        ``ckpt_poll_s``, start reading a step published since the last
+        roll."""
+        read = self._ckpt_read
+        if read is not None:
+            if read["done"].is_set():
+                self._ckpt_read = None
+                if read["params"] is not None:
+                    self._adopt_checkpoint(read)
+            return
+        now = time.monotonic()
+        if now < self._ckpt_next_poll:
+            return
+        self._ckpt_next_poll = now + self.ckpt_poll_s
+        try:
+            step = latest_step(self.ckpt_dir)
+        except OSError:
+            return
+        if step is None or (self._ckpt_step is not None
+                            and step <= self._ckpt_step):
+            return
+        # Host tensors of the params' shapes and dtypes: the template the
+        # reader restores into, which no device copy follows.
+        template = transformer.map_params(
+            lambda v: torch.empty((), dtype=v.dtype).expand(v.shape),
+            self.engine.params)
+        read = {"step": step, "params": None, "done": threading.Event()}
+        self._ckpt_read = read
+        threading.Thread(target=self._read_checkpoint, args=(read, template),
+                         daemon=True).start()
+
+    def _read_checkpoint(self, read: dict, template) -> None:
+        """The reader thread: one published step into host memory. A
+        failure is a skipped beat with a ``replica.errors`` record."""
+        t0 = time.perf_counter()
+        try:
+            read["params"] = restore_checkpoint(self.ckpt_dir, template,
+                                                step=read["step"])
+        except Exception as error:   # a torn or foreign file: retry later
+            self.note_error("ckpt_poll", error)
+        finally:
+            read["read_s"] = time.perf_counter() - t0
+            read["done"].set()
+
+    def _adopt_checkpoint(self, read: dict) -> None:
+        """Copy a loaded step to the device and adopt it (the step loop,
+        under the lock): the generation is the step when it grows."""
+        t0 = time.perf_counter()
+        step = read["step"]
+        generation = self.engine.adopt_params(
+            read["params"],
+            generation=step if step > self.engine.generation else None)
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._ckpt_step = step
+        self.rolls.append({"step": step, "generation": generation,
+                           "read_s": read["read_s"],
+                           "adopt_s": time.perf_counter() - t0,
+                           "at": time.monotonic()})
+        if self.obs is not None:
+            self.obs.metrics.counter("replica.param_rolls").inc()
+
+    def _load_generation(self, generation: int):
+        """The engine's ``param_loader``: the checkpoint step a resumed
+        record pins, restored onto the engine's device, or None when it
+        cannot be read (the engine then refuses the record)."""
+        try:
+            with self._on_engine_stream():
+                return restore_checkpoint(self.ckpt_dir, self.engine.params,
+                                          step=int(generation))
+        except (OSError, ValueError, KeyError):
+            return None
 
     def _stage(self) -> Optional[tuple]:
         """The publish beat's non-blocking half (caller holds the lock):
@@ -543,7 +686,11 @@ class ReplicaServer:
     def profile(self, ms: int) -> Optional[dict]:
         """Start a ``ms``-millisecond profiler capture on a worker thread
         (the step loop never waits); its Chrome trace lands under
-        ``profile_dir``. None when a capture is already running (409)."""
+        ``profile_dir``. The profiler starts and stops under the engine
+        lock, between two steps; once it records, the step loop moves to a
+        new thread (:meth:`_hand_over_step_loop`), and the ``ms`` window
+        starts after that. None when a capture is already running
+        (409)."""
         from tpu_task_torch.ml import profiling
 
         # The reservation is taken here, on the handler thread: of two
@@ -556,8 +703,9 @@ class ReplicaServer:
 
         def run() -> None:
             try:
-                profiling.capture_reserved(out_dir, ms / 1000.0,
-                                           self.engine.device)
+                profiling.capture_reserved(
+                    out_dir, ms / 1000.0, self.engine.device,
+                    on_start=self._hand_over_step_loop, hold=self._lock)
             except Exception as error:   # no CUDA tracing in this build
                 self.note_error("/profile", error)
 
@@ -754,15 +902,14 @@ def main(argv=None) -> int:
                         help="shared local directory of the fleet KV plane "
                              "(object-store strings are ROADMAP A11c)")
     parser.add_argument("--ckpt-dir", default="",
-                        help="weight hot-swap checkpoint directory "
-                             "(ROADMAP A8: refused)")
+                        help="checkpoint directory to poll: each step "
+                             "published after boot rolls into the engine "
+                             "without a drain (in-flight streams finish "
+                             "under their generation)")
     parser.add_argument("--device", default="cuda",
                         help="torch device the engine runs on (the card "
                              "unless 'cpu')")
     args = parser.parse_args(argv)
-    if args.ckpt_dir:
-        parser.error("--ckpt-dir: weight hot-swap is not ported to "
-                     "tpu_task_torch yet (ROADMAP A8)")
 
     from tpu_task_torch.storage.backends import open_backend
 
@@ -778,7 +925,8 @@ def main(argv=None) -> int:
             host=args.host, port=args.port,
             drain_file=os.path.abspath(args.drain_file),
             obs_enabled=not args.no_obs, kv_client=kv_client,
-            tp=args.tp, ep=args.ep, device=args.device)
+            tp=args.tp, ep=args.ep, device=args.device,
+            ckpt_dir=args.ckpt_dir or None)
     except NotImplementedError as error:
         parser.error(str(error))
     replica.start()
@@ -818,11 +966,18 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, on_sigterm)
     signal.signal(signal.SIGINT, on_sigterm)
 
-    with open(args.endpoint_file + ".tmp", "w") as handle:
-        json.dump({"url": replica.url, "boot_id": replica.boot_id,
-                   "preset": args.preset, "pid": os.getpid(),
-                   "generation": replica.engine.generation}, handle)
-    os.replace(args.endpoint_file + ".tmp", args.endpoint_file)
+    def write_endpoint() -> int:
+        # The active generation rides the announcement; the beat below
+        # rewrites it when a published checkpoint rolls in.
+        generation = replica.engine.generation
+        with open(args.endpoint_file + ".tmp", "w") as handle:
+            json.dump({"url": replica.url, "boot_id": replica.boot_id,
+                       "preset": args.preset, "pid": os.getpid(),
+                       "generation": generation}, handle)
+        os.replace(args.endpoint_file + ".tmp", args.endpoint_file)
+        return generation
+
+    announced = write_endpoint()
     print(f"replica serving on {replica.url} (boot {replica.boot_id})",
           flush=True)
 
@@ -835,6 +990,8 @@ def main(argv=None) -> int:
             replica.begin_drain()
             break
         beats += 1
+        if replica.engine.generation != announced:
+            announced = write_endpoint()
         if beats % 10 == 0:               # ~every 2 s
             flush_obs()
     # A brief linger so the router can fetch the draining suffix and the
