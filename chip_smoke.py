@@ -4,7 +4,8 @@ card: builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
 K-token micro-steps, speculative decoding, drain and resume, blocks
-imported from the fleet KV plane, the HTTP replica), and trains the
+imported from the fleet KV plane, the HTTP replica, weight rolls, paged
+LoRA adapters), and trains the
 flagship for a few steps, checkpointing, killing and restoring it.
 
     python3 chip_smoke.py
@@ -306,12 +307,41 @@ start); any failed check raises and the script exits non-zero:
              stream, ``/healthz`` generation 2, ``replica.param_rolls``
              2, no error or 500, the launch gates; reported: restore and
              lock-held times, inter-token p99 against phase 26's.
+28. serve lora — paged LoRA adapters (rank 16, 8 tenants from seeded
+             numpy generators) on the flagship of phase 6: (a) a 65-block
+             pool holding the 8 adapters, base traffic alone (phase 6's
+             seed-2 wave): streams and kernel and combine launches equal
+             phase 6's (the drop rule runs the LoRA-free program); (b) the
+             same engine at 25% and 100% adapter traffic, tenants
+             round-robin: 64 tokens a request, an adapter stream that
+             differs from its base stream, 8 registered, 8 resident, a
+             pool high water of 64 blocks, phase 6's launch gates;
+             reported: each tenant's streams against its requests alone on
+             the engine (top-2 gap at a first divergence), tokens/s
+             against phase 6's median, the LoRA branch's device time in a
+             100% decode step (traced, and timed alone). (c) and (d) a
+             pool of four adapters registered with ``host_copy=False``
+             into a local bucket, at K = 1 and 4: tenants 0-3, 4-7, 0-3 on
+             the wave's first 8 requests; the third wave equals the first
+             token for token, at least 4 evictions and 12 loads, the pool
+             never rebound, and at K = 4 the LoRA graphs captured once and
+             replayed over the reloaded adapters. (e) int8 pools through
+             the pipelined kernel at 100%. (f) ``ReplicaServer`` over a
+             fresh engine of (b): four adapters over ``POST /adapter``, 16
+             HTTP clients with their ids round-robin; 64 tokens a stream,
+             4 registered in ``/stats``, the ``adapters`` series in
+             ``/metrics``, no 500. Then ``apply_lora`` at 16 and 144 rows
+             (bf16) against float64 (within 2^-6 of its products'
+             magnitude; scratch and scale-0 rows exactly 0.0), and the
+             tiny preset at fp32 through both kernels and the plain
+             version: the 8-adapter mixed wave equals dedicated
+             single-adapter engines, and the plain run.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
-20, 22, 24, 25, 26 and 27 and the scoring step's timing),
+20, 22, 24, 25, 26, 27 and 28 and the scoring step's timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1374,12 +1404,13 @@ def phase_serve(device, smi: str, bucket: str) -> tuple:
     kernel; then the engine publishes its hot blocks into ``bucket`` for
     phase 24. Returns the kernel's and the combine kernel's launch counts
     over the timed waves, the waves' streams by seed, the publisher's
-    numbers (``publish_hot``) and the waves' median tokens/s."""
+    numbers (``publish_hot``), the waves' median tokens/s and the seed-2
+    wave's ``_timed_drain`` result (phase 28 holds its launches)."""
     engine, launches, line, streams, runs = serve_flagship(device, smi,
                                                            "serve")
     published = publish_hot(engine, bucket, "serve", runs[KVFLEET_SEED])
     return (launches, line["combine_launches"], streams, published,
-            line["tokens_per_s_median"])
+            line["tokens_per_s_median"], runs[KVFLEET_SEED])
 
 
 def phase_serve_quant(device, smi: str, bucket: str) -> tuple:
@@ -3289,15 +3320,37 @@ def pool_bytes(pools) -> int:
 
 def top2_gap(engine, req, upto: int) -> float:
     """The target's top-2 logit gap after the prompt and ``upto`` tokens
-    of ``req``'s stream (a plain forward of the context)."""
+    of ``req``'s stream: a plain forward of the context (``transformer.
+    apply``'s), whose every layer adds ``apply_lora`` of its input when the
+    request decodes under an adapter."""
     from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.serving.lora import apply_lora
 
+    cfg, params = engine.cfg, engine.params
     ids = np.concatenate([req.prompt, np.asarray(req.tokens[:upto],
                                                  np.int32)])
+    entry = engine._adapters.get(req.adapter_id) if req.adapter_id else None
+
+    def attn_fn(q, k, v):
+        return transformer.dot_product_attention(
+            q, transformer.expand_kv(k, cfg.n_heads),
+            transformer.expand_kv(v, cfg.n_heads), True)
+
     with torch.no_grad():
-        logits = transformer.apply(
-            engine.params, engine.cfg,
-            torch.as_tensor(ids, device=engine.device)[None])[0, -1]
+        x = transformer.embed_lookup(
+            params["embed"].to(cfg.dtype),
+            torch.as_tensor(ids, device=engine.device)[None])
+        for i, layer in enumerate(params["layers"]):
+            x_in = x
+            x = transformer._block(x, layer, cfg, attn_fn)
+            if entry is not None:
+                x = x + apply_lora(
+                    x_in, engine._lora_pool,
+                    torch.tensor([entry["blocks"][i]], device=engine.device),
+                    torch.tensor([entry["scale"]], device=engine.device))
+        x = transformer._rmsnorm(x, params["final_norm"])
+        logits = (x @ params["unembed"].to(cfg.dtype)).to(
+            torch.float32)[0, -1]
     top = logits.topk(2).values
     return float(top[0] - top[1])
 
@@ -4704,10 +4757,12 @@ def phase_parity_replica(device, cases=REPLICA_CASES) -> dict:
 REPLICA_CLIENTS = 16
 
 
-def http_wave(replica, seed: int, max_new: int = 64) -> dict:
+def http_wave(replica, seed: int, max_new: int = 64,
+              adapter_ids=None) -> dict:
     """Phase 6's ``seed`` wave over HTTP: one client thread a request,
-    each submitting with a trace header and long-polling its stream, while
-    a probe thread times an acquisition of the replica's lock every 10 ms.
+    each submitting with a trace header (and request i with
+    ``adapter_ids[i]``, when given) and long-polling its stream, while a
+    probe thread times an acquisition of the replica's lock every 10 ms.
     Returns what each client saw and the probe's waits."""
     import threading
 
@@ -4730,6 +4785,8 @@ def http_wave(replica, seed: int, max_new: int = 64) -> dict:
         if kw:
             body.update(temperature=kw["temperature"], top_p=kw["top_p"],
                         key=[int(w) for w in kw["key"]])
+        if adapter_ids is not None:
+            body["adapter_id"] = adapter_ids[i]
         http = HttpClient(replica.url)
         try:
             start.wait()
@@ -5203,6 +5260,583 @@ def phase_serve_roll(device, smi: str, serve_streams: dict,
     return totals
 
 
+# -- phase 28: paged LoRA adapters -------------------------------------------
+
+#: Phase 28's adapters: the pool rank, the tenants, the scale each is
+#: registered with, and the tiny preset's rank and scale.
+LORA_RANK, LORA_TENANTS, LORA_SCALE = 16, 8, 1.0
+TINY_LORA_RANK, TINY_LORA_SCALE = 4, 1.5
+#: Phase 28's flagship engines: scratch + 8 adapters x 8 layers, and a
+#: pool that holds four adapters (legs c and d).
+LORA_BLOCKS, LORA_SMALL_BLOCKS = 65, 33
+#: The bf16 error bound of ``apply_lora`` against float64 on the same bf16
+#: values, per element, over the magnitude of its products (|x| |A|^T
+#: |scale| |B|): three bf16 roundings (the shrink, the scale, the output),
+#: 3 x 2^-8 < 2^-6.
+LORA_BF16_BOUND = 2.0 ** -6
+
+
+def lora_adapter(seed: int, d_model: int, n_layers: int, rank: int,
+                 full_scale: bool = False) -> list:
+    """One tenant's per-layer (A, B) from a seeded numpy generator. The
+    flagship's are N(0, 1/d) and N(0, 1/r): each layer's delta is about
+    as large as the residual it joins, which turns the greedy argmax and
+    keeps bf16 logits finite; the tiny preset's are full-scale N(0, 1),
+    as ``tests/test_lora.py``'s."""
+    rng = np.random.default_rng(seed)
+    sa, sb = (1.0, 1.0) if full_scale else (d_model ** -0.5, rank ** -0.5)
+    return [{"a": rng.normal(size=(d_model, rank)) * sa,
+             "b": rng.normal(size=(rank, d_model)) * sb}
+            for _ in range(n_layers)]
+
+
+def lora_engine(device, n_blocks: int, obs=None, kv_fleet=None,
+                **serving):
+    """A flagship engine with the LoRA pool over SERVE_KNOBS."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    cfg, params = flagship_model(device)
+    return ServingEngine(params, cfg, ServingConfig(
+        **SERVE_KNOBS, lora_rank=LORA_RANK, n_adapter_blocks=n_blocks,
+        **serving), device=device, obs=obs, kv_fleet=kv_fleet)
+
+
+def register_tenants(engine, tenants, **kw) -> None:
+    cfg = engine.cfg
+    for t in tenants:
+        engine.register_adapter(
+            f"tenant-{t}", lora_adapter(t, cfg.d_model, cfg.n_layers,
+                                        LORA_RANK), scale=LORA_SCALE, **kw)
+
+
+def lora_load(engine, seed: int, tenants, max_new: int = 64,
+              requests=None):
+    """A ``_timed_drain`` loader: the seed's serve wave (or the requests at
+    the indices ``requests``), request j under ``tenants[j]`` (None: the
+    base model)."""
+    def load():
+        wave = _wave_requests(engine.cfg.vocab_size, seed)
+        picked = range(len(wave)) if requests is None else requests
+        rids = [engine.submit(wave[i][0], max_new, adapter_id=t,
+                              **wave[i][1]) for i, t in zip(picked, tenants)]
+        return rids, sum(len(wave[i][0]) for i in picked)
+    return load
+
+
+def first_divergence(engine, rid, want) -> dict:
+    """Where ``rid``'s stream first parts from ``want``, with the top-2 gap
+    there (its adapter applied), or None when equal."""
+    got = engine.request(rid).tokens
+    at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+              None)
+    if at is None:
+        return None
+    return {"at": at, "top2_gap": top2_gap(engine, engine.request(rid), at)}
+
+
+def lora_numerics(device) -> dict:
+    """``apply_lora`` on the card at the flagship's shapes (16 decode rows
+    and 144 chunk rows, rank 16, d_model 1024, bf16) against float64 on
+    the host from the same bf16 values: within LORA_BF16_BOUND of the
+    products' magnitude at every element, and the rows on the scratch
+    block or at scale 0 exactly 0.0."""
+    from tpu_task_torch.ml.serving.lora import apply_lora
+
+    gen = torch.Generator(device=device).manual_seed(28)
+    d, out = FLAGSHIP["d_model"], {}
+    pool = torch.randn((LORA_BLOCKS, 2, LORA_RANK, d), generator=gen,
+                       device=device).mul_(0.05).to(torch.bfloat16)
+    pool[0] = 0
+    for rows in (16, CHUNK_ROWS):
+        x = torch.randn((rows, 1, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        blocks = torch.randint(1, LORA_BLOCKS, (rows,), generator=gen,
+                               device=device)
+        scales = torch.rand((rows,), generator=gen, device=device) + 0.5
+        blocks[::5] = 0                      # scratch rows
+        scales[3::7] = 0.0                   # bound rows at scale 0
+        got = apply_lora(x, pool, blocks, scales).double().cpu()
+        xd, ab = x.double().cpu(), pool[blocks].double().cpu()
+        sd = scales.to(torch.bfloat16).double().cpu()[:, None, None]
+        ref = torch.bmm(torch.bmm(xd, ab[:, 0].transpose(1, 2)) * sd,
+                        ab[:, 1])
+        mag = torch.bmm(torch.bmm(xd.abs(), ab[:, 0].abs().transpose(1, 2))
+                        * sd.abs(), ab[:, 1].abs())
+        err = (got - ref).abs()
+        zero = (blocks.cpu() == 0) | (scales.cpu() == 0)
+        out[rows] = dict(
+            max_abs_err=float(err.max()),
+            max_err_over_magnitude=float((err / mag.clamp_min(1e-30))
+                                         [~zero].max()),
+            within_bound=bool((err <= LORA_BF16_BOUND * mag).all()),
+            zero_rows=int(zero.sum()),
+            zero_rows_exact=bool((got[zero] == 0).all()))
+    return out
+
+
+def lora_parity_tiny(device) -> dict:
+    """The tiny preset at fp32 through ``"cuda"``, ``"pipelined"`` and
+    ``"reference"``: ``tests/test_lora.py``'s 8-adapter mixed wave (a base
+    request beside eight tenants, every second request sampled with its
+    own key) equals, stream for stream, a dedicated engine that holds the
+    request's adapter alone (a LoRA-free engine for the base request),
+    and the two kernels' mixed streams equal the plain version's. Returns
+    each kernel's (launches, combine launches) over its engines."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.serve.replica import build_engine
+
+    rng = np.random.default_rng(19)
+    serving = dict(slots=10, lora_rank=TINY_LORA_RANK, n_adapter_blocks=40)
+    mixed, launches = {}, {}
+    for impl in ("cuda", "pipelined", "reference"):
+        engine = build_engine("tiny", serving={**serving,
+                                               "decode_impl": impl},
+                              device=device)
+        cfg = engine.cfg
+        tenants = {f"tiny-{t}": lora_adapter(100 + t, cfg.d_model,
+                                             cfg.n_layers, TINY_LORA_RANK,
+                                             full_scale=True)
+                   for t in range(LORA_TENANTS)}
+        if impl == "cuda":
+            wave = [(aid, rng.integers(0, cfg.vocab_size, size=5 + i % 3),
+                     {"temperature": 0.8, "key": [500 + i, 3]} if i % 2
+                     else {})
+                    for i, aid in enumerate([None] + list(tenants))]
+        for aid, layers in tenants.items():
+            engine.register_adapter(aid, layers, scale=TINY_LORA_SCALE)
+        pa.reset_launch_counts()
+        rids = [engine.submit(p, 10, adapter_id=aid, **kw)
+                for aid, p, kw in wave]
+        out = engine.drain()
+        mixed[impl] = [out[r] for r in rids]
+        dedicated = []
+        for (aid, p, kw), stream in zip(wave, mixed[impl]):
+            knobs = {**serving, "decode_impl": impl}
+            if aid is None:          # a LoRA-free engine of the same shape
+                knobs.update(lora_rank=0, n_adapter_blocks=0)
+            alone = build_engine("tiny", device=device, serving=knobs)
+            if aid is not None:
+                alone.register_adapter(aid, tenants[aid],
+                                       scale=TINY_LORA_SCALE)
+            rid = alone.submit(p, 10, adapter_id=aid, **kw)
+            dedicated.append(alone.drain()[rid] == stream)
+        launches[impl] = attention_launches()      # mixed and dedicated
+        line = dict(impl=impl, requests=len(wave),
+                    equal_dedicated=sum(dedicated),
+                    adapter_streams_differ_from_base=sum(
+                        s != mixed[impl][0] for s in mixed[impl][1:]),
+                    launches=launches[impl])
+        emit("parity_lora", **line)
+        if not all(dedicated) or not line["adapter_streams_differ_from_base"]:
+            raise AssertionError(f"parity_lora {impl}: a mixed stream "
+                                 f"differs from its dedicated engine's: "
+                                 f"{line}")
+        n = {name: counts[0] for name, counts in launches[impl].items()}
+        kernel_ok = {"cuda": n["cuda"] > 0 and n["reference"] == 0,
+                     "pipelined": n["pipelined"] > 0 and n["reference"] == 0,
+                     "reference": n["cuda"] == n["pipelined"] == 0}[impl]
+        if not kernel_ok:
+            raise AssertionError(f"parity_lora {impl}: launches "
+                                 f"{launches[impl]}")
+    for impl in ("cuda", "pipelined"):
+        if mixed[impl] != mixed["reference"]:
+            raise AssertionError(f"parity_lora: {impl}'s mixed streams "
+                                 "differ from the plain version's")
+    # Each kernel's (launches, combine launches) in its own engines.
+    return {impl: launches[impl][impl] for impl in ("cuda", "pipelined")}
+
+
+def lora_step_share(engine, seed: int) -> dict:
+    """One 100%-adapter decode step under ``torch.profiler``, on this (the
+    launching) thread: the device time of the kernels ``apply_lora``
+    launched (its calls wrapped in a ``lora_branch`` range) against the
+    step's device-busy time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from tpu_task_torch.ml.serving import model as serving_model
+
+    wave = _wave_requests(engine.cfg.vocab_size, seed)
+    for j, (prompt, kw) in enumerate(wave):
+        engine.submit(prompt[:64], 24, adapter_id=f"tenant-{j % LORA_TENANTS}",
+                      **kw)
+    while any(engine._prefilling(i) for i in range(engine.scfg.slots)) \
+            or engine._queue:
+        engine.step()                 # ingest: the next step is a decode
+    inner = serving_model.apply_lora
+
+    def ranged(*args):
+        with record_function("lora_branch"):
+            return inner(*args)
+
+    slot_blocks = engine._slot_lora_blocks.copy()
+    serving_model.apply_lora = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prime_tracer(engine.device)
+            with record_function("lora_step"):
+                engine.step()
+            torch.cuda.synchronize()
+    finally:
+        serving_model.apply_lora = inner
+    engine.drain()
+    cpu = torch.autograd.DeviceType.CPU
+    step = [e for e in prof.events()
+            if e.name == "lora_step" and e.device_type == cpu]
+    ranges = [e for e in prof.events()
+              if e.name == "lora_branch" and e.device_type == cpu]
+    start, end = step[0].time_range.start, step[0].time_range.end
+    busy, last, kernels = 0.0, -math.inf, 0
+    for d_start, d_end, name in sorted(
+            (s, e, n) for n, s, e in device_events(prof)
+            if n not in ("lora_step", "lora_branch")):
+        if not start <= d_start <= end:
+            continue
+        kernels += 1
+        if d_end > last:
+            busy += d_end - max(d_start, last)
+            last = d_end
+
+    def device_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+
+    lora_us = sum(device_us(e) for e in ranges)
+    # The same branch timed alone with CUDA events at this step's shapes
+    # (16 decode rows, every layer, cold L2), beside the traced sum.
+    from tpu_task_torch.ml.serving.lora import apply_lora
+
+    cfg, n = engine.cfg, engine.scfg.slots
+    x = torch.randn((n, 1, cfg.d_model), device=engine.device,
+                    dtype=cfg.dtype)
+    blocks = torch.as_tensor(slot_blocks, dtype=torch.int64,
+                             device=engine.device)
+    scales = torch.ones((n,), device=engine.device).to(cfg.dtype)
+
+    def branch():
+        for i in range(cfg.n_layers):
+            x + apply_lora(x, engine._lora_pool, blocks[:, i], scales)
+
+    timed_ms = DeviceTimer(engine.device)(branch)
+    return dict(step_device_busy_ms=busy / 1e3, step_kernels=kernels,
+                lora_branch_calls=len(ranges),
+                lora_branch_device_ms=lora_us / 1e3,
+                lora_share_of_step=lora_us / busy if busy else None,
+                lora_branch_timed_ms=timed_ms,
+                lora_timed_share_of_step=timed_ms * 1e3 / busy if busy
+                else None)
+
+
+def lora_wave_line(run: dict, engine, reference=None) -> dict:
+    line = {k: run[k] for k in (
+        "seed", "requests", "generated_tokens", "wall_s", "tokens_per_s",
+        "chunk_steps", "decode_steps", "micro_steps", "kernel",
+        "kernel_launches", "combine_launches", "other_kernel_launches",
+        "plain_launches", "expected_launches", "expected_combine_launches",
+        "all_finished", "graph_captures")}
+    line["wave_ok"] = wave_ok(run)
+    if reference is not None:
+        line["streams_equal_reference"] = sum(
+            engine.request(r).tokens == want
+            for r, want in zip(run["rids"], reference))
+    return line
+
+
+def lora_reload_leg(device, smi: str, bucket: str, micro_k: int) -> dict:
+    """Legs (c) and (d): a pool of four adapters, the eight registered with
+    ``host_copy=False`` into a local bucket through the port's fleet
+    client; the first eight requests of the seed-2 wave under tenants 0-3,
+    then 4-7 (evicting 0-3), then 0-3 again (reloaded from the bucket).
+    The third wave equals the first token for token; the pool keeps its
+    address; at ``micro_k`` 4 the LoRA graphs are captured in the first
+    wave alone and replayed over the reloaded adapters."""
+    from tpu_task_torch.serve.kvfleet import FleetKvClient
+    from tpu_task_torch.storage.backends import LocalBackend
+
+    client = FleetKvClient(LocalBackend(bucket), f"lora-k{micro_k}",
+                           refresh_interval=0.0)
+    engine = lora_engine(device, LORA_SMALL_BLOCKS, kv_fleet=client,
+                         micro_k=micro_k, decode_impl="cuda")
+    register_tenants(engine, range(LORA_TENANTS), host_copy=False)
+    ptrs = {engine._lora_pool.data_ptr()}
+    pool = engine._lora_pool
+    runs, graphs = [], []
+    for tenants in ((0, 1, 2, 3), (4, 5, 6, 7), (0, 1, 2, 3)):
+        names = [f"tenant-{tenants[j % 4]}" for j in range(8)]
+        runs.append(_timed_drain(engine, KVFLEET_SEED, load=lora_load(
+            engine, KVFLEET_SEED, names, requests=range(8))))
+        ptrs.add(engine._lora_pool.data_ptr())
+        runner = engine._micro_graphs.get(0)
+        graphs.append(dict(runner._graphs) if runner else {})
+    streams = [[engine.request(r).tokens for r in run["rids"]]
+               for run in runs]
+    stats = engine.stats()
+    graph_stats = stats["step_graph"]
+    line = dict(
+        micro_k=micro_k, n_adapter_blocks=LORA_SMALL_BLOCKS,
+        waves=[lora_wave_line(r, engine) for r in runs],
+        third_equals_first=streams[2] == streams[0],
+        second_differs=streams[1] != streams[0],
+        loads=stats["adapters"]["loads"],
+        evictions=stats["adapters"]["evictions"],
+        resident=stats["adapters"]["resident"],
+        pool_high_water=stats["adapters"]["pool_high_water"],
+        pool_same_tensor=engine._lora_pool is pool,
+        pool_addresses=len(ptrs),
+        bucket_bytes_shipped=client.bytes_shipped,
+        bucket_bytes_fetched=client.bytes_fetched,
+        lora_graphs=sorted(str(k) for k in graphs[0] if k[1]),
+        lora_captures=graph_stats["lora_captures"],
+        capture_ms=graph_stats["capture_ms"],
+        graphs_kept_across_reload=all(
+            g == graphs[0] for g in graphs[1:]) if micro_k > 1 else None,
+        gpu=smi)
+    failures = []
+    if not all(wave_ok(r) for r in runs):
+        failures.append("a wave failed its gates")
+    if not (line["third_equals_first"] and line["second_differs"]):
+        failures.append("the reloaded adapters gave other streams")
+    if line["evictions"] < 4 or line["loads"] < 12:
+        failures.append("the pool did not evict and reload")
+    if not line["pool_same_tensor"] or line["pool_addresses"] != 1:
+        failures.append("the adapter pool was rebound")
+    if micro_k > 1 and not (line["graphs_kept_across_reload"]
+                            and line["lora_graphs"]
+                            and line["lora_captures"]
+                            == len(line["lora_graphs"])):
+        failures.append("the LoRA graphs were captured again, or never")
+    line["failures"] = failures
+    emit("serve_lora_reload", **line)
+    if failures:
+        raise AssertionError(f"serve_lora reload K{micro_k}: {failures}")
+    return line
+
+
+def lora_replica_leg(device, smi: str, reference: list) -> dict:
+    """Leg (f): a fresh bf16 LoRA engine of leg (b)'s configuration with an
+    obs handle behind ``ReplicaServer``; four adapters go in over ``POST
+    /adapter``, then 16 HTTP clients send the seed-2 wave with the four
+    ids round-robin. Gates: 64 tokens a stream, ``/stats`` counts 4
+    registered adapters, ``/metrics`` carries the ``adapters`` series, no
+    fault and no 500, the engine's kernel and nothing else."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.obs import Obs
+    from tpu_task_torch.serve.replica import ReplicaServer
+
+    engine = lora_engine(device, LORA_BLOCKS, obs=Obs.create("replica:lora"),
+                         decode_impl="cuda")
+    warm_up(engine)
+    cfg = engine.cfg
+    names = [f"http-{t}" for t in range(4)]
+    replica = ReplicaServer(engine=engine).start()
+    try:
+        http = HttpClient(replica.url)
+        hashes = []
+        for t, name in enumerate(names):
+            layers = [{"a": layer["a"].tolist(), "b": layer["b"].tolist()}
+                      for layer in lora_adapter(t, cfg.d_model, cfg.n_layers,
+                                                LORA_RANK)]
+            status, _, body = http.call("POST", "/adapter", {
+                "adapter_id": name, "layers": layers, "scale": LORA_SCALE})
+            if status != 200:
+                raise AssertionError(f"POST /adapter answered {status}: "
+                                     f"{body}")
+            hashes.append(body["hash"])
+        counters = (engine.chunk_steps, engine.decode_steps)
+        pa.reset_launch_counts()
+        torch.cuda.synchronize()
+        wave = http_wave(replica, KVFLEET_SEED,
+                         adapter_ids=[names[i % 4] for i in range(16)])
+        torch.cuda.synchronize()
+        stats = http.call("GET", "/stats")[2]
+        metrics = http.call("GET", "/metrics")[2]
+        statuses = http.statuses
+        http.close()
+    finally:
+        replica.stop()
+    results = wave["results"]
+    chunk_steps = engine.chunk_steps - counters[0]
+    decode_calls = engine.decode_steps - counters[1]
+    plans = step_splits(engine)
+    kernel = pa.paged_decode_attention
+    run = dict(
+        all_finished=all(r["status"] == "done" and len(r["tokens"]) == 64
+                         for r in results),
+        kernel_launches=kernel.launches,
+        combine_launches=kernel.combine_launches,
+        other_kernel_launches=(pa.paged_decode_pipelined_attention.launches
+                               + pa.paged_decode_pipelined_attention
+                               .combine_launches),
+        plain_launches=pa.paged_reference_attention.launches,
+        expected_launches=cfg.n_layers * (chunk_steps + decode_calls),
+        expected_combine_launches=cfg.n_layers * (
+            decode_calls * (plans["decode"] > 1)
+            + chunk_steps * (plans["chunk"] > 1)))
+    series = sorted({line.split("{")[0].split(" ")[0]
+                     for line in metrics.splitlines()
+                     if line.startswith("tpu_task_adapters_")})
+    generated = sum(len(r["tokens"]) for r in results)
+    line = dict(
+        run, wall_s=wave["wall_s"], generated_tokens=generated,
+        tokens_per_s=generated / wave["wall_s"],
+        adapters=stats["adapters"], distinct_hashes=len(set(hashes)),
+        metrics_series=series,
+        adapter_streams_equal_base=sum(
+            r["tokens"] == want for r, want in zip(results, reference)),
+        faults=replica_faults(replica, False),
+        http_500s=(statuses + [s for r in results
+                               for s in r["statuses"]]).count(500),
+        gpu=smi)
+    failures = []
+    if not wave_ok(run):
+        failures.append("a stream fell short or the launches miss the "
+                        "engine's kernel")
+    if stats["adapters"]["registered"] != 4:
+        failures.append("/stats does not count 4 registered adapters")
+    if not {"tpu_task_adapters_registered", "tpu_task_adapters_loads",
+            "tpu_task_adapters_resident"} <= {
+                s.removesuffix("_total") for s in series}:
+        failures.append("/metrics lacks the adapters series")
+    if line["faults"] or line["http_500s"]:
+        failures.append("a replica fault or a 500")
+    line["failures"] = failures
+    emit("serve_lora_replica", **line)
+    if failures:
+        raise AssertionError(f"serve_lora_replica: {failures}")
+    return line
+
+
+def phase_serve_lora(device, smi: str, serve_streams: dict,
+                     serve_seed2: dict, median: float) -> dict:
+    """Phase 28: paged LoRA adapters on the flagship (legs a-f), then the
+    numerics of ``apply_lora`` at the flagship's shapes and the tiny
+    preset's fp32 exactness through both kernels. Returns each kernel's
+    and the combine's launches in the flagship legs, and the tiny
+    parity's."""
+    import shutil
+
+    t0 = time.perf_counter()
+    reference = serve_streams[KVFLEET_SEED]
+    totals = {"cuda": 0, "pipelined": 0, "cuda_combine": 0,
+              "pipelined_combine": 0}
+
+    def count(run):
+        totals[run["kernel"]] += run["kernel_launches"]
+        totals[f"{run['kernel']}_combine"] += run["combine_launches"]
+
+    # (a) base traffic on a LoRA engine holding eight adapters.
+    engine = lora_engine(device, LORA_BLOCKS, decode_impl="cuda")
+    pool_bytes_lora = (engine._lora_pool.numel()
+                       * engine._lora_pool.element_size())
+    warm_up(engine)
+    register_tenants(engine, range(LORA_TENANTS))
+    base = _timed_drain(engine, KVFLEET_SEED)
+    count(base)
+    base_line = lora_wave_line(base, engine, reference)
+    base_line.update(
+        same_launches_as_phase6=(
+            base["kernel_launches"], base["combine_launches"])
+        == (serve_seed2["kernel_launches"],
+            serve_seed2["combine_launches"]),
+        over_phase6_median=base["tokens_per_s"] / median)
+    # (b) 25%, then 100% of the requests under tenants round-robin.
+    mixed = {}
+    for share, tenants in (
+            (25, [f"tenant-{(j // 4) % LORA_TENANTS}" if j % 4 == 0
+                  else None for j in range(16)]),
+            (100, [f"tenant-{j % LORA_TENANTS}" for j in range(16)])):
+        run = _timed_drain(engine, KVFLEET_SEED,
+                           load=lora_load(engine, KVFLEET_SEED, tenants))
+        count(run)
+        line = lora_wave_line(run, engine, reference)
+        line.update(share=share,
+                    adapter_streams_differ_from_base=sum(
+                        engine.request(r).tokens != want
+                        for r, want, t in zip(run["rids"], reference,
+                                              tenants) if t),
+                    over_phase6_median=run["tokens_per_s"] / median)
+        mixed[share] = (run, line, tenants)
+    stats_b = engine.stats()["adapters"]
+    # Reported: each tenant's streams of the 100% wave against that
+    # tenant's requests alone on the same engine.
+    run100, _, tenants100 = mixed[100]
+    alone = {}
+    for t in range(LORA_TENANTS):
+        picked = [j for j in range(16) if tenants100[j] == f"tenant-{t}"]
+        solo = _timed_drain(engine, KVFLEET_SEED, load=lora_load(
+            engine, KVFLEET_SEED, [f"tenant-{t}"] * len(picked),
+            requests=picked))
+        count(solo)
+        pairs = list(zip(solo["rids"], [run100["rids"][j] for j in picked]))
+        alone[f"tenant-{t}"] = dict(
+            equal=sum(engine.request(a).tokens == engine.request(b).tokens
+                      for a, b in pairs),
+            of=len(pairs),
+            first_divergence=[first_divergence(
+                engine, b, engine.request(a).tokens) for a, b in pairs])
+    share = lora_step_share(engine, 3)
+    del engine
+    bucket = tempfile.mkdtemp(prefix="tpu-task-lora-")
+    try:
+        reload_k1 = lora_reload_leg(device, smi, bucket, 1)
+        reload_k4 = lora_reload_leg(device, smi, bucket, 4)
+    finally:
+        shutil.rmtree(bucket, ignore_errors=True)
+    for line in (reload_k1, reload_k4):
+        for wave in line["waves"]:
+            totals["cuda"] += wave["kernel_launches"]
+            totals["cuda_combine"] += wave["combine_launches"]
+    # (e) int8 pools through the pipelined kernel, 100% adapters.
+    engine = lora_engine(device, LORA_BLOCKS, kv_dtype="int8",
+                         decode_impl="pipelined")
+    register_tenants(engine, range(LORA_TENANTS))
+    quant = _timed_drain(engine, KVFLEET_SEED, load=lora_load(
+        engine, KVFLEET_SEED, [f"tenant-{j % LORA_TENANTS}"
+                               for j in range(16)]))
+    count(quant)
+    quant_line = lora_wave_line(quant, engine)
+    del engine
+    replica = lora_replica_leg(device, smi, reference)
+    totals["cuda"] += replica["kernel_launches"]
+    totals["cuda_combine"] += replica["combine_launches"]
+    numerics = lora_numerics(device)
+    parity = lora_parity_tiny(device)
+    line = dict(
+        lora_rank=LORA_RANK, tenants=LORA_TENANTS,
+        adapter_pool_bytes=pool_bytes_lora,
+        base=base_line, mixed={s: m[1] for s, m in mixed.items()},
+        adapters_after_mixed=stats_b, tenant_alone=alone,
+        lora_step=share, reload_k1_loads=reload_k1["loads"],
+        reload_k4_capture_ms=reload_k4["capture_ms"],
+        reload_k4_lora_captures=reload_k4["lora_captures"],
+        int8=quant_line, replica_tokens_per_s=replica["tokens_per_s"],
+        numerics=numerics, launches=totals, phase6_median=median,
+        seconds=time.perf_counter() - t0, gpu=smi)
+    failures = []
+    if base_line["streams_equal_reference"] != 16 \
+            or not base_line["same_launches_as_phase6"]:
+        failures.append("(a) base traffic differs from phase 6's wave")
+    if not all(wave_ok(m[0]) for m in mixed.values()) \
+            or not base_line["wave_ok"]:
+        failures.append("(a/b) a wave failed its gates")
+    if not any(m[1]["adapter_streams_differ_from_base"]
+               for m in mixed.values()):
+        failures.append("(b) no adapter changed a stream")
+    if (stats_b["registered"], stats_b["resident"],
+            stats_b["pool_high_water"]) != (8, 8, 64):
+        failures.append(f"(b) adapters {stats_b}")
+    if not quant_line["wave_ok"] or quant_line["kernel"] != "pipelined":
+        failures.append("(e) the int8 wave failed its gates")
+    for rows, check in numerics.items():
+        if not (check["within_bound"] and check["zero_rows_exact"]):
+            failures.append(f"apply_lora at {rows} rows: {check}")
+    line["failures"] = failures
+    emit("serve_lora", **line)
+    if failures:
+        raise AssertionError(f"serve_lora: {failures}")
+    return {"flagship": totals, "parity": parity}
+
+
 def main() -> int:
     import shutil
 
@@ -5226,8 +5860,8 @@ def run_phases(bucket: str) -> int:
     timing = phase_timing(device, smi)
     spec_times = phase_timing_spec(device, smi)
     phase_parity(device)
-    launches, combine_launches, serve_streams, published, serve_median = \
-        phase_serve(device, smi, bucket)
+    launches, combine_launches, serve_streams, published, serve_median, \
+        serve_seed2 = phase_serve(device, smi, bucket)
     flash_err = phase_flash_kernel(device)
     flash_times = phase_flash_timing(device, smi)
     phase_flash_fwd_shapes(device, smi)
@@ -5263,6 +5897,8 @@ def run_phases(bucket: str) -> int:
     roll = phase_serve_roll(device, smi, serve_streams, quant_streams,
                             {"bf16": serve_median, "int8": quant_median},
                             replica["bf16"])
+    lora = phase_serve_lora(device, smi, serve_streams, serve_seed2,
+                            serve_median)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -5304,6 +5940,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_replica": parity_replica["cuda"],
         "launches_serve_replica": replica["bf16"]["kernel_launches"],
         "launches_serve_roll": roll["cuda"],
+        "launches_serve_lora": lora["flagship"]["cuda"],
+        "launches_parity_lora": lora["parity"]["cuda"][0],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -5348,6 +5986,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_replica": parity_replica["pipelined"],
         "launches_serve_replica_quant": replica["int8"]["kernel_launches"],
         "launches_serve_roll_quant": roll["pipelined"],
+        "launches_serve_lora_quant": lora["flagship"]["pipelined"],
+        "launches_parity_lora": lora["parity"]["pipelined"][0],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -5374,6 +6014,10 @@ def run_phases(bucket: str) -> int:
         "launches_serve_replica_quant": replica["int8"]["combine_launches"],
         "launches_serve_roll": roll["cuda_combine"],
         "launches_serve_roll_quant": roll["pipelined_combine"],
+        "launches_serve_lora": lora["flagship"]["cuda_combine"],
+        "launches_serve_lora_quant": lora["flagship"]["pipelined_combine"],
+        "launches_parity_lora": (lora["parity"]["cuda"][1]
+                                 + lora["parity"]["pipelined"][1]),
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

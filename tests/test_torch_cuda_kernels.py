@@ -5,8 +5,9 @@ kernels of training; the serving engine's K-step loop captured as a
 CUDA graph through the paged kernels; and both paged kernels at the
 speculative scoring widths, with a spec engine's target and draft steps
 through them; a drained engine's requests resumed through both; and a
-weight roll at micro_k 4, each generation with its own graphs; and a
-replica's graphs replayed from the thread a profiler capture hands its
+weight roll at micro_k 4, each generation with its own graphs; paged
+LoRA adapters evicted and reloaded from a bucket under those graphs; and
+a replica's graphs replayed from the thread a profiler capture hands its
 step loop to. Then
 the train path's card work beside the kernels: ``AsyncCheckpointer``'s
 device snapshot and ``prefetch_to_device``'s pinned side-stream copies.
@@ -720,6 +721,63 @@ def _flash_close(got, exact, atol):
     else:
         scale = exact.abs()
         assert (err <= 2.0 ** -8 * (scale + scale.max()) + atol).all()
+
+
+def _tenant(seed, d_model, n_layers, rank=4):
+    rng = np.random.default_rng(seed)
+    return [{"a": rng.normal(size=(d_model, rank)) * 0.5,
+             "b": rng.normal(size=(rank, d_model)) * 0.5}
+            for _ in range(n_layers)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro_k", [1, 4])
+def test_lora_evict_and_reload_keeps_the_pool_under_its_graphs(
+        cuda_device, tmp_path, micro_k):
+    """The tiny preset with room for two resident adapters, registered
+    with ``host_copy=False`` into a local bucket: tenants 0-1, then 2-3
+    (which evict them), then 0-1 again, reloaded from the bucket. The
+    third wave equals the first token for token, the pool is the same
+    tensor at the same address throughout (written in place), and at
+    micro_k 4 the LoRA variant of the greedy graph is captured once and
+    reads the reloaded adapters."""
+    from tpu_task_torch.serve.kvfleet import FleetKvClient
+    from tpu_task_torch.storage.backends import LocalBackend
+
+    client = FleetKvClient(LocalBackend(str(tmp_path)), "card",
+                           refresh_interval=0.0)
+    engine = build_engine("tiny", device=cuda_device, kv_client=client,
+                          serving={"decode_impl": "cuda", "micro_k": micro_k,
+                                   "lora_rank": 4, "n_adapter_blocks": 5})
+    cfg = engine.cfg
+    for i in range(4):
+        engine.register_adapter(f"t{i}", _tenant(i, cfg.d_model,
+                                                 cfg.n_layers),
+                                host_copy=False)
+    pool, ptr = engine._lora_pool, engine._lora_pool.data_ptr()
+    prompts = [np.arange(3 + i, 40 + 7 * i) % cfg.vocab_size
+               for i in range(4)]
+
+    def wave(tenants):
+        rids = [engine.submit(prompts[t], 12, adapter_id=f"t{t}")
+                for t in tenants for _ in range(2)]
+        out = engine.drain()
+        return [out[r] for r in rids]
+
+    first = wave([0, 1])
+    graphs = dict(engine._micro_graphs[0]._graphs) if micro_k > 1 else {}
+    second = wave([2, 3])
+    third = wave([0, 1])
+    assert third == first and second != first
+    assert engine._lora_pool is pool and pool.data_ptr() == ptr
+    s = engine.stats()
+    assert s["adapters"]["evictions"] >= 4 and s["adapters"]["loads"] >= 6
+    assert client.bytes_fetched > 0
+    if micro_k > 1:
+        runner = engine._micro_graphs[0]
+        assert set(graphs) == {(False, True)}
+        assert runner._graphs == graphs
+        assert s["step_graph"]["lora_captures"] == 1
 
 
 @pytest.mark.cuda

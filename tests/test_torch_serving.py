@@ -166,12 +166,25 @@ def _leaves(params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("overlap", True),
-    ("n_adapter_blocks", 4), ("prefill", "bucketed"),
-    ("host_offload_blocks", 8), ("lora_rank", 4)])
+    ("overlap", True), ("prefill", "bucketed"), ("host_offload_blocks", 8)])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(**{knob: value})
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(lora_rank=4, n_adapter_blocks=1), dict(lora_rank=-4)])
+def test_lora_knobs_validate_as_jax(knobs):
+    """LoRA's knobs (ROADMAP A7) are ported: a bad value raises JAX's
+    ValueError, word for word."""
+    from tpu_task.ml.serving import ServingConfig as JaxServingConfig
+
+    messages = []
+    for config in (ServingConfig, JaxServingConfig):
+        with pytest.raises(ValueError, match="lora_rank") as info:
+            config(**knobs)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
 
 
 def test_submit_checks_drain_timeout_and_unported_calls():

@@ -142,6 +142,26 @@ def test_stats_report_what_is_not_ported_as_off():
             stats["overlap_flushes"], stats["generation"]) == (1, 1, False,
                                                                0, 0)
     assert stats["tiering"]["enabled"] is False
-    assert stats["adapters"]["enabled"] is False
     assert stats["kvfleet"]["enabled"] is False
+    # LoRA is ported (ROADMAP A7): off at lora_rank 0, and a LoRA engine's
+    # adapter group equals JAX's after the same registrations and wave.
+    assert stats["adapters"]["enabled"] is False
+    lora = {"lora_rank": 4, "n_adapter_blocks": 9}
+    engines = (jax_build_engine("micro", serving=lora),
+               build_engine("micro", serving=lora, device="cpu"))
+    rng = np.random.default_rng(2)
+    layers = [{"a": rng.normal(size=(32, 2)), "b": rng.normal(size=(2, 32))}
+              for _ in range(2)]
+    groups = []
+    for engine in engines:
+        engine.register_adapter("t", layers, scale=0.5)
+        engine.register_adapter("u", layers[::-1])
+        engine.submit([1, 2, 3, 4, 5], 6, adapter_id="t")
+        engine.submit([6, 7, 8], 4)
+        engine.drain()
+        groups.append(engine.stats()["adapters"])
+    assert groups[1] == groups[0]
+    assert groups[1]["enabled"] is True
+    assert (groups[1]["registered"], groups[1]["resident"],
+            groups[1]["loads"]) == (2, 1, 1)
     assert stats["kv_pool_bytes_per_shard"] == stats["kv_pool_bytes"]

@@ -113,10 +113,14 @@ class ServingConfig:
     ``d_head``); ``micro_k``: decode iterations one pure-decode step runs
     (a captured CUDA graph of the K-step loop on a CUDA device);
     ``spec_k``: draft tokens a speculative round proposes per slot (0 is
-    off; the engine then needs ``draft_params``/``draft_cfg``).
+    off; the engine then needs ``draft_params``/``draft_cfg``);
+    ``lora_rank``: rank of the paged LoRA adapter pool (0 is off; adapters
+    of a smaller rank zero-pad to it); ``n_adapter_blocks``: the adapter
+    pool's blocks, block 0 the zero scratch block, one block a layer of
+    one adapter (see :mod:`~tpu_task_torch.ml.serving.lora`).
 
     Knobs of later slices (bucketed prefill, the async loop, the host
-    tier, LoRA) keep their fields so configs carry over, and raise
+    tier) keep their fields so configs carry over, and raise
     NotImplementedError naming their ROADMAP item when set."""
 
     slots: int = 8
@@ -191,14 +195,16 @@ class ServingConfig:
             raise ValueError(
                 f"n_adapter_blocks must be >= 0, got "
                 f"{self.n_adapter_blocks}")
+        if self.lora_rank > 0 and self.n_adapter_blocks < 2:
+            raise ValueError(
+                f"lora_rank > 0 needs n_adapter_blocks >= 2 (block 0 is "
+                f"the zero scratch block), got {self.n_adapter_blocks}")
         if self.prefill == "bucketed":
             raise _not_ported("prefill='bucketed'", "A2 (paged_prefill)")
         if self.overlap:
             raise _not_ported("overlap=True", "A5 (the async loop)")
         if self.host_offload_blocks:
             raise _not_ported("host_offload_blocks", "A9 (the host tier)")
-        if self.lora_rank or self.n_adapter_blocks:
-            raise _not_ported("lora_rank", "A7 (LoRA)")
 
     @property
     def max_blocks_per_slot(self) -> int:

@@ -91,11 +91,24 @@ for), the plain version on the CPU.
   block). A generation's params, and its K-step graphs, are freed when
   its last stream retires. ``param_loader(generation)`` restores a
   generation a resumed record pins that the engine no longer holds.
+- **Paged LoRA adapters** (``lora_rank`` > 0, :meth:`ServingEngine.
+  register_adapter`, ``submit(adapter_id=)``): adapters page through a
+  second :class:`~tpu_task_torch.ml.serving.cache.BlockAllocator` over one
+  device pool of per-layer blocks (:mod:`~tpu_task_torch.ml.serving.
+  lora`), written in place at a load and never rebound, so the K-step
+  graphs read what a later load writes. A slot's (n_layers,) table row
+  points at its adapter's blocks, or at the zero scratch block; every
+  fused step gathers per row and adds the shrink/expand delta around each
+  block. A step with no adapter row runs the LoRA-free program (the drop
+  rule). Cold adapters evict LRU under pool pressure and reload from
+  their host copy or, registered with ``host_copy=False``, from the fleet
+  bucket by content hash. Adapter-bearing requests neither read nor seed
+  the prefix cache: their KV depends on the adapter.
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
-here, naming its ROADMAP item): bucketed prefill, the async loop, LoRA
-(so any ``adapter_id`` raises), the host tier, meshes. ``stats()``
-carries their keys at the values of an engine that has them off.
+here, naming its ROADMAP item): bucketed prefill, the async loop, the
+host tier, meshes. ``stats()`` carries their keys at the values of an
+engine that has them off.
 
 - **Observability** (``obs=``, a :class:`~tpu_task_torch.obs.Obs`): one
   span per request phase (``engine.queue`` → ``engine.prefill`` →
@@ -144,6 +157,15 @@ from tpu_task_torch.ml.serving.cache import (
     stage_block_arrays,
     staged_block_to_bytes,
     write_block_payloads,
+)
+from tpu_task_torch.ml.serving.lora import (
+    adapter_fingerprint,
+    adapter_payload,
+    gather_tables,
+    init_adapter_pool,
+    pack_adapter,
+    split_adapter_payload,
+    validate_lora_tables,
 )
 from tpu_task_torch.ml.serving.model import (
     chunked_step_greedy,
@@ -248,7 +270,7 @@ class Request:
     #: by admission and victim order, never by sampling.
     slo_class: str = DEFAULT_CLASS
     deadline: Optional[float] = None
-    #: LoRA adapter of the stream; always None here (lora_rank 0).
+    #: LoRA adapter the stream decodes under (None: the base model).
     adapter_id: Optional[str] = None
     #: Param generation the stream is pinned to: the active one at its
     #: submission, or the one its resume record names.
@@ -360,6 +382,7 @@ class ServingEngine:
         self.quantized_block_writes = 0
         self.max_quant_error = 0.0       # debug mode only (readback cost)
         self.micro_steps = 0             # K-wide fused micro dispatches
+        self._init_lora()
         #: The replica's tracer and registry, or None (zero overhead).
         self.obs = obs
         self._phase_spans: Dict[int, Span] = {}
@@ -375,15 +398,41 @@ class ServingEngine:
         #: between steps once the generation is freed.
         self._micro_graphs: Dict[int, MicroStepGraphs] = {}
         #: Captures, capture time and replays of dropped generations.
-        self._dropped_graph_stats = {"captures": 0, "capture_ms": 0.0,
-                                     "replays": 0}
+        self._dropped_graph_stats = {"captures": 0, "lora_captures": 0,
+                                     "capture_ms": 0.0, "replays": 0}
+
+    def _init_lora(self) -> None:
+        """The adapter registry, the second allocator over the adapter
+        pool, the pool itself (on the device, in the model dtype, never
+        rebound) and the per-slot gather tables: row i of
+        ``_slot_lora_blocks`` is slot i's block a layer (0: the scratch
+        block), ``_slot_lora_scale[i]`` its scale (0: no adapter)."""
+        scfg, cfg = self.scfg, self.cfg
+        self._lora_on = scfg.lora_rank > 0
+        #: adapter_id -> {hash, scale, payload (host copy or None), blocks
+        #: (resident pool blocks or None), last_use, refs (slotted
+        #: requests decoding under it: the eviction pin)}.
+        self._adapters: Dict[str, dict] = {}
+        self._lora_alloc: Optional[BlockAllocator] = None
+        self._lora_pool: Optional[torch.Tensor] = None
+        if self._lora_on:
+            self._lora_alloc = BlockAllocator(scfg.n_adapter_blocks)
+            self._lora_pool = init_adapter_pool(
+                scfg.n_adapter_blocks, scfg.lora_rank, cfg.d_model,
+                dtype=cfg.dtype, device=self.device)
+        self._slot_lora_blocks = np.zeros((scfg.slots, cfg.n_layers),
+                                          np.int32)
+        self._slot_lora_scale = np.zeros((scfg.slots,), np.float32)
+        self.adapters_registered = 0
+        self.adapter_loads = 0
+        self.adapter_evictions = 0
 
     def _init_obs(self, metrics) -> None:
         """The JAX engine's registry names: the latency histograms, the
         scheduler's plain counters as lazy counters (they sum in a fleet
-        merge), its instantaneous values as gauges, and the fleet-KV group
-        when a client is attached. LoRA's ``adapters.*`` group waits for
-        ROADMAP A7; the host tier's ``tier.*`` for A9."""
+        merge), its instantaneous values as gauges, LoRA's ``adapters.*``
+        group when ``lora_rank`` > 0, and the fleet-KV group when a client
+        is attached. The host tier's ``tier.*`` waits for ROADMAP A9."""
         self._h_step = metrics.histogram("engine.step_s")
         self._h_ttft = metrics.histogram("engine.ttft_s")
         self._h_intertok = metrics.histogram("engine.intertoken_s")
@@ -408,6 +457,18 @@ class ServingEngine:
         metrics.gauge_fn("engine.stale_generation_streams",
                          lambda self=self:
                          float(self.stale_generation_streams))
+        if self._lora_on:
+            for stat, name in (("adapters_registered", "registered"),
+                               ("adapter_loads", "loads"),
+                               ("adapter_evictions", "evictions")):
+                metrics.counter_fn(f"adapters.{name}",
+                                   lambda self=self, stat=stat:
+                                   float(getattr(self, stat)))
+            metrics.gauge_fn("adapters.resident",
+                             lambda self=self: float(self.adapters_resident))
+            metrics.gauge_fn("adapters.pool_high_water",
+                             lambda self=self:
+                             float(self._lora_alloc.high_water))
         if self._fleet is not None:
             self._h_kv_import = metrics.histogram("kvfleet.import_s")
             for stat in ("fleet_hit_blocks", "fleet_miss_blocks",
@@ -492,9 +553,10 @@ class ServingEngine:
         words) overrides the engine-derived ``fold_in(base, rid)`` — a
         router passes one so the same request draws the same sampled
         stream on any replica. ``slo_class`` and ``deadline_s`` (seconds
-        from now) order admission and preemption; ``adapter_id`` raises,
-        because this engine has no LoRA (``lora_rank`` 0). ``trace`` is
-        the parent of the request's phase spans (obs on)."""
+        from now) order admission and preemption; ``adapter_id`` names a
+        registered adapter the stream decodes under (it needs ``lora_rank``
+        > 0). ``trace`` is the parent of the request's phase spans (obs
+        on)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("prompt must hold at least one token")
@@ -506,8 +568,13 @@ class ServingEngine:
         if top_p is not None and temperature == 0:
             raise ValueError("top_p needs temperature > 0 (greedy ignores it)")
         if adapter_id is not None:
-            raise ValueError(
-                "adapter_id needs lora_rank > 0 in the ServingConfig")
+            if not self._lora_on:
+                raise ValueError(
+                    "adapter_id needs lora_rank > 0 in the ServingConfig")
+            if adapter_id not in self._adapters:
+                raise ValueError(
+                    f"unknown adapter {adapter_id!r} — register_adapter "
+                    "first")
         if ((prompt < 0) | (prompt >= self.cfg.vocab_size)).any():
             raise ValueError(
                 f"prompt token ids must lie in [0, {self.cfg.vocab_size})")
@@ -531,7 +598,7 @@ class ServingEngine:
             eos_token=eos_token, key=key, submit_t=now,
             slo_class=str(slo_class),
             deadline=None if deadline_s is None else now + float(deadline_s),
-            generation=self.generation, trace=trace)
+            adapter_id=adapter_id, generation=self.generation, trace=trace)
         self._requests[rid] = req
         self._gen_streams[req.generation] = \
             self._gen_streams.get(req.generation, 0) + 1
@@ -733,9 +800,14 @@ class ServingEngine:
                     f"[0, {self.cfg.vocab_size})")
             aid = record.get("adapter_id")
             if aid is not None:
-                raise ValueError(
-                    f"resume record pins adapter {aid!r} but this engine "
-                    "has lora_rank 0")
+                if not self._lora_on:
+                    raise ValueError(
+                        f"resume record pins adapter {aid!r} but this "
+                        "engine has lora_rank 0")
+                if aid not in self._adapters:
+                    raise ValueError(
+                        f"resume record pins adapter {aid!r} — "
+                        "register_adapter on the importer first")
             key = _check_key(record["key"])
             deadline_s = record.get("deadline_s")
             gen = int(record.get("generation", self.generation))
@@ -749,7 +821,7 @@ class ServingEngine:
                 slo_class=str(record.get("slo_class", DEFAULT_CLASS)),
                 deadline=None if deadline_s is None
                 else now + float(deadline_s),
-                generation=gen, trace=trace)
+                adapter_id=aid, generation=gen, trace=trace)
             if not req.finished and gen not in self._gen_params:
                 self._restore_generation(gen)
             self._next_rid += 1
@@ -843,8 +915,37 @@ class ServingEngine:
         return (self.generation if self._gen_filter is None
                 else self._gen_filter)
 
-    def _model_params(self) -> Params:
-        return self._gen_params[self._dispatch_gen()]
+    def _lora_rows(self, owners) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """A step's per-row adapter tables: ``owners[i]`` is the slot whose
+        adapter row i runs under (-1: none, the scratch block at scale 0).
+        None when LoRA is off or no row carries a nonzero scale: the step
+        then runs the LoRA-free program (the JAX engine's drop rule; a
+        scale-0 row adds an exact 0.0 either way)."""
+        if not self._lora_on:
+            return None
+        owners = np.asarray(owners, np.int64)
+        scales = np.where(owners >= 0,
+                          self._slot_lora_scale[np.maximum(owners, 0)],
+                          0.0).astype(np.float32)
+        if not scales.any():
+            return None
+        blocks = gather_tables(self._slot_lora_blocks, owners.tolist())
+        validate_lora_tables(blocks, self.scfg.n_adapter_blocks)
+        return blocks, scales
+
+    def _model_params(self, lora=None) -> Params:
+        """The dispatched generation's weights, plus, for a step that
+        carries an adapter (``lora``, :meth:`_lora_rows`), ``"lora"``: the
+        one adapter pool and the step's tables on the device."""
+        params = self._gen_params[self._dispatch_gen()]
+        if lora is None:
+            return params
+        blocks, scales = lora
+        return {**params, "lora": (
+            self._lora_pool,
+            torch.as_tensor(blocks, device=self.device, dtype=torch.int64),
+            torch.as_tensor(scales, device=self.device,
+                            dtype=torch.float32))}
 
     def _micro_runner(self) -> MicroStepGraphs:
         """The dispatched generation's K-step programs, made at its first
@@ -857,7 +958,8 @@ class ServingEngine:
                 slots=self.scfg.slots,
                 max_blocks=self.scfg.max_blocks_per_slot,
                 micro_k=self.scfg.micro_k, attn_impl=self.decode_impl,
-                measure_qerr=self.debug, device=self.device)
+                measure_qerr=self.debug, device=self.device,
+                lora_pool=self._lora_pool)
         return runner
 
     def _graph_stats(self) -> dict:
@@ -867,12 +969,138 @@ class ServingEngine:
                 out[key] += value
         return out
 
-    def register_adapter(self, adapter_id: str, layers, scale: float = 1.0):
-        """What the JAX engine answers with ``lora_rank`` 0: a ValueError
-        (a replica's ``POST /adapter`` gives 400). LoRA is ROADMAP A7."""
-        raise ValueError(
-            "register_adapter needs lora_rank > 0 (and n_adapter_blocks) in "
-            "the ServingConfig; LoRA is not ported yet (ROADMAP A7)")
+    # -- paged LoRA adapters ---------------------------------------------------
+
+    def register_adapter(self, adapter_id: str, layers, scale: float = 1.0,
+                         *, host_copy: bool = True) -> str:
+        """Register a tenant's LoRA adapter under ``adapter_id``:
+        ``layers`` is one (A (d, r), B (r, d)) pair a model layer (dicts
+        ``{"a", "b"}`` or tuples, any r <= ``lora_rank``, zero-padded; see
+        :func:`~tpu_task_torch.ml.serving.lora.pack_adapter`). The packed
+        payload is content-hashed (the JAX package's bytes and hash) and
+        shipped to the fleet bucket when a ``kv_fleet`` client with
+        ``ship_adapter`` is attached. Residency is lazy: the pool blocks
+        are claimed at the adapter's first use, and cold adapters evict LRU
+        under pool pressure, reloading from the host copy or, with
+        ``host_copy=False``, from the bucket. Re-registering the same
+        content is a no-op; other content under an id that streams decode
+        under raises. Returns the content hash."""
+        if not self._lora_on:
+            raise ValueError(
+                "register_adapter needs lora_rank > 0 (and "
+                "n_adapter_blocks) in the ServingConfig")
+        payload = pack_adapter(layers, self.scfg.lora_rank,
+                               self.cfg.d_model)
+        if payload.shape[0] != self.cfg.n_layers:
+            raise ValueError(
+                f"adapter carries {payload.shape[0]} layers, the model "
+                f"has {self.cfg.n_layers}")
+        if self.cfg.n_layers > self.scfg.n_adapter_blocks - 1:
+            raise ValueError(
+                f"one adapter needs {self.cfg.n_layers} blocks but the "
+                f"pool holds {self.scfg.n_adapter_blocks - 1} — raise "
+                "n_adapter_blocks")
+        h = adapter_fingerprint(payload, float(scale))
+        existing = self._adapters.get(adapter_id)
+        if existing is not None:
+            if existing["hash"] == h:
+                return h              # same content: keep its residency
+            if existing["refs"]:
+                raise ValueError(
+                    f"adapter {adapter_id!r} re-registered with "
+                    "different weights while streams decode under it — "
+                    "retire them first (or register a new id)")
+            if existing["blocks"] is not None:
+                self._evict_adapter(adapter_id)
+        can_ship = self._fleet is not None \
+            and hasattr(self._fleet, "ship_adapter")
+        if not host_copy and not can_ship:
+            raise ValueError(
+                "host_copy=False needs an attached kv_fleet client "
+                "with ship_adapter: an evicted adapter must have "
+                "somewhere to reload from")
+        if can_ship:
+            self._fleet.ship_adapter(
+                h, adapter_payload(payload, float(scale)))
+        self._adapters[adapter_id] = {
+            "hash": h, "scale": float(scale),
+            "payload": payload if host_copy else None,
+            "blocks": None, "last_use": 0.0, "refs": 0,
+        }
+        self.adapters_registered += 1
+        return h
+
+    @property
+    def adapters_resident(self) -> int:
+        return sum(e["blocks"] is not None for e in self._adapters.values())
+
+    def _evict_adapter(self, adapter_id: str) -> None:
+        """Return a cold adapter's blocks to the pool; no table points at
+        them, and the next load overwrites their bytes."""
+        entry = self._adapters[adapter_id]
+        for b in entry["blocks"]:
+            self._lora_alloc.decref(int(b))
+        entry["blocks"] = None
+        self.adapter_evictions += 1
+
+    def _ensure_adapter_resident(self, adapter_id: str) -> dict:
+        """The adapter's registry entry with its blocks resident: on a
+        miss, take the payload from the host copy or the fleet bucket,
+        evict cold (unreferenced) adapters least recently used first until
+        ``n_layers`` blocks are free, and load the payload into them. The load writes the one
+        pool tensor in place (``index_copy_``), so the K-step graphs that
+        captured its address read it. Any failure raises rather than
+        decode under missing or foreign weights."""
+        entry = self._adapters[adapter_id]
+        entry["last_use"] = time.monotonic()
+        if entry["blocks"] is not None:
+            return entry
+        n_layers = self.cfg.n_layers
+        payload = entry["payload"]
+        if payload is None:
+            data = (self._fleet.fetch_adapter(entry["hash"])
+                    if self._fleet is not None
+                    and hasattr(self._fleet, "fetch_adapter") else None)
+            if data is None:
+                raise RuntimeError(
+                    f"adapter {adapter_id!r} evicted and its payload "
+                    f"({entry['hash']}) unavailable in the fleet bucket "
+                    "— refusing to decode under missing weights")
+            payload, _scale = split_adapter_payload(data)
+            if payload.shape != (n_layers, 2, self.scfg.lora_rank,
+                                 self.cfg.d_model):
+                raise RuntimeError(
+                    f"adapter {adapter_id!r} payload has foreign "
+                    f"geometry {payload.shape}")
+        while self._lora_alloc.available < n_layers:
+            cold = [(aid, e) for aid, e in self._adapters.items()
+                    if e["blocks"] is not None and not e["refs"]]
+            if not cold:
+                raise RuntimeError(
+                    "adapter pool exhausted with every resident adapter "
+                    "in use — raise n_adapter_blocks")
+            self._evict_adapter(
+                min(cold, key=lambda kv: kv[1]["last_use"])[0])
+        blocks = self._lora_alloc.alloc(n_layers)
+        self._lora_pool.index_copy_(
+            0, torch.as_tensor(blocks, dtype=torch.int64, device=self.device),
+            torch.as_tensor(payload).to(device=self.device,
+                                        dtype=self._lora_pool.dtype))
+        entry["blocks"] = [int(b) for b in blocks]
+        self.adapter_loads += 1
+        return entry
+
+    def _bind_adapter(self, slot: int, req: Request) -> None:
+        """Point the slot's table row at its adapter's blocks and pin the
+        adapter against eviction while the slot holds the request. An
+        adapter-less request keeps the row a release left: the scratch
+        block at scale 0."""
+        if req.adapter_id is None:
+            return
+        entry = self._ensure_adapter_resident(req.adapter_id)
+        entry["refs"] += 1
+        self._slot_lora_blocks[slot] = np.asarray(entry["blocks"], np.int32)
+        self._slot_lora_scale[slot] = entry["scale"]
 
     # -- observability hooks (every one returns at once when obs is None) ------
 
@@ -997,9 +1225,13 @@ class ServingEngine:
             req = self._queue[pick]
             ctx = self._context_ids(req)
             plen = len(ctx)
+            # An adapter-bearing request neither reads nor (at release)
+            # seeds the prefix cache or the fleet: its KV depends on the
+            # adapter from layer 1 on.
+            shared = req.adapter_id is None
             cached = (self._pcache.lookup(ctx)              # increfs
-                      if self._pcache is not None else [])
-            if self._fleet is not None:
+                      if self._pcache is not None and shared else [])
+            if self._fleet is not None and shared:
                 # The blocks the local cache missed may exist in the
                 # fleet: import them by content hash instead of prefilling
                 # them (each lands in the local cache too).
@@ -1043,6 +1275,7 @@ class ServingEngine:
             self._prefill_target[slot] = plen
             self._last_token[slot] = 0
             self._draft_pos[slot] = 0
+            self._bind_adapter(slot, req)
             admitted.append(req.rid)
             self._obs_admit(req, cached_tokens=cached_len)
 
@@ -1155,11 +1388,12 @@ class ServingEngine:
             self.max_quant_error = max(self.max_quant_error, float(qerr))
 
     def _run(self, tokens, positions, tables, active, temps=None, tops=None,
-             keys=None, ngen=None) -> np.ndarray:
+             keys=None, ngen=None, owners=None) -> np.ndarray:
         """Dispatch one fused step (greedy program when every slot is
         greedy, else the keyed sampler) and read its tokens back; the
         goodput meter times it from its inputs' upload through the
-        readback. ``positions`` are 0 at inactive rows."""
+        readback. ``positions`` are 0 at inactive rows; ``owners[i]`` is
+        the slot whose adapter row i runs (:meth:`_lora_rows`)."""
         dev = self.device
 
         def put(a, dtype):
@@ -1171,9 +1405,10 @@ class ServingEngine:
         t0 = time.perf_counter()
         qa = (tuple(put(a, torch.int64) for a in layout)
               if self._quantized else None)
-        args = (self._model_params(), self.cfg, put(tokens, torch.int64),
-                put(positions, torch.int32), put(tables, torch.int32),
-                put(active, torch.bool))
+        lora = None if owners is None else self._lora_rows(owners)
+        args = (self._model_params(lora), self.cfg,
+                put(tokens, torch.int64), put(positions, torch.int32),
+                put(tables, torch.int32), put(active, torch.bool))
         kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
         if self._all_greedy():
             out = greedy_decode_step(*args, self.pools, qa, **kwargs)
@@ -1206,7 +1441,8 @@ class ServingEngine:
         ngen = np.array([len(r.tokens) if r else 0 for r in self._slots],
                         np.int64)
         toks = self._run(self._last_token, positions, self._tables, active,
-                         temps, tops, self._slot_keys, ngen)
+                         temps, tops, self._slot_keys, ngen,
+                         owners=np.where(active, np.arange(len(active)), -1))
         self.decode_steps += 1
         # positions is 0 at inactive rows, so its sum is the active rows'.
         n_act = int(active.sum())
@@ -1270,6 +1506,7 @@ class ServingEngine:
         tops = np.ones((R,), np.float32)
         keys = np.zeros((R, 2), np.uint32)
         ngen = np.zeros((R,), np.int64)
+        owners = np.full((R,), -1, np.int64)   # the slot of each row
         tables[:n] = self._tables
         temps[:n], tops[:n] = self._temps_tops()
         for i, req in enumerate(self._slots):
@@ -1278,6 +1515,7 @@ class ServingEngine:
             tokens[i] = self._last_token[i]
             positions[i] = self._positions[i]
             active[i] = True
+            owners[i] = i
             keys[i], ngen[i] = self._slot_keys[i], len(req.tokens)
         rows = {}                          # slot -> (row offset, c, pos)
         off = 0
@@ -1290,6 +1528,7 @@ class ServingEngine:
             positions[sl] = np.arange(pos, pos + c)
             tables[sl] = self._tables[i]
             active[sl] = True
+            owners[sl] = i
             temps[sl] = req.temperature
             tops[sl] = req.top_p
             keys[sl] = self._slot_keys[i]
@@ -1300,7 +1539,7 @@ class ServingEngine:
             off += c
         pos_masked = np.where(active, positions, 0)
         toks = self._run(tokens, pos_masked, tables, active, temps, tops,
-                         keys, ngen)
+                         keys, ngen, owners=owners)
         self.chunk_steps += 1
         self.goodput.work_counts(int(active.sum()), float(pos_masked.sum()))
         now = time.monotonic()
@@ -1379,8 +1618,12 @@ class ServingEngine:
                                          for r in self._slots], np.int64))
         if self._quantized:
             inputs.update(self._micro_quant_layout(positions, spans))
+        lora = self._lora_rows(np.where(active, np.arange(len(active)), -1))
+        if lora is not None:
+            inputs.update(lblocks=lora[0], lscales=lora[1])
         t0 = time.perf_counter()
-        toks, qerr = self._micro_runner().run(sampled, inputs)  # (K, slots)
+        toks, qerr = self._micro_runner().run(       # (K, slots)
+            sampled, inputs, lora=lora is not None)
         self.goodput.program(time.perf_counter() - t0)
         if qerr is not None:
             self._note_qerr(qerr)
@@ -1477,9 +1720,11 @@ class ServingEngine:
             return torch.as_tensor(a, device=dev, dtype=dtype)
 
         t0 = time.perf_counter()
-        # The target scores under the dispatched generation's weights; the
-        # draft keeps its own.
-        args = (self._model_params(), self.cfg, put(tokens, torch.int64),
+        # The target scores under the dispatched generation's weights and
+        # the live slots' adapters; the draft keeps its own weights and
+        # runs no adapter, as in the JAX engine.
+        lora = self._lora_rows([i if live(i) else -1 for i in range(n)])
+        args = (self._model_params(lora), self.cfg, put(tokens, torch.int64),
                 put(positions, torch.int32), put(valid, torch.bool),
                 put(self._tables, torch.int32))
         qa = (tuple(put(a, torch.int64) for a in layout)
@@ -1654,7 +1899,13 @@ class ServingEngine:
         the decref leaves shareable blocks cached instead of free."""
         req = self._slots[slot]
         live = self._tables[slot][self._tables[slot] != SCRATCH_BLOCK]
-        if self._pcache is not None and req is not None:
+        if req is not None and req.adapter_id is not None:
+            self._adapters[req.adapter_id]["refs"] -= 1    # unpin it
+        self._slot_lora_blocks[slot] = 0
+        self._slot_lora_scale[slot] = 0.0
+        # An adapter's KV never enters the prefix cache.
+        if self._pcache is not None and req is not None \
+                and req.adapter_id is None:
             n_valid = int(self._positions[slot])
             n_full = n_valid // self.scfg.block_size
             if n_full:
@@ -1795,7 +2046,7 @@ class ServingEngine:
         paged-attention launch counts (both kernels and the plain
         version). Every key of the JAX engine's ``stats()`` is here; the
         groups of what the port does not run yet (tp/ep meshes, the async
-        loop, the host tier, LoRA) hold an engine's values with them off."""
+        loop, the host tier) hold an engine's values with them off."""
         n_blocks, high = self.scfg.n_blocks, self.allocator.high_water
         out = {
             "decode_impl": self.decode_impl,
@@ -1884,18 +2135,19 @@ class ServingEngine:
                 if self.spec_proposed else 0.0,
             },
             "generation": self.generation,
-            # LoRA is not ported (ROADMAP A7): no adapters. The param
-            # roll's counts share the group, as in the JAX engine;
-            # "generations" counts the unfinished streams of each.
+            # The adapter registry and pool; the param roll's counts share
+            # the group, as in the JAX engine, and "generations" counts
+            # the unfinished streams of each.
             "adapters": {
-                "enabled": False,
+                "enabled": self._lora_on,
                 "rank": self.scfg.lora_rank,
                 "pool_blocks": self.scfg.n_adapter_blocks,
-                "registered": 0,
-                "resident": 0,
-                "loads": 0,
-                "evictions": 0,
-                "pool_high_water": 0,
+                "registered": self.adapters_registered,
+                "resident": self.adapters_resident,
+                "loads": self.adapter_loads,
+                "evictions": self.adapter_evictions,
+                "pool_high_water": (self._lora_alloc.high_water
+                                    if self._lora_alloc else 0),
                 "param_swaps": self.param_swaps,
                 "stale_generation_streams": self.stale_generation_streams,
                 "generations": {str(g): c for g, c in

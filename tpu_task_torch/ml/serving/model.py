@@ -46,6 +46,7 @@ from tpu_task_torch.ml.models.transformer import (
 )
 from tpu_task_torch.ml.ops.paged_attention import paged_attention
 from tpu_task_torch.ml.serving.cache import flat_pool, quantized_append
+from tpu_task_torch.ml.serving.lora import apply_lora
 
 Pools = List[Dict[str, torch.Tensor]]
 #: The host-computed write layout of a quantized step: (touched, filled,
@@ -81,7 +82,13 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
     query width ``w`` through ``attn_impl`` (the paged kernels take any
     width their shared memory holds). Returns the (rows, w, d_model)
     final-norm features, and for a quantized pool the max quantization
-    error beside them."""
+    error beside them.
+
+    ``params["lora"]``, when the engine sets it, is ``(adapter pool, block
+    tables (rows, n_layers), scales (rows,))``: each layer's output gains
+    :func:`~tpu_task_torch.ml.serving.lora.apply_lora` of its input, so
+    every step built on this forward (decode, the chunk step, the K-step
+    loop, speculative scoring) runs the adapters."""
     block_size = pools[0]["k"].shape[1]
     quantized = pool_is_quantized(pools)
     if quantized and qa is None:
@@ -97,8 +104,14 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
         write_idx = torch.where(valid, phys * block_size + qpos % block_size,
                                 0).reshape(-1)
     x = embed_lookup(params["embed"], tokens)
+    lora = params.get("lora")
+    if lora is not None:
+        # The engine's adapter pool and this step's per-row tables: block
+        # (rows, n_layers), scale (rows,), cast once for every layer.
+        lpool, lblocks, lscales = lora
+        lscales = lscales.to(x.dtype)
     qerrs: List[torch.Tensor] = []
-    for layer, pool in zip(params["layers"], pools):
+    for layer_i, (layer, pool) in enumerate(zip(params["layers"], pools)):
         def attn_fn(q, k, v, pool=pool):
             # Scatter this step's k/v, THEN attend: a token attends itself,
             # and its in-step predecessors (a chunk's earlier rows, the
@@ -115,7 +128,12 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
             return paged_attention(q, pool["k"], pool["v"], block_tables,
                                    qpos, impl=attn_impl)
 
+        x_in = x
         x = _block(x, layer, cfg, attn_fn, positions=qpos)
+        if lora is not None:
+            # The adapter branch around the unchanged block, gathered per
+            # row; a scratch-block or scale-0 row adds an exact 0.0.
+            x = x + apply_lora(x_in, lpool, lblocks[:, layer_i], lscales)
     x = _rmsnorm(x, params["final_norm"])
     return (x, _fold_qerr(qerrs)) if quantized else x
 

@@ -9,15 +9,21 @@ K-step loop (:func:`~tpu_task_torch.ml.serving.model._micro_scan`),
 captured at first use and replayed once per micro-step. On the CPU the
 same loop runs eagerly.
 
-There is one graph per program (greedy, sampled) at the engine's K. The
-graph reads fixed input buffers, so before each replay the host's inputs
-are copied into them: ``tok``, ``pos``, ``tables`` (slots, max_blocks),
-``active``, ``limits``, ``eos`` and, for the sampled program, ``temps``,
-``tops``, ``keys``, ``ngen``; a quantized pool adds the stacked write
-layout, ``touched`` and ``filled`` (K, slots + 1), ``wt`` and ``wo``
-(K, slots). The graph writes one (K, slots) token block (and a
-quantized pool's largest write error); the host copies the block out
-before it sweeps, so the next replay cannot overwrite what it reads.
+There is one graph per program at the engine's K, keyed by (sampled,
+lora): greedy or sampled, without or with the LoRA branch, so a runner
+holds at most four. A LoRA variant is captured at the first micro-step
+that carries an adapter; a step whose slots carry none replays the
+LoRA-free graph (the engine's drop rule). The graph reads fixed input
+buffers, so before each replay the host's inputs are copied into them:
+``tok``, ``pos``, ``tables`` (slots, max_blocks), ``active``,
+``limits``, ``eos`` and, for the sampled program, ``temps``, ``tops``,
+``keys``, ``ngen``; a quantized pool adds the stacked write layout,
+``touched`` and ``filled`` (K, slots + 1), ``wt`` and ``wo`` (K, slots);
+the LoRA variant adds the adapter tables ``lblocks`` (slots, n_layers)
+and scales ``lscales`` (slots,). The graph writes one (K, slots) token
+block (and a quantized pool's largest write error); the host copies the
+block out before it sweeps, so the next replay cannot overwrite what it
+reads.
 
 Capture never touches live state: the warm-up before it and the capture
 run with every slot inactive, so their writes land in the scratch block
@@ -29,8 +35,10 @@ inside a capture.
 A graph is bound to the addresses it captured: the engine's pools are
 updated in place (the pools' ``index_copy_`` in
 ``model.paged_decode_step``, ``cache.quantized_append``'s indexed writes,
-``cache.copy_block``) and never rebound while a graph exists, and one
-runner holds one param generation's weights. Weight hot-swap therefore
+``cache.copy_block``, the adapter pool's ``index_copy_`` at an adapter's
+load) and never rebound while a graph exists, so a graph reads the
+adapters loaded after its capture, and one runner holds one param
+generation's weights. Weight hot-swap therefore
 gives each generation its own runner: the engine makes it at the
 generation's first micro-step, which captures that generation's graphs,
 and drops it between two steps once the generation's last stream has
@@ -96,8 +104,10 @@ class MicroStepGraphs:
 
     def __init__(self, params, cfg, pools, *, slots: int, max_blocks: int,
                  micro_k: int, attn_impl: str, measure_qerr: bool,
-                 device: torch.device):
+                 device: torch.device,
+                 lora_pool: Optional[torch.Tensor] = None):
         self.params, self.cfg, self.pools = params, cfg, pools
+        self.lora_pool = lora_pool
         self.micro_k, self.device = micro_k, device
         self.kwargs = dict(micro_k=micro_k, attn_impl=attn_impl,
                            measure_qerr=measure_qerr)
@@ -119,24 +129,33 @@ class MicroStepGraphs:
             "filled": ((k, n + 1), torch.int64, 0),
             "wt": ((k, n), torch.int64, n),     # the pad entry: scratch
             "wo": ((k, n), torch.int64, 0),
+            "lblocks": ((n, cfg.n_layers), torch.int64, 0),   # scratch
+            "lscales": ((n,), torch.float32, 0.0),
         }
-        self._graphs: Dict[bool, _Captured] = {}
+        self._graphs: Dict[Tuple[bool, bool], _Captured] = {}
         self.captures = 0
+        self.lora_captures = 0
         self.capture_s = 0.0
         self.replays = 0
 
-    def _names(self, sampled: bool):
+    def _names(self, sampled: bool, lora: bool):
         names = ["tok", "pos", "tables", "active", "limits", "eos"]
         if sampled:
             names += ["temps", "tops", "keys", "ngen"]
         if self.quantized:
             names += ["touched", "filled", "wt", "wo"]
+        if lora:
+            names += ["lblocks", "lscales"]
         return names
 
-    def _program(self, sampled: bool, t: Dict[str, torch.Tensor]):
+    def _program(self, sampled: bool, lora: bool,
+                 t: Dict[str, torch.Tensor]):
         qa = ((t["touched"], t["filled"], t["wt"], t["wo"])
               if self.quantized else None)
-        head = (self.params, self.cfg, t["tok"], t["pos"], t["tables"],
+        params = ({**self.params,
+                   "lora": (self.lora_pool, t["lblocks"], t["lscales"])}
+                  if lora else self.params)
+        head = (params, self.cfg, t["tok"], t["pos"], t["tables"],
                 t["active"], t["limits"], t["eos"])
         if sampled:
             return micro_decode_sample(
@@ -144,21 +163,24 @@ class MicroStepGraphs:
                 self.pools, qa, **self.kwargs)
         return micro_decode_greedy(*head, self.pools, qa, **self.kwargs)
 
-    def run(self, sampled: bool, inputs: Dict[str, np.ndarray]
-            ) -> Tuple[np.ndarray, Optional[torch.Tensor]]:
+    def run(self, sampled: bool, inputs: Dict[str, np.ndarray],
+            lora: bool = False) -> Tuple[np.ndarray, Optional[torch.Tensor]]:
         """One micro-step: ``inputs`` holds the arrays :attr:`layout` names
-        for this program. Returns the (K, slots) tokens, read back, and for
-        a quantized pool its largest write error as a device scalar."""
+        for this program (``lora``: with the adapter tables, through the
+        runner's ``lora_pool``). Returns the (K, slots) tokens, read back,
+        and for a quantized pool its largest write error as a device
+        scalar."""
         if self.device.type != "cuda":
             t = {name: torch.from_numpy(np.asarray(
                      inputs[name], _NUMPY[self.layout[name][1]]))
-                 for name in self._names(sampled)}
-            out = self._program(sampled, t)
+                 for name in self._names(sampled, lora)}
+            out = self._program(sampled, lora, t)
             toks, qerr = out if self.quantized else (out, None)
             return toks.numpy(), qerr
-        cap = self._graphs.get(sampled)
+        cap = self._graphs.get((sampled, lora))
         if cap is None:
-            cap = self._graphs[sampled] = self._capture(sampled)
+            cap = self._graphs[(sampled, lora)] = self._capture(sampled,
+                                                                lora)
         for name, buf in cap.bufs.items():
             cap.staging[name].numpy()[...] = inputs[name]
             buf.copy_(cap.staging[name], non_blocking=True)
@@ -167,13 +189,14 @@ class MicroStepGraphs:
         _write_counts(a + b for a, b in zip(_read_counts(), cap.launches))
         return cap.toks.cpu().numpy(), cap.qerr
 
-    def _capture(self, sampled: bool) -> _Captured:
-        """Warm up, then capture, with every slot inactive; the launch
-        counters end as they began."""
+    def _capture(self, sampled: bool, lora: bool) -> _Captured:
+        """Warm up, then capture, with every slot inactive (and, for the
+        LoRA variant, every row on the scratch block at scale 0); the
+        launch counters end as they began."""
         t0 = time.perf_counter()
         before = _read_counts()
         bufs, staging = {}, {}
-        for name in self._names(sampled):
+        for name in self._names(sampled, lora):
             shape, dtype, idle = self.layout[name]
             bufs[name] = torch.full(shape, idle, dtype=dtype,
                                     device=self.device)
@@ -182,7 +205,7 @@ class MicroStepGraphs:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._program(sampled, bufs)
+            self._program(sampled, lora, bufs)
         current.wait_stream(side)
         torch.cuda.synchronize(self.device)
         mark = _read_counts()
@@ -195,7 +218,7 @@ class MicroStepGraphs:
         gc.disable()
         try:
             with torch.cuda.graph(graph, stream=side):
-                out = self._program(sampled, bufs)
+                out = self._program(sampled, lora, bufs)
         finally:
             if collecting:
                 gc.enable()
@@ -204,10 +227,12 @@ class MicroStepGraphs:
         _write_counts(before)
         toks, qerr = out if self.quantized else (out, None)
         self.captures += 1
+        self.lora_captures += lora
         self.capture_s += time.perf_counter() - t0
         return _Captured(graph, bufs, staging, toks, qerr, launches)
 
     def stats(self) -> dict:
         return {"captures": self.captures,
+                "lora_captures": self.lora_captures,
                 "capture_ms": self.capture_s * 1e3,
                 "replays": self.replays}

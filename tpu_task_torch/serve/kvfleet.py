@@ -22,8 +22,13 @@ duck-typed (``list``, ``read``, ``read_conditional``, ``write``,
 :class:`~tpu_task_torch.storage.backends.LocalBackend` or the JAX
 package's. Neither package's sentinels are imported here: a
 ``read_conditional`` answer that is not bytes means "not modified", and
-any failure to read an object is a miss. The adapter payloads of the JAX
-client wait for LoRA (ROADMAP A7)."""
+any failure to read an object is a miss.
+
+LoRA adapter payloads ride the same bucket under
+``<ns>/<fingerprint>/adapters/<content hash>`` (``write_if_absent``, no
+index and no length gate: the importing engine checks the payload's
+geometry), the JAX client's key and bytes, so one bucket serves adapters
+to replicas of both packages."""
 
 from __future__ import annotations
 
@@ -255,6 +260,35 @@ class FleetKvClient:
             return None
         if self._payload_nbytes is not None \
                 and len(data) != self._payload_nbytes:
+            self.fetch_misses += 1
+            return None
+        self.bytes_fetched += len(data)
+        return data
+
+    # -- adapters --------------------------------------------------------------
+
+    def _adapter_key(self, hash_hex: str) -> str:
+        return f"{self._require_bound().namespace}/adapters/{hash_hex}"
+
+    def ship_adapter(self, hash_hex: str, payload: bytes) -> bool:
+        """Upload one packed adapter under its content hash
+        (``write_if_absent``: a known adapter ships nothing). Returns
+        whether bytes moved."""
+        try:
+            if self._backend.write_if_absent(self._adapter_key(hash_hex),
+                                             payload):
+                self.bytes_shipped += len(payload)
+                return True
+        except OSError:
+            pass
+        return False
+
+    def fetch_adapter(self, hash_hex: str) -> Optional[bytes]:
+        """One adapter payload by content hash, or None on any failure (the
+        engine then refuses to decode under the missing weights)."""
+        try:
+            data = bytes(self._backend.read(self._adapter_key(hash_hex)))
+        except Exception:
             self.fetch_misses += 1
             return None
         self.bytes_fetched += len(data)

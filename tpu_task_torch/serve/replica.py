@@ -25,7 +25,11 @@ The front end speaks plain JSON over HTTP/1.1 keep-alive:
   ``/metrics`` (Prometheus text) · ``/profile?ms=`` (a ``torch.profiler``
   capture, :mod:`tpu_task_torch.ml.profiling`); ``POST /drain`` ·
   ``/degrade`` (``{"spec": bool}``) · ``/prefetch`` (a published chain
-  into the local prefix cache) · ``/adapter`` (400: LoRA is ROADMAP A7).
+  into the local prefix cache) · ``/adapter`` (``{adapter_id, layers,
+  scale?}``: registers a LoRA adapter and answers its content hash, the
+  JAX replica's body; 400 on an engine with ``lora_rank`` 0). A
+  ``/submit`` body's ``adapter_id`` decodes its stream under that
+  adapter.
 
 Graceful drain (SIGTERM, the preemption notice): stop admitting, finish
 the step in flight, export every unfinished request to ``--drain-file``
@@ -741,8 +745,11 @@ class ReplicaServer:
             return {"ok": True, "spec": bool(self.engine.spec_enabled)}
 
     def register_adapter(self, payload: dict) -> dict:
-        """``POST /adapter``: what a JAX replica with ``lora_rank`` 0
-        answers — the engine's ValueError, so 400."""
+        """``POST /adapter``: register a tenant's LoRA adapter,
+        ``{"adapter_id": ..., "layers": [{"a": [[...]], "b": [[...]]}, ...],
+        "scale": ...}``, and answer its content hash, as a JAX replica
+        does, so a router can check that every replica holds the same
+        bytes. An engine with ``lora_rank`` 0 raises ValueError: 400."""
         adapter_id = str(payload["adapter_id"])
         layers = payload["layers"]
         with self._lock:
