@@ -5,7 +5,7 @@ its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
 K-token micro-steps, speculative decoding, drain and resume, blocks
 imported from the fleet KV plane, the HTTP replica, weight rolls, paged
-LoRA adapters), and trains the
+LoRA adapters, the overlapped loop), and trains the
 flagship for a few steps, checkpointing, killing and restoring it.
 
     python3 chip_smoke.py
@@ -336,12 +336,35 @@ start); any failed check raises and the script exits non-zero:
              tiny preset at fp32 through both kernels and the plain
              version: the 8-adapter mixed wave equals dedicated
              single-adapter engines, and the plain run.
+29. serve overlap — the overlapped loop (``ServingConfig(overlap=True)``).
+             (a) the tiny preset at fp32 through ``"cuda"``,
+             ``"pipelined"`` and ``"reference"`` at K 1 and 4, overlapped
+             and synchronous: arrivals between steps (``overlap_arrivals``,
+             the preset's pool) and ``OVERLAP_TIGHT``'s pool, each traffic
+             twice on one engine, the second pass with every overlapped
+             dispatch under ``torch.cuda.set_sync_debug_mode("error")``.
+             Gates: streams equal the synchronous engine's token for
+             token, equal preemptions, flushes in the tight pool, no sync
+             in a dispatch, launches those of the programs through the
+             route alone. (b)/(d) the flagship of phase 6 (bf16, the tile
+             kernel) overlapped at K 1 and 8 against a synchronous twin,
+             both after phase 6's warm-up, on phase 6's seed-2 wave in
+             turns (sync, overlap, overlap, sync), every overlapped
+             dispatch under the sync debug mode; gates: 64 tokens a
+             request, phase 6's launch gates (n_layers a chunk program,
+             n_layers x K a micro program), ``overlapped_host_s`` > 0;
+             reported: tokens/s and each arm's median, step ms by kind,
+             ``host_gap_frac``, the consume edge's wait, dispatches per
+             token, captures, the twin's streams (first divergence and
+             top-2 gap), and one traced overlapped wave at K 8 (its idle
+             share beside phase 16's synchronous one). (c) int8 through
+             the pipelined kernel overlapped at K 8, one wave, (b)'s gates.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
-20, 22, 24, 25, 26, 27 and 28 and the scoring step's timing),
+20, 22, 24, 25, 26, 27, 28 and 29 and the scoring step's timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1568,7 +1591,8 @@ WALK_NAMES = {"cuda": ("paged_decode_kernel",),
 COMBINE_NAME = "combine_splits_kernel"
 
 
-def trace_wave(engine, seed: int, smi: str) -> dict:
+def trace_wave(engine, seed: int, smi: str,
+               phase: str = "serve_trace") -> dict:
     """One wave under ``torch.profiler`` (CPU and CUDA): per fused step
     kind the mean wall, device-busy ms and idle share (device events
     assigned to the step whose host range holds their start: every step
@@ -1640,7 +1664,7 @@ def trace_wave(engine, seed: int, smi: str) -> dict:
         combine_launches=run["combine_launches"], gpu=smi)
     line["wave_device_idle_share"] = (
         1 - line["wave_device_busy_ms"] / line["wave_wall_ms"])
-    emit("serve_trace", **line)
+    emit(phase, **line)
     if not (wave_ok(run) and walks == run["kernel_launches"]
             and combines == run["combine_launches"]):
         raise AssertionError(f"serve trace at micro_k "
@@ -5837,6 +5861,332 @@ def phase_serve_lora(device, smi: str, serve_streams: dict,
     return {"flagship": totals, "parity": parity}
 
 
+# -- the overlapped loop (A5) ---------------------------------------------------
+
+#: Phase 29's tight pool: ``tests/test_serving_async.py``'s pool-pressure
+#: knobs. With the tiny preset and ``overlap_workload``'s sampled seed-6
+#: requests both loops preempt at K 1 and 4, equally (4 and 5 times through
+#: the plain version on the CPU), and the overlapped one flushes.
+OVERLAP_TIGHT = dict(slots=3, block_size=4, n_blocks=8, max_len=32,
+                     chunk_tokens=4, prefix_cache=False)
+OVERLAP_TIGHT_SEED = 6
+OVERLAP_KS = (1, 8)
+
+
+def overlap_workload(vocab: int, seed: int, n: int = 6) -> list:
+    """``tests/test_serving_async.py``'s ``_workload`` with sampling: n
+    requests of 3-11 prompt tokens and 3-13 new tokens, eos 7, greedy or
+    at temperature 0.8 / top_p 0.9, each submitted with no step after it,
+    as (prompt, max_new, kwargs, steps after)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(3, 12)))
+        t = float(rng.choice([0.0, 0.8]))
+        kw = {"temperature": t, "top_p": 0.9} if t else {}
+        out.append((prompt, int(rng.integers(3, 14)),
+                    dict(kw, eos_token=7), 0))
+    return out
+
+
+def overlap_arrivals(vocab: int) -> list:
+    """12 greedy and keyed-sampled requests of 2-39 prompt tokens and 4-29
+    new tokens, a third with an eos, each followed by 0-3 steps before the
+    next arrives, as (prompt, max_new, kwargs, steps after)."""
+    rng = np.random.default_rng(4)
+    out = []
+    for i in range(12):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(2, 40)))
+        t = float(rng.choice([0.0, 0.0, 0.8]))
+        kw = {"temperature": t, "top_p": 0.9, "key": [4, i]} if t else {}
+        if i % 3 == 0:
+            kw["eos_token"] = int(rng.integers(0, 32))
+        out.append((prompt, int(rng.integers(4, 30)), kw,
+                    int(rng.integers(0, 4))))
+    return out
+
+
+def run_arrivals(engine, traffic: list) -> list:
+    """Submit each request and step as many times as it says, then drain;
+    returns the streams in submission order."""
+    rids = []
+    for prompt, max_new, kw, steps in traffic:
+        rids.append(engine.submit(prompt, max_new, **kw))
+        for _ in range(steps):
+            engine.step()
+    engine.drain(max_steps=5000)
+    return [list(engine.request(rid).tokens) for rid in rids]
+
+
+def sync_checked(engine) -> list:
+    """Run ``engine``'s overlap dispatch region (planning, reservation and
+    the dispatch of the next program) under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that any wait for the
+    device in it raises. Returns a one-item list counting the checked
+    dispatches."""
+    dispatch, count = engine._dispatch_next, [0]
+
+    def checked(finished):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(finished)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            count[0] += 1
+
+    engine._dispatch_next = checked
+    return count
+
+
+@contextlib.contextmanager
+def consume_waits():
+    """Totals the consume edge's waits (``Readback.wait``) while open:
+    yields [seconds, waits]."""
+    from tpu_task_torch.ml.serving.step_graph import Readback
+
+    wait, total = Readback.wait, [0.0, 0]
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            return wait(self)
+        finally:
+            total[0] += time.perf_counter() - t0
+            total[1] += 1
+
+    Readback.wait = timed
+    try:
+        yield total
+    finally:
+        Readback.wait = wait
+
+
+def overlap_parity_tiny(device) -> dict:
+    """Leg (a): the tiny preset at fp32 through ``"cuda"``, ``"pipelined"``
+    and ``"reference"`` at K 1 and 4, overlapped and synchronous, on the
+    arrivals traffic (the preset's pool) and the tight pool's workload.
+    Each engine runs its traffic twice: the first pass captures the carry
+    graphs, the second runs the overlapped engine's dispatch region under
+    the sync debug mode. Gates: both passes' overlapped streams equal the
+    synchronous engine's, equal preemptions, flushes in the tight run,
+    every checked dispatch clean, and the launches those of the programs
+    (n_layers a chunk program, n_layers x K a micro program) through the
+    route's attention alone. Returns the kernels' and combine's launches
+    of the overlapped engines."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    base = build_engine("tiny", device=device)
+    totals = {"cuda": 0, "pipelined": 0, "combine": 0}
+    lines = []
+    for impl in ("cuda", "pipelined", "reference"):
+        for k in (1, 4):
+            for tight in (False, True):
+                knobs = dict(SERVING_PRESETS["tiny"], decode_impl=impl,
+                             micro_k=k, **(OVERLAP_TIGHT if tight else {}))
+                traffic = (overlap_workload(base.cfg.vocab_size,
+                                            OVERLAP_TIGHT_SEED)
+                           if tight else overlap_arrivals(base.cfg.vocab_size))
+                runs = {}
+                for overlap in (False, True):
+                    engine = ServingEngine(
+                        base.params, base.cfg,
+                        ServingConfig(**knobs, overlap=overlap),
+                        device=device)
+                    pa.reset_launch_counts()
+                    first = run_arrivals(engine, traffic)
+                    checked = sync_checked(engine) if overlap else [0]
+                    second = run_arrivals(engine, traffic)
+                    s = engine.stats()
+                    calls = (s["chunk_steps"] + s["decode_steps"]
+                             + (k - 1) * s["micro_steps"])
+                    launches = dict(s["attention_launches"])
+                    combines = (pa.paged_decode_attention.combine_launches
+                                + pa.paged_decode_pipelined_attention
+                                .combine_launches)
+                    want = {name: 0 for name in launches}
+                    want[impl] = engine.cfg.n_layers * calls
+                    runs[overlap] = dict(
+                        streams=(first, second), launches=launches,
+                        launches_ok=launches == want, combines=combines,
+                        preemptions=s["recompute_preemptions"],
+                        flushes=s["overlap_flushes"], checked=checked[0],
+                        steps=s["steps"], chunk_steps=s["chunk_steps"],
+                        micro_steps=s["micro_steps"])
+                    if overlap and impl != "reference":
+                        totals[impl] += launches[impl]
+                        totals["combine"] += combines
+                    del engine
+                sync, over = runs[False], runs[True]
+                line = dict(
+                    kernel=impl, micro_k=k, tight=tight,
+                    streams_equal_sync=over["streams"] == sync["streams"],
+                    requests=2 * len(traffic),
+                    preemptions=(sync["preemptions"], over["preemptions"]),
+                    overlap_flushes=over["flushes"],
+                    checked_dispatches=over["checked"],
+                    launches_ok=(sync["launches_ok"], over["launches_ok"]),
+                    overlap_launches=over["launches"][impl],
+                    overlap_combines=over["combines"],
+                    steps=(sync["steps"], over["steps"]),
+                    chunk_steps=(sync["chunk_steps"], over["chunk_steps"]))
+                emit("serve_overlap_parity", **line)
+                ok = (line["streams_equal_sync"]
+                      and sync["preemptions"] == over["preemptions"]
+                      and all(line["launches_ok"])
+                      and over["checked"] > 0
+                      and (not tight or (over["preemptions"] > 0
+                                         and over["flushes"] > 0)))
+                if not ok:
+                    raise AssertionError(f"serve_overlap (a) failed: {line}")
+                lines.append(line)
+    return totals
+
+
+def overlap_wave_line(run: dict, engine, arm: str, waits) -> dict:
+    goodput = engine.stats()["goodput"]
+    return dict(
+        arm=arm, micro_k=engine.scfg.micro_k, kernel=run["kernel"],
+        kv_dtype=engine.scfg.kv_dtype or "bfloat16",
+        tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"],
+        chunk_steps=run["chunk_steps"], decode_steps=run["decode_steps"],
+        micro_steps=run["micro_steps"],
+        mean_chunk_step_ms=run["mean_chunk_step_ms"],
+        mean_decode_or_micro_step_ms=run["mean_decode_step_ms"],
+        host_gap_frac=run["host_gap_frac"],
+        overlapped_host_s=goodput["overlapped_host_s"],
+        program_s=goodput["program_s"], host_s=goodput["host_s"],
+        consume_wait_s=waits[0], consume_waits=waits[1],
+        dispatches_per_token=run["dispatches_per_token"],
+        preemptions=run["preemptions"],
+        overlap_flushes=engine.overlap_flushes,
+        kernel_launches=run["kernel_launches"],
+        expected_launches=run["expected_launches"],
+        combine_launches=run["combine_launches"],
+        expected_combine_launches=run["expected_combine_launches"],
+        other_kernel_launches=run["other_kernel_launches"],
+        plain_launches=run["plain_launches"],
+        graph_captures=run["graph_captures"], wave_ok=wave_ok(run))
+
+
+def overlap_flagship(device, smi: str, sync_trace: dict) -> dict:
+    """Legs (b), (d) and (c): the flagship with bf16 pools through the
+    tile kernel, overlapped, at K 1 and 8, each against a synchronous twin
+    of its configuration, both after phase 6's warm-up, on phase 6's
+    seed-2 wave in the order sync, overlap, overlap, sync (the first run
+    of each engine misses the prefix cache, the second hits it); every
+    overlapped dispatch under the sync debug mode. Then one traced
+    overlapped wave at K 8 (``serve_trace``'s reading; the synchronous
+    arm's is phase 16's at K 8), and int8 pools through the pipelined
+    kernel overlapped at K 8, one wave. Returns the kernels' and the
+    combine's launches in the overlapped waves."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    cfg, params = flagship_model(device)
+    totals = {"cuda": 0, "pipelined": 0, "cuda_combine": 0,
+              "pipelined_combine": 0}
+    out, failures = {}, []
+
+    def gate(line, engine, checked, what):
+        if not (line["wave_ok"] and line["overlapped_host_s"] > 0
+                and checked[0] > 0):
+            failures.append(f"{what}: {line}")
+
+    for k in OVERLAP_KS:
+        engines = {}
+        for overlap in (False, True):
+            engine = ServingEngine(params, cfg, ServingConfig(
+                **SERVE_KNOBS, micro_k=k, overlap=overlap), device=device)
+            warm_up(engine)
+            engines[overlap] = engine
+        checked = sync_checked(engines[True])
+        runs = []
+        for arm in ("sync", "overlap", "overlap", "sync"):
+            engine = engines[arm == "overlap"]
+            with consume_waits() as waits:
+                run = _timed_drain(engine, KVFLEET_SEED)
+            line = overlap_wave_line(run, engine, arm, waits)
+            line["streams"] = [list(engine.request(r).tokens)
+                               for r in run["rids"]]
+            emit("serve_overlap_wave", **{key: v for key, v in line.items()
+                                          if key != "streams"}, gpu=smi)
+            if arm == "overlap":
+                totals["cuda"] += run["kernel_launches"]
+                totals["cuda_combine"] += run["combine_launches"]
+                gate(line, engine, checked, f"(b) K {k}")
+            elif not line["wave_ok"]:
+                failures.append(f"(d) sync twin K {k}: {line}")
+            runs.append((line, run))
+        over, sync = runs[1], runs[0]
+        divergences = [first_divergence(engines[True], rid, want)
+                       for rid, want in zip(over[1]["rids"],
+                                            sync[0]["streams"])]
+
+        def median(arm):
+            return float(np.median([line["tokens_per_s"]
+                                    for line, _ in runs
+                                    if line["arm"] == arm]))
+
+        graphs = engines[True].stats()["step_graph"]
+        out[k] = dict(
+            tokens_per_s_median_sync=median("sync"),
+            tokens_per_s_median_overlap=median("overlap"),
+            overlap_over_sync=median("overlap") / median("sync"),
+            streams_equal_sync=sum(d is None for d in divergences),
+            first_divergence=[d for d in divergences if d is not None],
+            checked_dispatches=checked[0],
+            graph_captures=graphs["captures"],
+            capture_ms=graphs["capture_ms"])
+        if k == OVERLAP_KS[-1]:
+            trace = trace_wave(engines[True], 3, smi,
+                               phase="serve_overlap_trace")
+            out[k].update(
+                traced_idle_share_overlap=trace["wave_device_idle_share"],
+                traced_idle_share_sync=sync_trace["wave_device_idle_share"],
+                traced_chunk_step_overlap=trace["chunk_step"],
+                traced_micro_step_overlap=trace["decode_or_micro_step"])
+            totals["cuda"] += trace["kernel_launches"]
+            totals["cuda_combine"] += trace["combine_launches"]
+        del engines, engine
+    # (c) int8 pools through the pipelined kernel.
+    engine = ServingEngine(params, cfg, ServingConfig(
+        **SERVE_KNOBS, micro_k=OVERLAP_KS[-1], overlap=True,
+        kv_dtype="int8", decode_impl="pipelined"), device=device)
+    warm_up(engine)
+    checked = sync_checked(engine)
+    with consume_waits() as waits:
+        run = _timed_drain(engine, KVFLEET_SEED)
+    quant = overlap_wave_line(run, engine, "overlap", waits)
+    emit("serve_overlap_wave", **quant, gpu=smi)
+    gate(quant, engine, checked, "(c) int8")
+    totals["pipelined"] += run["kernel_launches"]
+    totals["pipelined_combine"] += run["combine_launches"]
+    out["int8"] = dict(tokens_per_s=quant["tokens_per_s"],
+                       checked_dispatches=checked[0],
+                       graph_captures=engine.stats()["step_graph"][
+                           "captures"])
+    return out, totals, failures
+
+
+def phase_serve_overlap(device, smi: str, sync_trace: dict) -> dict:
+    """Phase 29: the overlapped loop, legs (a)-(d). Returns the launches
+    of the tiny legs (``parity``) and of the flagship's overlapped waves
+    (``flagship``)."""
+    t0 = time.perf_counter()
+    parity = overlap_parity_tiny(device)
+    flagship, totals, failures = overlap_flagship(device, smi, sync_trace)
+    line = dict(flagship, launches=totals, parity_launches=parity,
+                seconds=time.perf_counter() - t0, gpu=smi)
+    line["failures"] = failures
+    emit("serve_overlap", **{str(key): v for key, v in line.items()})
+    if failures:
+        raise AssertionError(f"serve_overlap: {failures}")
+    return {"flagship": totals, "parity": parity}
+
+
 def main() -> int:
     import shutil
 
@@ -5879,7 +6229,7 @@ def run_phases(bucket: str) -> int:
         published_quant, quant_median = phase_serve_quant(device, smi,
                                                           bucket)
     micro, traced = phase_serve_micro(device, smi)
-    phase_serve_trace(traced, smi)
+    trace_lines = phase_serve_trace(traced, smi)
     del traced
     micro_quant = phase_serve_micro_quant(device, smi)
     phase_parity_spec(device)
@@ -5899,6 +6249,7 @@ def run_phases(bucket: str) -> int:
                             replica["bf16"])
     lora = phase_serve_lora(device, smi, serve_streams, serve_seed2,
                             serve_median)
+    overlap = phase_serve_overlap(device, smi, trace_lines[MICRO_KS[-1]])
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -5942,6 +6293,8 @@ def run_phases(bucket: str) -> int:
         "launches_serve_roll": roll["cuda"],
         "launches_serve_lora": lora["flagship"]["cuda"],
         "launches_parity_lora": lora["parity"]["cuda"][0],
+        "launches_serve_overlap": overlap["flagship"]["cuda"],
+        "launches_parity_overlap": overlap["parity"]["cuda"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -5988,6 +6341,8 @@ def run_phases(bucket: str) -> int:
         "launches_serve_roll_quant": roll["pipelined"],
         "launches_serve_lora_quant": lora["flagship"]["pipelined"],
         "launches_parity_lora": lora["parity"]["pipelined"][0],
+        "launches_serve_overlap_quant": overlap["flagship"]["pipelined"],
+        "launches_parity_overlap": overlap["parity"]["pipelined"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -6018,6 +6373,10 @@ def run_phases(bucket: str) -> int:
         "launches_serve_lora_quant": lora["flagship"]["pipelined_combine"],
         "launches_parity_lora": (lora["parity"]["cuda"][1]
                                  + lora["parity"]["pipelined"][1]),
+        "launches_serve_overlap": overlap["flagship"]["cuda_combine"],
+        "launches_serve_overlap_quant":
+            overlap["flagship"]["pipelined_combine"],
+        "launches_parity_overlap": overlap["parity"]["combine"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

@@ -8,7 +8,8 @@ through them; a drained engine's requests resumed through both; and a
 weight roll at micro_k 4, each generation with its own graphs; paged
 LoRA adapters evicted and reloaded from a bucket under those graphs; and
 a replica's graphs replayed from the thread a profiler capture hands its
-step loop to. Then
+step loop to; an overlapped drain through each kernel that waits for the
+device only at its consume edge. Then
 the train path's card work beside the kernels: ``AsyncCheckpointer``'s
 device snapshot and ``prefetch_to_device``'s pinned side-stream copies.
 
@@ -336,6 +337,65 @@ def test_profile_hand_over_replays_the_graphs_on_the_new_thread(
         assert replica.step_error is None and not replica.draining
     finally:
         replica.stop()
+
+
+def _sync_checked(engine):
+    """Run ``engine``'s overlap dispatch region (planning, reservation and
+    the dispatch of the next program) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any wait for the device in
+    it raises."""
+    dispatch = engine._dispatch_next
+
+    def checked(finished):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(finished)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine._dispatch_next = checked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro_k", [1, 4])
+@pytest.mark.parametrize("impl", ["cuda", "pipelined"])
+def test_overlapped_drain_equals_sync_and_waits_only_at_consume(
+        cuda_device, impl, micro_k):
+    """The tiny preset at fp32 through each kernel, overlapped: a first
+    drain captures the carry graphs; the second, of the same traffic, runs
+    its dispatch region under the sync debug mode and equals the
+    synchronous engine's drain token for token, with launches those of its
+    programs (n_layers a chunk program, n_layers x K a micro program)."""
+    waves = [(np.arange(1, 30), 9, {"eos_token": 3}),
+             (np.arange(5, 14), 6, {"temperature": 0.8, "key": [4, 5]}),
+             (np.arange(2, 4), 11, {}), (np.arange(40, 57), 2, {}),
+             (np.arange(7, 19), 12, {"temperature": 1.1, "key": [8, 1]})]
+    outs = {}
+    for overlap in (False, True):
+        engine = build_engine("tiny", serving={
+            "decode_impl": impl, "micro_k": micro_k, "overlap": overlap},
+            device=cuda_device)
+        for checked in (False, True):
+            if checked and overlap:
+                _sync_checked(engine)
+            tpa.reset_launch_counts()
+            chunk0, decode0 = engine.chunk_steps, engine.decode_steps
+            micro0 = engine.micro_steps
+            rids = [engine.submit(prompt, max_new, **kw)
+                    for prompt, max_new, kw in waves]
+            engine.drain()
+            outs[overlap, checked] = [engine.result(r) for r in rids]
+        micro = engine.micro_steps - micro0
+        calls = (engine.chunk_steps - chunk0 + engine.decode_steps
+                 - decode0 + (micro_k - 1) * micro)
+        launches = engine.stats()["attention_launches"]
+        assert launches[impl] == engine.cfg.n_layers * calls > 0
+        assert launches["reference"] == 0
+    assert outs[True, True] == outs[True, False] == outs[False, True] \
+        == outs[False, False]
+    stats = engine.stats()
+    assert stats["overlap"] and stats["goodput"]["overlapped_host_s"] > 0
+    assert stats["step_graph"]["replays"] > 0
 
 
 @pytest.mark.cuda

@@ -166,7 +166,7 @@ def _leaves(params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("overlap", True), ("prefill", "bucketed"), ("host_offload_blocks", 8)])
+    ("prefill", "bucketed"), ("host_offload_blocks", 8)])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(**{knob: value})

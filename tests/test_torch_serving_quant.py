@@ -192,9 +192,13 @@ def test_refusals():
             ServingEngine(engine.params, engine.cfg,
                           ServingConfig(decode_impl=impl, kv_dtype="int8"),
                           device="cpu")
-    for knob, value in (("overlap", True), ("host_offload_blocks", 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingConfig(kv_dtype="int4", **{knob: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingConfig(kv_dtype="int4", host_offload_blocks=4)
+    # The overlapped loop is ported: over quantized pools it refuses what
+    # the JAX config refuses, and nothing else.
+    with pytest.raises(ValueError, match="overlap=True needs"):
+        ServingConfig(kv_dtype="int4", overlap=True, prefill="bucketed")
+    assert ServingConfig(kv_dtype="int4", overlap=True).overlap
     one = torch.zeros(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="write layout"):
         paged_decode_step(engine.params, engine.cfg, one,

@@ -137,6 +137,9 @@ def test_stats_counters_equal_jax_after_the_same_wave(preset, config):
 
 
 def test_stats_report_what_is_not_ported_as_off():
+    # The overlapped loop is ported (ROADMAP A5): a default engine reports
+    # it off and unflushed, as JAX's does (tests/test_torch_overlap_*.py
+    # hold an overlapped engine's values).
     stats = build_engine("micro", device="cpu").stats()
     assert (stats["tp"], stats["ep"], stats["overlap"],
             stats["overlap_flushes"], stats["generation"]) == (1, 1, False,

@@ -117,11 +117,14 @@ class ServingConfig:
     ``lora_rank``: rank of the paged LoRA adapter pool (0 is off; adapters
     of a smaller rank zero-pad to it); ``n_adapter_blocks``: the adapter
     pool's blocks, block 0 the zero scratch block, one block a layer of
-    one adapter (see :mod:`~tpu_task_torch.ml.serving.lora`).
+    one adapter (see :mod:`~tpu_task_torch.ml.serving.lora`); ``overlap``:
+    the asynchronous loop, which dispatches the next program before it
+    sweeps the previous one (chunked prefill only, no speculative
+    decoding).
 
-    Knobs of later slices (bucketed prefill, the async loop, the host
-    tier) keep their fields so configs carry over, and raise
-    NotImplementedError naming their ROADMAP item when set."""
+    Knobs of later slices (bucketed prefill, the host tier) keep their
+    fields so configs carry over, and raise NotImplementedError naming
+    their ROADMAP item when set."""
 
     slots: int = 8
     block_size: int = 16
@@ -185,6 +188,15 @@ class ServingConfig:
             raise ValueError(
                 f"prefill_slots {self.prefill_slots} exceeds slots "
                 f"{self.slots}")
+        if self.overlap and self.prefill != "chunked":
+            raise ValueError(
+                "overlap=True needs prefill='chunked': admissions are "
+                "staged into the next program's chunk rows")
+        if self.overlap and self.spec_k > 0:
+            raise ValueError(
+                "overlap=True is incompatible with speculative decoding "
+                "(spec_k > 0): the draft/score round-trip is a host "
+                "sync point every round")
         if self.host_offload_blocks < 0:
             raise ValueError(
                 f"host_offload_blocks must be >= 0, got "
@@ -201,8 +213,6 @@ class ServingConfig:
                 f"the zero scratch block), got {self.n_adapter_blocks}")
         if self.prefill == "bucketed":
             raise _not_ported("prefill='bucketed'", "A2 (paged_prefill)")
-        if self.overlap:
-            raise _not_ported("overlap=True", "A5 (the async loop)")
         if self.host_offload_blocks:
             raise _not_ported("host_offload_blocks", "A9 (the host tier)")
 

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine on one device — the counterpart of
-``tpu_task/ml/serving/engine.py``'s synchronous loop.
+``tpu_task/ml/serving/engine.py``'s synchronous and overlapped loops.
 
 The engine owns a fixed slot array and runs one scheduler iteration per
 :meth:`ServingEngine.step`: admit queued requests into free slots, run ONE
@@ -105,10 +105,23 @@ for), the plain version on the CPU.
   bucket by content hash. Adapter-bearing requests neither read nor seed
   the prefix cache: their KV depends on the adapter.
 
+- **The overlapped loop** (``overlap=True``): each :meth:`ServingEngine.
+  step` admits, dispatches program N+1 from program N's device carry
+  (:func:`~tpu_task_torch.ml.serving.model.micro_carry_greedy` and the
+  chunk carry programs), and only then waits for program N's tokens and
+  sweeps them from its dispatch record, so the host's sweep and planning
+  run while the device executes. Everything runs on one CUDA stream;
+  uploads go through fresh pinned buffers and each program's tokens come
+  back through its own pinned copy and event, so nothing in the dispatch
+  region waits for the device. Pool pressure, :meth:`ServingEngine.
+  export_inflight`, :meth:`ServingEngine.adopt_params` and a mid-roll
+  step flush the pipeline to the synchronous edge first. Streams are the
+  synchronous loop's.
+
 Not ported yet (each raises at :class:`ServingConfig` construction or
-here, naming its ROADMAP item): bucketed prefill, the async loop, the
-host tier, meshes. ``stats()`` carries their keys at the values of an
-engine that has them off.
+here, naming its ROADMAP item): bucketed prefill, the host tier, meshes.
+``stats()`` carries their keys at the values of an engine that has them
+off.
 
 - **Observability** (``obs=``, a :class:`~tpu_task_torch.obs.Obs`): one
   span per request phase (``engine.queue`` → ``engine.prefill`` →
@@ -168,13 +181,20 @@ from tpu_task_torch.ml.serving.lora import (
     validate_lora_tables,
 )
 from tpu_task_torch.ml.serving.model import (
+    chunk_carry_greedy,
+    chunk_carry_sample,
     chunked_step_greedy,
     decode_and_sample,
     greedy_decode_step,
     spec_score_greedy,
     spec_score_probs,
 )
-from tpu_task_torch.ml.serving.step_graph import MicroStepGraphs
+from tpu_task_torch.ml.serving.step_graph import (
+    MicroStepGraphs,
+    Readback,
+    store_carry,
+    upload,
+)
 from tpu_task_torch.obs.goodput import GoodputMeter
 from tpu_task_torch.obs.sla import DEFAULT_CLASS, class_rank
 from tpu_task_torch.obs.trace import Span, TraceContext
@@ -368,6 +388,28 @@ class ServingEngine:
         self._gen_filter: Optional[int] = None
         self.param_swaps = 0
         self.param_loader = param_loader
+        # The asynchronous loop (ServingConfig.overlap): the host sweep of
+        # program N runs while the device executes program N+1, see
+        # _step_overlapped.
+        self._overlap = scfg.overlap
+        #: The dispatched but unswept program's record (None when the
+        #: pipeline is empty): its Readback and the plan its sweep replays.
+        #: At most ONE program is in flight.
+        self._inflight: Optional[dict] = None
+        #: The device carry (tok, pos, alive, emitted) the next program
+        #: continues from: the generation's runner's carry tensors, or None
+        #: when it must be rebuilt from the host mirrors (engine start, or
+        #: after a flush).
+        self._carry: Optional[Dict[str, torch.Tensor]] = None
+        #: Each slot's position and emitted count once every dispatched
+        #: program has run, what planning and block reservation read while
+        #: the mirrors lag one program behind (exact for live slots).
+        self._planned_pos = np.zeros((scfg.slots,), np.int32)
+        self._planned_emitted = np.zeros((scfg.slots,), np.int32)
+        #: Retirements swept outside step() (a flush), reported in the next
+        #: step's ``finished``.
+        self._pending_finished: List[int] = []
+        self.overlap_flushes = 0
         self.steps = 0
         self.decode_steps = 0
         self.prefills = 0
@@ -632,7 +674,8 @@ class ServingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queue) or self.n_active > 0
+        return bool(self._queue) or self.n_active > 0 \
+            or self._inflight is not None
 
     @property
     def params(self) -> Params:
@@ -656,12 +699,24 @@ class ServingEngine:
         its own weights with the other generations' slots masked out like
         empty ones. Keyed sampling makes a stream independent of who
         shares its steps, so each stream's tokens are those of an engine
-        that holds its generation alone."""
+        that holds its generation alone.
+
+        With ``overlap`` on, the step runs the asynchronous loop
+        (:meth:`_step_overlapped`) whenever every slot and queued request
+        holds the active generation: results lag one step. Mid-roll it
+        flushes the in-flight program and runs this synchronous body."""
+        if self._overlap:
+            if all(r.generation == self.generation
+                   for r in list(self._slots) + list(self._queue)
+                   if r is not None):
+                return self._step_overlapped()
+            self.flush()
         t0 = time.perf_counter()
         self.goodput.begin_step()
         self.steps += 1
         admitted: List[int] = []
-        finished: List[int] = []
+        finished: List[int] = self._pending_finished    # swept by a flush
+        self._pending_finished = []
         self._admit_chunked(admitted)
         gens = sorted({r.generation for r in self._slots if r is not None})
         with torch.no_grad():
@@ -715,6 +770,433 @@ class ServingEngine:
             steps += 1
         return {rid: list(r.tokens) for rid, r in self._requests.items()}
 
+    # -- the asynchronous loop (ServingConfig.overlap) -------------------------
+    #
+    # One overlapped step, the JAX engine's contract:
+    #
+    #   admit        into slots free as of the LAST sweep; an admission rides
+    #                the NEXT program's chunk rows
+    #   dispatch N+1 planned from the worst-case device positions; the loop
+    #                state comes from program N's device carry, never from
+    #                the host
+    #   consume N    the ONE wait: program N's token readback, and the sweep
+    #                replayed from its dispatch record
+    #
+    # so the host sweep of program N runs while the device executes N+1. On
+    # CUDA, correctness rests on two facts built by hand where XLA gives them
+    # to the JAX engine. (a) One stream: every program, every pool write
+    # (copy-on-write, a fleet import, an adapter load) and every readback is
+    # enqueued on the current stream, so the device runs them in dispatch
+    # order; a block freed by sweep N and handed to an admission is written
+    # only by work enqueued after N+1. (b) Nothing in the dispatch region
+    # waits for the device: uploads go through fresh pinned buffers
+    # (step_graph.upload), and a program's tokens come back through its own
+    # pinned copy and event (step_graph.Readback), read at the consume edge
+    # only. Greedy and keyed sampled streams are schedule independent, so
+    # they equal the synchronous loop's although admissions land one sweep
+    # later; pool pressure the planner cannot cover flushes to the
+    # synchronous edge first, so preemption happens where the synchronous
+    # loop's would.
+
+    def _step_overlapped(self) -> dict:
+        t0 = time.perf_counter()
+        self.goodput.begin_step()
+        self.steps += 1
+        admitted: List[int] = []
+        finished: List[int] = self._pending_finished
+        self._pending_finished = []
+        self._admit_chunked(admitted)
+        with torch.no_grad():
+            rec = self._dispatch_next(finished)   # pool pressure may flush
+        # Covered: a program spanned this step's host work, the previous
+        # one still unconsumed or a new one just enqueued.
+        covered = rec is not None or self._inflight is not None
+        self._consume_one(self._inflight, finished)
+        self._inflight = rec
+        wall = time.perf_counter() - t0
+        self.goodput.end_step_overlapped(wall, covered)
+        if self.obs is not None:
+            self._h_step.observe(wall)
+        return {"admitted": admitted, "finished": finished,
+                "active": self.n_active, "queued": len(self._queue)}
+
+    def flush(self) -> None:
+        """Drain the overlap pipeline to the synchronous edge: consume and
+        sweep the in-flight program, then drop the device carry (the next
+        dispatch rebuilds it from the host mirrors, which after a full
+        sweep ARE the device state: the carry is absolute). Preemption,
+        :meth:`export_inflight` and :meth:`adopt_params` run behind a
+        flush. Retirements swept here are reported in the next step's
+        ``finished``. A no-op when nothing is in flight."""
+        self._consume_one(self._inflight, self._pending_finished)
+        self._inflight = None
+        self._carry = None
+
+    def _rebuild_carry(self) -> None:
+        """Host mirrors to the device carry (engine start, or after a
+        flush), with a non-blocking copy into the runner's carry tensors.
+        Prefilling and empty slots enter dead: the chunk program's
+        promotion is the only writer that turns a row live, so a dead
+        row's stale tok and pos are never read."""
+        alive = np.array(
+            [req is not None and req.status == RUNNING
+             and not self._prefilling(i)
+             for i, req in enumerate(self._slots)])
+        emitted = np.array([len(req.tokens) if req is not None else 0
+                            for req in self._slots], np.int32)
+        carry = self._micro_runner().carry
+        values = upload({
+            "tok": (self._last_token, torch.int64),
+            "pos": (np.where(alive, self._positions, 0), torch.int32),
+            "alive": (alive, torch.bool),
+            "emitted": (emitted, torch.int32)}, self.device)
+        store_carry(carry, values.values())
+        self._carry = carry
+        self._planned_pos = np.asarray(self._positions, np.int32).copy()
+        self._planned_emitted = emitted.copy()
+
+    # overlap: begin-dispatch-region
+    # Nothing between this marker and its end may wait for the device (a
+    # readback, a synchronize, a blocking upload, int/float/bool of a
+    # tensor): this code runs while the previous program executes, and one
+    # wait here serializes the loop. tests/test_torch_overlap_lint.py walks
+    # the region and enforces it.
+
+    def _plan_step(self):
+        """What the next program runs, read off the planned device state
+        (exact for live slots; an over-estimate only for a slot that
+        retired on eos inside a still-unswept program, whose rows the
+        device masks). Prefill rows split the one ``chunk_tokens`` budget
+        oldest admission first. Returns (prefill rows as (slot, chunk,
+        planned pos, completing), decode candidate slots, per-slot
+        reservation widths), or None when there is nothing to run."""
+        n, K, W = self.scfg.slots, self.scfg.micro_k, self.scfg.chunk_tokens
+        prefill = []
+        budget = W
+        for i in sorted(range(n), key=lambda j: self._admit_seq[j]):
+            req = self._slots[i]
+            if req is None or req.status != RUNNING or not budget:
+                continue
+            pos = int(self._planned_pos[i])
+            target = int(self._prefill_target[i])
+            if pos < target:
+                c = min(budget, target - pos)
+                budget -= c
+                prefill.append((i, c, pos, pos + c >= target))
+        decode = [
+            i for i, req in enumerate(self._slots)
+            if req is not None and req.status == RUNNING
+            and int(self._planned_pos[i]) >= int(self._prefill_target[i])
+            and int(self._planned_emitted[i]) < req.max_new_tokens]
+        if not prefill and not decode:
+            return None
+        widths = np.zeros((n,), np.int32)
+        for i, c, _, _ in prefill:
+            widths[i] = c
+        for i in decode:
+            widths[i] = 1 if prefill else min(
+                K, self._slots[i].max_new_tokens
+                - int(self._planned_emitted[i]))
+        return prefill, decode, widths
+
+    def _reserve_planned(self, widths: np.ndarray) -> bool:
+        """The overlapped half of :meth:`_ensure_blocks`: cover each slot's
+        next ``widths[i]`` writes FROM ITS PLANNED POSITION, evicting
+        refcount-0 cached blocks but never preempting (the in-flight
+        program is still advancing every running slot). False: the pool
+        cannot cover it; what was allocated stays with its slot and the
+        caller flushes, so that the synchronous path preempts on exact
+        state."""
+        bs = self.scfg.block_size
+        for slot in sorted(range(self.scfg.slots),
+                           key=lambda i: self._admit_seq[i]):
+            w = int(widths[slot])
+            if not w:
+                continue
+            pos = int(self._planned_pos[slot])
+            for block_i in range(pos // bs, (pos + w - 1) // bs + 1):
+                if self._tables[slot, block_i] != SCRATCH_BLOCK:
+                    continue
+                got = self._reserve(1, 0)
+                if got is None:
+                    return False
+                self._tables[slot, block_i] = got[0]
+        return True
+
+    def _dispatch_next(self, finished: list) -> Optional[dict]:
+        """Plan, reserve and enqueue the next program; returns its sweep
+        record (installed as in flight AFTER the previous program is
+        consumed), or None when there is nothing to run (the drain's
+        consume-only tail)."""
+        if self._carry is None:
+            self._rebuild_carry()
+        plan = self._plan_step()
+        if plan is None:
+            return None
+        prefill, decode, widths = plan
+        if not self._reserve_planned(widths):
+            # Pool pressure beyond eviction: to the synchronous edge. After
+            # the flush the mirrors are exact, so _ensure_blocks preempts
+            # exactly where the synchronous loop would.
+            self.overlap_flushes += 1
+            self.flush()
+            finished.extend(self._pending_finished)
+            self._pending_finished = []
+            self._rebuild_carry()
+            plan = self._plan_step()
+            if plan is None:
+                return None
+            prefill, decode, widths = plan
+            before = self.preemption_count
+            self._ensure_blocks(widths)
+            if self.preemption_count != before:
+                self._rebuild_carry()     # preempted slots left the carry
+                plan = self._plan_step()
+                if plan is None:
+                    return None
+                prefill, decode, widths = plan
+        if prefill:
+            return self._dispatch_chunk(prefill, decode)
+        return self._dispatch_micro(decode, widths)
+
+    def _req_limits_eos(self):
+        """Each slot's ABSOLUTE limit (max_new_tokens; 0 empty) and eos
+        (-1 none), the carry programs' retirement inputs."""
+        limits = np.array([r.max_new_tokens if r is not None else 0
+                           for r in self._slots], np.int32)
+        eos = np.array([r.eos_token if r is not None
+                        and r.eos_token is not None else -1
+                        for r in self._slots], np.int64)
+        return limits, eos
+
+    def _dispatch_micro(self, decode: List[int], widths: np.ndarray) -> dict:
+        """Pure-decode program: the K-token carry micro-step through the
+        generation's runner (a CUDA graph replay at every K, K = 1 too),
+        under the per-slot adapter tables. A quantized pool writes through
+        the stacked layout of the candidates' PLANNED positions."""
+        n = self.scfg.slots
+        limits, eos = self._req_limits_eos()
+        cand = np.zeros((n,), bool)
+        cand[decode] = True
+        inputs = dict(tables=self._tables, limits=limits, eos=eos)
+        sampled = not self._all_greedy()
+        if sampled:
+            temps, tops = self._temps_tops()
+            inputs.update(temps=temps, tops=tops, keys=self._slot_keys)
+        if self._quantized:
+            inputs.update(self._micro_quant_layout(
+                np.where(cand, self._planned_pos, 0).astype(np.int32),
+                widths))
+        lora = self._lora_rows(np.arange(n))
+        if lora is not None:
+            inputs.update(lblocks=lora[0], lscales=lora[1])
+        rec_pos = self._planned_pos.copy()
+        t0 = time.perf_counter()
+        out = self._micro_runner().dispatch(sampled, inputs,
+                                            lora=lora is not None)
+        self.goodput.program(time.perf_counter() - t0)
+        self.decode_steps += 1
+        if self.scfg.micro_k > 1:
+            self.micro_steps += 1
+        for i in decode:
+            self._planned_pos[i] += int(widths[i])
+            self._planned_emitted[i] += int(widths[i])
+        return {"kind": "micro", "out": out, "reqs": list(self._slots),
+                "cand": cand, "pos0": rec_pos}
+
+    def _dispatch_chunk(self, prefill, decode: List[int]) -> dict:
+        """Mixed program: every admitting slot's chunk rows packed beside
+        the carry's decode rows (the overlapped :meth:`_chunk_step`), run
+        eagerly from the runner's carry, which it updates in place. A
+        completing prefill is PROMOTED in the program: its first token is
+        sampled on the device and enters the carry; the host reads it at
+        the sweep. Chunk rows take their owning slot's adapter rows."""
+        n, W = self.scfg.slots, self.scfg.chunk_tokens
+        m = self.scfg.max_blocks_per_slot
+        limits, eos = self._req_limits_eos()
+        ctoks = np.zeros((W,), np.int32)
+        cpos = np.zeros((W,), np.int32)
+        cvalid = np.zeros((W,), bool)
+        tables = np.zeros((n + W, m), np.int32)
+        tables[:n] = self._tables
+        prow = np.full((n,), -1, np.int32)
+        ppos = np.zeros((n,), np.int32)
+        pngen = np.zeros((n,), np.int32)
+        temps = np.zeros((n + W,), np.float32)
+        tops = np.ones((n + W,), np.float32)
+        rkeys = np.zeros((n + W, 2), np.uint32)
+        cngen = np.zeros((W,), np.int64)
+        owners = np.full((n + W,), -1, np.int64)   # each row's slot
+        owners[:n] = np.arange(n)
+        temps[:n], tops[:n] = self._temps_tops()
+        rkeys[:n] = self._slot_keys
+        rows = []                     # (slot, row offset, c, pos, completing)
+        off = 0
+        for i, c, pos, completing in prefill:
+            req = self._slots[i]
+            ctx = self._context_ids(req)
+            rs = slice(off, off + c)
+            ctoks[rs] = ctx[pos:pos + c]
+            cpos[rs] = np.arange(pos, pos + c)
+            cvalid[rs] = True
+            rs = slice(n + off, n + off + c)
+            tables[rs] = self._tables[i]
+            temps[rs] = req.temperature
+            tops[rs] = req.top_p
+            rkeys[rs] = self._slot_keys[i]
+            owners[rs] = i
+            cngen[off:off + c] = len(req.tokens)
+            if completing:
+                prow[i] = off + c - 1
+                ppos[i] = int(self._prefill_target[i])
+                pngen[i] = len(req.tokens)
+            rows.append((i, off, c, pos, completing))
+            off += c
+        host = {"ctoks": (ctoks, torch.int64), "cpos": (cpos, torch.int32),
+                "cvalid": (cvalid, torch.bool),
+                "tables": (tables, torch.int32),
+                "limits": (limits, torch.int32), "eos": (eos, torch.int64),
+                "prow": (prow, torch.int32), "ppos": (ppos, torch.int32),
+                "pngen": (pngen, torch.int32)}
+        sampled = not self._all_greedy()
+        if sampled:
+            host.update(temps=(temps, torch.float32),
+                        tops=(tops, torch.float32),
+                        rkeys=(rkeys, torch.int64),
+                        cngen=(cngen, torch.int64))
+        if self._quantized:
+            rpos = np.zeros((n + W,), np.int32)
+            rvalid = np.zeros((n + W,), bool)
+            rpos[decode] = self._planned_pos[decode]
+            rvalid[decode] = True
+            rpos[n:], rvalid[n:] = cpos, cvalid
+            layout = self._quant_layout(tables, rpos[:, None],
+                                        rvalid[:, None])
+            host.update({name: (a, torch.int64) for name, a in zip(
+                ("touched", "filled", "wt", "wo"), layout)})
+        lora = self._lora_rows(owners)
+        if lora is not None:
+            host.update(lblocks=(lora[0], torch.int64),
+                        lscales=(lora[1], torch.float32))
+        rec_pos = self._planned_pos.copy()
+        work = (len(decode) + int(cvalid.sum()),
+                float(sum(int(rec_pos[i]) for i in decode))
+                + float(cpos[cvalid].sum()))
+        runner = self._micro_runner()
+        t0 = time.perf_counter()
+        t = upload(host, self.device)
+        qa = ((t["touched"], t["filled"], t["wt"], t["wo"])
+              if self._quantized else None)
+        head = (self._model_params(
+                    None if lora is None else (t["lblocks"], t["lscales"])),
+                self.cfg, *runner.carry.values(), t["ctoks"], t["cpos"],
+                t["cvalid"], t["tables"], t["limits"], t["eos"], t["prow"],
+                t["ppos"], t["pngen"])
+        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
+        if sampled:
+            out = chunk_carry_sample(*head, t["temps"], t["tops"],
+                                     t["rkeys"], t["cngen"], self.pools, qa,
+                                     **kwargs)
+        else:
+            out = chunk_carry_greedy(*head, self.pools, qa, **kwargs)
+        store_carry(runner.carry, out[1])
+        readback = Readback(out[0], out[2] if self._quantized
+                            and self.debug else None)
+        self.goodput.program(time.perf_counter() - t0)
+        self.chunk_steps += 1
+        for i, c, pos, completing in prefill:
+            if completing:
+                self._planned_pos[i] = int(self._prefill_target[i])
+                self._planned_emitted[i] += 1
+            else:
+                self._planned_pos[i] = pos + c
+        for i in decode:
+            self._planned_pos[i] += 1
+            self._planned_emitted[i] += 1
+        return {"kind": "chunk", "out": readback, "reqs": list(self._slots),
+                "decode": list(decode), "rows": rows, "pos0": rec_pos,
+                "work": work}
+
+    # overlap: end-dispatch-region
+
+    def _consume_one(self, rec: Optional[dict], finished: list) -> None:
+        """The pipeline's ONE wait: the recorded program's tokens, and the
+        sweep replayed strictly from its DISPATCH RECORD, never from the
+        current slots. A row whose recorded request is no longer RUNNING
+        (an earlier sweep retired it) is skipped: its slot may hold a
+        newer admission. The replayed retirement rule is the device's (eos
+        or emitted >= max_new), so host and carry agree."""
+        if rec is None:
+            return
+        t0 = time.perf_counter()
+        ys = rec["out"].wait()
+        self.goodput.consume_wait(time.perf_counter() - t0)
+        if rec["out"].qerr is not None:
+            self._note_qerr(rec["out"].qerr)
+        now = time.monotonic()
+        n = self.scfg.slots
+        emitted_total, pos_sum = 0, 0.0
+        if rec["kind"] == "micro":
+            for slot in range(n):
+                req = rec["reqs"][slot]
+                if not rec["cand"][slot] or req is None \
+                        or req.status != RUNNING:
+                    continue
+                for j in range(ys.shape[0]):
+                    tok = int(ys[j, slot])
+                    req.tokens.append(tok)
+                    emitted_total += 1
+                    pos_sum += float(rec["pos0"][slot]) + j
+                    self._positions[slot] += 1
+                    self._last_token[slot] = tok
+                    if req.first_token_t is None:
+                        req.first_token_t = now
+                        self._obs_first_token(req)
+                    if req.finished:
+                        break
+                if req.finished:
+                    self._retire(slot)
+                    finished.append(req.rid)
+            self.goodput.work_counts(emitted_total, pos_sum)
+            self.goodput.emitted(emitted_total)
+            return
+        for slot in rec["decode"]:
+            req = rec["reqs"][slot]
+            if req is None or req.status != RUNNING:
+                continue
+            tok = int(ys[slot])
+            req.tokens.append(tok)
+            emitted_total += 1
+            self._positions[slot] += 1
+            self._last_token[slot] = tok
+            if req.first_token_t is None:
+                req.first_token_t = now
+                self._obs_first_token(req)
+            if req.finished:
+                self._retire(slot)
+                finished.append(req.rid)
+        for slot, off, c, pos, completing in rec["rows"]:
+            req = rec["reqs"][slot]
+            if req is None or req.status != RUNNING:
+                continue
+            self._positions[slot] = pos + c
+            self.prefill_chunks += 1
+            if not completing:
+                continue
+            self.prefills += 1              # prompt complete: first token
+            tok = int(ys[n + off + c - 1])
+            req.tokens.append(tok)
+            emitted_total += 1
+            self._last_token[slot] = tok
+            if req.first_token_t is None:
+                req.first_token_t = now
+                self._obs_first_token(req)
+            if req.finished:
+                self._retire(slot)
+                finished.append(req.rid)
+        self.goodput.work_counts(*rec["work"])
+        self.goodput.emitted(emitted_total)
+
     def export_inflight(self) -> List[dict]:
         """Every not-yet-done request as a JSON-serializable record, key
         for key the JAX engine's: the prompt, the tokens emitted so far,
@@ -724,7 +1206,10 @@ class ServingEngine:
         ``adapter_id`` when set. Values are plain ints, floats, lists and
         None. Tokens are committed only at a step's host sweep, so a
         record between steps always ends on a token boundary, at any
-        ``micro_k``. The engine itself is left untouched."""
+        ``micro_k``. In overlap mode the in-flight program is swept first
+        (:meth:`flush`): its tokens belong in the records. The engine is
+        otherwise left untouched."""
+        self.flush()
         records = []
         for req in self._requests.values():
             if req.status == DONE:
@@ -865,14 +1350,15 @@ class ServingEngine:
         is freed with its last stream. ``generation`` defaults to the next
         integer (a replica passes the checkpoint step) and must grow.
         The params move to the engine's device. Returns the installed
-        generation. (A sharded engine re-shards by building a new one,
-        ROADMAP A14; the async loop, whose in-flight program would have to
-        be swept first, is ROADMAP A5.)"""
+        generation. In overlap mode the in-flight program, dispatched under
+        the old generation, is swept first (:meth:`flush`). (A sharded
+        engine re-shards by building a new one, ROADMAP A14.)"""
         gen = self.generation + 1 if generation is None else int(generation)
         if gen <= self.generation:
             raise ValueError(
                 f"param generation must grow monotonically: got {gen}, "
                 f"active is {self.generation}")
+        self.flush()
         self._gen_params[gen] = params_to(params, self.device)
         self.generation = gen
         self.param_swaps += 1
@@ -899,7 +1385,9 @@ class ServingEngine:
 
     def _drop_freed_graphs(self) -> None:
         """Drop the K-step graphs of freed generations (between steps, so
-        never while a graph is captured), keeping their counts."""
+        never while a graph is captured), keeping their counts. Nothing is
+        in flight then: a generation is freed only outside the overlapped
+        loop, which runs one generation and is flushed before a roll."""
         for g in [g for g in self._micro_graphs if g not in self._gen_params]:
             for key, value in self._micro_graphs.pop(g).stats().items():
                 self._dropped_graph_stats[key] += value
@@ -948,8 +1436,8 @@ class ServingEngine:
                             dtype=torch.float32))}
 
     def _micro_runner(self) -> MicroStepGraphs:
-        """The dispatched generation's K-step programs, made at its first
-        micro-step."""
+        """The dispatched generation's K-step programs and overlap carry,
+        made at its first micro-step (or overlapped dispatch)."""
         gen = self._dispatch_gen()
         runner = self._micro_graphs.get(gen)
         if runner is None:
@@ -1177,6 +1665,13 @@ class ServingEngine:
         return self._gen_ok(self._slots[slot]) and \
             int(self._positions[slot]) < int(self._prefill_target[slot])
 
+    def _prefilling_planned(self, slot: int) -> bool:
+        """Prefilling as of the last dispatch (overlap mode): the program
+        that completes the prompt may still be in flight, but no prefill
+        work is left to plan."""
+        return self._slots[slot] is not None and \
+            int(self._planned_pos[slot]) < int(self._prefill_target[slot])
+
     def _context_ids(self, req: Request) -> np.ndarray:
         return np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
 
@@ -1211,10 +1706,14 @@ class ServingEngine:
         :meth:`_next_admit_index` order; prompt ingestion (a resumed
         request's prompt and imported tokens) happens across the following
         steps' chunk rows. At most ``prefill_slots`` slots prefill at a
-        time."""
+        time. While an overlapped carry is live the gate reads PLANNED
+        positions: a completing chunk already dispatched counts as done,
+        though its sweep lands a step later."""
         bs = self.scfg.block_size
+        prefilling = (self._prefilling if self._carry is None
+                      else self._prefilling_planned)
         while self._queue:
-            if sum(self._prefilling(i) for i in range(self.scfg.slots)) \
+            if sum(prefilling(i) for i in range(self.scfg.slots)) \
                     >= self.scfg.prefill_slots:
                 return
             slot = next(
@@ -1276,6 +1775,12 @@ class ServingEngine:
             self._last_token[slot] = 0
             self._draft_pos[slot] = 0
             self._bind_adapter(slot, req)
+            if self._overlap:
+                # The slot's planned state restarts with its new occupant:
+                # an unswept program dispatched for the previous one runs
+                # this row dead and its sweep skips it.
+                self._planned_pos[slot] = cached_len
+                self._planned_emitted[slot] = len(req.tokens)
             admitted.append(req.rid)
             self._obs_admit(req, cached_tokens=cached_len)
 
@@ -1366,8 +1871,10 @@ class ServingEngine:
         bs = self.scfg.block_size
         rows, w = positions.shape
         n_touched = rows * w + 1
-        pos = np.asarray(positions, np.int64).reshape(-1)
         val = np.asarray(valid, bool).reshape(-1)
+        # An invalid token may sit past its table (a micro-step's iteration
+        # beyond a slot's span at max_len): only valid ones are looked up.
+        pos = np.where(val, np.asarray(positions, np.int64).reshape(-1), 0)
         blocks = np.asarray(tables)[np.arange(rows).repeat(w), pos // bs]
         uniq, inv = np.unique(blocks[val], return_inverse=True)
         touched = np.zeros(n_touched, np.int64)
@@ -1604,9 +2111,7 @@ class ServingEngine:
         spans = self._micro_spans()       # preemption may have freed slots
         active = spans > 0
         positions = np.where(active, self._positions, 0)
-        eos = np.array([r.eos_token if r is not None
-                        and r.eos_token is not None else -1
-                        for r in self._slots], np.int64)
+        _, eos = self._req_limits_eos()
         inputs = dict(tok=self._last_token, pos=positions,
                       tables=self._tables, active=active, limits=spans,
                       eos=eos)
@@ -2061,10 +2566,11 @@ class ServingEngine:
             # Graph captures and replays of the K-step programs (CUDA).
             "step_graph": self._graph_stats(),
             "chunk_steps": self.chunk_steps,
-            # The async loop is not ported (ROADMAP A5).
-            "overlap": False,
+            # The asynchronous loop, and the times pool pressure flushed it
+            # to the synchronous edge.
+            "overlap": self._overlap,
             "prefill_slots": self.scfg.prefill_slots,
-            "overlap_flushes": 0,
+            "overlap_flushes": self.overlap_flushes,
             "prefills": self.prefills,
             "prefill_chunks": self.prefill_chunks,
             "recompute_preemptions": self.preemption_count,

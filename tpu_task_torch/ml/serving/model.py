@@ -20,7 +20,11 @@ largest quantization error of their writes beside their result (an exact
 sequential decode iterations with the retirement bookkeeping between them
 (``_micro_scan``, the JAX package's ``lax.scan`` written as a loop); on a
 CUDA device the engine captures that loop as one CUDA graph
-(:mod:`~tpu_task_torch.ml.serving.step_graph`).
+(:mod:`~tpu_task_torch.ml.serving.step_graph`). The overlapped loop's
+programs thread the loop state through: :func:`micro_carry_greedy` /
+``_sample`` (the same loop from an absolute carry) and
+:func:`chunk_carry_greedy` / ``_sample`` (the packed chunk step, whose
+completing prefills join the carry in the program).
 
 Speculative decoding's steps (:func:`paged_multitoken_logits`,
 :func:`spec_score_greedy`, :func:`spec_score_probs`) run the same forward
@@ -214,7 +218,8 @@ def decode_and_sample(params: Params, cfg: TransformerConfig, tokens,
 def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
                 block_tables, active, limits, eos, pools: Pools,
                 qa: Optional[QuantLayout], micro_k: int, sampler, *,
-                attn_impl: str, measure_qerr: bool):
+                attn_impl: str, measure_qerr: bool, emitted0=None,
+                return_carry: bool = False):
     """``micro_k`` SEQUENTIAL decode iterations, the body of the JAX
     package's ``_micro_scan`` line for line: iteration j samples slot i's
     next token while the slot is ``alive`` (it entered active and has hit
@@ -229,7 +234,14 @@ def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
     iteration j writes through ``qa[j]``. Returns the (micro_k, rows)
     tokens, and for a quantized pool the max quantization error over the
     iterations beside them. Every operation stays on the device and none
-    reads a value back, so a CUDA graph can capture the whole loop."""
+    reads a value back, so a CUDA graph can capture the whole loop.
+
+    The overlapped engine threads the loop state from program to program:
+    ``emitted0`` seeds the emitted counter (the carry convention is then
+    ABSOLUTE, ``emitted`` the request's total token count and ``limits``
+    its ``max_new_tokens``, which emits the same tokens as relative
+    limits), and ``return_carry=True`` also returns the final (tok, pos,
+    alive, emitted) carry, after the tokens."""
     quantized = pool_is_quantized(pools)
     if quantized and qa is None:
         raise ValueError(
@@ -237,7 +249,7 @@ def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
             "layouts (one per micro iteration) — see "
             "ServingEngine._micro_quant_layout")
     tok, pos, alive = tokens, positions, active
-    emitted = torch.zeros_like(positions)
+    emitted = torch.zeros_like(positions) if emitted0 is None else emitted0
     ys, qerrs = [], []
     for j in range(micro_k):
         out = paged_decode_step(
@@ -255,9 +267,10 @@ def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
         if quantized:
             qerrs.append(out[1])
     toks = torch.stack(ys)
+    out = (toks, (tok, pos, alive, emitted)) if return_carry else (toks,)
     if quantized:
-        return toks, _fold_qerr(qerrs)
-    return toks
+        return out + (_fold_qerr(qerrs),)
+    return out if return_carry else toks
 
 
 def micro_decode_greedy(params: Params, cfg: TransformerConfig, tokens,
@@ -293,6 +306,155 @@ def micro_decode_sample(params: Params, cfg: TransformerConfig, tokens,
     return _micro_scan(params, cfg, tokens, positions, block_tables, active,
                        limits, eos, pools, qa, micro_k, sampler,
                        attn_impl=attn_impl, measure_qerr=measure_qerr)
+
+
+# -- carry-threaded programs: the overlapped loop (A5) ------------------------
+#
+# The overlapped engine never reads the loop state back between dispatches:
+# each program takes the previous one's (tok, pos, alive, emitted) carry as
+# device tensors and returns the next, so the only host edge is the token
+# readback it sweeps while the device runs the program dispatched after
+# it. The carry is ABSOLUTE (``emitted`` is the request's total token count,
+# ``limits`` its max_new_tokens), so after a full sweep the host's mirrors
+# rebuild it exactly. The engine keeps one set of carry tensors and writes
+# each program's returned carry back into them in place.
+
+
+def micro_carry_greedy(params: Params, cfg: TransformerConfig, tok, pos,
+                       alive, emitted, block_tables, limits, eos,
+                       pools: Pools, qa: Optional[QuantLayout] = None, *,
+                       micro_k: int, attn_impl: str = "reference",
+                       measure_qerr: bool = False):
+    """Greedy K-token micro-step with the carry threaded in and out: the
+    tokens of :func:`micro_decode_greedy` at absolute limits. Returns the
+    (micro_k, rows) tokens and the final carry (and the max quantization
+    error, quantized pools)."""
+    def sampler(logits, alive_, emitted_):
+        return torch.argmax(logits, dim=-1)
+
+    return _micro_scan(params, cfg, tok, pos, block_tables, alive, limits,
+                       eos, pools, qa, micro_k, sampler, attn_impl=attn_impl,
+                       measure_qerr=measure_qerr, emitted0=emitted,
+                       return_carry=True)
+
+
+def micro_carry_sample(params: Params, cfg: TransformerConfig, tok, pos,
+                       alive, emitted, block_tables, limits, eos,
+                       temperature, top_p, slot_keys, pools: Pools,
+                       qa: Optional[QuantLayout] = None, *, micro_k: int,
+                       attn_impl: str = "reference",
+                       measure_qerr: bool = False):
+    """Sampled K-token micro-step with the carry threaded through. The
+    carry's absolute ``emitted`` is each slot's token index, so iteration
+    j's key is ``fold_in(slot_keys[i], emitted[i])`` straight from the
+    carry: the key stream every other sampler draws."""
+    def sampler(logits, alive_, emitted_):
+        keys = jrandom.fold_in(slot_keys, emitted_)
+        return sample_tokens(logits, temperature, top_p, keys)
+
+    return _micro_scan(params, cfg, tok, pos, block_tables, alive, limits,
+                       eos, pools, qa, micro_k, sampler, attn_impl=attn_impl,
+                       measure_qerr=measure_qerr, emitted0=emitted,
+                       return_carry=True)
+
+
+def _chunk_carry(params: Params, cfg: TransformerConfig, tok, pos, alive,
+                 emitted, ctoks, cpos, cvalid, block_tables, limits, eos,
+                 promote_row, promote_pos, promote_ngen, pools: Pools,
+                 qa: Optional[QuantLayout], sampler, *, attn_impl: str,
+                 measure_qerr: bool):
+    """The carry-threaded token-packed chunk step: ONE pass at
+    ``slots + chunk_tokens`` rows, where rows 0..slots-1 advance the carry
+    (the K = 1 micro body: decode with in-program retirement) and rows
+    slots.. ingest prompt chunks (``ctoks`` at ``cpos``, valid where
+    ``cvalid``), each under its own slot's table row of ``block_tables``
+    (slots + chunk_tokens, max_blocks). ``promote_row[i] >= 0`` marks slot
+    i as completing its prefill here: that chunk row's sampled token
+    enters the carry as the slot's first generated token, at position
+    ``promote_pos[i]`` with emitted count ``promote_ngen[i] + 1``, under
+    the same eos and limit check a decode row gets, so the admitted request
+    decodes in the next program without the host touching this one.
+    Returns the (slots + chunk_tokens,) sampled tokens and the new carry
+    (and the max quantization error, quantized pools)."""
+    n, W = tok.shape[0], ctoks.shape[0]
+    tokens = tok.new_zeros((n + W,))
+    tokens[:n] = tok
+    tokens[n:] = ctoks
+    positions = pos.new_zeros((n + W,))
+    positions[:n] = torch.where(alive, pos, 0)
+    positions[n:] = torch.where(cvalid, cpos, 0)
+    active = alive.new_zeros((n + W,))
+    active[:n] = alive
+    active[n:] = cvalid
+    out = paged_decode_step(params, cfg, tokens, positions, block_tables,
+                            active, pools, qa, attn_impl=attn_impl,
+                            measure_qerr=measure_qerr)
+    logits = out[0] if isinstance(out, tuple) else out
+    nxt = sampler(logits, emitted)
+    # Decode rows: the micro-step body at K = 1.
+    new_tok = torch.where(alive, nxt[:n], tok)
+    new_emitted = emitted + alive.to(emitted.dtype)
+    done = alive & (((eos >= 0) & (new_tok == eos)) | (new_emitted >= limits))
+    new_pos = pos + alive.to(pos.dtype)
+    new_alive = alive & ~done
+    # Promotion: a completing prefill enters the carry with its first
+    # token, under the retirement check every first token gets (max_new 1,
+    # or the token is its eos).
+    promoting = promote_row >= 0
+    ptok = nxt[n + promote_row.clamp(0, W - 1).to(torch.int64)]
+    p_emitted = promote_ngen + 1
+    p_alive = ~(((eos >= 0) & (ptok == eos)) | (p_emitted >= limits))
+    carry = (torch.where(promoting, ptok, new_tok),
+             torch.where(promoting, promote_pos, new_pos),
+             torch.where(promoting, p_alive, new_alive),
+             torch.where(promoting, p_emitted, new_emitted))
+    if isinstance(out, tuple):
+        return nxt, carry, out[1]
+    return nxt, carry
+
+
+def chunk_carry_greedy(params: Params, cfg: TransformerConfig, tok, pos,
+                       alive, emitted, ctoks, cpos, cvalid, block_tables,
+                       limits, eos, promote_row, promote_pos, promote_ngen,
+                       pools: Pools, qa: Optional[QuantLayout] = None, *,
+                       attn_impl: str = "reference",
+                       measure_qerr: bool = False):
+    """Greedy carry chunk step: argmax over every packed row."""
+    def sampler(logits, emitted_):
+        return torch.argmax(logits, dim=-1)
+
+    return _chunk_carry(params, cfg, tok, pos, alive, emitted, ctoks, cpos,
+                        cvalid, block_tables, limits, eos, promote_row,
+                        promote_pos, promote_ngen, pools, qa, sampler,
+                        attn_impl=attn_impl, measure_qerr=measure_qerr)
+
+
+def chunk_carry_sample(params: Params, cfg: TransformerConfig, tok, pos,
+                       alive, emitted, ctoks, cpos, cvalid, block_tables,
+                       limits, eos, promote_row, promote_pos, promote_ngen,
+                       temperature, top_p, row_keys, chunk_ngen,
+                       pools: Pools, qa: Optional[QuantLayout] = None, *,
+                       attn_impl: str = "reference",
+                       measure_qerr: bool = False):
+    """Sampled carry chunk step: per-row (temperature, top_p, key) from
+    the host; a decode row's token index is the carry's emitted count, a
+    chunk row's the admission-time count ``chunk_ngen`` (constant through
+    a prefill, so the completing row draws ``fold_in(key,
+    len(req.tokens))``, the first-token draw of every other path)."""
+    n = tok.shape[0]
+
+    def sampler(logits, emitted_):
+        ngen = torch.zeros((logits.shape[0],), dtype=torch.int64,
+                           device=logits.device)
+        ngen[:n] = emitted_
+        ngen[n:] = chunk_ngen
+        return sample_tokens(logits, temperature, top_p,
+                             jrandom.fold_in(row_keys, ngen))
+
+    return _chunk_carry(params, cfg, tok, pos, alive, emitted, ctoks, cpos,
+                        cvalid, block_tables, limits, eos, promote_row,
+                        promote_pos, promote_ngen, pools, qa, sampler,
+                        attn_impl=attn_impl, measure_qerr=measure_qerr)
 
 
 # -- multi-token steps: speculative scoring and the draft catch-up (A3) ------

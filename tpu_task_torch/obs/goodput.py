@@ -15,6 +15,15 @@ a resumed request re-ingests (an imported prefix another engine already
 produced), and ``mfu`` divides the static FLOP model's count by busy wall
 and the peak.
 
+The overlapped loop (``ServingConfig.overlap``) splits a step's wall three
+ways, as the JAX meter does: program time is each dispatch's enqueue plus
+the consume edge's wait on the in-flight program's tokens
+(:meth:`GoodputMeter.consume_wait`); host work done while a program was in
+flight is ``overlapped_host_s`` (the device had work queued under it); and
+only a step with no program in flight (the first dispatch, the drain's
+last sweep, a flush that emptied the pipeline) charges its host time to
+the gap (:meth:`GoodputMeter.end_step_overlapped`).
+
 Where the JAX package differs: its meter lives on an ``obs`` registry and
 exists only when the engine has one; here it is always on (two
 ``perf_counter`` calls per dispatch and a few integer sums per step) and
@@ -96,7 +105,9 @@ def flops_for_positions(cfg, positions) -> float:
 class GoodputMeter:
     """Per-engine accumulator. The engine calls :meth:`program` around
     every fused dispatch, :meth:`begin_step`/:meth:`end_step` around each
-    scheduler iteration, :meth:`work_counts` and :meth:`emitted` where it
+    scheduler iteration (:meth:`end_step_overlapped` in the overlapped
+    loop, with :meth:`consume_wait` at its consume edge),
+    :meth:`work_counts` and :meth:`emitted` where it
     commits tokens, :meth:`wasted_preempt` where it preempts,
     :meth:`wasted_spec` where a speculative round rejects proposals and
     :meth:`wasted_reingest` where it imports a resumed request."""
@@ -112,14 +123,14 @@ class GoodputMeter:
         if registry is None:
             return
         # The JAX meter's registry names: totals as counters (they sum in a
-        # fleet merge), the ratios as gauges. The overlapped loop is A5.
-        for stat in ("program_s", "host_s", "dispatches", "model_flops",
+        # fleet merge), the ratios as gauges.
+        for stat in ("program_s", "host_s", "overlapped_host_s",
+                     "dispatches", "model_flops",
                      "tokens_emitted", "tokens_preempted",
                      "tokens_spec_rejected", "tokens_reingested"):
             registry.counter_fn(f"goodput.{stat}",
                                 lambda self=self, stat=stat:
                                 float(getattr(self, stat)))
-        registry.counter_fn("goodput.overlapped_host_s", lambda: 0.0)
         registry.gauge_fn("goodput.ratio", lambda: self.ratio)
         registry.gauge_fn("goodput.mfu", lambda: self.mfu)
         registry.gauge_fn("goodput.host_gap_frac",
@@ -133,6 +144,7 @@ class GoodputMeter:
         seconds do not read as host gap)."""
         self.program_s = 0.0
         self.host_s = 0.0
+        self.overlapped_host_s = 0.0
         self.dispatches = 0
         self.model_flops = 0.0
         self.tokens_emitted = 0
@@ -143,7 +155,8 @@ class GoodputMeter:
 
     # -- time ------------------------------------------------------------------
     def program(self, dt: float) -> None:
-        """One fused dispatch took ``dt`` seconds, readback included."""
+        """One fused dispatch took ``dt`` seconds: readback included in the
+        synchronous loop, the enqueue alone in the overlapped one."""
         self.program_s += dt
         self.dispatches += 1
 
@@ -154,6 +167,23 @@ class GoodputMeter:
         """Whatever the step's wall spent outside its dispatches is host
         gap."""
         self.host_s += max(0.0, wall_s - (self.program_s - self._prog_mark))
+
+    def consume_wait(self, dt: float) -> None:
+        """Overlapped loop: the consume edge waited ``dt`` seconds for the
+        in-flight program's tokens. The device was busy, so it is program
+        time (no dispatch is counted)."""
+        self.program_s += dt
+
+    def end_step_overlapped(self, wall_s: float, covered: bool) -> None:
+        """Close one overlapped step. ``covered``: a program was in flight
+        across the step's host work (the previous one was unconsumed, or a
+        new one was dispatched before the sweep), so its host time is
+        overlapped; otherwise it is host gap."""
+        gap = max(0.0, wall_s - (self.program_s - self._prog_mark))
+        if covered:
+            self.overlapped_host_s += gap
+        else:
+            self.host_s += gap
 
     # -- work and tokens -------------------------------------------------------
     def work_counts(self, count: int, pos_sum: float) -> None:
@@ -182,7 +212,9 @@ class GoodputMeter:
     # -- gauges ----------------------------------------------------------------
     @property
     def busy_s(self) -> float:
-        return self.program_s + self.host_s
+        # Overlapped host time is wall the device spent executing under the
+        # sweep (0 in the synchronous loop).
+        return self.program_s + self.host_s + self.overlapped_host_s
 
     @property
     def host_gap_frac(self) -> float:
@@ -213,9 +245,7 @@ class GoodputMeter:
         return self.dispatches / max(1, self.tokens_emitted)
 
     def snapshot(self) -> dict:
-        """``stats()["goodput"]``: the JAX meter's snapshot keys. The
-        overlapped loop's host time belongs to a slice not ported yet (A5)
-        and reads 0."""
+        """``stats()["goodput"]``: the JAX meter's snapshot keys."""
         return {
             "ratio": round(self.ratio, 6),
             "mfu": self.mfu,
@@ -223,7 +253,7 @@ class GoodputMeter:
             "in_program_frac": round(1.0 - self.host_gap_frac, 6),
             "program_s": round(self.program_s, 6),
             "host_s": round(self.host_s, 6),
-            "overlapped_host_s": 0.0,
+            "overlapped_host_s": round(self.overlapped_host_s, 6),
             "dispatches": self.dispatches,
             "dispatches_per_token": round(self.dispatches_per_token, 4),
             "model_flops": self.model_flops,
