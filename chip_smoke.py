@@ -5,7 +5,7 @@ its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
 K-token micro-steps, speculative decoding, drain and resume, blocks
 imported from the fleet KV plane, the HTTP replica, weight rolls, paged
-LoRA adapters, the overlapped loop), and trains the
+LoRA adapters, the overlapped loop, the host KV tier), and trains the
 flagship for a few steps, checkpointing, killing and restoring it.
 
     python3 chip_smoke.py
@@ -173,8 +173,9 @@ start); any failed check raises and the script exits non-zero:
              retired slot's iterations run masked), the combine kernel's
              likewise where the plan splits, 0 through the other kernel
              and the plain version.
-16. serve trace — one more wave at K = 1 and at K = 8 under
-             ``torch.profiler`` (CPU and CUDA): per chunk step and per
+16. serve trace — one more wave at K = 8 under ``torch.profiler``
+             (CPU and CUDA; the K = 1 trace went to make room for phase
+             30): per chunk step and per
              decode or micro-step the mean wall, device-busy ms and idle
              share, the ten device ops with the most time and the ten host
              ops with the most self time; the paged kernels' launches
@@ -359,12 +360,40 @@ start); any failed check raises and the script exits non-zero:
              top-2 gap), and one traced overlapped wave at K 8 (its idle
              share beside phase 16's synchronous one). (c) int8 through
              the pipelined kernel overlapped at K 8, one wave, (b)'s gates.
+30. serve tier — the host KV tier (``ServingConfig(host_offload_blocks=
+             N)``). (a) the tiny preset at fp32 through ``"cuda"``,
+             ``"pipelined"`` and ``"reference"`` at K 1 and 4, synchronous
+             and overlapped: 10 multi-turn sessions (every third keyed
+             sampled) on an 11-block pool, a fifth of their final
+             contexts, under a 64-block tier, from two bases in turn; the
+             overlapped engine's second pass runs every dispatch, demote
+             pass, force and promotion import under the sync debug mode.
+             Gates: streams equal a pressure-free engine's token for
+             token, blocks demoted and promoted, each checked method
+             moving work with a program in flight, launches those of the
+             programs through the route alone. (b) the flagship of phase
+             6 (bf16, the tile kernel, K 1) on 80 sessions of 2 turns
+             (256-token first prompts, 32 new tokens a turn, 16 appended),
+             a pool of 16 x 22 + 1 blocks (46 MB) under a 4096-block tier,
+             overlapped and synchronous, beside a no-tier twin of the same
+             pool and a pressure-free engine (1681 blocks); gates: 32
+             tokens a request, phase 6's launch gates, every block the
+             synchronous run promotes equal to its tier payload byte for
+             byte; reported: streams against the pressure-free engine's
+             (first divergence, top-2 gap), resume time to first token
+             by residency (HBM hit, host promotion, recompute on the
+             twin), tokens/s against the twin, demote and promote MB,
+             device GB/s and host ms, launches per demote pass,
+             ``host_gap_frac``, ``overlapped_host_s`` and the consume
+             edge's wait. (c) int8 through the pipelined kernel,
+             overlapped, one pass, (b)'s gates. Then the bus alone: one
+             64 MiB copy each way between the card and pinned memory.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
-20, 22, 24, 25, 26, 27, 28 and 29 and the scoring step's timing),
+20, 22, 24, 25, 26, 27, 28, 29 and 30 and the scoring step's timing),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1570,9 +1599,10 @@ def serve_micro(device, smi: str, phase: str, ks, seeds,
 def phase_serve_micro(device, smi: str) -> tuple:
     """The micro-step path: the flagship with bf16 pools through the tile
     kernel at K = 1, 4 and 8, three timed waves each. Returns the K lines
-    and the K = 1 and K = 8 engines (for the trace)."""
+    and the K = 8 engine (for the trace; the K = 1 trace, about a minute
+    of post-processing, made room for phase 30)."""
     return serve_micro(device, smi, "serve_micro", MICRO_KS, (0, 1, 2),
-                       keep=(1, MICRO_KS[-1]))
+                       keep=(MICRO_KS[-1],))
 
 
 def phase_serve_micro_quant(device, smi: str) -> dict:
@@ -1675,8 +1705,8 @@ def trace_wave(engine, seed: int, smi: str,
 
 
 def phase_serve_trace(engines: dict, smi: str) -> dict:
-    """One wave at K = 1 and one at K = 8 under the profiler (seed 3, a
-    wave none of the timed ones was)."""
+    """One wave at each kept K (K = 8) under the profiler (seed 3, a wave
+    none of the timed ones was)."""
     return {k: trace_wave(engine, 3, smi) for k, engine in engines.items()}
 
 
@@ -6187,6 +6217,533 @@ def phase_serve_overlap(device, smi: str, sync_trace: dict) -> dict:
     return {"flagship": totals, "parity": parity}
 
 
+# -- the host KV tier (A9) -------------------------------------------------------
+
+#: Phase 30's tiny soak: 10 sessions of 3 turns (16-token first contexts,
+#: 4, 7 or 10 new and 1 appended tokens a turn) on a pool of 11 usable
+#: blocks, a fifth of the sessions' final contexts (53 blocks), under a
+#: 64-block host tier; the pressure-free twin has 160 blocks.
+TIER_TINY = dict(slots=2, max_len=64)
+TIER_TINY_POOL = dict(n_blocks=12, host_offload_blocks=64)
+TIER_TINY_FREE_BLOCKS = 160
+#: Phase 30's flagship traffic: 80 sessions of 2 turns, a 256-token first
+#: prompt, 32 new tokens a turn and 16 appended ones, every fourth request
+#: keyed sampled. The pool is 16 slots x 22 blocks + 1 (a fifth of the
+#: sessions' final 21 blocks each); the pressure-free engine holds them
+#: all.
+TIER_SESSIONS, TIER_PROMPT, TIER_NEW, TIER_APPEND = 80, 256, 32, 16
+TIER_BLOCKS = 16 * 22 + 1
+TIER_FREE_BLOCKS = TIER_SESSIONS * 21 + 1
+TIER_HOST_BLOCKS = 4096
+#: The engine methods of a tier's migration that must not wait for the
+#: device with a program in flight, beside the overlapped dispatch.
+TIER_CHECKED = ("_dispatch_next", "_demote_pass", "_finalize_demotions",
+                "_import_hash_chain")
+
+
+def tier_sessions(engine, base: int, turns: int = 3) -> list:
+    """The tiny soak from context ``base``: each turn resubmits every
+    session's whole context for 4, 7 or 10 new tokens (so slots retire
+    apart, each while the other's program runs; every third session keyed
+    sampled) and drains; returns each turn's streams."""
+    ctxs = [list(range(base + s, base + s + 16)) for s in range(10)]
+    streams = []
+    for t in range(turns):
+        rids = [engine.submit(
+            np.asarray(ctx), 4 + 3 * (s % 3),
+            **({"temperature": 0.8, "top_p": 0.9, "key": [base + s, t]}
+               if s % 3 == 2 else {}))
+            for s, ctx in enumerate(ctxs)]
+        engine.drain(max_steps=5000)
+        outs = [list(engine.request(r).tokens) for r in rids]
+        streams.append(outs)
+        for s, out in enumerate(outs):
+            ctxs[s] += out + [(3 * s + 7 * t) % 200 + 1]
+    return streams
+
+
+def tier_checked(engine) -> dict:
+    """Run the overlapped dispatch, the demote pass, the force and the
+    promotion import of ``engine`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that any wait for the
+    device in them raises. Returns, per method, how many of its calls
+    moved work (a dispatch, staged or demoted blocks, imported blocks)
+    while a program was in flight."""
+    in_flight = [None]
+    dispatch = engine._dispatch_next
+
+    def dispatched(finished):
+        in_flight[0] = dispatch(finished)
+        return in_flight[0]
+
+    engine._dispatch_next = dispatched
+    moved = {name: 0 for name in TIER_CHECKED}
+    for name in TIER_CHECKED:
+        inner = getattr(engine, name)
+
+        def checked(*args, inner=inner, name=name):
+            before = (engine.demoted_blocks, len(engine._pending_demotions))
+            live = (engine._inflight if name in (
+                "_dispatch_next", "_import_hash_chain") else in_flight[0]) \
+                is not None
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if name in ("_dispatch_next", "_import_hash_chain"):
+                did = bool(out)
+            else:
+                did = (engine.demoted_blocks,
+                       len(engine._pending_demotions)) != before
+            moved[name] += int(did and live)
+            return out
+
+        setattr(engine, name, checked)
+    return moved
+
+
+def tier_parity_tiny(device) -> dict:
+    """Leg (a): the tiny preset at fp32 through ``"cuda"``, ``"pipelined"``
+    and the plain version at K 1 and 4, synchronous and overlapped, on the
+    tiny soak from two bases in turn. Gates: every stream equal to the
+    pressure-free engine's, blocks demoted and promoted in both loops,
+    the launches those of the programs through the route alone, and in
+    the overlapped engine's second pass (its first captured the carry
+    graphs) every dispatch, demote pass, force and promotion checked by
+    ``tier_checked``, each of them moving work with a program in flight.
+    Returns the kernels' and combine's launches of the tiered engines."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    base = build_engine("tiny", device=device)
+    totals = {"cuda": 0, "pipelined": 0, "combine": 0}
+    failures = []
+    for impl in ("cuda", "pipelined", "reference"):
+        for k in (1, 4):
+            knobs = dict(SERVING_PRESETS["tiny"], **TIER_TINY,
+                         decode_impl=impl, micro_k=k)
+
+            def make(**over):
+                return ServingEngine(base.params, base.cfg, ServingConfig(
+                    **{**knobs, **over}), device=device)
+
+            free = make(n_blocks=TIER_TINY_FREE_BLOCKS)
+            want = [tier_sessions(free, 1), tier_sessions(free, 40)]
+            del free
+            line = dict(kernel=impl, micro_k=k)
+            for overlap in (False, True):
+                engine = make(**TIER_TINY_POOL, overlap=overlap)
+                pa.reset_launch_counts()
+                got = [tier_sessions(engine, 1)]
+                moved = tier_checked(engine) if overlap else None
+                got.append(tier_sessions(engine, 40))
+                s = engine.stats()
+                calls = (s["chunk_steps"] + s["decode_steps"]
+                         + (k - 1) * s["micro_steps"])
+                launches = dict(s["attention_launches"])
+                expect = {name: 0 for name in launches}
+                expect[impl] = engine.cfg.n_layers * calls
+                combines = (pa.paged_decode_attention.combine_launches
+                            + pa.paged_decode_pipelined_attention
+                            .combine_launches)
+                arm = "overlap" if overlap else "sync"
+                line[arm] = dict(
+                    streams_equal_free=got == want,
+                    demoted=s["tiering"]["demoted_blocks"],
+                    promoted=s["tiering"]["promoted_blocks"],
+                    host_hits=s["tiering"]["host_hits"],
+                    evictions=s["prefix_cache"]["evictions"],
+                    preemptions=s["recompute_preemptions"],
+                    launches_ok=launches == expect,
+                    launches=launches[impl], combines=combines,
+                    checked_moving=moved)
+                if impl != "reference":
+                    totals[impl] += launches[impl]
+                    totals["combine"] += combines
+                ok = (got == want and line[arm]["demoted"] > 0
+                      and line[arm]["promoted"] > 0
+                      and line[arm]["launches_ok"]
+                      and (moved is None or min(moved.values()) > 0))
+                if not ok:
+                    failures.append(f"(a) {impl} K {k} {arm}: {line[arm]}")
+                del engine
+            emit("serve_tier_parity", **line)
+    return totals, failures
+
+
+def tier_traffic(vocab: int, seed: int = 30) -> list:
+    """Phase 30's flagship sessions: (first prompt, appended tokens,
+    sampling kwargs) each."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, size=TIER_PROMPT),
+             rng.integers(0, vocab, size=TIER_APPEND),
+             {"temperature": 0.8, "top_p": 0.9,
+              "key": np.array([3000 + i, i], np.uint32)} if i % 4 == 3
+             else {})
+            for i in range(TIER_SESSIONS)]
+
+
+class TierProbe:
+    """Times an engine's migration: each demote pass's staging (device ms
+    between events around its gathers and copy out, host ms of the
+    enqueue, launches, blocks), each force's host ms, and each promotion
+    upload (device ms around the upload and writes, host ms, blocks).
+    With ``check_bytes`` every block promoted from host RAM is read back
+    right after its write and held to its tier payload byte for byte."""
+
+    def __init__(self, engine, check_bytes: bool = False):
+        from tpu_task_torch.ml.serving import cache
+        from tpu_task_torch.ml.serving import engine as engine_module
+
+        self.engine, self.nbytes = engine, cache.block_payload_nbytes(
+            engine.cfg, engine.scfg)
+        self.stagings, self.forces, self.uploads = [], [], []
+        self.checked_blocks, self.byte_mismatches = 0, 0
+        probe, staging = self, engine_module.BlockStaging
+        write = engine_module.write_block_payloads
+
+        class Timed(staging):
+            def __init__(self, pools, blocks):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                super().__init__(pools, blocks)
+                end.record()
+                probe.stagings.append(dict(
+                    blocks=len(blocks), launches=self.launches,
+                    host_ms=(time.perf_counter() - t0) * 1e3,
+                    events=(start, end)))
+
+        def timed_write(pools, dsts, payloads):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            write(pools, dsts, payloads)
+            end.record()
+            probe.uploads.append(dict(
+                blocks=len(payloads),
+                host_ms=(time.perf_counter() - t0) * 1e3,
+                events=(start, end)))
+
+        force = engine._finalize_demotions
+
+        def timed_force():
+            t0 = time.perf_counter()
+            force()
+            if probe.stagings:
+                probe.forces.append((time.perf_counter() - t0) * 1e3)
+
+        self._restore = (engine_module, staging, write)
+        engine_module.BlockStaging = Timed
+        engine_module.write_block_payloads = timed_write
+        engine._finalize_demotions = timed_force
+        if check_bytes:
+            imports = engine._import_hash_chain
+
+            def checked_import(want):
+                promoted = engine.promoted_blocks
+                got = imports(want)
+                n = engine.promoted_blocks - promoted
+                for h, block in zip(want[:n], got[:n]):
+                    probe.checked_blocks += 1
+                    probe.byte_mismatches += int(
+                        cache.export_block_bytes(engine.pools, block)
+                        != engine._host_tier._entries[h])
+                return got
+
+            engine._import_hash_chain = checked_import
+
+    def close(self) -> dict:
+        """Put the engine module back and summarize (after a synchronize,
+        so every event has completed)."""
+        module, staging, write = self._restore
+        module.BlockStaging, module.write_block_payloads = staging, write
+        torch.cuda.synchronize()
+
+        def device_ms(rows):
+            return sum(r["events"][0].elapsed_time(r["events"][1])
+                       for r in rows)
+
+        demoted = sum(r["blocks"] for r in self.stagings)
+        promoted = sum(r["blocks"] for r in self.uploads)
+        d_ms, p_ms = device_ms(self.stagings), device_ms(self.uploads)
+        return dict(
+            demote_passes=len(self.stagings), staged_blocks=demoted,
+            staged_mb=demoted * self.nbytes / 1e6,
+            launches_per_demote_pass=(
+                sum(r["launches"] for r in self.stagings)
+                / max(1, len(self.stagings))),
+            demote_device_ms=d_ms,
+            demote_gb_per_s=(demoted * self.nbytes / d_ms / 1e6
+                             if d_ms else None),
+            demote_enqueue_host_ms=sum(r["host_ms"] for r in self.stagings),
+            force_host_ms=sum(self.forces), forces=len(self.forces),
+            promote_uploads=len(self.uploads), uploaded_blocks=promoted,
+            uploaded_mb=promoted * self.nbytes / 1e6,
+            promote_device_ms=p_ms,
+            promote_gb_per_s=(promoted * self.nbytes / p_ms / 1e6
+                              if p_ms else None),
+            promote_host_ms=sum(r["host_ms"] for r in self.uploads),
+            checked_promoted_blocks=self.checked_blocks,
+            promoted_byte_mismatches=self.byte_mismatches)
+
+
+def tier_turns(engine, traffic: list, probe=None) -> dict:
+    """The flagship sessions' two turns through ``engine``, each a
+    ``_timed_drain`` (launch gates) under ``consume_waits``. Returns the
+    turns' runs, each session's streams, and the migration summary."""
+    runs, streams = [], [[] for _ in traffic]
+    ctxs = [prompt for prompt, _, _ in traffic]
+    for turn in range(2):
+        def load(turn=turn):
+            rids = [engine.submit(ctx, TIER_NEW, **kw)
+                    for ctx, (_, _, kw) in zip(ctxs, traffic)]
+            return rids, sum(len(ctx) for ctx in ctxs)
+
+        with consume_waits() as waits:
+            run = _timed_drain(engine, 0, TIER_NEW, load=load)
+        run["consume_wait_s"], run["consume_waits"] = waits
+        run["overlapped_host_s"] = \
+            engine.stats()["goodput"]["overlapped_host_s"]
+        runs.append(run)
+        for s, rid in enumerate(run["rids"]):
+            streams[s].append(list(engine.request(rid).tokens))
+        ctxs = [np.concatenate([ctx, np.asarray(out[-1], np.int64),
+                                traffic[s][1]])
+                for s, (ctx, out) in enumerate(zip(ctxs, streams))]
+    return dict(runs=runs, streams=streams, ctxs=ctxs,
+                migration=probe.close() if probe is not None else None)
+
+
+def resume_ttft(engines: dict, ctxs: dict, per_class: int = 5) -> dict:
+    """Resume time to first token by residency, as JAX's tiering bench
+    defines it: one session resumed at a time on an idle engine, its
+    next-turn context submitted and stepped until its first token. A
+    session whose chain the tiered engine still holds in its pool is an
+    HBM hit, one it holds only in host RAM a host promotion; on the no-tier
+    twin a session whose chain was evicted recomputes. Each resume is
+    classed again by what it did (blocks promoted, prefix blocks hit).
+    Returns per class the p50 ms, the resumes and their ms."""
+    from tpu_task_torch.ml.serving.cache import chain_block_hashes
+
+    out = {"hbm_hit": [], "host_promote": [], "recompute": []}
+    for name, want in (("tier", ("hbm_hit", "host_promote")),
+                       ("twin", ("recompute",))):
+        engine = engines[name]
+        bs = engine.scfg.block_size
+        for s, ctx in enumerate(ctxs[name]):
+            chain = chain_block_hashes(ctx, bs)[:20]
+            if engine._pcache.has(chain[-1]) and \
+                    engine._pcache.has(chain[0]):
+                where = "hbm_hit"
+            elif engine._host_tier is not None and \
+                    engine._host_tier.chain_depth(chain) == len(chain) \
+                    and not engine._pcache.has(chain[0]):
+                where = "host_promote"
+            elif engine._host_tier is None and \
+                    not engine._pcache.has(chain[0]):
+                where = "recompute"
+            else:
+                continue
+            if where not in want or len(out[where]) >= per_class:
+                continue
+            promoted, hits = engine.promoted_blocks, engine.prefix_hit_blocks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rid = engine.submit(ctx, 1)
+            while not engine.request(rid).tokens:
+                engine.step()
+            ms = (time.perf_counter() - t0) * 1e3
+            engine.drain()
+            did = ("host_promote" if engine.promoted_blocks > promoted
+                   else "hbm_hit" if engine.prefix_hit_blocks > hits
+                   else "recompute")
+            out[did].append(ms)
+    return {where: dict(resumes=len(ms), p50_ms=(float(np.median(ms))
+                                                 if ms else None),
+                        ms=ms)
+            for where, ms in out.items()}
+
+
+def free_streams(engine, res: dict, free: dict) -> dict:
+    """Streams of ``res`` (``tier_turns`` through ``engine``) against the
+    pressure-free engine's: equal sessions per turn (turn 2 only where
+    turn 1 agreed, else its context differs) and the first few
+    divergences with ``engine``'s top-2 logit gap there."""
+    equal, parts = [0, 0], []
+    for s, (mine, ref) in enumerate(zip(res["streams"], free["streams"])):
+        for turn in range(2):
+            if turn and mine[0] != ref[0]:
+                break
+            if mine[turn] == ref[turn]:
+                equal[turn] += 1
+            elif len(parts) < 4:
+                part = first_divergence(
+                    engine, res["runs"][turn]["rids"][s], ref[turn])
+                parts.append(dict(part, session=s, turn=turn + 1))
+    return dict(streams_equal_free=equal, first_divergences=parts)
+
+
+def tier_flagship(device, smi: str) -> tuple:
+    """Legs (b) and (c): the flagship with bf16 pools through the tile
+    kernel, tiered, overlapped and synchronous, beside a no-tier twin of
+    the same pool and a pressure-free engine, all overlapped but the
+    synchronous tiered one; then int8 pools through the pipelined kernel,
+    tiered and overlapped. Gates: every wave complete at 32 tokens a
+    request with phase 6's launch gates, and every block promoted in the
+    synchronous and int8 runs equal to its tier payload byte for byte.
+    Returns the lines, the kernels' and combine's launches of the tiered
+    runs, and the failures."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    cfg, params = flagship_model(device)
+    traffic = tier_traffic(cfg.vocab_size)
+    totals = {"cuda": 0, "pipelined": 0, "cuda_combine": 0,
+              "pipelined_combine": 0}
+    failures, out, engines, ctxs = [], {}, {}, {}
+    arms = (("free", dict(n_blocks=TIER_FREE_BLOCKS, overlap=True)),
+            ("tier", dict(host_offload_blocks=TIER_HOST_BLOCKS,
+                          overlap=True)),
+            ("twin", dict(overlap=True)),
+            ("tier_sync", dict(host_offload_blocks=TIER_HOST_BLOCKS)))
+    results = {}
+    for arm, knobs in arms:
+        engine = ServingEngine(params, cfg, ServingConfig(**{
+            **SERVE_KNOBS, "n_blocks": TIER_BLOCKS, **knobs}),
+            device=device)
+        warm_up(engine)
+        probe = (TierProbe(engine, check_bytes=arm == "tier_sync")
+                 if arm.startswith("tier") else None)
+        res = results[arm] = tier_turns(engine, traffic, probe)
+        for turn, run in enumerate(res["runs"]):
+            if not wave_ok(run):
+                failures.append(f"(b) {arm} turn {turn + 1}: " + str({
+                    key: run[key] for key in (
+                        "all_finished", "kernel_launches",
+                        "expected_launches", "combine_launches",
+                        "expected_combine_launches", "plain_launches",
+                        "other_kernel_launches")}))
+            if arm.startswith("tier"):
+                totals["cuda"] += run["kernel_launches"]
+                totals["cuda_combine"] += run["combine_launches"]
+        if arm in ("tier", "twin"):
+            engines[arm], ctxs[arm] = engine, res["ctxs"]
+        tiering = engine.stats()["tiering"]
+        runs = res["runs"]
+        wall = sum(r["wall_s"] for r in runs)
+        line = dict(
+            arm=arm, overlap=engine.scfg.overlap,
+            n_blocks=engine.scfg.n_blocks,
+            pool_mb=engine.stats()["kv_pool_bytes"] / 1e6,
+            tokens_per_s=sum(r["generated_tokens"] for r in runs) / wall,
+            turn_tokens_per_s=[r["tokens_per_s"] for r in runs],
+            turn_wall_s=[r["wall_s"] for r in runs],
+            chunk_steps=[r["chunk_steps"] for r in runs],
+            decode_steps=[r["decode_steps"] for r in runs],
+            mean_chunk_step_ms=[r["mean_chunk_step_ms"] for r in runs],
+            preemptions=[r["preemptions"] for r in runs],
+            host_gap_frac=[r["host_gap_frac"] for r in runs],
+            overlapped_host_s=[r["overlapped_host_s"] for r in runs],
+            consume_wait_s=[r["consume_wait_s"] for r in runs],
+            prefix_hit_blocks=engine.prefix_hit_blocks,
+            evictions=engine.stats()["prefix_cache"]["evictions"],
+            tiering=tiering, migration=res["migration"],
+            kernel_launches=sum(r["kernel_launches"] for r in runs),
+            combine_launches=sum(r["combine_launches"] for r in runs),
+            waves_ok=all(wave_ok(r) for r in runs), gpu=smi)
+        out[arm] = line
+        if arm.startswith("tier") and not (
+                tiering["demoted_blocks"] > 0
+                and tiering["promoted_blocks"] > 0):
+            failures.append(f"(b) {arm}: nothing migrated: {tiering}")
+        if arm == "tier_sync" and (
+                res["migration"]["promoted_byte_mismatches"]
+                or not res["migration"]["checked_promoted_blocks"]):
+            failures.append(f"(b) promoted bytes: {res['migration']}")
+        if arm != "free":
+            line.update(free_streams(engine, res, results["free"]))
+        if arm not in engines:
+            del engine
+    out["ttft_by_residency"] = resume_ttft(engines, ctxs)
+    out["tier_over_twin_tokens_per_s"] = (out["tier"]["tokens_per_s"]
+                                          / out["twin"]["tokens_per_s"])
+    del engines
+    for arm in ("tier", "twin", "free", "tier_sync"):
+        emit("serve_tier_wave", **out[arm])
+    emit("serve_tier_resume", ttft=out["ttft_by_residency"], gpu=smi)
+    # (c) int8 pools through the pipelined kernel, one pass.
+    engine = ServingEngine(params, cfg, ServingConfig(
+        **{**SERVE_KNOBS, "n_blocks": TIER_BLOCKS}, kv_dtype="int8",
+        decode_impl="pipelined", host_offload_blocks=TIER_HOST_BLOCKS,
+        overlap=True), device=device)
+    warm_up(engine)
+    res = tier_turns(engine, traffic, TierProbe(engine, check_bytes=True))
+    runs = res["runs"]
+    quant = dict(
+        arm="tier_int8", kernel=engine.decode_impl,
+        tokens_per_s=(sum(r["generated_tokens"] for r in runs)
+                      / sum(r["wall_s"] for r in runs)),
+        tiering=engine.stats()["tiering"], migration=res["migration"],
+        kernel_launches=sum(r["kernel_launches"] for r in runs),
+        combine_launches=sum(r["combine_launches"] for r in runs),
+        waves_ok=all(wave_ok(r) for r in runs), gpu=smi)
+    emit("serve_tier_wave", **quant)
+    totals["pipelined"] += quant["kernel_launches"]
+    totals["pipelined_combine"] += quant["combine_launches"]
+    if not (quant["waves_ok"] and quant["tiering"]["promoted_blocks"] > 0
+            and quant["migration"]["checked_promoted_blocks"] > 0
+            and not quant["migration"]["promoted_byte_mismatches"]):
+        failures.append(f"(c) int8: {quant}")
+    out["int8"] = quant
+    return out, totals, failures
+
+
+def pinned_copy_rates(device, mib: int = 64, reps: int = 5) -> dict:
+    """The bus the tier crosses, alone: GB/s of one ``mib`` MiB copy
+    between the card and fresh pinned host memory each way (median of
+    ``reps``, CUDA events around each non-blocking copy)."""
+    dev = torch.empty((mib << 20,), dtype=torch.uint8, device=device)
+    host = torch.empty(dev.shape, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        ms = []
+        for _ in range(reps + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        out[f"{name}_gb_per_s"] = dev.numel() / float(np.median(ms[1:])) / 1e6
+    return out
+
+
+def phase_serve_tier(device, smi: str) -> dict:
+    """Phase 30: the host KV tier, legs (a)-(c). Returns the launches of
+    the tiny legs (``parity``) and of the flagship's tiered runs
+    (``flagship``)."""
+    t0 = time.perf_counter()
+    parity, failures = tier_parity_tiny(device)
+    flagship, totals, more = tier_flagship(device, smi)
+    failures += more
+    emit("serve_tier", launches=totals, parity_launches=parity,
+         pinned_copy=pinned_copy_rates(device),
+         tier_over_twin_tokens_per_s=flagship["tier_over_twin_tokens_per_s"],
+         ttft_by_residency={k: v["p50_ms"] for k, v in
+                            flagship["ttft_by_residency"].items()},
+         seconds=time.perf_counter() - t0, failures=failures, gpu=smi)
+    if failures:
+        raise AssertionError(f"serve_tier: {failures}")
+    return {"flagship": totals, "parity": parity}
+
+
 def main() -> int:
     import shutil
 
@@ -6250,6 +6807,7 @@ def run_phases(bucket: str) -> int:
     lora = phase_serve_lora(device, smi, serve_streams, serve_seed2,
                             serve_median)
     overlap = phase_serve_overlap(device, smi, trace_lines[MICRO_KS[-1]])
+    tier = phase_serve_tier(device, smi)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -6295,6 +6853,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_lora": lora["parity"]["cuda"][0],
         "launches_serve_overlap": overlap["flagship"]["cuda"],
         "launches_parity_overlap": overlap["parity"]["cuda"],
+        "launches_serve_tier": tier["flagship"]["cuda"],
+        "launches_parity_tier": tier["parity"]["cuda"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -6343,6 +6903,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_lora": lora["parity"]["pipelined"][0],
         "launches_serve_overlap_quant": overlap["flagship"]["pipelined"],
         "launches_parity_overlap": overlap["parity"]["pipelined"],
+        "launches_serve_tier_quant": tier["flagship"]["pipelined"],
+        "launches_parity_tier": tier["parity"]["pipelined"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -6377,6 +6939,9 @@ def run_phases(bucket: str) -> int:
         "launches_serve_overlap_quant":
             overlap["flagship"]["pipelined_combine"],
         "launches_parity_overlap": overlap["parity"]["combine"],
+        "launches_serve_tier": tier["flagship"]["cuda_combine"],
+        "launches_serve_tier_quant": tier["flagship"]["pipelined_combine"],
+        "launches_parity_tier": tier["parity"]["combine"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

@@ -9,7 +9,8 @@ weight roll at micro_k 4, each generation with its own graphs; paged
 LoRA adapters evicted and reloaded from a bucket under those graphs; and
 a replica's graphs replayed from the thread a profiler capture hands its
 step loop to; an overlapped drain through each kernel that waits for the
-device only at its consume edge. Then
+device only at its consume edge, and the host tier's demotion and
+promotion with a program in flight, waiting for nothing. Then
 the train path's card work beside the kernels: ``AsyncCheckpointer``'s
 device snapshot and ``prefetch_to_device``'s pinned side-stream copies.
 
@@ -396,6 +397,79 @@ def test_overlapped_drain_equals_sync_and_waits_only_at_consume(
     stats = engine.stats()
     assert stats["overlap"] and stats["goodput"]["overlapped_host_s"] > 0
     assert stats["step_graph"]["replays"] > 0
+
+
+def _tier_sessions(engine, base: int, n_sessions: int = 8, turns: int = 3):
+    """Multi-turn sessions (``tests/test_kv_tiering.py``'s shape on the
+    tiny preset): each turn resubmits every session's whole context for
+    4, 7 or 10 new tokens, so slots retire apart."""
+    ctxs = [list(range(base + s, base + s + 16)) for s in range(n_sessions)]
+    streams = []
+    for t in range(turns):
+        rids = [engine.submit(np.asarray(c), 4 + 3 * (s % 3))
+                for s, c in enumerate(ctxs)]
+        out = engine.drain()
+        streams.append([out[r] for r in rids])
+        for s, r in enumerate(rids):
+            ctxs[s] += out[r] + [(3 * s + 7 * t) % 200 + 1]
+    return streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro_k", [1, 4])
+def test_tier_migration_waits_for_nothing_with_a_program_in_flight(
+        cuda_device, micro_k):
+    """The tiny preset at fp32 through the tile kernel, overlapped, on a
+    12-block pool with a 64-block host tier. After a first pass captures
+    the carry graphs, a second pass runs every dispatch, demote pass,
+    force and promotion import under ``set_sync_debug_mode("error")``:
+    none raises, each moved blocks while a program was in flight, and the
+    streams equal a pressure-free engine's."""
+    knobs = {"decode_impl": "cuda", "micro_k": micro_k, "slots": 2,
+             "max_len": 64}
+    engine = build_engine("tiny", device=cuda_device, serving=dict(
+        knobs, n_blocks=12, host_offload_blocks=64, overlap=True))
+    free = build_engine("tiny", device=cuda_device, serving=knobs)
+    _tier_sessions(engine, 1)
+    _tier_sessions(free, 1)
+    in_flight = [None]
+    dispatch = engine._dispatch_next
+
+    def dispatched(finished):
+        in_flight[0] = dispatch(finished)
+        return in_flight[0]
+
+    engine._dispatch_next = dispatched
+    moved = {}
+    for name in ("_dispatch_next", "_demote_pass", "_finalize_demotions",
+                 "_import_hash_chain"):
+        inner = getattr(engine, name)
+        moved[name] = 0
+
+        def checked(*args, inner=inner, name=name):
+            before = (engine.demoted_blocks, len(engine._pending_demotions))
+            live = (engine._inflight if name in (
+                "_dispatch_next", "_import_hash_chain") else in_flight[0]) \
+                is not None
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            did = (bool(out) if name == "_import_hash_chain" else
+                   name == "_dispatch_next" and out is not None or
+                   (engine.demoted_blocks,
+                    len(engine._pending_demotions)) != before)
+            moved[name] += int(did and live)
+            return out
+
+        setattr(engine, name, checked)
+    got = _tier_sessions(engine, 40)
+    assert got == _tier_sessions(free, 40)
+    assert all(count > 0 for count in moved.values()), moved
+    tiering = engine.stats()["tiering"]
+    assert tiering["demoted_blocks"] > 0 and tiering["promoted_blocks"] > 0
+    assert engine.stats()["attention_launches"]["reference"] == 0
 
 
 @pytest.mark.cuda

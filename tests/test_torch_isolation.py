@@ -51,7 +51,7 @@ def test_scan_covers_the_package_and_chip_smoke():
                    "obs/export.py", "ml/profiling.py", "ml/checkpoint.py",
                    "ml/data.py", "ml/models/mnist.py", "ml/tree.py",
                    "ml/__init__.py", "ml/serving/step_graph.py",
-                   "ml/serving/lora.py"):
+                   "ml/serving/lora.py", "ml/serving/offload.py"):
         assert f"tpu_task_torch/{module}" in names
     assert all((ROOT / n).exists() for n in names)
 

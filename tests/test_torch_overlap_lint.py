@@ -1,10 +1,15 @@
-"""The port's overlap dispatch region waits for nothing on the device.
+"""The port's overlap dispatch region and the host tier's demote staging
+wait for nothing on the device.
 
 ``tpu_task_torch/ml/serving/engine.py`` marks the code that runs while the
 previous program executes (planning, block reservation and the dispatch of
-the next program) between two comments. One wait there serializes the
-overlapped loop without any error, so this walks the region's syntax tree
-and fails on what would wait: a readback (``.cpu()``, ``.item()``,
+the next program) between two comments, and the host tier's demote pass
+(``_demote_pass``, which stages blocks behind the program just
+dispatched) between two more; ``cache.py``'s ``BlockStaging`` constructor
+and ``write_block_payloads`` (a promotion's upload, run at admission with
+a program in flight) are held to the same rules. One wait there
+serializes the overlapped loop without any error, so this walks their
+syntax trees and fails on what would wait: a readback (``.cpu()``, ``.item()``,
 ``.numpy()``, ``.tolist()``), any ``.synchronize()`` (a stream, an event,
 ``torch.cuda.synchronize``), ``torch.tensor`` on a device,
 ``torch.as_tensor`` or ``.to`` aimed at a device without
@@ -20,24 +25,27 @@ import textwrap
 
 import pytest
 
-ENGINE = (pathlib.Path(__file__).resolve().parents[1]
-          / "tpu_task_torch/ml/serving/engine.py")
+SERVING = pathlib.Path(__file__).resolve().parents[1] / \
+    "tpu_task_torch/ml/serving"
+ENGINE = SERVING / "engine.py"
 BEGIN = "# overlap: begin-dispatch-region"
 END = "# overlap: end-dispatch-region"
+TIER_BEGIN = "# tier: begin-migrate"
+TIER_END = "# tier: end-migrate"
 
 READBACKS = {"cpu", "item", "numpy", "tolist", "synchronize"}
 #: Calls in the region that return device values: ``torch.*`` and these.
-DEVICE_CALLS = {"upload", "chunk_carry_greedy", "chunk_carry_sample",
-                "dispatch", "_model_params"}
+DEVICE_CALLS = {"upload", "_upload", "chunk_carry_greedy",
+                "chunk_carry_sample", "dispatch", "_model_params"}
 DTYPES = {"bool", "uint8", "int8", "int16", "int32", "int64", "float16",
           "bfloat16", "float32", "float64", "long", "int", "float"}
 
 
-def _region(source: str) -> str:
+def _region(source: str, begin: str = BEGIN, end: str = END) -> str:
     lines = source.splitlines()
-    starts = [i for i, line in enumerate(lines) if line.strip() == BEGIN]
-    ends = [i for i, line in enumerate(lines) if line.strip() == END]
-    assert len(starts) == len(ends) == 1, "one marked dispatch region"
+    starts = [i for i, line in enumerate(lines) if line.strip() == begin]
+    ends = [i for i, line in enumerate(lines) if line.strip() == end]
+    assert len(starts) == len(ends) == 1, f"one region marked {begin!r}"
     return textwrap.dedent("\n".join(lines[starts[0] + 1:ends[0]]))
 
 
@@ -135,6 +143,39 @@ def test_engine_dispatch_region_waits_for_nothing():
     assert {"_plan_step", "_reserve_planned", "_dispatch_next",
             "_dispatch_micro", "_dispatch_chunk"} <= defined
     assert violations(region) == []
+
+
+def test_engine_tier_migrate_region_waits_for_nothing():
+    region = _region(ENGINE.read_text(), TIER_BEGIN, TIER_END)
+    tree = ast.parse(region)
+    defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert defined == {"_demote_pass"}
+    assert violations(region) == []
+
+
+def test_tier_staging_and_promotion_upload_wait_for_nothing():
+    """The device half of a demote pass (``BlockStaging.__init__``) and of
+    a promotion (``write_block_payloads``), walked by the same rules; the
+    force (``BlockStaging.payload``) is where the wait belongs."""
+    source = (SERVING / "cache.py").read_text()
+    tree = ast.parse(source)
+    found = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef) and node.name == "BlockStaging":
+            for fn in node.body:
+                if isinstance(fn, ast.FunctionDef):
+                    found[f"BlockStaging.{fn.name}"] = fn
+        elif isinstance(node, ast.FunctionDef) \
+                and node.name == "write_block_payloads":
+            found[node.name] = node
+    assert {"BlockStaging.__init__", "BlockStaging.payload",
+            "write_block_payloads"} <= set(found)
+    for name in ("BlockStaging.__init__", "write_block_payloads"):
+        fn = found[name]
+        assert violations(ast.get_source_segment(source, fn)) == [], name
+    waits = violations(ast.get_source_segment(
+        source, found["BlockStaging.payload"]))
+    assert {what for _, what in waits} == {".synchronize()", ".numpy()"}
 
 
 BAD = '''

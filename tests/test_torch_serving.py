@@ -165,11 +165,32 @@ def _leaves(params):
         yield from layer.values()
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("prefill", "bucketed"), ("host_offload_blocks", 8)])
+@pytest.mark.parametrize("knob,value", [("prefill", "bucketed")])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(**{knob: value})
+
+
+@pytest.mark.parametrize("knobs,error", [
+    (dict(host_offload_blocks=-1), "host_offload_blocks must be >= 0"),
+    (dict(host_offload_blocks=8, prefix_cache=False), "needs prefix_cache"),
+    (dict(host_offload_blocks=8), None)],
+    ids=["negative", "no-prefix-cache", "accepted"])
+def test_host_offload_knob_validates_as_jax(knobs, error):
+    """The host tier (ROADMAP A9) is ported: its knob raises JAX's
+    ValueError word for word, and is accepted with a prefix cache."""
+    from tpu_task.ml.serving import ServingConfig as JaxServingConfig
+
+    if error is None:
+        for config in (ServingConfig, JaxServingConfig):
+            assert config(**knobs).host_offload_blocks == 8
+        return
+    messages = []
+    for config in (ServingConfig, JaxServingConfig):
+        with pytest.raises(ValueError, match=error) as info:
+            config(**knobs)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
 
 
 @pytest.mark.parametrize("knobs", [

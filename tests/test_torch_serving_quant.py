@@ -183,8 +183,8 @@ def test_debug_mode_tracks_the_write_error(monkeypatch):
 
 def test_refusals():
     """The pipelined kernel needs the card like the tile kernel does; a
-    quantized pool with an unported knob raises like any other; a step on
-    quantized pools without its write layout raises."""
+    quantized pool's host tier validates as JAX's; a step on quantized
+    pools without its write layout raises."""
     engine = build_engine("micro", serving={"kv_dtype": "int8"},
                           device="cpu")
     for impl in ("cuda", "pipelined"):
@@ -192,8 +192,17 @@ def test_refusals():
             ServingEngine(engine.params, engine.cfg,
                           ServingConfig(decode_impl=impl, kv_dtype="int8"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingConfig(kv_dtype="int4", host_offload_blocks=4)
+    # The host tier is ported: over a quantized pool its knob validates as
+    # the JAX config's does.
+    assert ServingConfig(kv_dtype="int4",
+                         host_offload_blocks=4).host_offload_blocks == 4
+    messages = []
+    for config in (ServingConfig, JaxServingConfig):
+        with pytest.raises(ValueError, match="needs prefix_cache") as info:
+            config(kv_dtype="int4", host_offload_blocks=4,
+                   prefix_cache=False)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
     # The overlapped loop is ported: over quantized pools it refuses what
     # the JAX config refuses, and nothing else.
     with pytest.raises(ValueError, match="overlap=True needs"):

@@ -23,12 +23,17 @@ only the bytes it writes.
 The host-side :class:`BlockAllocator`, :func:`chain_block_hashes` and
 :class:`PrefixCache` are this package's own copies of the JAX package's
 (which the port does not import), fleet-KV adoption and the host-tier
-demotion marks included (nothing demotes until the host tier is ported).
+demotion marks included.
 
 Fleet block shipping (:func:`kv_fingerprint` … :func:`write_blocks`) is
 byte-compatible with the JAX package's: for the same config and the same
 pool contents, the same fingerprint, payload length and payload bytes, so
-blocks published by an engine of either package import into the other."""
+blocks published by an engine of either package import into the other.
+The host tier (:mod:`~tpu_task_torch.ml.serving.offload`) keeps the same
+payloads: :class:`BlockStaging` reads a demote pass's blocks back through
+one pinned buffer and an event, and :func:`write_block_payloads` uploads
+a promotion through one pinned buffer, so neither waits for the programs
+already on the stream."""
 
 from __future__ import annotations
 
@@ -120,11 +125,13 @@ class ServingConfig:
     one adapter (see :mod:`~tpu_task_torch.ml.serving.lora`); ``overlap``:
     the asynchronous loop, which dispatches the next program before it
     sweeps the previous one (chunked prefill only, no speculative
-    decoding).
+    decoding); ``host_offload_blocks``: the host-RAM tier's budget in
+    blocks (0 is off; it needs the prefix cache, whose chained hashes
+    address it).
 
-    Knobs of later slices (bucketed prefill, the host tier) keep their
-    fields so configs carry over, and raise NotImplementedError naming
-    their ROADMAP item when set."""
+    Bucketed prefill, a knob of a later slice, keeps its field so configs
+    carry over, and raises NotImplementedError naming its ROADMAP item
+    when set."""
 
     slots: int = 8
     block_size: int = 16
@@ -201,6 +208,11 @@ class ServingConfig:
             raise ValueError(
                 f"host_offload_blocks must be >= 0, got "
                 f"{self.host_offload_blocks}")
+        if self.host_offload_blocks and not self.prefix_cache:
+            raise ValueError(
+                "host_offload_blocks needs prefix_cache=True: the host "
+                "tier is content-addressed by the cache's chained block "
+                "hashes")
         if self.lora_rank < 0:
             raise ValueError(f"lora_rank must be >= 0, got {self.lora_rank}")
         if self.n_adapter_blocks < 0:
@@ -213,8 +225,6 @@ class ServingConfig:
                 f"the zero scratch block), got {self.n_adapter_blocks}")
         if self.prefill == "bucketed":
             raise _not_ported("prefill='bucketed'", "A2 (paged_prefill)")
-        if self.host_offload_blocks:
-            raise _not_ported("host_offload_blocks", "A9 (the host tier)")
 
     @property
     def max_blocks_per_slot(self) -> int:
@@ -499,6 +509,88 @@ def export_block_bytes(pools: List[Dict[str, torch.Tensor]],
     return staged_block_to_bytes(stage_block_arrays(pools, block))
 
 
+def _upload(arrays, device):
+    """``step_graph.upload``, imported at the call: ``step_graph`` imports
+    ``model``, which imports this module."""
+    from tpu_task_torch.ml.serving.step_graph import upload
+
+    return upload(arrays, device)
+
+
+def _leaf_rows(leaf: torch.Tensor) -> torch.Tensor:
+    """A pool leaf as (n_blocks, bytes a block) raw bytes, a view of the
+    same storage."""
+    return leaf.view(torch.uint8).view(leaf.shape[0], -1)
+
+
+class BlockStaging:
+    """Several physical blocks on their way to the host as payloads: the
+    demote pass's batched, non-blocking counterpart of
+    :func:`export_block_bytes`.
+
+    The constructor uploads the block ids (:func:`step_graph.upload`),
+    gathers each pool leaf's rows of those blocks with ONE
+    ``index_select`` into a device buffer laid out leaf by leaf, in
+    (layer, sorted leaf name) order, and, on a CUDA device, copies that
+    buffer into a fresh pinned host buffer without blocking and records an
+    event behind the copy. Everything is enqueued on the current stream,
+    behind the programs already there, so the bytes are the pools' state
+    once those have run; a later in-place write to the pools cannot change
+    them. :meth:`payload` waits on that event alone, never on work
+    enqueued after it, and cuts each block's payload out of the leaf
+    columns in JAX's byte order. On the CPU the same gathers run without
+    pinning or event. ``launches`` counts the device operations one
+    staging enqueues: the id upload, a gather a leaf and the copy out."""
+
+    def __init__(self, pools: List[Dict[str, torch.Tensor]],
+                 blocks: Sequence[int]):
+        device = pools[0]["k"].device
+        self.n = n = len(blocks)
+        leaves = [_leaf_rows(layer[name])
+                  for layer in pools for name in sorted(layer)]
+        self._widths = [rows.shape[1] for rows in leaves]
+        idx = _upload({"blocks": (np.asarray(blocks, np.int64),
+                                  torch.int64)}, device)["blocks"]
+        gathered = torch.empty((n * sum(self._widths),), dtype=torch.uint8,
+                               device=device)
+        offset = 0
+        for rows, width in zip(leaves, self._widths):
+            torch.index_select(rows, 0, idx, out=gathered[
+                offset:offset + n * width].view(n, width))
+            offset += n * width
+        self.launches = 1 + len(leaves)
+        self.event = None
+        if device.type == "cuda":
+            host = torch.empty(gathered.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(gathered, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            gathered = host
+            self.launches += 1
+        self._host = gathered
+        self._payloads: Optional[List[bytes]] = None
+
+    def payload(self, i: int) -> bytes:
+        """Block ``i``'s payload (the ``i``-th of ``blocks``), byte-identical
+        to :func:`export_block_bytes` of the pools as the staging read
+        them. The first call waits on the staging's event and cuts every
+        block's payload."""
+        if self._payloads is None:
+            if self.event is not None:
+                self.event.synchronize()
+            raw = self._host.numpy()
+            columns, offset = [], 0
+            for width in self._widths:
+                columns.append(raw[offset:offset + self.n * width].reshape(
+                    self.n, width))
+                offset += self.n * width
+            rows = np.concatenate(columns, axis=1)
+            self._payloads = [row.tobytes() for row in rows]
+            self._host = None
+        return self._payloads[i]
+
+
 def _payload_leaves(cfg: TransformerConfig, scfg: ServingConfig):
     """(name, dtype, shape) of each leaf of one layer's payload, in order."""
     d_store = cfg.d_head // 2 if scfg.kv_dtype == "int4" else cfg.d_head
@@ -556,22 +648,25 @@ def write_blocks(pools: List[Dict[str, torch.Tensor]], dsts,
 def write_block_payloads(pools: List[Dict[str, torch.Tensor]], dsts,
                          payloads: List[bytes]) -> None:
     """:func:`write_blocks` straight from payload bytes, each of
-    :func:`block_payload_nbytes` (the caller checks): the N payloads go to
-    the device in ONE copy, and each leaf's rows are then written from
-    their byte columns, in the payload's (layer, sorted leaf name) order.
-    The same bytes land where :func:`split_block_bytes` and
-    :func:`write_blocks` would put them, without a host copy a leaf."""
-    device = pools[0]["k"].device
-    raw = torch.from_numpy(
-        np.frombuffer(b"".join(payloads), np.uint8).reshape(
-            len(payloads), -1).copy()).to(device)
-    idx = torch.as_tensor(dsts, dtype=torch.int64, device=device)
+    :func:`block_payload_nbytes` (the caller checks): the N payloads and
+    the destination ids go to the device through one fresh pinned buffer
+    in ONE non-blocking copy (:func:`step_graph.upload`), so an import
+    adds no wait for the programs already on the stream, and each leaf's
+    rows are then written from their byte columns (one ``index_copy_`` a
+    leaf), in the payload's (layer, sorted leaf name) order. The same
+    bytes land where :func:`split_block_bytes` and :func:`write_blocks`
+    would put them."""
+    host = np.frombuffer(b"".join(payloads), np.uint8).reshape(
+        len(payloads), -1)
+    t = _upload({"raw": (host, torch.uint8),
+                 "dsts": (np.asarray(dsts, np.int64), torch.int64)},
+                pools[0]["k"].device)
     offset = 0
     for pool in pools:
         for name in sorted(pool):
-            rows = pool[name].view(torch.uint8).view(pool[name].shape[0], -1)
+            rows = _leaf_rows(pool[name])
             n = rows.shape[1]
-            rows[idx] = raw[:, offset:offset + n]
+            rows.index_copy_(0, t["dsts"], t["raw"][:, offset:offset + n])
             offset += n
 
 
@@ -590,8 +685,8 @@ class BlockAllocator:
     to the free list unless the prefix cache ``retain``-ed it. Tracks the
     high-water mark of referenced blocks. A retained refcount-0 block may
     also carry a ``demoted`` mark (its bytes have a host-tier copy, which
-    makes it eviction's first victim); ``incref`` cancels the mark.
-    Nothing marks a block until the host tier is ported (ROADMAP A9)."""
+    makes it eviction's first victim); ``incref`` cancels the mark. The
+    engine's demotion marks a block once its bytes are on the host tier."""
 
     def __init__(self, n_blocks: int):
         if n_blocks < 2:

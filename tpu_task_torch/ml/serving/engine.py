@@ -105,6 +105,20 @@ for), the plain version on the CPU.
   bucket by content hash. Adapter-bearing requests neither read nor seed
   the prefix cache: their KV depends on the adapter.
 
+- **The host KV tier** (``host_offload_blocks`` > 0,
+  :class:`~tpu_task_torch.ml.serving.offload.HostKvTier`): the middle
+  rung of device pool → host RAM → fleet bucket. After each step (the
+  synchronous loop) or at each consume edge (the overlapped one) a demote
+  pass copies up to 8 of the prefix cache's coldest refcount-0 blocks
+  toward host RAM (:class:`~tpu_task_torch.ml.serving.cache.BlockStaging`:
+  one gather a pool leaf into a pinned buffer, behind the program just
+  dispatched), and the next pass forces the bytes into the tier and marks
+  the blocks demoted, eviction's first victims. Admission and
+  :meth:`ServingEngine.prefetch_chain` import a missed chain from host RAM
+  first, then from the fleet bucket; the tier's LRU tail spills into the
+  bucket through the fleet client's ``ship_bytes``. Streams are those of
+  an engine with no tier.
+
 - **The overlapped loop** (``overlap=True``): each :meth:`ServingEngine.
   step` admits, dispatches program N+1 from program N's device carry
   (:func:`~tpu_task_torch.ml.serving.model.micro_carry_greedy` and the
@@ -119,7 +133,7 @@ for), the plain version on the CPU.
   synchronous loop's.
 
 Not ported yet (each raises at :class:`ServingConfig` construction or
-here, naming its ROADMAP item): bucketed prefill, the host tier, meshes.
+here, naming its ROADMAP item): bucketed prefill, meshes.
 ``stats()`` carries their keys at the values of an engine that has them
 off.
 
@@ -156,6 +170,7 @@ from tpu_task_torch.ml.serving.cache import (
     QUANT_DTYPES,
     SCRATCH_BLOCK,
     BlockAllocator,
+    BlockStaging,
     PrefixCache,
     ServingConfig,
     block_payload_nbytes,
@@ -180,6 +195,7 @@ from tpu_task_torch.ml.serving.lora import (
     split_adapter_payload,
     validate_lora_tables,
 )
+from tpu_task_torch.ml.serving.offload import HostKvTier
 from tpu_task_torch.ml.serving.model import (
     chunk_carry_greedy,
     chunk_carry_sample,
@@ -358,6 +374,28 @@ class ServingEngine:
         self.fleet_miss_blocks = 0
         self.fleet_import_requests = 0
         self.fleet_prefetch_blocks = 0
+        self._h_kv_import = None
+        # The host-RAM tier: the middle rung of device pool → host RAM →
+        # fleet bucket. Cold refcount-0 cached blocks (an idle session's
+        # among them, parked there by _release) demote into it: staged
+        # behind the program in flight (_demote_pass) and forced at the
+        # next consume edge (_finalize_demotions). Admission imports and
+        # prefetch hints try it before the fleet bucket; entries past the
+        # budget spill to the bucket through the fleet client.
+        self._host_tier: Optional[HostKvTier] = None
+        if scfg.host_offload_blocks > 0:
+            spill = (kv_fleet.ship_bytes
+                     if kv_fleet is not None
+                     and hasattr(kv_fleet, "ship_bytes") else None)
+            self._host_tier = HostKvTier(
+                scfg.host_offload_blocks, spill=spill)
+        self.demoted_blocks = 0
+        self.promoted_blocks = 0
+        #: Demotions staged against an in-flight program, as (hash, block,
+        #: its pass's BlockStaging, its row there): the bytes are forced
+        #: one consume edge later, never in the dispatch region.
+        self._pending_demotions: List[
+            Tuple[bytes, int, BlockStaging, int]] = []
         #: Which paged attention the fused steps run, resolved once here
         #: and recorded in stats().
         self.decode_impl = resolve_decode_impl(scfg, self.device)
@@ -473,8 +511,8 @@ class ServingEngine:
         """The JAX engine's registry names: the latency histograms, the
         scheduler's plain counters as lazy counters (they sum in a fleet
         merge), its instantaneous values as gauges, LoRA's ``adapters.*``
-        group when ``lora_rank`` > 0, and the fleet-KV group when a client
-        is attached. The host tier's ``tier.*`` waits for ROADMAP A9."""
+        group when ``lora_rank`` > 0, the fleet-KV group when a client is
+        attached, and the host tier's ``tier.*`` group when it is on."""
         self._h_step = metrics.histogram("engine.step_s")
         self._h_ttft = metrics.histogram("engine.ttft_s")
         self._h_intertok = metrics.histogram("engine.intertoken_s")
@@ -523,6 +561,22 @@ class ServingEngine:
                 metrics.counter_fn(f"kvfleet.{stat}",
                                    lambda fleet=self._fleet, stat=stat:
                                    float(getattr(fleet, stat, 0)))
+        if self._host_tier is not None:
+            # Migration between the device pool and host RAM, and the
+            # tier's own hits and spill tail, beside kvfleet.* on the one
+            # registry.
+            tier = self._host_tier
+            for stat in ("demoted_blocks", "promoted_blocks"):
+                metrics.counter_fn(f"tier.{stat}",
+                                   lambda self=self, stat=stat:
+                                   float(getattr(self, stat)))
+            for stat in ("hits", "misses", "spilled_blocks",
+                         "dropped_blocks"):
+                metrics.counter_fn(f"tier.host_{stat}",
+                                   lambda tier=tier, stat=stat:
+                                   float(getattr(tier, stat)))
+            metrics.gauge_fn("tier.host_resident_blocks",
+                             lambda tier=tier: float(len(tier)))
 
     def _init_spec(self, draft_params: Optional[Params],
                    draft_cfg: Optional[TransformerConfig]) -> None:
@@ -726,6 +780,11 @@ class ServingEngine:
                     self._step_generation(finished)
                 finally:
                     self._gen_filter = None
+            # Synchronous demotion: stage and force back to back. The
+            # device has just run the step's programs, so the force waits
+            # for the demote copies alone.
+            self._demote_pass()
+            self._finalize_demotions()
         # Between steps: no K-step graph is being captured or replayed.
         self._drop_freed_graphs()
         wall = time.perf_counter() - t0
@@ -812,6 +871,13 @@ class ServingEngine:
         # one still unconsumed or a new one just enqueued.
         covered = rec is not None or self._inflight is not None
         self._consume_one(self._inflight, finished)
+        with torch.no_grad():
+            # Tier migration in the covered window: last step's staging,
+            # enqueued behind the program just consumed, is forced here,
+            # and the next pass stages behind the program dispatched
+            # above.
+            self._finalize_demotions()
+            self._demote_pass()
         self._inflight = rec
         wall = time.perf_counter() - t0
         self.goodput.end_step_overlapped(wall, covered)
@@ -1730,10 +1796,11 @@ class ServingEngine:
             shared = req.adapter_id is None
             cached = (self._pcache.lookup(ctx)              # increfs
                       if self._pcache is not None and shared else [])
-            if self._fleet is not None and shared:
-                # The blocks the local cache missed may exist in the
-                # fleet: import them by content hash instead of prefilling
-                # them (each lands in the local cache too).
+            if (self._fleet is not None or self._host_tier is not None) \
+                    and shared:
+                # The blocks the local cache missed may sit in host RAM
+                # or in the fleet: import them by content hash instead of
+                # prefilling them (each lands in the local cache too).
                 cached += self._fleet_import(ctx, len(cached))
             # The last prompt token is ALWAYS recomputed (its logits seed
             # the first sample), so a whole-prompt hit caps at plen - 1 —
@@ -2439,10 +2506,12 @@ class ServingEngine:
     def _fleet_import(self, ctx: np.ndarray, have: int) -> List[int]:
         """Import the consecutive full-block tail of ``ctx`` that the local
         prefix cache missed (``have`` = local hit depth in blocks) from the
-        fleet KV plane. Any failure (an index hole, a missing or torn
+        tiers below the device pool: host RAM first, then the fleet KV
+        plane. Any failure (a tier or index hole, a missing or torn
         object, pool pressure) stops the import, and the rest of the tail
         prefills locally. Returns the imported blocks in chain order, each
-        at the admitting slot's reference."""
+        at the admitting slot's reference. ``fleet_hit_blocks`` counts the
+        imports of either rung; ``promoted_blocks`` those from host RAM."""
         want = chain_block_hashes(ctx, self.scfg.block_size)[have:]
         if not want:
             return []
@@ -2452,36 +2521,49 @@ class ServingEngine:
         self.fleet_miss_blocks += len(want) - len(imported)
         if imported:
             self.fleet_import_requests += 1
-            if self.obs is not None:
+            if self._h_kv_import is not None:
                 self._h_kv_import.observe(time.perf_counter() - t0)
         return imported
 
     def _import_hash_chain(self, want: List[bytes]) -> List[int]:
-        """Fetch, write and adopt the leading run of ``want`` (consecutive
-        chained hashes) that the fleet index advertises: the payloads go
-        to the device in one copy and into freshly allocated blocks, in
-        place, with one index write per pool leaf
-        (:func:`~tpu_task_torch.ml.serving.cache.write_block_payloads`),
-        and each block is adopted under its hash. Returns the imported
-        blocks (each at allocation refcount 1 and cache-retained). Chains clamp to ``max_blocks_per_slot``, as in
-        the JAX engine. The host tier's rung, which the JAX engine tries
-        before the bucket, comes with ROADMAP A9."""
+        """Resolve ``want`` (consecutive chained hashes) down the
+        hierarchy: the leading run resident in host RAM first, then the
+        run the fleet index advertises for the rest of the chain. The
+        payloads go to the device through one pinned buffer and into
+        freshly allocated blocks, in place, with one index write per pool
+        leaf (:func:`~tpu_task_torch.ml.serving.cache.
+        write_block_payloads`), and each block is adopted under its hash.
+        Returns the imported blocks (each at allocation refcount 1 and
+        cache-retained). Chains clamp to ``max_blocks_per_slot``, as in
+        the JAX engine."""
         want = want[:self.scfg.max_blocks_per_slot]
-        if not want or self._fleet is None:
+        if not want:
             return []
-        try:
-            n_hit = self._fleet.lookup_chain(want)
-        except OSError:
-            n_hit = 0
         nbytes = block_payload_nbytes(self.cfg, self.scfg)
         payloads: List[Tuple[bytes, bytes]] = []
-        for h in want[:n_hit]:
-            data = self._fleet.fetch(h)
-            if data is None:
-                break             # stale index entry → local prefill
-            if len(data) != nbytes:
-                break             # foreign or torn payload → local prefill
-            payloads.append((h, data))
+        if self._host_tier is not None:
+            # Promotion: the consecutive leading run whose bytes are in
+            # host RAM. A miss mid-chain falls through to the fleet below,
+            # so the chain stays consecutive either way.
+            for h in want:
+                data = self._host_tier.get(h)
+                if data is None or len(data) != nbytes:
+                    break         # miss or foreign payload → next rung
+                payloads.append((h, data))
+        n_promoted = len(payloads)
+        rest = want[n_promoted:]
+        if self._fleet is not None and rest:
+            try:
+                n_hit = self._fleet.lookup_chain(rest)
+            except OSError:
+                n_hit = 0
+            for h in rest[:n_hit]:
+                data = self._fleet.fetch(h)
+                if data is None:
+                    break         # stale index entry → local prefill
+                if len(data) != nbytes:
+                    break         # foreign or torn payload → local prefill
+                payloads.append((h, data))
         imported: List[int] = []
         for _ in payloads:
             got = self._reserve(1, 0)
@@ -2496,16 +2578,18 @@ class ServingEngine:
             self.goodput.program(time.perf_counter() - t0)
             for (h, _), block in zip(payloads, imported):
                 self._pcache.adopt(h, block)
+        self.promoted_blocks += min(n_promoted, len(imported))
         return imported
 
     def prefetch_chain(self, hashes: List[bytes]) -> int:
-        """Import a published chain into the LOCAL prefix cache before any
-        request needs it (a router's next-turn hint). Leading hashes
-        already cached are skipped; imported blocks stay cached at
-        refcount 0, evictable like any other. Best effort: every failure
-        gives a shorter (possibly empty) prefetch. Returns the blocks
-        imported."""
-        if self._fleet is None or self._pcache is None or not hashes:
+        """Import a chain into the LOCAL prefix cache before any request
+        needs it (a router's next-turn hint), from host RAM or from the
+        fleet bucket, as an admission would. Leading hashes already cached
+        are skipped; imported blocks stay cached at refcount 0, evictable
+        like any other. Best effort: every failure gives a shorter
+        (possibly empty) prefetch. Returns the blocks imported."""
+        if (self._fleet is None and self._host_tier is None) \
+                or self._pcache is None or not hashes:
             return 0
         have = 0
         for h in hashes:
@@ -2519,6 +2603,61 @@ class ServingEngine:
             self.allocator.decref(block)
         self.fleet_prefetch_blocks += len(imported)
         return len(imported)
+
+    # tier: begin-migrate
+    # The demote STAGING half: nothing between this marker and its end may
+    # wait for the device (the dispatch region's rules). It runs with a
+    # program in flight; the bytes are forced at the next consume edge
+    # (_finalize_demotions), where the host waits anyway.
+    # tests/test_torch_overlap_lint.py walks the region and enforces it.
+
+    def _demote_pass(self, limit: int = 8) -> None:
+        """The non-blocking half of demotion: up to ``limit`` of the prefix
+        cache's coldest retained refcount-0 blocks (eviction's next
+        victims; an idle session's blocks join them when its request
+        releases) are staged toward the host tier in one
+        :class:`~tpu_task_torch.ml.serving.cache.BlockStaging`, enqueued
+        behind the program in flight. A block whose bytes are ALREADY in
+        host RAM skips the copy and is marked demoted at once."""
+        if self._host_tier is None or self._pcache is None:
+            return
+        budget = limit - len(self._pending_demotions)
+        if budget <= 0:
+            return
+        stage: List[Tuple[bytes, int]] = []
+        for h, block in self._pcache.cold_entries(budget):
+            if h in self._host_tier:
+                self.allocator.mark_demoted(block)
+                self.demoted_blocks += 1
+                continue
+            stage.append((h, block))
+        if stage:
+            staging = BlockStaging(self.pools, [b for _, b in stage])
+            self._pending_demotions += [
+                (h, block, staging, row)
+                for row, (h, block) in enumerate(stage)]
+
+    # tier: end-migrate
+
+    def _finalize_demotions(self) -> None:
+        """The blocking half of demotion: force the staged bytes (a wait on
+        each staging's event alone), hand each block's payload to the host
+        tier (which spills its LRU tail past the budget into the fleet
+        bucket) and mark the device copy demoted, eviction's first victim
+        now that its bytes survive reclaim. A block that was resurrected
+        (incref'd) or evicted and recycled since its staging is skipped:
+        the ``cached_block`` identity check makes a wrong mark impossible,
+        as content addressing makes a wrong payload impossible."""
+        if not self._pending_demotions:
+            return
+        pending, self._pending_demotions = self._pending_demotions, []
+        for h, block, staging, row in pending:
+            if self._pcache.cached_block(h) != block \
+                    or self.allocator.refcount(block) != 0:
+                continue          # resurrected or recycled mid-flight
+            self._host_tier.put(h, staging.payload(row))
+            self.allocator.mark_demoted(block)
+            self.demoted_blocks += 1
 
     def stage_cached_blocks(self, limit: int = 16,
                             skip=()) -> List[Tuple[str, List[torch.Tensor]]]:
@@ -2550,8 +2689,8 @@ class ServingEngine:
         """Scheduler counters, the KV cost model, and the process-wide
         paged-attention launch counts (both kernels and the plain
         version). Every key of the JAX engine's ``stats()`` is here; the
-        groups of what the port does not run yet (tp/ep meshes, the async
-        loop, the host tier) hold an engine's values with them off."""
+        groups of what the port does not run yet (tp/ep meshes) hold an
+        engine's values with them off."""
         n_blocks, high = self.scfg.n_blocks, self.allocator.high_water
         out = {
             "decode_impl": self.decode_impl,
@@ -2608,14 +2747,20 @@ class ServingEngine:
                                   if self._pcache else 0),
                 "evictions": self._pcache.evictions if self._pcache else 0,
             },
-            # The host tier is not ported (ROADMAP A9).
+            # Device pool → host RAM → bucket: blocks copied down to the
+            # host tier, blocks imported back from it (the fleet counters
+            # below count both rungs), and the tier's own view, its spill
+            # into the bucket included.
             "tiering": {
-                "enabled": False,
+                "enabled": self._host_tier is not None,
                 "host_offload_blocks": self.scfg.host_offload_blocks,
-                "demoted_blocks": 0,
-                "promoted_blocks": 0,
+                "demoted_blocks": self.demoted_blocks,
+                "promoted_blocks": self.promoted_blocks,
                 "demoted_resident": self.allocator.demoted,
-                "pending_demotions": 0,
+                "pending_demotions": len(self._pending_demotions),
+                **({f"host_{k}": v
+                    for k, v in self._host_tier.stats().items()}
+                   if self._host_tier is not None else {}),
             },
             "kvfleet": {
                 "enabled": self._fleet is not None,

@@ -97,7 +97,8 @@ _COUNTERS = ((pa.paged_decode_attention, "launches"),
 
 
 _NUMPY = {torch.int64: np.int64, torch.int32: np.int32,
-          torch.bool: np.bool_, torch.float32: np.float32}
+          torch.bool: np.bool_, torch.float32: np.float32,
+          torch.uint8: np.uint8}
 
 #: The loop carry of the overlapped engine's programs: (dtype, value of a
 #: dead row), in the order the carry programs take and return it.

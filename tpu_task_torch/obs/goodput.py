@@ -22,7 +22,11 @@ the consume edge's wait on the in-flight program's tokens
 flight is ``overlapped_host_s`` (the device had work queued under it); and
 only a step with no program in flight (the first dispatch, the drain's
 last sweep, a flush that emptied the pipeline) charges its host time to
-the gap (:meth:`GoodputMeter.end_step_overlapped`).
+the gap (:meth:`GoodputMeter.end_step_overlapped`). The host tier's
+migration is accounted the same way: the engine forces last step's
+demotions and stages the next ones after the consume edge, inside the
+step's wall, so with a program in flight its host time is overlapped
+host time; a promotion's upload at admission is timed as a dispatch.
 
 Where the JAX package differs: its meter lives on an ``obs`` registry and
 exists only when the engine has one; here it is always on (two

@@ -837,10 +837,13 @@ class ReplicaServer:
             time.sleep(0.002)
 
     def prefetch(self, hashes) -> int:
-        """``POST /prefetch``: pull a published chain (hex hashes,
+        """``POST /prefetch``: pull a chain (hex hashes,
         leading-consecutive) into the local prefix cache before the next
-        turn arrives. Best effort: malformed hashes and engines without a
-        fleet client import 0, never an error."""
+        turn arrives: from the engine's host tier first (``--serving
+        '{"host_offload_blocks": N}'``, which warms the pool from host RAM
+        with no ``--kv-bucket``), then from the fleet bucket. Best effort:
+        malformed hashes, and engines with neither a host tier nor a fleet
+        client, import 0, never an error."""
         try:
             chain = [bytes.fromhex(str(h)) for h in hashes]
         except ValueError:
