@@ -5,8 +5,9 @@ its plain PyTorch version, times it, drives the paged serving engine at the
 flagship model's full width (model-dtype and quantized KV pools,
 K-token micro-steps, speculative decoding, drain and resume, blocks
 imported from the fleet KV plane, the HTTP replica, weight rolls, paged
-LoRA adapters, the overlapped loop, the host KV tier), and trains the
-flagship for a few steps, checkpointing, killing and restoring it.
+LoRA adapters, the overlapped loop, the host KV tier, mixture-of-experts
+layers), and trains the flagship for a few steps, checkpointing, killing
+and restoring it, and its mixture-of-experts variant.
 
     python3 chip_smoke.py
 
@@ -173,9 +174,10 @@ start); any failed check raises and the script exits non-zero:
              retired slot's iterations run masked), the combine kernel's
              likewise where the plan splits, 0 through the other kernel
              and the plain version.
-16. serve trace — one more wave at K = 8 under ``torch.profiler``
-             (CPU and CUDA; the K = 1 trace went to make room for phase
-             30): per chunk step and per
+16. serve trace — one more wave at K = 8, the serve wave's first 8
+             requests, under ``torch.profiler`` (CPU and CUDA; the K = 1
+             trace went to make room for phase 30, the wave's other 8
+             requests for phase 31): per chunk step and per
              decode or micro-step the mean wall, device-busy ms and idle
              share, the ten device ops with the most time and the ten host
              ops with the most self time; the paged kernels' launches
@@ -357,7 +359,8 @@ start); any failed check raises and the script exits non-zero:
              reported: tokens/s and each arm's median, step ms by kind,
              ``host_gap_frac``, the consume edge's wait, dispatches per
              token, captures, the twin's streams (first divergence and
-             top-2 gap), and one traced overlapped wave at K 8 (its idle
+             top-2 gap), and one traced overlapped wave at K 8 (phase
+             16's 8 requests; its idle
              share beside phase 16's synchronous one). (c) int8 through
              the pipelined kernel overlapped at K 8, one wave, (b)'s gates.
 30. serve tier — the host KV tier (``ServingConfig(host_offload_blocks=
@@ -388,12 +391,32 @@ start); any failed check raises and the script exits non-zero:
              edge's wait. (c) int8 through the pipelined kernel,
              overlapped, one pass, (b)'s gates. Then the bus alone: one
              64 MiB copy each way between the card and pinned memory.
+31. serve moe — mixture-of-experts layers through the dense dispatch
+             (``tpu_task_torch/ml/models/moe.py``). (a) the ``moe`` preset
+             (top-1) and a top-2 config of the ``tiny`` geometry at fp32:
+             the dispatch on the card against the CPU's (1e-5), then five
+             legs (greedy K 1 and 4, sampled K 1, ``spec_k`` 2 with the
+             model as its own draft, overlapped K 4 with the dispatch
+             region under the sync debug mode), each through ``cuda``
+             (fp32 pools) and ``pipelined`` (int8), equal to the plain
+             route token for token, launches those of the programs. (b)
+             ``FLAGSHIP_MOE`` (phase 6's flagship, 8 experts top-2 on
+             every second layer, bf16) on phase 6's configuration at K 1,
+             K 8 overlapped and int8 K 8 overlapped, each beside a dense
+             twin on phase 6's seed-0 wave: tokens/s, step ms, phase 6's
+             launch gates, the dispatch's share of one traced decode
+             step and its time alone in a CUDA graph. (c)
+             ``TRAIN_FLAGSHIP_MOE`` at batch 8 x 1024: 6 steps after one
+             warm-up, finite losses, 8 launches of each flash kernel a
+             step; step ms, MFU with top-k experts counted, peak memory,
+             one profiled step and the float32 expert products' share.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
-20, 22, 24, 25, 26, 27, 28, 29 and 30 and the scoring step's timing),
+20, 22, 24, 25, 26, 27, 28, 29, 30 and 31 and the scoring step's timing,
+the flash rows theirs in phase 31's train steps),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1219,9 +1242,11 @@ def _wave_requests(vocab: int, seed: int):
     return wave
 
 
-def _submit_wave(engine, seed: int, max_new: int = 64):
-    """The serve wave (``_wave_requests``) with ``max_new`` new tokens."""
-    wave = _wave_requests(engine.cfg.vocab_size, seed)
+def _submit_wave(engine, seed: int, max_new: int = 64,
+                 requests: int = 16):
+    """The serve wave (``_wave_requests``), its first ``requests``, with
+    ``max_new`` new tokens."""
+    wave = _wave_requests(engine.cfg.vocab_size, seed)[:requests]
     rids = [engine.submit(prompt, max_new, **kw) for prompt, kw in wave]
     return rids, sum(len(prompt) for prompt, _ in wave)
 
@@ -1621,10 +1646,15 @@ WALK_NAMES = {"cuda": ("paged_decode_kernel",),
 COMBINE_NAME = "combine_splits_kernel"
 
 
+#: Requests of a traced wave: the serve wave's first 8 (the profiler's
+#: post-processing time grows with the wave's chunk steps).
+TRACE_REQUESTS = 8
+
+
 def trace_wave(engine, seed: int, smi: str,
                phase: str = "serve_trace") -> dict:
-    """One wave under ``torch.profiler`` (CPU and CUDA): per fused step
-    kind the mean wall, device-busy ms and idle share (device events
+    """One wave of TRACE_REQUESTS requests under ``torch.profiler`` (CPU
+    and CUDA): per fused step kind the mean wall, device-busy ms and idle share (device events
     assigned to the step whose host range holds their start: every step
     ends in a readback), the ten device ops with the most time, the ten
     host ops with the most self time (``serve_step`` is the step's own
@@ -1635,8 +1665,10 @@ def trace_wave(engine, seed: int, smi: str,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prime_tracer(engine.device)
-        run = _timed_drain(engine, seed,
-                           step_range=lambda: record_function("serve_step"))
+        run = _timed_drain(
+            engine, seed, step_range=lambda: record_function("serve_step"),
+            load=lambda: _submit_wave(engine, seed,
+                                      requests=TRACE_REQUESTS))
     steps = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.name == "serve_step"
                    and e.device_type == torch.autograd.DeviceType.CPU)
@@ -2268,11 +2300,12 @@ def train_flops_per_step(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one optimizer step with the attention term
     causal-halved: the first convention of ``bench.py``'s
     ``_train_flops_per_step``, copied (matmuls forward x3; attention
-    scaled by (s + 1) / 2s, the score entries a causal kernel executes)."""
-    n_mm_layer = (2 * cfg.d_model * cfg.d_attn + 2 * cfg.d_model * cfg.d_kv
-                  + 3 * cfg.d_model * cfg.d_ff)
-    n_mm = cfg.n_layers * n_mm_layer + cfg.d_model * cfg.vocab_size
-    mm_fwd = 2.0 * batch * seq * n_mm
+    scaled by (s + 1) / 2s, the score entries a causal kernel executes).
+    The matmul parameters are the goodput model's: a MoE layer counts its
+    router and top-k experts, a dense config the same count as bench.py's."""
+    from tpu_task_torch.obs.goodput import matmul_params
+
+    mm_fwd = 2.0 * batch * seq * matmul_params(cfg)
     attn_fwd = cfg.n_layers * 4.0 * batch * seq * seq * cfg.d_attn
     return 3.0 * (mm_fwd + attn_fwd * (seq + 1) / (2.0 * seq))
 
@@ -3396,7 +3429,7 @@ def top2_gap(engine, req, upto: int) -> float:
             torch.as_tensor(ids, device=engine.device)[None])
         for i, layer in enumerate(params["layers"]):
             x_in = x
-            x = transformer._block(x, layer, cfg, attn_fn)
+            x, _aux = transformer._block(x, layer, cfg, attn_fn)
             if entry is not None:
                 x = x + apply_lora(
                     x_in, engine._lora_pool,
@@ -5501,49 +5534,39 @@ def lora_parity_tiny(device) -> dict:
     return {impl: launches[impl][impl] for impl in ("cuda", "pipelined")}
 
 
-def lora_step_share(engine, seed: int) -> dict:
-    """One 100%-adapter decode step under ``torch.profiler``, on this (the
-    launching) thread: the device time of the kernels ``apply_lora``
-    launched (its calls wrapped in a ``lora_branch`` range) against the
-    step's device-busy time."""
+def traced_range_share(engine, module, attr: str, label: str) -> dict:
+    """One ``engine.step()`` under ``torch.profiler``, on this (the
+    launching) thread, with ``module.attr`` wrapped in a ``label`` range:
+    the device time of the kernels its calls launched (the ranges' device
+    totals) against the step's device-busy time."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from tpu_task_torch.ml.serving import model as serving_model
 
-    wave = _wave_requests(engine.cfg.vocab_size, seed)
-    for j, (prompt, kw) in enumerate(wave):
-        engine.submit(prompt[:64], 24, adapter_id=f"tenant-{j % LORA_TENANTS}",
-                      **kw)
-    while any(engine._prefilling(i) for i in range(engine.scfg.slots)) \
-            or engine._queue:
-        engine.step()                 # ingest: the next step is a decode
-    inner = serving_model.apply_lora
+    inner = getattr(module, attr)
 
-    def ranged(*args):
-        with record_function("lora_branch"):
-            return inner(*args)
+    def ranged(*args, **kwargs):
+        with record_function(label):
+            return inner(*args, **kwargs)
 
-    slot_blocks = engine._slot_lora_blocks.copy()
-    serving_model.apply_lora = ranged
+    setattr(module, attr, ranged)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             prime_tracer(engine.device)
-            with record_function("lora_step"):
+            with record_function("traced_step"):
                 engine.step()
             torch.cuda.synchronize()
     finally:
-        serving_model.apply_lora = inner
-    engine.drain()
+        setattr(module, attr, inner)
     cpu = torch.autograd.DeviceType.CPU
     step = [e for e in prof.events()
-            if e.name == "lora_step" and e.device_type == cpu]
+            if e.name == "traced_step" and e.device_type == cpu]
     ranges = [e for e in prof.events()
-              if e.name == "lora_branch" and e.device_type == cpu]
+              if e.name == label and e.device_type == cpu]
     start, end = step[0].time_range.start, step[0].time_range.end
     busy, last, kernels = 0.0, -math.inf, 0
     for d_start, d_end, name in sorted(
             (s, e, n) for n, s, e in device_events(prof)
-            if n not in ("lora_step", "lora_branch")):
+            if n not in ("traced_step", label)):
         if not start <= d_start <= end:
             continue
         kernels += 1
@@ -5555,7 +5578,30 @@ def lora_step_share(engine, seed: int) -> dict:
         return getattr(e, "device_time_total", None) or getattr(
             e, "cuda_time_total", 0.0)
 
-    lora_us = sum(device_us(e) for e in ranges)
+    range_us = sum(device_us(e) for e in ranges)
+    return dict(step_device_busy_ms=busy / 1e3, step_kernels=kernels,
+                calls=len(ranges), range_device_ms=range_us / 1e3,
+                share=range_us / busy if busy else None)
+
+
+def lora_step_share(engine, seed: int) -> dict:
+    """One 100%-adapter decode step under ``torch.profiler``: the device
+    time of the kernels ``apply_lora`` launched against the step's
+    device-busy time (``traced_range_share``)."""
+    from tpu_task_torch.ml.serving import model as serving_model
+
+    wave = _wave_requests(engine.cfg.vocab_size, seed)
+    for j, (prompt, kw) in enumerate(wave):
+        engine.submit(prompt[:64], 24, adapter_id=f"tenant-{j % LORA_TENANTS}",
+                      **kw)
+    while any(engine._prefilling(i) for i in range(engine.scfg.slots)) \
+            or engine._queue:
+        engine.step()                 # ingest: the next step is a decode
+    slot_blocks = engine._slot_lora_blocks.copy()
+    traced = traced_range_share(engine, serving_model, "apply_lora",
+                                "lora_branch")
+    engine.drain()
+    busy = traced["step_device_busy_ms"] * 1e3
     # The same branch timed alone with CUDA events at this step's shapes
     # (16 decode rows, every layer, cold L2), beside the traced sum.
     from tpu_task_torch.ml.serving.lora import apply_lora
@@ -5572,10 +5618,11 @@ def lora_step_share(engine, seed: int) -> dict:
             x + apply_lora(x, engine._lora_pool, blocks[:, i], scales)
 
     timed_ms = DeviceTimer(engine.device)(branch)
-    return dict(step_device_busy_ms=busy / 1e3, step_kernels=kernels,
-                lora_branch_calls=len(ranges),
-                lora_branch_device_ms=lora_us / 1e3,
-                lora_share_of_step=lora_us / busy if busy else None,
+    return dict(step_device_busy_ms=traced["step_device_busy_ms"],
+                step_kernels=traced["step_kernels"],
+                lora_branch_calls=traced["calls"],
+                lora_branch_device_ms=traced["range_device_ms"],
+                lora_share_of_step=traced["share"],
                 lora_branch_timed_ms=timed_ms,
                 lora_timed_share_of_step=timed_ms * 1e3 / busy if busy
                 else None)
@@ -6744,6 +6791,459 @@ def phase_serve_tier(device, smi: str) -> dict:
     return {"flagship": totals, "parity": parity}
 
 
+# -- phase 31: mixture-of-experts layers (A13) --------------------------------
+
+#: Phase 31's serve model: the serve flagship with every second layer a
+#: mixture-of-experts layer of 8 experts, top-2 (about 0.41 B parameters).
+FLAGSHIP_MOE = dict(FLAGSHIP, moe_every=2, n_experts=8, moe_top_k=2)
+#: Phase 31's train model: the train flagship with the same MoE layers.
+TRAIN_FLAGSHIP_MOE = dict(TRAIN_FLAGSHIP, moe_every=2, n_experts=8,
+                          moe_top_k=2)
+#: Leg (a)'s top-2 config: the ``tiny`` preset's geometry, its second layer
+#: a 4-expert top-2 MoE layer (the ``moe`` preset is top-1).
+MOE_TINY_TOP2 = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=8,
+                     d_head=16, d_ff=256, n_kv_heads=4, moe_every=2,
+                     n_experts=4, moe_top_k=2)
+#: Leg (a)'s legs: (name, ServingConfig overrides, sampled requests).
+MOE_LEGS = (("greedy_k1", {}, False), ("greedy_k4", {"micro_k": 4}, False),
+            ("sampled_k1", {}, True), ("spec_k2", {"spec_k": 2}, True),
+            ("overlap_k4", {"overlap": True, "micro_k": 4}, True))
+#: Leg (a)'s kernel routes, each held to the plain route at its storage.
+MOE_ROUTES = (("cuda", None), ("pipelined", "int8"))
+#: The dense dispatch on the card against the CPU's, fp32 (TF32 off).
+MOE_EXPERT_ATOL = 1e-5
+#: Leg (c)'s timed steps (after one warm-up step).
+MOE_TRAIN_STEPS = 6
+
+
+def moe_traffic(vocab: int, sampled: bool) -> list:
+    """Leg (a)'s 8 requests of 3-24 prompt tokens and 6-18 new tokens,
+    every second one keyed-sampled at temperature 0.8 / top_p 0.9 when
+    ``sampled``, each followed by 0-2 steps before the next arrives, as
+    ``run_arrivals`` takes them."""
+    rng = np.random.default_rng(31)
+    out = []
+    for i in range(8):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(3, 25)))
+        kw = ({"temperature": 0.8, "top_p": 0.9, "key": [31, i]}
+              if sampled and i % 2 else {})
+        out.append((prompt, int(rng.integers(6, 19)), kw,
+                    int(rng.integers(0, 3))))
+    return out
+
+
+def moe_tiny_models(device) -> dict:
+    """Leg (a)'s models at fp32: name → (cfg, params on the CPU, serving
+    knobs). The ``moe`` preset holds the JAX package's weights; the top-2
+    config's are drawn from a seeded generator."""
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    preset = build_engine("moe", device="cpu")
+    cfg = transformer.TransformerConfig(dtype=torch.float32, **MOE_TINY_TOP2)
+    params = transformer.init(torch.Generator().manual_seed(7), cfg)
+    return {"moe": (preset.cfg, preset.params, SERVING_PRESETS["moe"]),
+            "top2": (cfg, params, SERVING_PRESETS["tiny"])}
+
+
+def moe_expert_check(models: dict, device) -> dict:
+    """The dense dispatch of each tiny model's first MoE layer on the card
+    against the CPU's on the same fp32 inputs: output and aux within
+    MOE_EXPERT_ATOL, expert choices equal."""
+    from tpu_task_torch.ml.models import moe
+
+    out = {}
+    for name, (cfg, params, _) in models.items():
+        index = next(i for i in range(cfg.n_layers) if cfg.is_moe_layer(i))
+        layer = {k: params["layers"][index][k]
+                 for k in ("router", "w_in", "w_out")}
+        h = torch.randn((3, 17, cfg.d_model),
+                        generator=torch.Generator().manual_seed(5))
+        want, want_aux = moe.apply_dense(layer, cfg.moe_cfg, h)
+        card = {k: v.to(device) for k, v in layer.items()}
+        got, got_aux = moe.apply_dense(card, cfg.moe_cfg, h.to(device))
+        chosen = [moe._route(t.reshape(-1, cfg.d_model), w["router"],
+                             cfg.moe_cfg)[0].cpu()
+                  for t, w in ((h, layer), (h.to(device), card))]
+        out[name] = dict(
+            layer=index, top_k=cfg.moe_top_k,
+            max_abs_err=float((got.cpu() - want).abs().max()),
+            aux_err=abs(float(got_aux) - float(want_aux)),
+            experts_equal=bool(torch.equal(*chosen)))
+        out[name]["ok"] = (out[name]["max_abs_err"] <= MOE_EXPERT_ATOL
+                           and out[name]["aux_err"] <= MOE_EXPERT_ATOL
+                           and out[name]["experts_equal"])
+    return out
+
+
+def moe_parity_tiny(device) -> tuple:
+    """Leg (a): each tiny model on each leg of MOE_LEGS, through each
+    kernel route and the plain route at the same storage. Each engine runs
+    its traffic twice (on the overlap leg the second pass runs the
+    dispatch region under the sync debug mode). Gates: the kernel route's
+    streams equal the plain route's in both passes, every launch through
+    the route's attention alone (n_layers a chunk program, n_layers x K a
+    micro program, off the spec leg whose draft calls the same kernel),
+    the checked dispatches clean. Returns the kernels' and combine's
+    launches and the failures."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    models = moe_tiny_models(device)
+    expert = moe_expert_check(models, device)
+    emit("serve_moe_expert_check", atol=MOE_EXPERT_ATOL, **expert)
+    failures = [f"(a) expert check {name}: {row}"
+                for name, row in expert.items() if not row["ok"]]
+    totals = {"cuda": 0, "pipelined": 0, "combine": 0}
+    for name, (cfg, params, knobs) in models.items():
+        for leg, serving, sampled in MOE_LEGS:
+            traffic = moe_traffic(cfg.vocab_size, sampled)
+            spec = serving.get("spec_k", 0) > 0
+            for impl, kv_dtype in MOE_ROUTES:
+                runs = {}
+                for route in (impl, "reference"):
+                    engine = ServingEngine(
+                        params, cfg, ServingConfig(**{
+                            **knobs, **serving, "decode_impl": route,
+                            "kv_dtype": kv_dtype}),
+                        device=device, draft_params=params if spec else None,
+                        draft_cfg=cfg if spec else None)
+                    pa.reset_launch_counts()
+                    first = run_arrivals(engine, traffic)
+                    checked = ([0] if route == "reference"
+                               or not serving.get("overlap")
+                               else sync_checked(engine))
+                    second = run_arrivals(engine, traffic)
+                    s = engine.stats()
+                    k = engine.scfg.micro_k
+                    calls = (s["chunk_steps"] + s["decode_steps"]
+                             + (k - 1) * s["micro_steps"])
+                    launches = dict(s["attention_launches"])
+                    want = {key: 0 for key in launches}
+                    want[route] = (launches[route] if spec
+                                   else engine.cfg.n_layers * calls)
+                    combines = (pa.paged_decode_attention.combine_launches
+                                + pa.paged_decode_pipelined_attention
+                                .combine_launches)
+                    runs[route] = dict(
+                        streams=(first, second), launches=launches,
+                        launches_ok=launches == want and launches[route] > 0,
+                        combines=combines, checked=checked[0])
+                    del engine
+                kernel, plain = runs[impl], runs["reference"]
+                line = dict(
+                    model=name, leg=leg, kernel=impl,
+                    kv_dtype=kv_dtype or "float32",
+                    streams_equal_plain=kernel["streams"] == plain["streams"],
+                    requests=2 * len(traffic),
+                    tokens=sum(len(s) for s in kernel["streams"][0]),
+                    kernel_launches=kernel["launches"][impl],
+                    combine_launches=kernel["combines"],
+                    launches_ok=(kernel["launches_ok"],
+                                 plain["launches_ok"]),
+                    checked_dispatches=kernel["checked"])
+                emit("serve_moe_parity", **line)
+                totals[impl] += kernel["launches"][impl]
+                totals["combine"] += kernel["combines"]
+                if not (line["streams_equal_plain"] and all(
+                        line["launches_ok"]) and (
+                        not serving.get("overlap")
+                        or kernel["checked"] > 0)):
+                    failures.append(f"(a) {line}")
+    return totals, expert, failures
+
+
+def moe_flagship_model(device):
+    from tpu_task_torch.ml.models import transformer
+
+    cfg = transformer.TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP_MOE)
+    params = transformer.init(
+        torch.Generator(device=device).manual_seed(0), cfg)
+    return cfg, params
+
+
+def moe_step_share(engine, seed: int) -> dict:
+    """One decode step of 16 running requests (K 1, eager) under
+    ``torch.profiler``: the device time of the kernels the dense dispatch
+    launched against the step's device-busy time
+    (``traced_range_share``); and the dispatch alone at that step's shape
+    (16 rows, every MoE layer, cold L2), captured in a CUDA graph so that
+    the host's enqueue of its launches stays out, timed with CUDA
+    events."""
+    from tpu_task_torch.ml.models import moe
+
+    wave = _wave_requests(engine.cfg.vocab_size, seed)
+    for prompt, kw in wave:
+        engine.submit(prompt[:64], 24, **kw)
+    while any(engine._prefilling(i) for i in range(engine.scfg.slots)) \
+            or engine._queue:
+        engine.step()                 # ingest: the next step is a decode
+    traced = traced_range_share(engine, moe, "apply_dense", "moe_ffn")
+    engine.drain()
+    busy = traced["step_device_busy_ms"] * 1e3
+    cfg, n = engine.cfg, engine.scfg.slots
+    params = engine.params
+    layers = [params["layers"][i] for i in range(cfg.n_layers)
+              if cfg.is_moe_layer(i)]
+    h = torch.randn((n, 1, cfg.d_model), device=engine.device,
+                    dtype=cfg.dtype)
+
+    def ffn():
+        for layer in layers:
+            moe.apply_dense(layer, cfg.moe_cfg, h)
+
+    ffn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ffn()
+    timed_ms = DeviceTimer(engine.device)(graph.replay)
+    del graph
+    # Expert weights a decode step reads once: the bound of the dispatch.
+    weight_bytes = sum(layer[k].numel() * layer[k].element_size()
+                       for layer in layers for k in ("w_in", "w_out"))
+    return dict(step_device_busy_ms=traced["step_device_busy_ms"],
+                step_kernels=traced["step_kernels"],
+                moe_ffn_calls=traced["calls"],
+                moe_ffn_device_ms=traced["range_device_ms"],
+                moe_share_of_step=traced["share"],
+                moe_ffn_graph_ms=timed_ms,
+                moe_graph_share_of_step=timed_ms * 1e3 / busy if busy
+                else None,
+                expert_weight_bytes=weight_bytes,
+                expert_weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S
+                * 1e3)
+
+
+#: Leg (b)'s engines: (name, ServingConfig overrides over SERVE_KNOBS).
+MOE_SERVE_LEGS = (
+    ("k1", {}),
+    ("k8_overlap", {"micro_k": 8, "overlap": True}),
+    ("int8_k8_overlap", {"micro_k": 8, "overlap": True, "kv_dtype": "int8",
+                         "decode_impl": "pipelined"}))
+
+
+def moe_flagship(device, smi: str, serve_median: float) -> tuple:
+    """Leg (b): FLAGSHIP_MOE in bf16 on phase 6's configuration, and a
+    dense twin (phase 6's flagship) of each engine: after phase 6's
+    warm-up, one timed wave of phase 6's seed-0 traffic at each of
+    MOE_SERVE_LEGS, twin first; phase 6's launch gates, every K = 1 MoE
+    step's logits finite. Tokens/s against the twin's and phase 6's
+    median (``serve_median``), streams against the K = 1 leg's, and the
+    dispatch's share of one traced decode step. Returns the legs' lines,
+    the kernels' and combine's launches of the MoE waves and the
+    failures."""
+    from tpu_task_torch.ml.serving import model as serving_model
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    models = {"dense": flagship_model(device),
+              "moe": moe_flagship_model(device)}
+    n_params = sum(p.numel() for p in models["moe"][1].values()
+                   if torch.is_tensor(p))
+    n_params += sum(p.numel() for layer in models["moe"][1]["layers"]
+                    for p in layer.values())
+    totals = {"cuda": 0, "pipelined": 0, "cuda_combine": 0,
+              "pipelined_combine": 0}
+    lines, failures, reference = {}, [], None
+    for name, serving in MOE_SERVE_LEGS:
+        twin = {}
+        for model in ("dense", "moe"):
+            cfg, params = models[model]
+            torch.cuda.reset_peak_memory_stats()
+            engine = ServingEngine(params, cfg,
+                                   ServingConfig(**SERVE_KNOBS, **serving),
+                                   device=device)
+            warm_up(engine)
+            finite = torch.ones((), dtype=torch.bool, device=device)
+            step_fn = serving_model.paged_decode_step
+
+            def checked_step(*args, **kwargs):
+                out = step_fn(*args, **kwargs)
+                logits = out[0] if isinstance(out, tuple) else out
+                finite.logical_and_(torch.isfinite(logits).all())
+                return out
+
+            if name == "k1":
+                serving_model.paged_decode_step = checked_step
+            try:
+                run = _timed_drain(engine, 0)
+            finally:
+                serving_model.paged_decode_step = step_fn
+            if not wave_ok(run):
+                failures.append(f"(b) {name} {model}: {run}")
+            if model == "dense":
+                twin = {key: run[key] for key in (
+                    "tokens_per_s", "mean_decode_step_ms",
+                    "mean_chunk_step_ms")}
+                del engine
+                continue
+            streams = [engine.request(rid).tokens for rid in run["rids"]]
+            if reference is None:
+                reference = streams
+            impl = engine.decode_impl
+            totals[impl] += run["kernel_launches"]
+            totals[f"{impl}_combine"] += run["combine_launches"]
+            line = dict(
+                leg=name, params=n_params, micro_k=engine.scfg.micro_k,
+                overlap=engine.scfg.overlap,
+                kv_dtype=engine.scfg.kv_dtype or "bfloat16", kernel=impl,
+                tokens_per_s=run["tokens_per_s"],
+                dense_twin_tokens_per_s=twin["tokens_per_s"],
+                moe_over_dense=run["tokens_per_s"] / twin["tokens_per_s"],
+                serve_phase_median_tokens_per_s=serve_median,
+                mean_decode_step_ms=run["mean_decode_step_ms"],
+                mean_chunk_step_ms=run["mean_chunk_step_ms"],
+                dense_twin_mean_decode_step_ms=twin["mean_decode_step_ms"],
+                dense_twin_mean_chunk_step_ms=twin["mean_chunk_step_ms"],
+                chunk_steps=run["chunk_steps"],
+                decode_steps=run["decode_steps"],
+                micro_steps=run["micro_steps"],
+                host_gap_frac=run["host_gap_frac"],
+                kernel_launches=run["kernel_launches"],
+                expected_launches=run["expected_launches"],
+                combine_launches=run["combine_launches"],
+                other_kernel_launches=run["other_kernel_launches"],
+                plain_launches=run["plain_launches"],
+                graph_captures=engine.stats()["step_graph"]["captures"],
+                streams_equal_k1=sum(a == b
+                                     for a, b in zip(streams, reference)),
+                logits_finite=bool(finite) if name == "k1" else None,
+                wave_ok=wave_ok(run),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if name == "k1":
+                line.update(moe_step_share(engine, 3))
+                if not line["logits_finite"]:
+                    failures.append(f"(b) {name}: logits not finite")
+            emit("serve_moe_wave", **line, gpu=smi)
+            lines[name] = line
+            del engine
+    return lines, totals, failures
+
+
+def expert_products_ms(device, cfg, tokens: int) -> float:
+    """Device ms of one MoE layer's expert products in the train step, in
+    float32 as the promotion makes them: (experts, tokens, d_model) through
+    ``w_in``, silu, ``w_out``, and the backward of all three, timed alone
+    with CUDA events."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    x = torch.randn((e, tokens, d), device=device, generator=gen,
+                    requires_grad=True)
+    w_in = torch.randn((e, d, f), device=device, generator=gen,
+                       requires_grad=True)
+    w_out = torch.randn((e, f, d), device=device, generator=gen,
+                        requires_grad=True)
+    g = torch.randn((e, tokens, d), device=device, generator=gen)
+
+    def products():
+        out = torch.bmm(torch.nn.functional.silu(torch.bmm(x, w_in)), w_out)
+        torch.autograd.grad(out, (x, w_in, w_out), g)
+
+    return DeviceTimer(device)(products, iters=5, warmup=1)
+
+
+def moe_train(device, smi: str) -> tuple:
+    """Leg (c): TRAIN_FLAGSHIP_MOE (bf16 over fp32 masters) at batch 8 x
+    1024 through the flash kernels: one warm-up step, then
+    MOE_TRAIN_STEPS steps on one batch with the flash launch counts set to
+    0 just before them and read just after. Gates: finite losses, each
+    step n_layers launches of each flash kernel and none of the plain
+    versions. Reported: step ms, MFU under the MoE-aware FLOP model (top-k
+    experts, as the goodput model counts them), peak memory, one profiled
+    step, and the share of the step the float32 expert products take.
+    Returns the flash launch counts and the failures."""
+    from tpu_task_torch.ml import train
+    from tpu_task_torch.ml.models import transformer
+    from tpu_task_torch.ml.ops import attention as fa
+
+    cfg = transformer.TransformerConfig(dtype=torch.bfloat16,
+                                        **TRAIN_FLAGSHIP_MOE)
+    state = train.init_state(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    n_params = sum(p.numel() for p in train._leaves(state.params))
+    tokens = torch.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), device=device,
+        generator=torch.Generator(device=device).manual_seed(1))
+    step = train.make_train_step(cfg)
+    state, m = step(state, tokens)                            # warm-up
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    step_ms, per_step = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        before = flash_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = flash_counts()
+        per_step.append({key: after[key] - before[key] for key in after})
+        losses.append(m["loss"])
+    counts = flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    median_ms = float(np.median(step_ms))
+    flops = train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    expert_ms = expert_products_ms(device, cfg, TRAIN_BATCH * TRAIN_SEQ)
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "plain_fwd": 0, "plain_bwd": 0,
+            "plain_mha": 0}
+    line = dict(
+        params=n_params, moe_layers=n_moe, n_experts=cfg.n_experts,
+        top_k=cfg.moe_top_k, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        dtype="bfloat16", master_weights="float32", warmup_steps=1,
+        timed_steps=len(step_ms), step_ms=step_ms, step_ms_median=median_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
+        flops_per_step=flops, mfu=flops / (median_ms / 1e3) / BF16_FLOPS,
+        mfu_flops="top-k experts counted (goodput.matmul_params); the "
+                  "dense dispatch computes n_experts / top_k times their "
+                  "expert products",
+        expert_products_ms_per_layer=expert_ms,
+        expert_products_share_of_step=expert_ms * n_moe / median_ms,
+        losses=losses, loss_fell=losses[-1] < losses[0],
+        launches_per_step=per_step[0],
+        launches_every_step_as_expected=all(p == want for p in per_step),
+        launches=counts, peak_memory_gb=peak, gpu=smi)
+    emit("serve_moe_train", **line)
+    failures = []
+    if not (all(math.isfinite(x) for x in losses)
+            and line["launches_every_step_as_expected"]):
+        failures.append(f"(c) train: {line}")
+    else:
+        emit("serve_moe_train_profile",
+             **profile_step(step, state, tokens, median_ms), gpu=smi)
+    return counts, failures
+
+
+def phase_serve_moe(device, smi: str, serve_median: float) -> dict:
+    """Phase 31: mixture-of-experts layers, legs (a)-(c); ``serve_median``
+    is phase 6's median tokens/s, reported beside leg (b)'s.
+    Returns the launches of the tiny legs (``parity``), of the flagship's
+    waves (``flagship``) and of the train steps (``train``)."""
+    t0 = time.perf_counter()
+    parity, expert, failures = moe_parity_tiny(device)
+    t_parity = time.perf_counter() - t0
+    lines, flagship, more = moe_flagship(device, smi, serve_median)
+    failures += more
+    t_serve = time.perf_counter() - t0 - t_parity
+    train_counts, more = moe_train(device, smi)
+    failures += more
+    emit("serve_moe", launches=flagship, parity_launches=parity,
+         train_launches={k: train_counts[k] for k in (
+             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+         expert_check={k: v["max_abs_err"] for k, v in expert.items()},
+         moe_over_dense={k: v["moe_over_dense"] for k, v in lines.items()},
+         seconds=time.perf_counter() - t0, parity_seconds=t_parity,
+         serve_seconds=t_serve, failures=failures, gpu=smi)
+    if failures:
+        raise AssertionError(f"serve_moe: {failures}")
+    return {"flagship": flagship, "parity": parity, "train": train_counts}
+
+
 def main() -> int:
     import shutil
 
@@ -6808,6 +7308,7 @@ def run_phases(bucket: str) -> int:
                             serve_median)
     overlap = phase_serve_overlap(device, smi, trace_lines[MICRO_KS[-1]])
     tier = phase_serve_tier(device, smi)
+    moe = phase_serve_moe(device, smi, serve_median)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -6855,6 +7356,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_overlap": overlap["parity"]["cuda"],
         "launches_serve_tier": tier["flagship"]["cuda"],
         "launches_parity_tier": tier["parity"]["cuda"],
+        "launches_serve_moe": moe["flagship"]["cuda"],
+        "launches_parity_moe": moe["parity"]["cuda"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -6870,7 +7373,8 @@ def run_phases(bucket: str) -> int:
             "fraction_of_bound": row["fraction_of_bound"],
             "launches_train_checkpoint": ckpt_counts[name],
             "launches_train_resume_process": resume_counts[name],
-            "launches_train_profile_window": window_counts[name]})
+            "launches_train_profile_window": window_counts[name],
+            "launches_train_moe": moe["train"][name]})
         # B1, B2 and B3 v3: wgmma fed by TMA rings
         build = fwd_build if name == "flash_fwd" else bwd_build[name]
         kernels[-1].update(version="v3", kernel=f"{name}_wgmma_kernel",
@@ -6905,6 +7409,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_overlap": overlap["parity"]["pipelined"],
         "launches_serve_tier_quant": tier["flagship"]["pipelined"],
         "launches_parity_tier": tier["parity"]["pipelined"],
+        "launches_serve_moe_quant": moe["flagship"]["pipelined"],
+        "launches_parity_moe": moe["parity"]["pipelined"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -6942,6 +7448,9 @@ def run_phases(bucket: str) -> int:
         "launches_serve_tier": tier["flagship"]["cuda_combine"],
         "launches_serve_tier_quant": tier["flagship"]["pipelined_combine"],
         "launches_parity_tier": tier["parity"]["combine"],
+        "launches_serve_moe": moe["flagship"]["cuda_combine"],
+        "launches_serve_moe_quant": moe["flagship"]["pipelined_combine"],
+        "launches_parity_moe": moe["parity"]["combine"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

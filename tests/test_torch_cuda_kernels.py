@@ -10,7 +10,8 @@ LoRA adapters evicted and reloaded from a bucket under those graphs; and
 a replica's graphs replayed from the thread a profiler capture hands its
 step loop to; an overlapped drain through each kernel that waits for the
 device only at its consume edge, and the host tier's demotion and
-promotion with a program in flight, waiting for nothing. Then
+promotion with a program in flight, waiting for nothing; the ``moe``
+preset's MoE layers through each kernel. Then
 the train path's card work beside the kernels: ``AsyncCheckpointer``'s
 device snapshot and ``prefetch_to_device``'s pinned side-stream copies.
 
@@ -397,6 +398,52 @@ def test_overlapped_drain_equals_sync_and_waits_only_at_consume(
     stats = engine.stats()
     assert stats["overlap"] and stats["goodput"]["overlapped_host_s"] > 0
     assert stats["step_graph"]["replays"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro_k", [1, 4])
+@pytest.mark.parametrize("impl,kv_dtype", [("cuda", None),
+                                           ("pipelined", "int8")])
+def test_moe_preset_runs_the_kernels(cuda_device, impl, kv_dtype, micro_k):
+    """The ``moe`` preset (a MoE layer of 4 experts, top-1) at fp32
+    through each kernel: a synchronous and an overlapped engine (its
+    second drain under the sync debug mode, so the dense expert dispatch
+    reads nothing back inside the dispatch region) equal the plain route
+    on the card token for token, every launch through the kernel; the
+    dispatch on the card equals the CPU's within 1e-5."""
+    from tpu_task_torch.ml.models import moe
+
+    waves = [(np.arange(1, 20), 9, {}),
+             (np.arange(5, 14), 6, {"temperature": 0.8, "key": [4, 5]}),
+             (np.arange(2, 4), 11, {"eos_token": 3}),
+             (np.arange(30, 47), 8, {"temperature": 1.1, "key": [8, 1]})]
+    outs = {}
+    for route, overlap in ((impl, False), (impl, True),
+                           ("reference", False)):
+        engine = build_engine("moe", serving={
+            "decode_impl": route, "kv_dtype": kv_dtype, "micro_k": micro_k,
+            "overlap": overlap}, device=cuda_device)
+        for checked in (False, True):
+            if checked and overlap:
+                _sync_checked(engine)
+            tpa.reset_launch_counts()
+            rids = [engine.submit(prompt, max_new, **kw)
+                    for prompt, max_new, kw in waves]
+            engine.drain()
+            outs[route, overlap, checked] = [engine.result(r) for r in rids]
+        launches = engine.stats()["attention_launches"]
+        assert launches[route] > 0
+        assert sum(launches.values()) == launches[route]
+    tpa.reset_launch_counts()       # the counters are process-wide
+    want = outs["reference", False, False]
+    assert all(out == want for out in outs.values())
+    cfg, layer = engine.cfg, engine.params["layers"][1]
+    h = torch.randn((2, 9, cfg.d_model), device=cuda_device)
+    got, aux = moe.apply_dense(layer, cfg.moe_cfg, h)
+    ref, ref_aux = moe.apply_dense(
+        {k: v.cpu() for k, v in layer.items()}, cfg.moe_cfg, h.cpu())
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), ref_aux, rtol=0, atol=1e-5)
 
 
 def _tier_sessions(engine, base: int, n_sessions: int = 8, turns: int = 3):

@@ -28,10 +28,8 @@ from tpu_task_torch.serve.replica import MODEL_PRESETS, build_engine
 from torch_port_util import port_config
 
 SEEDS = [0, 1, 42, 2**31 + 3]
-#: The presets the port builds: the mixture-of-experts one is named for
-#: the replica's argv and refused until ROADMAP A13.
-DENSE_PRESETS = sorted(name for name, spec in MODEL_PRESETS.items()
-                       if not spec.get("moe_every"))
+#: Every preset, the mixture-of-experts one among them.
+PRESETS = sorted(MODEL_PRESETS)
 SHAPES = [(7,), (256, 128), (33, 65), (2, 3, 50)]
 
 
@@ -145,14 +143,14 @@ def _assert_same_tree(got, want):
             np.testing.assert_array_equal(_bits(g[name]), _bits(w[name]))
 
 
-@pytest.mark.parametrize("preset", DENSE_PRESETS)
+@pytest.mark.parametrize("preset", PRESETS)
 def test_build_engine_params_equal_jax(preset):
     got = build_engine(preset, device="cpu").params
     want = jax.tree.map(np.asarray, jax_build_engine(preset).params)
     _assert_same_tree(got, want)
 
 
-@pytest.mark.parametrize("preset", DENSE_PRESETS)
+@pytest.mark.parametrize("preset", PRESETS)
 def test_preset_engines_serve_the_same_streams(preset):
     """A JAX and a port engine of one preset name, each built by its own
     package, serve the same greedy and keyed-sampled streams."""

@@ -256,8 +256,11 @@ def test_replica_profile_hands_the_step_loop_to_a_thread_it_traces(
 def test_replica_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A14"):
         ReplicaServer(preset="micro", device="cpu", tp=2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        ReplicaServer(preset="moe", device="cpu")
+    # The moe preset is ported at one device; its expert-parallel mesh is
+    # A14.
+    assert ReplicaServer(preset="moe", device="cpu").engine.cfg.n_experts == 4
+    with pytest.raises(NotImplementedError, match="A14"):
+        ReplicaServer(preset="moe", device="cpu", ep=2)
 
 
 def test_replica_fair_lock_excludes_under_many_threads():

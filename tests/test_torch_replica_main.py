@@ -106,7 +106,9 @@ def test_replica_main_announces_drains_on_sigterm_and_exports_obs(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--kv-bucket", ":googlecloudstorage:bucket/kv"], "A11c"),
     (["--tp", "2"], "A14"),
-    (["--preset", "moe"], "A13"),
+    (["--preset", "moe", "--ep", "2"], "A14"),
+    # Ported: the moe preset at one device.
+    (["--preset", "moe"], None),
     # Ported: JAX's argv, accepted (the roll itself:
     # tests/test_torch_hot_swap_replica.py).
     (["--ckpt-dir", "ckpts"], None),

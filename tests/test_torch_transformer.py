@@ -62,8 +62,17 @@ def test_init_shapes_and_moe_refused():
         d_ff=64, n_kv_heads=2))
     assert [tuple(p.shape) for p in jax.tree.leaves(params)] == \
         [tuple(p.shape) for p in jax.tree.leaves(ref)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.TransformerConfig(moe_every=2, n_experts=4)
+    # Mixture-of-experts layers (ported): the same leaves and shapes, a
+    # router, w_in and w_out in place of every second layer's dense FFN.
+    moe = dict(vocab_size=64, d_model=32, n_layers=4, n_heads=4, d_head=8,
+               d_ff=64, n_kv_heads=2, moe_every=2, n_experts=4)
+    params = ttf.init(torch.Generator().manual_seed(0),
+                      ttf.TransformerConfig(dtype=torch.float32, **moe))
+    ref = jtf.init(jax.random.PRNGKey(0), jtf.TransformerConfig(**moe))
+    assert jax.tree.structure(params) == jax.tree.structure(ref)
+    assert [tuple(p.shape) for p in jax.tree.leaves(params)] == \
+        [tuple(p.shape) for p in jax.tree.leaves(ref)]
+    assert tuple(params["layers"][1]["w_in"].shape) == (4, 32, 64)
 
 
 def test_rmsnorm():
@@ -105,7 +114,8 @@ def test_block(models):
         return mha_reference(q, expand_kv_heads(k, cfg.n_heads),
                              expand_kv_heads(v, cfg.n_heads), True)
 
-    _close(ttf._block(torch.tensor(x), params["layers"][0], cfg, tattn), ref)
+    _close(ttf._block(torch.tensor(x), params["layers"][0], cfg, tattn)[0],
+           ref)
 
 
 def test_apply_logits(models):

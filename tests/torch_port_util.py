@@ -34,7 +34,10 @@ def port_config(jcfg, dtype=torch.float32) -> ttf.TransformerConfig:
         vocab_size=jcfg.vocab_size, d_model=jcfg.d_model,
         n_layers=jcfg.n_layers, n_heads=jcfg.n_heads, d_head=jcfg.d_head,
         d_ff=jcfg.d_ff, rope_theta=jcfg.rope_theta, dtype=dtype,
-        n_kv_heads=jcfg.n_kv_heads)
+        n_kv_heads=jcfg.n_kv_heads, moe_every=jcfg.moe_every,
+        n_experts=jcfg.n_experts, moe_top_k=jcfg.moe_top_k,
+        moe_capacity_factor=jcfg.moe_capacity_factor,
+        moe_aux_weight=jcfg.moe_aux_weight)
 
 
 def port_model(jcfg, jparams):

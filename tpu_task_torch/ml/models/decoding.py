@@ -58,7 +58,7 @@ def forward_with_cache(params: Params, cfg: TransformerConfig,
             cache["v"][:, start:start + s] = v
             return gqa_cached_attention(q, cache["k"], cache["v"], positions)
 
-        x = _block(x, layer, cfg, attn_fn, positions=positions)
+        x, _aux = _block(x, layer, cfg, attn_fn, positions=positions)
     x = _rmsnorm(x, params["final_norm"])
     return (x[:, -1] @ params["unembed"]).to(torch.float32)
 

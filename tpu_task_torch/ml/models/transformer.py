@@ -11,9 +11,13 @@ used. The stored type is ``param_dtype``: ``cfg.dtype`` by default (the
 serving path, where the cast is then a no-op), float32 master weights for
 training (``train.init_state`` asks for them).
 
-Mixture-of-experts layers (``moe_every > 0``, ROADMAP A13) and the sharded
-loss (``activation_spec``, ``token_shards > 1``, ROADMAP A14) are not
-ported yet and raise."""
+Mixture-of-experts layers (``moe_every > 0``) hold ``router``, ``w_in``
+and ``w_out`` in place of the dense FFN's three weights and run the dense
+dispatch of :mod:`~tpu_task_torch.ml.models.moe` (an ``moe_fn`` may stand
+in for it, as in the JAX model); their load-balancing loss joins the
+training loss at ``moe_aux_weight``. The sharded loss (``activation_spec``,
+``token_shards > 1``) and the expert-parallel dispatch need a mesh,
+ROADMAP A14, and raise."""
 
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_task_torch.ml import random as jrandom
+from tpu_task_torch.ml.models import moe
 from tpu_task_torch.ml.ops.attention import (
     dot_product_attention,
     expand_kv_heads,
@@ -50,15 +55,25 @@ class TransformerConfig:
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
 
-    def __post_init__(self):
-        if self.moe_every > 0:
-            raise NotImplementedError(
-                "mixture-of-experts layers (moe_every > 0) are not ported "
-                "yet: ROADMAP A13")
-
     @property
     def d_attn(self) -> int:
         return self.n_heads * self.d_head
+
+    def is_moe_layer(self, index: int) -> bool:
+        """Whether layer ``index`` is a MoE layer: every ``moe_every``-th
+        (layers moe_every - 1, 2 moe_every - 1, ...)."""
+        if self.moe_every <= 0:
+            return False
+        if self.n_experts < 2:
+            raise ValueError(f"moe_every={self.moe_every} needs n_experts "
+                             f">= 2, got {self.n_experts}")
+        return (index + 1) % self.moe_every == 0
+
+    @property
+    def moe_cfg(self) -> moe.MoEConfig:
+        return moe.MoEConfig(
+            d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+            capacity_factor=self.moe_capacity_factor, top_k=self.moe_top_k)
 
     @property
     def kv_heads(self) -> int:
@@ -77,27 +92,43 @@ class TransformerConfig:
 
 # -- parameters ----------------------------------------------------------------
 
-def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
-    return {
+def _layer_shapes(cfg: TransformerConfig, index: int) -> Dict[str, tuple]:
+    """Layer ``index``'s weights in their draw order: the attention
+    projections and norms, then the dense FFN's ``w_gate``, ``w_up``,
+    ``w_down`` or a MoE layer's ``router``, ``w_in``, ``w_out``."""
+    shapes = {
         "attn_norm": (cfg.d_model,),
         "wq": (cfg.d_model, cfg.d_attn),
         "wk": (cfg.d_model, cfg.d_kv),
         "wv": (cfg.d_model, cfg.d_kv),
         "wo": (cfg.d_attn, cfg.d_model),
         "mlp_norm": (cfg.d_model,),
-        "w_gate": (cfg.d_model, cfg.d_ff),
-        "w_up": (cfg.d_model, cfg.d_ff),
-        "w_down": (cfg.d_ff, cfg.d_model),
     }
+    if cfg.is_moe_layer(index):
+        shapes.update(
+            router=(cfg.d_model, cfg.n_experts),
+            w_in=(cfg.n_experts, cfg.d_model, cfg.d_ff),
+            w_out=(cfg.n_experts, cfg.d_ff, cfg.d_model))
+    else:
+        shapes.update(w_gate=(cfg.d_model, cfg.d_ff),
+                      w_up=(cfg.d_model, cfg.d_ff),
+                      w_down=(cfg.d_ff, cfg.d_model))
+    return shapes
+
+
+#: Weights drawn at d_ff^-0.5 (the FFN's output projections); every other
+#: weight but the embedding is drawn at d_model^-0.5.
+_FF_OUT = ("w_down", "w_out")
 
 
 def _build_params(cfg: TransformerConfig, dense: Callable,
                   ones: Callable) -> Params:
     """The param tree of the JAX ``init``: ``dense(shape, scale)`` for each
     weight in its draw order (embed, unembed, then per layer wq, wk, wv,
-    wo, w_gate, w_up, w_down), scale d_model^-0.5 (d_ff^-0.5 for
-    ``w_down``, 1.0 for the embedding), and ``ones(shape)`` for the
-    norms."""
+    wo and the three FFN weights of :func:`_layer_shapes`; a MoE layer
+    takes the dense FFN's three keys), scale d_model^-0.5 (d_ff^-0.5 for
+    ``w_down`` and ``w_out``, 1.0 for the embedding), and ``ones(shape)``
+    for the norms."""
     scale = cfg.d_model ** -0.5
     params: Params = {
         "embed": dense((cfg.vocab_size, cfg.d_model), 1.0),
@@ -105,14 +136,14 @@ def _build_params(cfg: TransformerConfig, dense: Callable,
         "final_norm": ones((cfg.d_model,)),
         "layers": [],
     }
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         layer = {}
-        for name, shape in _layer_shapes(cfg).items():
+        for name, shape in _layer_shapes(cfg, i).items():
             if name.endswith("norm"):
                 layer[name] = ones(shape)
             else:
                 layer[name] = dense(
-                    shape, cfg.d_ff ** -0.5 if name == "w_down" else scale)
+                    shape, cfg.d_ff ** -0.5 if name in _FF_OUT else scale)
         params["layers"].append(layer)
     return params
 
@@ -170,16 +201,25 @@ def params_from_jax(tree: Mapping[str, Any], cfg: TransformerConfig,
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"wants {cfg.n_layers}")
-    shapes = _layer_shapes(cfg)
     return {
         "embed": leaf(tree["embed"], (cfg.vocab_size, cfg.d_model), "embed"),
         "unembed": leaf(tree["unembed"], (cfg.d_model, cfg.vocab_size),
                         "unembed"),
         "final_norm": leaf(tree["final_norm"], (cfg.d_model,), "final_norm"),
-        "layers": [{name: leaf(layer[name], shape, f"layers[{i}].{name}")
-                    for name, shape in shapes.items()}
+        "layers": [{name: leaf(_leaf_of(layer, name, i), shape,
+                               f"layers[{i}].{name}")
+                     for name, shape in _layer_shapes(cfg, i).items()}
                    for i, layer in enumerate(tree["layers"])],
     }
+
+
+def _leaf_of(layer: Mapping[str, Any], name: str, index: int):
+    if name not in layer:
+        raise ValueError(
+            f"layers[{index}] has no {name}: the config wants "
+            f"{'a MoE' if name in ('router', 'w_in', 'w_out') else 'a dense'}"
+            f" FFN there, the tree holds {sorted(layer)}")
+    return layer[name]
 
 
 def params_to_numpy(params: Params) -> Dict[str, Any]:
@@ -276,14 +316,32 @@ def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
     return expand_kv_heads(kv, n_heads)
 
 
+MoeFn = Callable[[Params, torch.Tensor], Any]
+
+
+def default_moe_fn(cfg: TransformerConfig) -> MoeFn:
+    """The dense-dispatch MoE FFN, ``(layer, h) -> (out, aux)``: the
+    single-device path every step takes when no ``moe_fn`` is given."""
+    mcfg = cfg.moe_cfg
+
+    def fn(layer, h):
+        return moe.apply_dense(layer, mcfg, h)
+
+    return fn
+
+
 def _block(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
-           attn_fn: AttnFn,
-           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One transformer block (dense FFN). ``attn_fn(q, k, v)`` receives k/v
+           attn_fn: AttnFn, positions: Optional[torch.Tensor] = None,
+           moe_fn: Optional[MoeFn] = None):
+    """One transformer block → (x, aux). ``attn_fn(q, k, v)`` receives k/v
     at kv-head width; the cached decode paths pass a closure that writes
     the cache and attends it, so every projection, norm and residual is
-    this one function on every path. Each weight is cast to ``cfg.dtype``
-    where it is used."""
+    this one function on every path. Each attention and dense-FFN weight
+    is cast to ``cfg.dtype`` where it is used; a MoE layer (one that holds
+    a ``router``) runs ``moe_fn`` (default :func:`default_moe_fn`) on its
+    stored weights and adds its output cast to the residual's type.
+    ``aux`` is the layer's router loss, a float32 zero for a dense
+    layer."""
     b, s, _ = x.shape
     dt = cfg.dtype
     h = _rmsnorm(x, layer["attn_norm"])
@@ -295,26 +353,46 @@ def _block(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
     attn = attn_fn(q, k, v)
     x = x + attn.reshape(b, s, cfg.d_attn) @ layer["wo"].to(dt)
     h = _rmsnorm(x, layer["mlp_norm"])
+    if "router" in layer:
+        out, aux = (moe_fn or default_moe_fn(cfg))(layer, h)
+        return x + out.to(x.dtype), aux.to(torch.float32)
     gate = F.silu(h @ layer["w_gate"].to(dt))
     up = h @ layer["w_up"].to(dt)
-    return x + (gate * up) @ layer["w_down"].to(dt)
+    return (x + (gate * up) @ layer["w_down"].to(dt),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def apply_features(params: Params, cfg: TransformerConfig,
-                   tokens: torch.Tensor,
-                   attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
-    """tokens (batch, seq) → final-norm features (batch, seq, d_model).
-    The default attention is :func:`dot_product_attention` over expanded
-    kv heads: the flash kernels wherever its routing rule admits the
-    shape."""
+def apply_features_with_aux(params: Params, cfg: TransformerConfig,
+                            tokens: torch.Tensor,
+                            attn_fn: Optional[AttnFn] = None,
+                            moe_fn: Optional[MoeFn] = None):
+    """tokens (batch, seq) → (final-norm features (batch, seq, d_model),
+    the mean router loss over the MoE layers, a float32 zero for an
+    all-dense config). The default attention is
+    :func:`dot_product_attention` over expanded kv heads: the flash
+    kernels wherever its routing rule admits the shape."""
     if attn_fn is None:
         def attn_fn(q, k, v):
             return dot_product_attention(q, expand_kv(k, cfg.n_heads),
                                          expand_kv(v, cfg.n_heads), True)
     x = embed_lookup(params["embed"].to(cfg.dtype), tokens)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = 0
     for layer in params["layers"]:
-        x = _block(x, layer, cfg, attn_fn)
-    return _rmsnorm(x, params["final_norm"])
+        x, aux = _block(x, layer, cfg, attn_fn, moe_fn=moe_fn)
+        if "router" in layer:
+            aux_sum = aux_sum + aux
+            n_moe += 1
+    return _rmsnorm(x, params["final_norm"]), aux_sum / max(1, n_moe)
+
+
+def apply_features(params: Params, cfg: TransformerConfig,
+                   tokens: torch.Tensor, attn_fn: Optional[AttnFn] = None,
+                   moe_fn: Optional[MoeFn] = None) -> torch.Tensor:
+    """tokens (batch, seq) → final-norm features (batch, seq, d_model);
+    :func:`apply_features_with_aux` without the router loss."""
+    return apply_features_with_aux(params, cfg, tokens, attn_fn=attn_fn,
+                                   moe_fn=moe_fn)[0]
 
 
 def apply(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -461,27 +539,28 @@ def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             token_shards: int = 1) -> torch.Tensor:
     """Next-token cross-entropy over tokens (batch, seq). ``fused=True``
     streams the unembed and softmax over vocab blocks (:func:`fused_xent`);
-    ``fused=False`` is the monolithic reference path. A dense config has no
-    router loss, so the JAX package's aux term is 0 here."""
+    ``fused=False`` is the monolithic reference path. A config with MoE
+    layers adds ``cfg.moe_aux_weight`` times their mean router loss;
+    ``moe_fn`` replaces their dense dispatch, as in the JAX model."""
     if activation_spec is not None:
         raise NotImplementedError(
             "activation_spec (sequence-parallel sharding) is not ported "
             "yet: ROADMAP A14")
-    if moe_fn is not None:
-        raise NotImplementedError(
-            "mixture-of-experts layers are not ported yet: ROADMAP A13")
     tokens = tokens.long()
     targets = tokens[:, 1:]
-    features = apply_features(params, cfg, tokens[:, :-1], attn_fn=attn_fn)
+    features, aux = apply_features_with_aux(params, cfg, tokens[:, :-1],
+                                            attn_fn=attn_fn, moe_fn=moe_fn)
     b, s, d = features.shape
     unembed = params["unembed"].to(cfg.dtype)
     if fused:
-        return fused_xent(features.reshape(b * s, d), unembed,
+        xent = fused_xent(features.reshape(b * s, d), unembed,
                           targets.reshape(-1), token_shards=token_shards)
-    if token_shards != 1:
+    elif token_shards != 1:
         raise NotImplementedError(
             "token-sharded loss (token_shards > 1) is not ported yet: "
             "ROADMAP A14")
-    logits = (features @ unembed).to(torch.float32)
-    logp = F.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+    else:
+        logits = (features @ unembed).to(torch.float32)
+        logp = F.log_softmax(logits, dim=-1)
+        xent = -logp.gather(-1, targets[..., None])[..., 0].mean()
+    return xent + cfg.moe_aux_weight * aux

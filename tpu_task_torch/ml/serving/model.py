@@ -26,6 +26,10 @@ programs thread the loop state through: :func:`micro_carry_greedy` /
 :func:`chunk_carry_greedy` / ``_sample`` (the packed chunk step, whose
 completing prefills join the carry in the program).
 
+A config with mixture-of-experts layers serves through every one of these
+steps: ``_block`` runs their dense dispatch (:func:`serving_moe_fn` is None
+on one device) and the steps drop the router loss.
+
 Speculative decoding's steps (:func:`paged_multitoken_logits`,
 :func:`spec_score_greedy`, :func:`spec_score_probs`) run the same forward
 (:func:`_multitoken_features`) at query width ``spec_k + 1``;
@@ -63,6 +67,19 @@ def pool_is_quantized(pools: Pools) -> bool:
     (the code dtype, and for uint8 the int4 packing, is read off the
     pools)."""
     return "k_scale" in pools[0]
+
+
+def serving_moe_fn(cfg: TransformerConfig, mesh):
+    """The MoE dispatch of the fused serving steps, by the JAX package's
+    rule: None when there is nothing to dispatch over (no MoE layers, or
+    no mesh), and then ``_block`` runs the dense dispatch
+    (:func:`~tpu_task_torch.ml.models.moe.apply_dense`) on one device. The
+    expert-parallel dispatch over a mesh's ``ep`` axis is ROADMAP A14."""
+    if mesh is None or cfg.moe_every <= 0:
+        return None
+    raise NotImplementedError(
+        "the expert-parallel serving dispatch (a mesh with MoE layers) is "
+        "not ported yet: ROADMAP A14")
 
 
 def _fold_qerr(qerrs: List[torch.Tensor]) -> torch.Tensor:
@@ -133,7 +150,7 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
                                    qpos, impl=attn_impl)
 
         x_in = x
-        x = _block(x, layer, cfg, attn_fn, positions=qpos)
+        x, _aux = _block(x, layer, cfg, attn_fn, positions=qpos)
         if lora is not None:
             # The adapter branch around the unchanged block, gathered per
             # row; a scratch-block or scale-0 row adds an exact 0.0.

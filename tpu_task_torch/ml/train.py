@@ -13,8 +13,11 @@ The state flattens to the JAX ``TrainState``'s leaves in their order
 ``nu``; optax's empty states hold none), so a checkpoint of either package
 restores into the other (``tpu_task_torch.ml.checkpoint``).
 
-The sharded steps (a ``mesh``, pipeline, MoE and sequence parallelism) are
-not ported yet (ROADMAP A14) and raise."""
+A config with mixture-of-experts layers trains through the same step: its
+loss adds the router loss, and its MoE layers run the dense dispatch (or
+the ``moe_fn`` the caller passes). The sharded steps (a ``mesh``, pipeline,
+expert and sequence parallelism) are not ported yet (ROADMAP A14) and
+raise."""
 
 from __future__ import annotations
 
@@ -177,14 +180,15 @@ def make_train_step(cfg: transformer.TransformerConfig, optimizer=None,
     ``accum_steps > 1`` splits the batch into that many equal
     microbatches, runs them one after another and sums their gradients
     before the one update: the loss is a token mean over equal microbatches,
-    so the mean of their gradients is the full batch's gradient."""
+    so the mean of their gradients is the full batch's gradient.
+
+    A MoE config's loss includes ``cfg.moe_aux_weight`` times the router
+    loss; ``moe_fn(layer, h) -> (out, aux)`` replaces the dense dispatch
+    of its MoE layers, as in the JAX step."""
     if mesh is not None:
         _not_ported("the sharded train step (mesh=...)")
     if activation_spec is not None:
         _not_ported("activation_spec (sequence-parallel sharding)")
-    if moe_fn is not None or cfg.moe_every:
-        raise NotImplementedError(
-            "mixture-of-experts training is not ported yet: ROADMAP A13")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     optimizer = optimizer or make_optimizer()
@@ -201,8 +205,12 @@ def make_train_step(cfg: transformer.TransformerConfig, optimizer=None,
             loss_sum, grad_sum = None, None
             for micro in tokens.chunk(accum_steps):
                 loss = transformer.loss_fn(params, cfg, micro,
-                                           attn_fn=attn_fn)
-                grads = torch.autograd.grad(loss, leaves)
+                                           attn_fn=attn_fn, moe_fn=moe_fn)
+                # A leaf the loss does not reach (a MoE layer's weights
+                # under a moe_fn that ignores them) gets a zero gradient,
+                # as under jax.grad.
+                grads = torch.autograd.grad(loss, leaves,
+                                            materialize_grads=True)
                 loss = loss.detach()
                 if grad_sum is None:
                     loss_sum, grad_sum = loss, list(grads)

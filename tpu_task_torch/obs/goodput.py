@@ -38,8 +38,10 @@ dict. An engine with an ``obs`` handle also puts the JAX meter's
 else the H100 data sheet's dense bf16 989 TFLOP/s on a CUDA device and
 the JAX package's nominal 1 TFLOP/s elsewhere.
 ``decode_step_cost_analysis_flops`` asks XLA's cost analysis and has no
-counterpart here. Mixture-of-experts layers are not ported (ROADMAP A13),
-so the FLOP model counts dense FFNs only."""
+counterpart here. A mixture-of-experts layer counts its router and
+``moe_top_k`` experts' FFN weights, the routed work a token needs (the
+dense dispatch computes every expert, ``n_experts / moe_top_k`` times
+that), as the JAX model does."""
 
 from __future__ import annotations
 
@@ -79,13 +81,19 @@ def peak_flops_per_s(device=None) -> float:
 
 
 def matmul_params(cfg) -> int:
-    """Matmul parameters of one forward pass: the projections and dense FFN
-    of every layer plus the unembed (the embedding is a gather)."""
+    """Matmul parameters of one forward pass: the projections and FFN of
+    every layer plus the unembed (the embedding is a gather). A MoE layer
+    counts its router and ``moe_top_k`` experts' two FFN weights: the
+    per-token compute, not the parameter storage."""
     attn = (cfg.d_model * cfg.d_attn                      # wq
             + 2 * cfg.d_model * cfg.kv_heads * cfg.d_head  # wk, wv
             + cfg.d_attn * cfg.d_model)                   # wo
     dense_ff = 3 * cfg.d_model * cfg.d_ff                 # gate, up, down
-    return cfg.d_model * cfg.vocab_size + cfg.n_layers * (attn + dense_ff)
+    moe_ff = (cfg.d_model * cfg.n_experts                 # router
+              + cfg.moe_top_k * 2 * cfg.d_model * cfg.d_ff)  # w_in, w_out
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    return (cfg.d_model * cfg.vocab_size + cfg.n_layers * attn
+            + (cfg.n_layers - n_moe) * dense_ff + n_moe * moe_ff)
 
 
 def token_flops(cfg, kv_len: int) -> float:

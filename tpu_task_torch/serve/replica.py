@@ -61,9 +61,10 @@ stream (the engine's, taken at construction), and each staged publish
 batch carries an event that the ship thread waits on before it reads the
 copies back.
 
-Not ported, each refused at construction or argv time and naming its
-item: ``tp``/``ep`` meshes (A14), the ``moe`` preset (A13), object-store
-``--kv-bucket`` strings (A11c).
+The ``moe`` preset serves on one device through the dense expert
+dispatch. Not ported, each refused at construction or argv time and naming
+its item: ``tp``/``ep`` meshes (A14, the ``moe`` preset at ``--ep 2``
+among them), object-store ``--kv-bucket`` strings (A11c).
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ MODEL_PRESETS: Dict[str, dict] = {
                  d_head=16, d_ff=256, n_kv_heads=4),
     "micro": dict(seed=0, vocab_size=64, d_model=32, n_layers=2, n_heads=4,
                   d_head=8, d_ff=64, n_kv_heads=2),
-    # Named so the argv contract is JAX's; build_engine refuses it (A13).
+    # Mixture-of-experts: 4 experts, top-1, on every second layer.
     "moe": dict(seed=0, vocab_size=64, d_model=32, n_layers=2, n_heads=4,
                 d_head=8, d_ff=64, n_kv_heads=4, moe_every=2, n_experts=4),
 }
@@ -144,10 +145,6 @@ def build_engine(preset: str = "tiny", serving: Optional[dict] = None,
         raise ValueError(
             f"unknown model preset {preset!r}; have {sorted(MODEL_PRESETS)}")
     spec = dict(MODEL_PRESETS[preset])
-    if spec.get("moe_every"):
-        raise NotImplementedError(
-            f"preset {preset!r} holds mixture-of-experts layers, which are "
-            "not ported to tpu_task_torch yet: ROADMAP A13")
     device = resolve_device(device)
     seed = spec.pop("seed")
     cfg = transformer.TransformerConfig(dtype=torch.float32, **spec)
