@@ -174,10 +174,10 @@ start); any failed check raises and the script exits non-zero:
              retired slot's iterations run masked), the combine kernel's
              likewise where the plan splits, 0 through the other kernel
              and the plain version.
-16. serve trace — one more wave at K = 8, the serve wave's first 8
+16. serve trace — one more wave at K = 8, the serve wave's first 4
              requests, under ``torch.profiler`` (CPU and CUDA; the K = 1
-             trace went to make room for phase 30, the wave's other 8
-             requests for phase 31): per chunk step and per
+             trace went to make room for phase 30, the wave's other
+             requests for phases 31 and 32): per chunk step and per
              decode or micro-step the mean wall, device-busy ms and idle
              share, the ten device ops with the most time and the ten host
              ops with the most self time; the paged kernels' launches
@@ -360,7 +360,7 @@ start); any failed check raises and the script exits non-zero:
              ``host_gap_frac``, the consume edge's wait, dispatches per
              token, captures, the twin's streams (first divergence and
              top-2 gap), and one traced overlapped wave at K 8 (phase
-             16's 8 requests; its idle
+             16's 4 requests; its idle
              share beside phase 16's synchronous one). (c) int8 through
              the pipelined kernel overlapped at K 8, one wave, (b)'s gates.
 30. serve tier — the host KV tier (``ServingConfig(host_offload_blocks=
@@ -410,12 +410,34 @@ start); any failed check raises and the script exits non-zero:
              warm-up, finite losses, 8 launches of each flash kernel a
              step; step ms, MFU with top-k experts counted, peak memory,
              one profiled step and the float32 expert products' share.
+32. serve bucketed — bucketed prefill (``ServingConfig(prefill=
+             "bucketed")``: one program a whole prompt, ``paged_prefill``,
+             then the paged kernels decode). (a) the ``tiny`` and ``moe``
+             presets at fp32, greedy K 1 and 4, sampled K 1 and ``spec_k``
+             2 (the model as its own draft), each through ``cuda`` (fp32
+             pools) and ``pipelined`` (int8): streams equal the same
+             engine on the CPU's plain route token for token, no chunk
+             step, launches those of the decode programs through the
+             route alone (and the combine wherever the plan splits). (b)
+             the flagship (bf16) on the JAX bench's long-prompt-under-load
+             scenario (``bench_serving_long_prompt``: slots 4, block 16,
+             160 blocks, max_len 416, buckets 8 and 384, chunk 16, no
+             prefix cache; 3 runners of 8-token prompts at 56 new tokens
+             admitted, then 6 prompts of 384 tokens at 4 new), chunked and
+             bucketed, then bucketed over int8 pools through the pipelined
+             kernel: the runners' inter-token p50/p99, the long prompts'
+             TTFT p50, the makespan, and the device-busy and wall ms of
+             one 384-token prefill by each mode's programs (24 chunk
+             programs, or one ``paged_prefill``); gates: every request
+             its tokens, every decode step (and chunk step) ran the
+             kernel n_layers times and the combine wherever the plan
+             splits, nothing else launched.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
-20, 22, 24, 25, 26, 27, 28, 29, 30 and 31 and the scoring step's timing,
+20, 22, 24, 25, 26, 27, 28, 29, 30, 31 and 32 and the scoring step's timing,
 the flash rows theirs in phase 31's train steps),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -1646,9 +1668,10 @@ WALK_NAMES = {"cuda": ("paged_decode_kernel",),
 COMBINE_NAME = "combine_splits_kernel"
 
 
-#: Requests of a traced wave: the serve wave's first 8 (the profiler's
-#: post-processing time grows with the wave's chunk steps).
-TRACE_REQUESTS = 8
+#: Requests of a traced wave: the serve wave's first 4 (the profiler's
+#: post-processing time grows with the wave's chunk steps; phase 32's time
+#: came out of these two traces).
+TRACE_REQUESTS = 4
 
 
 def trace_wave(engine, seed: int, smi: str,
@@ -7244,6 +7267,338 @@ def phase_serve_moe(device, smi: str, serve_median: float) -> dict:
     return {"flagship": flagship, "parity": parity, "train": train_counts}
 
 
+#: Phase 32's tiny legs: (name, ServingConfig overrides, sampled).
+BUCKETED_LEGS = (("greedy_k1", {}, False), ("greedy_k4", {"micro_k": 4},
+                                            False),
+                 ("sampled_k1", {}, True), ("spec_k2", {"spec_k": 2}, True))
+#: Phase 32's tiny presets with their bucketed knobs: the largest bucket is
+#: the preset's max_len.
+BUCKETED_TINY = {"tiny": (16, 32, 64, 128), "moe": (8, 16, 32, 48)}
+#: Phase 32's flagship configuration: the JAX bench's
+#: ``bench_serving_long_prompt`` engine (bench.py).
+LONG_PROMPT_KNOBS = dict(slots=4, block_size=16, n_blocks=160, max_len=416,
+                         prefill_buckets=(8, 384), chunk_tokens=16,
+                         prefix_cache=False)
+#: (runners, runner prompt, runner new tokens, long prompts, long prompt,
+#: long new tokens), as the JAX bench.
+LONG_PROMPT_TRAFFIC = (3, 8, 56, 6, 384, 4)
+
+
+#: The schedule counters a launch gate reads.
+GATE_KEYS = ("decode_steps", "micro_steps", "chunk_steps", "prefills")
+
+
+def launch_gate(engine, launches: dict, combines: int, spec: bool,
+                since=None) -> dict:
+    """The attention launches of a run against its programs: n_layers a
+    decode or chunk program, n_layers x K a micro program (a spec run's
+    draft calls the same kernel, so only > 0 there), through the route
+    alone, and the combine wherever the route's plan splits the decode
+    (chunk) shape. ``since``: the counters (GATE_KEYS) when the launch
+    counts were set to 0 (None: a fresh engine)."""
+    stats = engine.stats()
+    s = {key: stats[key] - (since or {}).get(key, 0) for key in GATE_KEYS}
+    impl = engine.decode_impl
+    calls = (s["decode_steps"] + (engine.scfg.micro_k - 1) * s["micro_steps"])
+    plans = step_splits(engine)
+    want = {key: 0 for key in launches}
+    want[impl] = (launches[impl] if spec
+                  else engine.cfg.n_layers * (calls + s["chunk_steps"]))
+    want_combines = engine.cfg.n_layers * (
+        calls * (plans["decode"] > 1)
+        + s["chunk_steps"] * (plans["chunk"] > 1))
+    return dict(kernel_launches=launches[impl], combine_launches=combines,
+                launches_ok=(launches == want and launches[impl] > 0
+                             and (spec or combines == want_combines)),
+                expected_combine_launches=None if spec else want_combines,
+                decode_splits=plans["decode"], decode_calls=calls,
+                chunk_steps=s["chunk_steps"], prefills=s["prefills"])
+
+
+def combine_count() -> int:
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    return (pa.paged_decode_attention.combine_launches
+            + pa.paged_decode_pipelined_attention.combine_launches)
+
+
+def bucketed_parity_tiny(device) -> tuple:
+    """Leg (a): each tiny preset on each of BUCKETED_LEGS through each of
+    MOE_ROUTES, bucketed, against the same engine on the CPU's plain route.
+    Returns the kernels' and combine's launches and the failures."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    totals = {"cuda": 0, "pipelined": 0, "combine": 0}
+    failures = []
+    for preset, buckets in BUCKETED_TINY.items():
+        base = build_engine(preset, device="cpu")
+        cfg, params = base.cfg, base.params
+        del base
+        for leg, serving, sampled in BUCKETED_LEGS:
+            traffic = moe_traffic(cfg.vocab_size, sampled)
+            spec = serving.get("spec_k", 0) > 0
+            for impl, kv_dtype in MOE_ROUTES:
+                streams = {}
+                for route, dev in (("reference", torch.device("cpu")),
+                                   (impl, device)):
+                    engine = ServingEngine(
+                        params, cfg, ServingConfig(**{
+                            **SERVING_PRESETS[preset], **serving,
+                            "prefill": "bucketed", "prefix_cache": False,
+                            "prefill_buckets": buckets,
+                            "decode_impl": route, "kv_dtype": kv_dtype}),
+                        device=dev, draft_params=params if spec else None,
+                        draft_cfg=cfg if spec else None)
+                    pa.reset_launch_counts()
+                    streams[route] = run_arrivals(engine, traffic)
+                gate = launch_gate(
+                    engine, dict(engine.stats()["attention_launches"]),
+                    combine_count(), spec)
+                del engine
+                line = dict(
+                    preset=preset, leg=leg, kernel=impl,
+                    kv_dtype=kv_dtype or "float32", buckets=list(buckets),
+                    streams_equal_cpu_plain=(streams[impl]
+                                             == streams["reference"]),
+                    requests=len(traffic),
+                    tokens=sum(len(s) for s in streams[impl]), **gate)
+                emit("serve_bucketed_parity", **line)
+                totals[impl] += line["kernel_launches"]
+                totals["combine"] += line["combine_launches"]
+                if not (line["streams_equal_cpu_plain"]
+                        and line["launches_ok"] and line["chunk_steps"] == 0
+                        and line["prefills"] >= len(traffic)):
+                    failures.append(f"(a) {line}")
+    return totals, failures
+
+
+def long_prompt_traffic(vocab: int) -> tuple:
+    """The JAX bench's prompts (``bench_serving_long_prompt``, seed 0):
+    the runners' and the long ones."""
+    n_run, run_len, _, n_long, long_len, _ = LONG_PROMPT_TRAFFIC
+    rng = np.random.default_rng(0)
+    runners = [rng.integers(0, vocab, size=run_len) for _ in range(n_run)]
+    longs = [rng.integers(0, vocab, size=long_len) for _ in range(n_long)]
+    return runners, longs
+
+
+def long_prompt_leg(engine) -> dict:
+    """The scenario on one engine, as the JAX bench runs it: a warm-up
+    request of each kind drained, then the runners submitted and stepped
+    until all run, then the long prompts submitted; each step's new runner
+    tokens stamped with the step's end. The attention launches are set to
+    0 just before the runners and read just after the drain."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    _, _, run_new, _, _, long_new = LONG_PROMPT_TRAFFIC
+    runner_prompts, long_prompts = long_prompt_traffic(engine.cfg.vocab_size)
+    engine.submit(runner_prompts[0], 2)           # the programs' first use
+    engine.submit(long_prompts[0], 2)
+    engine.drain()
+    engine.goodput.reset()
+    steps0 = {key: engine.stats()[key] for key in ("steps",) + GATE_KEYS}
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    runners = [engine.submit(p, run_new) for p in runner_prompts]
+    while any(engine.poll(r)["status"] != "running" for r in runners):
+        engine.step()
+    longs = [engine.submit(p, long_new) for p in long_prompts]
+    seen = {r: len(engine.poll(r)["tokens"]) for r in runners}
+    stamps = {r: [] for r in runners}
+    t_longs = time.perf_counter()
+    while engine.has_work:
+        engine.step()
+        now = time.perf_counter()
+        for r in runners:
+            n = len(engine.poll(r)["tokens"])
+            stamps[r] += [now] * (n - seen[r])
+            seen[r] = n
+    torch.cuda.synchronize()
+    makespan = time.perf_counter() - t_longs
+    launches = dict(engine.stats()["attention_launches"])
+    combines = combine_count()
+    gaps = [(b - a) * 1e3 for r in runners
+            for a, b in zip(stamps[r], stamps[r][1:])]
+    ttft = [(engine.request(r).first_token_t - engine.request(r).submit_t)
+            * 1e3 for r in longs]
+    stats = engine.stats()
+    requests = [engine.request(r) for r in runners + longs]
+    vocab = engine.cfg.vocab_size
+    return dict(
+        intertoken_p50_ms=float(np.percentile(gaps, 50)),
+        intertoken_p99_ms=float(np.percentile(gaps, 99)),
+        intertoken_max_ms=max(gaps), intertoken_gaps=len(gaps),
+        long_ttft_p50_ms=float(np.percentile(ttft, 50)),
+        long_ttft_max_ms=max(ttft), makespan_s=makespan,
+        wall_with_runner_admission_s=time.perf_counter() - t0,
+        **{key: stats[key] - steps0[key] for key in steps0}, since=steps0,
+        host_gap_frac=stats["goodput"]["host_gap_frac"],
+        dispatches_per_token=stats["goodput"]["dispatches_per_token"],
+        all_finished=all(
+            r.status == "done" and len(r.tokens) == r.max_new_tokens
+            and all(0 <= t < vocab for t in r.tokens) for r in requests),
+        streams=[list(r.tokens) for r in requests],
+        launches=launches, combines=combines)
+
+
+def prefill_device_ms(engine, mode: str) -> dict:
+    """One 384-token prompt's ingestion by ``mode``'s programs on the
+    engine's weights and pools (blocks 1-24, free after the drain): one
+    ``paged_prefill`` at bucket 384, or the 24 chunk programs of 16 rows
+    (each the engine's chunk-step shape, the decode rows inactive), under
+    ``torch.profiler``: the union of the device kernels' spans (busy ms,
+    the L2 warm) and the calls' wall, each synchronized. Run after the
+    leg's launch counts are read."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_task_torch.ml.serving import model as serving_model
+
+    cfg, scfg, dev = engine.cfg, engine.scfg, engine.device
+    long_len = LONG_PROMPT_TRAFFIC[4]
+    prompt = torch.as_tensor(long_prompt_traffic(cfg.vocab_size)[1][0],
+                             device=dev, dtype=torch.int64)
+    need = scfg.blocks_for(long_len)
+    table = torch.zeros((scfg.max_blocks_per_slot,), dtype=torch.int32,
+                        device=dev)
+    table[:need] = torch.arange(1, need + 1, device=dev)
+    params = engine.params
+    n, w = scfg.slots, scfg.chunk_tokens
+    quant = engine._quantized
+    layouts = []
+    for start in range(0, long_len if mode == "chunked" else 0, w):
+        positions = np.zeros((n + w,), np.int32)
+        positions[n:] = np.arange(start, start + w)
+        active = np.zeros((n + w,), bool)
+        active[n:] = True
+        tables = np.zeros((n + w, scfg.max_blocks_per_slot), np.int32)
+        tables[n:] = table.cpu().numpy()
+        qa = None
+        if quant:
+            qa = tuple(torch.as_tensor(a, device=dev) for a in
+                       engine._quant_layout(tables, positions[:, None],
+                                            active[:, None]))
+        tokens = torch.zeros((n + w,), dtype=torch.int64, device=dev)
+        tokens[n:] = prompt[start:start + w]
+        layouts.append((tokens, torch.as_tensor(positions, device=dev),
+                        torch.as_tensor(tables, device=dev),
+                        torch.as_tensor(active, device=dev), qa))
+
+    def run():
+        with torch.no_grad():
+            if mode == "bucketed":
+                serving_model.paged_prefill(
+                    params, cfg, prompt[None], long_len, table,
+                    engine.pools)
+                return
+            for tokens, positions, tables, active, qa in layouts:
+                serving_model.greedy_decode_step(
+                    params, cfg, tokens, positions, tables, active,
+                    engine.pools, qa, attn_impl=engine.decode_impl)
+
+    run()                                      # first use off the clock
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prime_tracer(dev)
+        with record_function("prefill_384"):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    cpu = torch.autograd.DeviceType.CPU
+    span = next(e for e in prof.events()
+                if e.name == "prefill_384" and e.device_type == cpu)
+    start, end = span.time_range.start, span.time_range.end
+    busy, last, kernels = 0.0, -math.inf, 0
+    for d_start, d_end in sorted((s, e) for name, s, e in device_events(prof)
+                                 if name != "prefill_384"):
+        if not start <= d_start <= end:
+            continue
+        kernels += 1
+        if d_end > last:
+            busy += d_end - max(d_start, last)
+            last = d_end
+    return dict(prefill_384_device_busy_ms=busy / 1e3,
+                prefill_384_wall_ms=wall * 1e3,
+                prefill_384_kernels=kernels,
+                prefill_384_programs=1 if mode == "bucketed"
+                else len(layouts))
+
+
+#: Phase 32's flagship legs: (name, prefill, ServingConfig overrides).
+BUCKETED_FLAGSHIP_LEGS = (
+    ("chunked", "chunked", {}),
+    ("bucketed", "bucketed", {}),
+    ("bucketed_int8", "bucketed", {"kv_dtype": "int8",
+                                   "decode_impl": "pipelined"}))
+
+
+def bucketed_flagship(device, smi: str) -> tuple:
+    """Leg (b): the flagship on the long-prompt scenario by each of
+    BUCKETED_FLAGSHIP_LEGS. Returns the legs' lines, the kernels' and
+    combine's launches and the failures."""
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    cfg, params = flagship_model(device)
+    lines, failures, streams = {}, [], {}
+    totals = {"cuda": 0, "pipelined": 0, "cuda_combine": 0,
+              "pipelined_combine": 0}
+    for name, prefill, serving in BUCKETED_FLAGSHIP_LEGS:
+        engine = ServingEngine(params, cfg, ServingConfig(
+            **LONG_PROMPT_KNOBS, prefill=prefill, **serving), device=device)
+        run = long_prompt_leg(engine)
+        gate = launch_gate(engine, run.pop("launches"), run.pop("combines"),
+                           spec=False, since=run.pop("since"))
+        streams[name] = run.pop("streams")
+        impl = engine.decode_impl
+        totals[impl] += gate["kernel_launches"]
+        totals[f"{impl}_combine"] += gate["combine_launches"]
+        line = dict(leg=name, prefill=prefill, kernel=impl,
+                    kv_dtype=engine.scfg.kv_dtype or "bfloat16", **run,
+                    **{k: v for k, v in gate.items() if k not in GATE_KEYS},
+                    **prefill_device_ms(engine, prefill))
+        if name != "chunked":
+            line["streams_equal_chunked"] = sum(
+                a == b for a, b in zip(streams[name], streams["chunked"]))
+        emit("serve_bucketed_flagship", **line, gpu=smi)
+        lines[name] = line
+        if not (run["all_finished"] and gate["launches_ok"]
+                and gate["decode_splits"] > 1):
+            failures.append(f"(b) {name}: {line}")
+        del engine
+    chunked, bucketed = lines["chunked"], lines["bucketed"]
+    emit("serve_bucketed_compare", **{
+        f"bucketed_over_chunked_{key}": (bucketed[key] / chunked[key]
+                                         if chunked[key] else None)
+        for key in ("intertoken_p50_ms", "intertoken_p99_ms",
+                    "long_ttft_p50_ms", "makespan_s",
+                    "prefill_384_device_busy_ms", "prefill_384_wall_ms")},
+        gpu=smi)
+    return lines, totals, failures
+
+
+def phase_serve_bucketed(device, smi: str) -> dict:
+    """Phase 32: bucketed prefill, legs (a) and (b). Returns the launches
+    of the tiny legs (``parity``) and of the flagship legs
+    (``flagship``)."""
+    t0 = time.perf_counter()
+    parity, failures = bucketed_parity_tiny(device)
+    t_parity = time.perf_counter() - t0
+    lines, flagship, more = bucketed_flagship(device, smi)
+    failures += more
+    emit("serve_bucketed", launches=flagship, parity_launches=parity,
+         seconds=time.perf_counter() - t0, parity_seconds=t_parity,
+         failures=failures, gpu=smi)
+    if failures:
+        raise AssertionError(f"serve_bucketed: {failures}")
+    return {"flagship": flagship, "parity": parity}
+
+
 def main() -> int:
     import shutil
 
@@ -7309,6 +7664,7 @@ def run_phases(bucket: str) -> int:
     overlap = phase_serve_overlap(device, smi, trace_lines[MICRO_KS[-1]])
     tier = phase_serve_tier(device, smi)
     moe = phase_serve_moe(device, smi, serve_median)
+    bucketed = phase_serve_bucketed(device, smi)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -7358,6 +7714,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_tier": tier["parity"]["cuda"],
         "launches_serve_moe": moe["flagship"]["cuda"],
         "launches_parity_moe": moe["parity"]["cuda"],
+        "launches_serve_bucketed": bucketed["flagship"]["cuda"],
+        "launches_parity_bucketed": bucketed["parity"]["cuda"],
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -7411,6 +7769,8 @@ def run_phases(bucket: str) -> int:
         "launches_parity_tier": tier["parity"]["pipelined"],
         "launches_serve_moe_quant": moe["flagship"]["pipelined"],
         "launches_parity_moe": moe["parity"]["pipelined"],
+        "launches_serve_bucketed_quant": bucketed["flagship"]["pipelined"],
+        "launches_parity_bucketed": bucketed["parity"]["pipelined"],
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -7451,6 +7811,10 @@ def run_phases(bucket: str) -> int:
         "launches_serve_moe": moe["flagship"]["cuda_combine"],
         "launches_serve_moe_quant": moe["flagship"]["pipelined_combine"],
         "launches_parity_moe": moe["parity"]["combine"],
+        "launches_serve_bucketed": bucketed["flagship"]["cuda_combine"],
+        "launches_serve_bucketed_quant":
+            bucketed["flagship"]["pipelined_combine"],
+        "launches_parity_bucketed": bucketed["parity"]["combine"],
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

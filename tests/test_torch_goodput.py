@@ -7,7 +7,8 @@ the JAX engine (with an ``obs`` handle, which turns its meter on)
 charges: the same dispatches, model FLOPs and token counts, at K = 1 and
 at K = 4 and under preemption, under the same ``stats()["goodput"]``
 keys; and K = 4 must take fewer dispatches per token than K = 1 for the
-same FLOPs and tokens, as JAX's ``test_serving_micro.py`` pins."""
+same FLOPs and tokens, as JAX's ``test_serving_micro.py`` pins. A
+bucketed engine charges what JAX's bucketed engine charges."""
 
 import jax
 import numpy as np
@@ -100,6 +101,30 @@ def test_charges_match_jax_meter(micro_k, n_blocks):
     assert 0 <= pg["host_gap_frac"] <= 1 and pg["program_s"] > 0
     assert pg["mfu"] > 0
     assert pg["peak_flops"] == tgoodput.NOMINAL_PEAK_FLOPS
+
+
+@pytest.mark.parametrize("micro_k", [1, 4])
+def test_bucketed_charges_match_jax_meter(micro_k):
+    """Bucketed prefill: an admission is two dispatches (the prefill
+    program and its sampler) and charges its whole prompt in closed form
+    (``work_span``), as the JAX meter does."""
+    jcfg, jparams = jax_model("micro")
+    cfg, params = port_model(jcfg, jparams)
+    knobs = serving_knobs("micro", micro_k=micro_k, prefill="bucketed",
+                          prefix_cache=False, prefill_buckets=(8, 16, 32))
+    port = ServingEngine(params, cfg, ServingConfig(**knobs),
+                         rng=R.PRNGKey(0), device=CPU)
+    jax_engine = JaxServingEngine(
+        jparams, jcfg, JaxServingConfig(**knobs, decode_impl="xla"),
+        rng=jax.random.PRNGKey(0), obs=Obs.create(f"bucketed-{micro_k}"))
+    work = _workload(port.cfg.vocab_size)
+    want, jg = _run(jax_engine, work)
+    got, pg = _run(port, work)
+    assert got == want
+    for key in ("dispatches", "tokens", "ratio", "dispatches_per_token"):
+        assert pg[key] == jg[key], key
+    assert pg["model_flops"] == pytest.approx(jg["model_flops"], rel=1e-12)
+    assert port.stats()["prefills"] == len(work)
 
 
 def test_dispatches_per_token_fall_at_k4():

@@ -165,10 +165,45 @@ def _leaves(params):
         yield from layer.values()
 
 
-@pytest.mark.parametrize("knob,value", [("prefill", "bucketed")])
-def test_unported_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingConfig(**{knob: value})
+BUCKETED = dict(prefill="bucketed", prefix_cache=False)
+
+
+@pytest.mark.parametrize("knobs,match", [
+    (dict(prefill="bucketed"), "prefix_cache needs prefill='chunked'"),
+    (dict(BUCKETED, max_len=64), "largest prefill bucket 128 exceeds"),
+    (dict(prefill="bucketed", max_len=64),
+     "largest prefill bucket 128 exceeds"),
+    (dict(BUCKETED, overlap=True), "overlap=True needs prefill='chunked'"),
+    (dict(BUCKETED, max_len=48, prefill_buckets=(8, 16)), "submit")],
+    ids=["default-prefix-cache", "bucket-past-max-len",
+         "bucket-past-max-len-first", "overlap", "prompt-past-last-bucket"])
+def test_bucketed_knobs_raise_as_jax(knobs, match):
+    """Bucketed prefill (ROADMAP A2) is ported: the port's config and
+    engine raise the JAX package's ValueError, word for word and in JAX's
+    order (the bucket check before the prefill value, the prefix-cache
+    check before spec_k, so bucketed at the default ``prefix_cache`` gets
+    the prefix-cache message)."""
+    from tpu_task.ml.serving import ServingConfig as JaxServingConfig
+
+    messages = []
+    for config, build in ((JaxServingConfig, jax_build_engine),
+                          (ServingConfig, build_engine)):
+        with pytest.raises(ValueError) as info:
+            if match != "submit":
+                config(**knobs)
+            else:
+                engine = (build("micro", serving=knobs)
+                          if config is JaxServingConfig
+                          else build("micro", serving=knobs, device="cpu"))
+                engine.submit(np.arange(17) % 64, 4)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
+    if match == "submit":
+        assert messages[1] == ("prompt of 17 tokens exceeds the largest "
+                               "prefill bucket 16")
+    else:
+        assert match in messages[1]
+    assert ServingConfig(**BUCKETED).bucket_for(17) == 32
 
 
 @pytest.mark.parametrize("knobs,error", [

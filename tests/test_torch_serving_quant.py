@@ -206,7 +206,8 @@ def test_refusals():
     # The overlapped loop is ported: over quantized pools it refuses what
     # the JAX config refuses, and nothing else.
     with pytest.raises(ValueError, match="overlap=True needs"):
-        ServingConfig(kv_dtype="int4", overlap=True, prefill="bucketed")
+        ServingConfig(kv_dtype="int4", overlap=True, prefill="bucketed",
+                      prefix_cache=False)
     assert ServingConfig(kv_dtype="int4", overlap=True).overlap
     one = torch.zeros(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="write layout"):

@@ -97,12 +97,6 @@ def fp8_supported() -> bool:
     return float(x[0]) == 1.5
 
 
-def _not_ported(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ServingConfig({knob}) is not ported to tpu_task_torch yet: "
-        f"ROADMAP {item}")
-
-
 @dataclass(frozen=True)
 class ServingConfig:
     """Admission knobs for the continuous-batching engine — the JAX
@@ -127,11 +121,11 @@ class ServingConfig:
     sweeps the previous one (chunked prefill only, no speculative
     decoding); ``host_offload_blocks``: the host-RAM tier's budget in
     blocks (0 is off; it needs the prefix cache, whose chained hashes
-    address it).
-
-    Bucketed prefill, a knob of a later slice, keeps its field so configs
-    carry over, and raises NotImplementedError naming its ROADMAP item
-    when set."""
+    address it); ``prefill``: ``"chunked"`` (the default) folds prompt
+    ingestion into the fused steps, ``"bucketed"`` runs each admission's
+    whole context through one program padded to the smallest of
+    ``prefill_buckets`` that holds it (:meth:`bucket_for`; no prefix
+    cache, no overlapped loop)."""
 
     slots: int = 8
     block_size: int = 16
@@ -166,6 +160,13 @@ class ServingConfig:
             raise ValueError(
                 f"prefill_buckets must be non-empty strictly ascending, got "
                 f"{self.prefill_buckets}")
+        if self.prefill == "bucketed" and \
+                self.prefill_buckets[-1] > self.max_len:
+            # Chunked prefill never pads to a bucket, so the default bucket
+            # table may exceed a small max_len there without harm.
+            raise ValueError(
+                f"largest prefill bucket {self.prefill_buckets[-1]} exceeds "
+                f"max_len {self.max_len}")
         if self.prefill not in ("chunked", "bucketed"):
             raise ValueError(
                 f"prefill must be 'chunked' or 'bucketed', got "
@@ -173,6 +174,10 @@ class ServingConfig:
         if self.chunk_tokens < 1:
             raise ValueError(
                 f"chunk_tokens must be >= 1, got {self.chunk_tokens}")
+        if self.prefix_cache and self.prefill != "chunked":
+            raise ValueError(
+                "prefix_cache needs prefill='chunked': a cache-hit "
+                "admission prefills only the tail, which is a chunk step")
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
         if self.decode_impl not in DECODE_IMPLS:
@@ -223,12 +228,19 @@ class ServingConfig:
             raise ValueError(
                 f"lora_rank > 0 needs n_adapter_blocks >= 2 (block 0 is "
                 f"the zero scratch block), got {self.n_adapter_blocks}")
-        if self.prefill == "bucketed":
-            raise _not_ported("prefill='bucketed'", "A2 (paged_prefill)")
 
     @property
     def max_blocks_per_slot(self) -> int:
         return -(-self.max_len // self.block_size)
+
+    def bucket_for(self, prompt_len: int) -> int:
+        """Smallest prefill bucket holding ``prompt_len`` tokens."""
+        for b in self.prefill_buckets:
+            if prompt_len <= b:
+                return b
+        raise ValueError(
+            f"prompt of {prompt_len} tokens exceeds the largest prefill "
+            f"bucket {self.prefill_buckets[-1]}")
 
     def blocks_for(self, n_tokens: int) -> int:
         """Physical blocks covering ``n_tokens`` logical tokens."""

@@ -14,6 +14,14 @@ return to the pool the same step). Its pieces, as in the JAX engine:
   an admitting slot is TOKEN-PACKED: rows 0..slots-1 decode one token each
   and rows slots.. carry the admitting slots' next prompt chunk, one token
   per row, each row with its own slot's block table.
+- **Bucketed prefill** (``prefill="bucketed"``, no prefix cache): an
+  admission runs its whole context, padded to the smallest prefill bucket
+  that holds it, through ONE program
+  (:func:`~tpu_task_torch.ml.serving.model.paged_prefill`: causal
+  self-attention over the bucket, its k/v written into the pools in place)
+  and samples its first token at once; the slot then decodes like any
+  other. Greedy streams are chunked prefill's. A resumed context that has
+  outgrown every bucket is recomputed from its prompt alone.
 - **Recompute preemption**: when the pool runs dry mid-decode the engine
   evicts refcount-0 cached blocks, then preempts the least-protected
   running request with the most slack (the youngest among equals) back to
@@ -132,10 +140,8 @@ for), the plain version on the CPU.
   step flush the pipeline to the synchronous edge first. Streams are the
   synchronous loop's.
 
-Not ported yet (each raises at :class:`ServingConfig` construction or
-here, naming its ROADMAP item): bucketed prefill, meshes.
-``stats()`` carries their keys at the values of an engine that has them
-off.
+Not ported yet: meshes (ROADMAP A14); ``stats()`` carries their keys at
+the values of a one-device engine.
 
 - **Observability** (``obs=``, a :class:`~tpu_task_torch.obs.Obs`): one
   span per request phase (``engine.queue`` → ``engine.prefill`` →
@@ -202,6 +208,8 @@ from tpu_task_torch.ml.serving.model import (
     chunked_step_greedy,
     decode_and_sample,
     greedy_decode_step,
+    paged_prefill,
+    sample_tokens,
     spec_score_greedy,
     spec_score_probs,
 )
@@ -671,6 +679,8 @@ class ServingEngine:
                 raise ValueError(
                     f"unknown adapter {adapter_id!r} — register_adapter "
                     "first")
+        if self.scfg.prefill == "bucketed":
+            self.scfg.bucket_for(len(prompt))  # must fit a prefill bucket
         if ((prompt < 0) | (prompt >= self.cfg.vocab_size)).any():
             raise ValueError(
                 f"prompt token ids must lie in [0, {self.cfg.vocab_size})")
@@ -771,7 +781,7 @@ class ServingEngine:
         admitted: List[int] = []
         finished: List[int] = self._pending_finished    # swept by a flush
         self._pending_finished = []
-        self._admit_chunked(admitted)
+        self._admit(admitted, finished)
         gens = sorted({r.generation for r in self._slots if r is not None})
         with torch.no_grad():
             for gen in gens:
@@ -1344,6 +1354,17 @@ class ServingEngine:
                 raise ValueError(
                     f"resumed request needs {self.scfg.blocks_for(total)} "
                     f"blocks but the pool holds {self.scfg.n_blocks - 1}")
+            if self.scfg.prefill == "bucketed" and tokens:
+                # A bucketed admission ingests prompt + resumed prefix in
+                # ONE padded program, so the context needs a bucket though
+                # only the prompt did at submit. Past every bucket, it is
+                # recomputed from the prompt alone: keyed sampling (and
+                # greedy's purity) regenerates the same prefix, so a valid
+                # in-flight request never becomes unresumable.
+                try:
+                    self.scfg.bucket_for(len(prompt) + len(tokens))
+                except ValueError:
+                    tokens = []
             ids = np.concatenate([prompt, np.asarray(tokens, np.int32)])
             if ((ids < 0) | (ids >= self.cfg.vocab_size)).any():
                 raise ValueError(
@@ -1487,11 +1508,13 @@ class ServingEngine:
         validate_lora_tables(blocks, self.scfg.n_adapter_blocks)
         return blocks, scales
 
-    def _model_params(self, lora=None) -> Params:
-        """The dispatched generation's weights, plus, for a step that
-        carries an adapter (``lora``, :meth:`_lora_rows`), ``"lora"``: the
-        one adapter pool and the step's tables on the device."""
-        params = self._gen_params[self._dispatch_gen()]
+    def _model_params(self, lora=None, gen: Optional[int] = None) -> Params:
+        """Generation ``gen``'s weights (default: the dispatched one's),
+        plus, for a step that carries an adapter (``lora``,
+        :meth:`_lora_rows`), ``"lora"``: the one adapter pool and the
+        step's tables on the device."""
+        params = self._gen_params[self._dispatch_gen() if gen is None
+                                  else gen]
         if lora is None:
             return params
         blocks, scales = lora
@@ -1767,6 +1790,12 @@ class ServingEngine:
                        self._queue[i].deadline is None,
                        self._queue[i].deadline or 0.0, i))
 
+    def _admit(self, admitted: list, finished: list) -> None:
+        if self.scfg.prefill == "chunked":
+            self._admit_chunked(admitted)
+        else:
+            self._admit_bucketed(admitted, finished)
+
     def _admit_chunked(self, admitted: list) -> None:
         """Assign free slots and blocks to queued requests in
         :meth:`_next_admit_index` order; prompt ingestion (a resumed
@@ -1850,6 +1879,89 @@ class ServingEngine:
                 self._planned_emitted[slot] = len(req.tokens)
             admitted.append(req.rid)
             self._obs_admit(req, cached_tokens=cached_len)
+
+    def _admit_bucketed(self, admitted: list, finished: list) -> None:
+        """Admit in :meth:`_next_admit_index` order while a slot and blocks
+        are free: the whole context (prompt plus any resumed tokens)
+        through one program padded to its bucket, under the request's
+        generation's weights, and the first token sampled at once."""
+        while self._queue:
+            slot = next(
+                (i for i, r in enumerate(self._slots) if r is None), None)
+            if slot is None:
+                return
+            pick = self._next_admit_index()
+            req = self._queue[pick]
+            ctx = self._context_ids(req)
+            need = self.scfg.blocks_for(len(ctx))
+            # One spare lets the running set cross its next block boundary
+            # without an instant preemption; an idle engine admits with
+            # none (a solo request fits the pool its submit checked).
+            blocks = self._reserve(need, 1 if self.n_active else 0)
+            if blocks is None:
+                return
+            del self._queue[pick]
+            self._obs_admit(req)
+            bucket = self.scfg.bucket_for(len(ctx))
+            table = np.zeros((self.scfg.max_blocks_per_slot,), np.int32)
+            table[:need] = blocks
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :len(ctx)] = ctx
+            self._bind_adapter(slot, req)
+            dev = self.device
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = paged_prefill(
+                    self._model_params(self._lora_rows([slot]),
+                                       gen=req.generation),
+                    self.cfg, torch.as_tensor(padded, device=dev,
+                                              dtype=torch.int64),
+                    len(ctx), torch.as_tensor(table, device=dev),
+                    self.pools, measure_qerr=self.debug)
+            if self._quantized:
+                out, qerr = out
+                self._note_qerr(qerr)
+                self.quantized_block_writes += need
+            self.goodput.program(time.perf_counter() - t0)
+            self.goodput.work_span(len(ctx))
+            self.goodput.emitted(1)
+            self.prefills += 1
+            first = self._sample_one(req, out)
+            req.status = RUNNING
+            req.tokens.append(first)
+            if req.first_token_t is None:
+                req.first_token_t = time.monotonic()
+                self._obs_first_token(req)
+            self._slots[slot] = req
+            self._admit_counter += 1
+            self._admit_seq[slot] = self._admit_counter
+            self._slot_keys[slot] = req.key
+            self._tables[slot] = table
+            self._positions[slot] = len(ctx)
+            self._prefill_target[slot] = len(ctx)
+            self._last_token[slot] = first
+            self._draft_pos[slot] = 0
+            admitted.append(req.rid)
+            if req.finished:
+                self._retire(slot)
+                finished.append(req.rid)
+
+    def _sample_one(self, req: Request, logits: torch.Tensor) -> int:
+        """A bucketed admission's first token: the sampler at
+        ``fold_in(key, len(tokens))``, the draw every path makes for the
+        token at that index; timed as a dispatch of its own, as the JAX
+        engine's prefill sampler is."""
+        dev = self.device
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            keys = jrandom.fold_in(
+                jrandom.as_key(req.key[None], dev),
+                torch.tensor([len(req.tokens)], device=dev))
+            tok = int(sample_tokens(
+                logits, torch.tensor([req.temperature], device=dev),
+                torch.tensor([req.top_p], device=dev), keys)[0])
+        self.goodput.program(time.perf_counter() - t0)
+        return tok
 
     def _ensure_blocks(self, widths: Optional[np.ndarray] = None) -> None:
         """Every active slot gets blocks covering its next ``widths[i]``

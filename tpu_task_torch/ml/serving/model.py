@@ -34,7 +34,12 @@ Speculative decoding's steps (:func:`paged_multitoken_logits`,
 :func:`spec_score_greedy`, :func:`spec_score_probs`) run the same forward
 (:func:`_multitoken_features`) at query width ``spec_k + 1``;
 :func:`chunked_step_greedy`, the draft's catch-up, keeps JAX's (slots, w)
-signature but packs the valid tokens into width-1 rows."""
+signature but packs the valid tokens into width-1 rows.
+
+Bucketed prefill (:func:`paged_prefill`) runs one admission's whole prompt,
+padded to a bucket, as causal self-attention over the bucket: it writes the
+prompt's k/v into the pools but attends its own activations, so it calls no
+paged kernel; the decode steps that follow it do."""
 
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from tpu_task_torch.ml.models.transformer import (
     _rmsnorm,
     embed_lookup,
 )
+from tpu_task_torch.ml.ops.attention import gqa_cached_attention
 from tpu_task_torch.ml.ops.paged_attention import paged_attention
 from tpu_task_torch.ml.serving.cache import flat_pool, quantized_append
 from tpu_task_torch.ml.serving.lora import apply_lora
@@ -157,6 +163,82 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
             x = x + apply_lora(x_in, lpool, lblocks[:, layer_i], lscales)
     x = _rmsnorm(x, params["final_norm"])
     return (x, _fold_qerr(qerrs)) if quantized else x
+
+
+def paged_prefill(params: Params, cfg: TransformerConfig,
+                  tokens: torch.Tensor, length: int,
+                  block_table: torch.Tensor, pools: Pools, *,
+                  measure_qerr: bool = False, moe_fn=None):
+    """One request's prompt through the model, writing its k/v into the
+    paged pools in place: the bucketed admission's program. ``tokens``
+    (1, bucket), right-padded to a prefill bucket; ``length`` the real
+    prompt length; ``block_table`` (max_blocks,) int32 with the prompt's
+    blocks allocated. Returns the logits at ``length - 1``, (1, vocab)
+    float32, and for a quantized pool the largest write-quantization error
+    beside them (an exact 0.0 unless ``measure_qerr``).
+
+    A fresh slot attends only itself, so the attention is causal
+    self-attention over the bucket (:func:`~tpu_task_torch.ml.ops.
+    attention.gqa_cached_attention`, JAX's einsum): no gather and no paged
+    kernel. Pad rows (p >= ``length``) compute garbage k/v, written either
+    into the tail of the slot's last block (overwritten by the real token
+    before any unmasked read: decode writes position p before attending
+    it) or, past the allocated blocks, into the scratch block, where
+    several rows share a slot and the last write is never read unmasked.
+    Their attention rows are never read either.
+
+    A quantized pool changes only the write: the prompt's blocks quantize
+    in one :func:`~tpu_task_torch.ml.serving.cache.quantized_append` a
+    layer over the whole table, with each block's filled count derived
+    from ``length``, so the requantize zeroes the pad rows and they cannot
+    inflate a block's scale; the prompt still attends its own exact
+    activations.
+
+    ``params["lora"]`` is ``(adapter pool, block table (1, n_layers),
+    scale (1,))`` as in :func:`_multitoken_features`; ``moe_fn`` is
+    ``_block``'s (None: the dense dispatch)."""
+    _, s = tokens.shape
+    block_size = pools[0]["k"].shape[1]
+    max_blocks = block_table.shape[0]
+    if not 0 < length <= max_blocks * block_size:
+        raise ValueError(
+            f"prefill overflow: length {length} exceeds the slot's "
+            f"block-table capacity {max_blocks * block_size}")
+    quantized = pool_is_quantized(pools)
+    device = tokens.device
+    positions = torch.arange(s, device=device)
+    table = block_table.to(device=device, dtype=torch.int64)
+    wt, wo = positions // block_size, positions % block_size
+    if quantized:
+        filled = (length - torch.arange(max_blocks, device=device)
+                  * block_size).clamp(0, block_size)
+    else:
+        write_idx = table[wt] * block_size + wo
+    x = embed_lookup(params["embed"], tokens)
+    lora = params.get("lora")
+    if lora is not None:
+        lpool, lblocks, lscales = lora
+        lscales = lscales.to(x.dtype)
+    qerrs: List[torch.Tensor] = []
+    for layer_i, (layer, pool) in enumerate(zip(params["layers"], pools)):
+        def attn_fn(q, k, v, pool=pool):
+            if quantized:
+                qerrs.append(quantized_append(
+                    pool, k[0], v[0], table, filled, wt, wo,
+                    measure_error=measure_qerr))
+            else:
+                flat_pool(pool["k"]).index_copy_(0, write_idx, k[0])
+                flat_pool(pool["v"]).index_copy_(0, write_idx, v[0])
+            return gqa_cached_attention(q, k, v, positions)
+
+        x_in = x
+        x, _aux = _block(x, layer, cfg, attn_fn, positions=positions,
+                         moe_fn=moe_fn)
+        if lora is not None:
+            x = x + apply_lora(x_in, lpool, lblocks[:, layer_i], lscales)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = (x[:, length - 1] @ params["unembed"]).to(torch.float32)
+    return (logits, _fold_qerr(qerrs)) if quantized else logits
 
 
 def paged_decode_step(params: Params, cfg: TransformerConfig,

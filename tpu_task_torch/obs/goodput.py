@@ -119,8 +119,8 @@ class GoodputMeter:
     every fused dispatch, :meth:`begin_step`/:meth:`end_step` around each
     scheduler iteration (:meth:`end_step_overlapped` in the overlapped
     loop, with :meth:`consume_wait` at its consume edge),
-    :meth:`work_counts` and :meth:`emitted` where it
-    commits tokens, :meth:`wasted_preempt` where it preempts,
+    :meth:`work_counts` (:meth:`work_span` for a bucketed admission) and
+    :meth:`emitted` where it commits tokens, :meth:`wasted_preempt` where it preempts,
     :meth:`wasted_spec` where a speculative round rejects proposals and
     :meth:`wasted_reingest` where it imports a resumed request."""
 
@@ -204,6 +204,14 @@ class GoodputMeter:
         if count:
             self.model_flops += (count * self._base_flops
                                  + self._attn_flops * (pos_sum + count))
+
+    def work_span(self, n: int) -> None:
+        """A whole prompt at positions [0, n) went through one program:
+        the attention term is the sum of p + 1, n(n+1)/2 in closed form
+        (the bucketed-prefill charge)."""
+        if n:
+            self.model_flops += (n * self._base_flops
+                                 + self._attn_flops * n * (n + 1) / 2.0)
 
     def emitted(self, n: int = 1) -> None:
         self.tokens_emitted += n
