@@ -6,7 +6,7 @@ flagship model's full width (model-dtype and quantized KV pools,
 K-token micro-steps, speculative decoding, drain and resume, blocks
 imported from the fleet KV plane, the HTTP replica, weight rolls, paged
 LoRA adapters, the overlapped loop, the host KV tier, mixture-of-experts
-layers), and trains the flagship for a few steps, checkpointing, killing
+layers, bucketed prefill, tensor- and expert-parallel gangs), and trains the flagship for a few steps, checkpointing, killing
 and restoring it, and its mixture-of-experts variant.
 
     python3 chip_smoke.py
@@ -164,8 +164,8 @@ start); any failed check raises and the script exits non-zero:
              as phase 6's does.
 15. serve micro — the flagship with bf16 pools through the tile kernel
              at ``micro_k`` 1, 4 and 8 (the K-step loop a CUDA graph at K >
-             1), each engine after phase 6's warm-up: three timed waves of
-             phase 6's traffic each, with tokens/s, mean chunk-step and
+             1), each engine after phase 6's warm-up: two timed waves of
+             phase 6's traffic each (three before phase 33), with tokens/s, mean chunk-step and
              decode- or micro-step ms, micro-steps, graph captures and
              capture ms, host_gap_frac, dispatches per token and peak
              memory. Every request's stream at K = 4 and 8 must equal K =
@@ -195,8 +195,8 @@ start); any failed check raises and the script exits non-zero:
              draft accepts over 90% on the greedy requests alone.
 19. serve spec — the flagship with bf16 pools through the tile kernel at
              ``spec_k`` 4 (scoring at w 5): the target as its own draft
-             and a random-init 2-layer d_model 512 draft, two timed waves
-             of phase 6's traffic each: tokens/s, decode-phase
+             and a random-init 2-layer d_model 512 draft, one timed wave
+             of phase 6's traffic each (two before phase 33): tokens/s, decode-phase
              tokens/s (what the rounds commit over their wall), rounds,
              the mean round split into catch-up, proposals, scoring and
              the host's accept, accept rate, tokens a round, launches
@@ -257,8 +257,8 @@ start); any failed check raises and the script exits non-zero:
              tokens/s, launches, and how many streams equal the
              publisher's (reported).
 25. parity replica — the HTTP replica (``ReplicaServer``) on ``micro``
-             and ``tiny`` at fp32 and int8 pools, through ``"cuda"``,
-             ``"pipelined"`` and ``"reference"``, driven over loopback by
+             and ``tiny`` at fp32 and int8 pools, through ``"cuda"`` and
+             ``"pipelined"``, driven over loopback by
              this script's own ``http.client`` code: a wave of greedy and
              keyed-sampled requests with trace and SLA headers, streamed
              by offset, equals the same engine driven directly; ``/metrics``
@@ -319,9 +319,8 @@ start); any failed check raises and the script exits non-zero:
              round-robin: 64 tokens a request, an adapter stream that
              differs from its base stream, 8 registered, 8 resident, a
              pool high water of 64 blocks, phase 6's launch gates;
-             reported: each tenant's streams against its requests alone on
-             the engine (top-2 gap at a first divergence), tokens/s
-             against phase 6's median, the LoRA branch's device time in a
+             reported: tokens/s against phase 6's median, the LoRA
+             branch's device time in a
              100% decode step (traced, and timed alone). (c) and (d) a
              pool of four adapters registered with ``host_copy=False``
              into a local bucket, at K = 1 and 4: tenants 0-3, 4-7, 0-3 on
@@ -375,11 +374,11 @@ start); any failed check raises and the script exits non-zero:
              token, blocks demoted and promoted, each checked method
              moving work with a program in flight, launches those of the
              programs through the route alone. (b) the flagship of phase
-             6 (bf16, the tile kernel, K 1) on 80 sessions of 2 turns
+             6 (bf16, the tile kernel, K 1) on 32 sessions of 2 turns
              (256-token first prompts, 32 new tokens a turn, 16 appended),
              a pool of 16 x 22 + 1 blocks (46 MB) under a 4096-block tier,
              overlapped and synchronous, beside a no-tier twin of the same
-             pool and a pressure-free engine (1681 blocks); gates: 32
+             pool and a pressure-free engine (673 blocks); gates: 32
              tokens a request, phase 6's launch gates, every block the
              synchronous run promotes equal to its tier payload byte for
              byte; reported: streams against the pressure-free engine's
@@ -432,12 +431,36 @@ start); any failed check raises and the script exits non-zero:
              its tokens, every decode step (and chunk step) ran the
              kernel n_layers times and the combine wherever the plan
              splits, nothing else launched.
+33. serve mesh — tensor- and expert-parallel serving on gangs of ranks
+             (``tpu_task_torch/ml/parallel/gang.py``: every rank a process
+             of its own on the one card, gloo between them; each gang
+             starts at its turn, ``gang.start``).
+             (a) at fp32 against one device on the CPU's plain route,
+             token for token: ``micro`` at tp 2 through ``cuda`` and
+             ``pipelined`` int8, at K 4, at ``spec_k`` 2 (the model as its
+             own draft) and sampled; ``moe`` at ep 2 and tp 2 x ep 2
+             (sampled). Gates: every rank's kernel launches those of the
+             programs (the combine wherever the plan splits), all ranks
+             equal, no graph captured, and each rank's kernel on its own
+             kv-head block of layer 0's pools against the plain version.
+             (b) phase 6's flagship at tp 2 through ``cuda`` (bf16) and
+             ``pipelined`` (int8) and ``FLAGSHIP_MOE`` at ep 2, each on
+             the serve wave's 16 requests (every slot live; prompts cut to
+             MESH_PROMPT tokens, MESH_NEW new) through one rank's engine
+             on the same params, then through the gang's: tokens/s and
+             decode and chunk step ms against that one rank's, collectives
+             a step by kind with their host ms, each rank's param and pool
+             bytes against one device's; gates: the one rank's wave
+             passes the serve waves' gates, every rank launched the
+             kernel n_layers times a step with a combine in every split
+             step, the rank's kernel against the plain version. No follower may outlive its gang.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
 their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
-20, 22, 24, 25, 26, 27, 28, 29, 30, 31 and 32 and the scoring step's timing,
+20, 22, 24, 25, 26, 27, 28, 29, 30, 31 and 32, each rank's in phase 33,
+and the scoring step's timing,
 the flash rows theirs in phase 31's train steps),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -1370,7 +1393,8 @@ def _timed_drain(engine, seed: int, max_new: int = 64,
 
 def step_splits(engine) -> dict:
     """The split plan of the engine's kernel at its decode and chunk
-    steps."""
+    steps (on each rank of a gang: every rank's block has the same
+    shape)."""
     from tpu_task_torch.ml.ops import paged_attention as pa
 
     cfg, scfg = engine.cfg, engine.scfg
@@ -1378,8 +1402,9 @@ def step_splits(engine) -> dict:
     plans = {}
     for step, rows in (("decode", scfg.slots),
                        ("chunk", scfg.slots + scfg.chunk_tokens)):
-        q = torch.empty((rows, 1, cfg.n_heads, cfg.d_head), dtype=cfg.dtype,
-                        device=pool.device)
+        # A gang's rank holds n_heads / tp query heads over its kv heads.
+        q = torch.empty((rows, 1, cfg.n_heads // engine.tp, cfg.d_head),
+                        dtype=cfg.dtype, device=pool.device)
         plans[step] = pa.planned_splits(
             q, pool, scfg.max_blocks_per_slot,
             pipelined=engine.decode_impl == "pipelined")
@@ -1645,10 +1670,11 @@ def serve_micro(device, smi: str, phase: str, ks, seeds,
 
 def phase_serve_micro(device, smi: str) -> tuple:
     """The micro-step path: the flagship with bf16 pools through the tile
-    kernel at K = 1, 4 and 8, three timed waves each. Returns the K lines
-    and the K = 8 engine (for the trace; the K = 1 trace, about a minute
-    of post-processing, made room for phase 30)."""
-    return serve_micro(device, smi, "serve_micro", MICRO_KS, (0, 1, 2),
+    kernel at K = 1, 4 and 8, two timed waves each (three before phase
+    33). Returns the K lines and the K = 8 engine (for the trace; the
+    K = 1 trace, about a minute of post-processing, made room for phase
+    30)."""
+    return serve_micro(device, smi, "serve_micro", MICRO_KS, (0, 1),
                        keep=(MICRO_KS[-1],))
 
 
@@ -3237,8 +3263,9 @@ class SpecProbe:
     def _attention(self, fn):
         from tpu_task_torch.ml.ops import paged_attention as pa
 
-        def call(q, k_pool, v_pool, tables, pos, *scales, impl):
-            out = fn(q, k_pool, v_pool, tables, pos, *scales, impl=impl)
+        def call(q, k_pool, v_pool, tables, pos, *scales, impl, **kwargs):
+            out = fn(q, k_pool, v_pool, tables, pos, *scales, impl=impl,
+                     **kwargs)
             kind, layer = self.kind, self.layer
             self.layer += 1
             self.attn_calls[kind] += 1
@@ -3628,11 +3655,15 @@ def serve_spec(device, smi: str, phase: str, draft_name: str, draft, seeds,
     return line
 
 
+#: Phase 18's timed waves a draft (one since phase 33 took their time).
+SPEC_SEEDS = (0,)
+
+
 def phase_serve_spec(device, smi: str, reference: dict) -> dict:
     """bf16 pools through the tile kernel at ``spec_k`` SPEC_K: the target
     as its own draft (the accept ceiling) and the random-init HALF_DRAFT
-    (the accept floor), two timed waves each. Returns the lines by
-    draft."""
+    (the accept floor), a timed wave each (SPEC_SEEDS). Returns the
+    lines by draft."""
     from tpu_task_torch.ml.models import transformer
 
     half_cfg = transformer.TransformerConfig(dtype=torch.bfloat16,
@@ -3640,9 +3671,9 @@ def phase_serve_spec(device, smi: str, reference: dict) -> dict:
     half = (half_cfg, transformer.init(
         torch.Generator(device=device).manual_seed(1), half_cfg))
     return {"self": serve_spec(device, smi, "serve_spec", "self", None,
-                               (0, 1), reference, spec_k=SPEC_K),
+                               SPEC_SEEDS, reference, spec_k=SPEC_K),
             "half": serve_spec(device, smi, "serve_spec", "half", half,
-                               (0, 1), reference, spec_k=SPEC_K)}
+                               SPEC_SEEDS, reference, spec_k=SPEC_K)}
 
 
 def phase_serve_spec_quant(device, smi: str, reference: dict) -> dict:
@@ -4546,11 +4577,12 @@ def replica_faults(replica, asked_to_drain: bool) -> list:
     return faults
 
 
-#: Phase 25's configurations: (preset, kv_dtype, decode_impl).
+#: Phase 25's configurations: (preset, kv_dtype, decode_impl), through
+#: each kernel (the CPU tests hold the replica on the plain route).
 REPLICA_CASES = tuple((preset, kv_dtype, impl)
                       for preset in ("micro", "tiny")
                       for kv_dtype in (None, "int8")
-                      for impl in ("cuda", "pipelined", "reference"))
+                      for impl in ("cuda", "pipelined"))
 #: The cases whose replica also takes a ``/profile`` capture.
 PROFILED = {("tiny", None, "cuda"), ("tiny", "int8", "pipelined")}
 
@@ -4723,8 +4755,8 @@ def parity_replica_run(preset: str, kv_dtype, impl: str, device,
 def replica_subprocess_run(device, root: str) -> dict:
     """``python -m tpu_task_torch.serve.replica --preset tiny --kv-bucket``
     on ``device`` with one slot: it announces ``endpoint.json``, serves
-    phase 25's wave at 64 new tokens, gets it twice more and SIGTERM at
-    once, writes
+    phase 25's wave (24 new tokens a request), gets it twice more and
+    SIGTERM at once, writes
     ``inflight.json`` and exits 0; a fresh engine here resumes the
     records."""
     import os
@@ -4743,8 +4775,7 @@ def replica_subprocess_run(device, root: str) -> dict:
                             stderr=subprocess.PIPE, text=True, env={
                                 **os.environ, "PYTHONPATH": str(HERE),
                                 "TPU_TASK_SERVE_LINGER": "0.1"})
-    wave = [{**body, "max_new_tokens": 64}
-            for body in _replica_wave(MODEL_PRESETS["tiny"]["vocab_size"])]
+    wave = _replica_wave(MODEL_PRESETS["tiny"]["vocab_size"])
     try:
         endpoint = cwd / "endpoint.json"
         while not endpoint.exists():
@@ -5881,23 +5912,6 @@ def phase_serve_lora(device, smi: str, serve_streams: dict,
                     over_phase6_median=run["tokens_per_s"] / median)
         mixed[share] = (run, line, tenants)
     stats_b = engine.stats()["adapters"]
-    # Reported: each tenant's streams of the 100% wave against that
-    # tenant's requests alone on the same engine.
-    run100, _, tenants100 = mixed[100]
-    alone = {}
-    for t in range(LORA_TENANTS):
-        picked = [j for j in range(16) if tenants100[j] == f"tenant-{t}"]
-        solo = _timed_drain(engine, KVFLEET_SEED, load=lora_load(
-            engine, KVFLEET_SEED, [f"tenant-{t}"] * len(picked),
-            requests=picked))
-        count(solo)
-        pairs = list(zip(solo["rids"], [run100["rids"][j] for j in picked]))
-        alone[f"tenant-{t}"] = dict(
-            equal=sum(engine.request(a).tokens == engine.request(b).tokens
-                      for a, b in pairs),
-            of=len(pairs),
-            first_divergence=[first_divergence(
-                engine, b, engine.request(a).tokens) for a, b in pairs])
     share = lora_step_share(engine, 3)
     del engine
     bucket = tempfile.mkdtemp(prefix="tpu-task-lora-")
@@ -5929,7 +5943,7 @@ def phase_serve_lora(device, smi: str, serve_streams: dict,
         lora_rank=LORA_RANK, tenants=LORA_TENANTS,
         adapter_pool_bytes=pool_bytes_lora,
         base=base_line, mixed={s: m[1] for s, m in mixed.items()},
-        adapters_after_mixed=stats_b, tenant_alone=alone,
+        adapters_after_mixed=stats_b,
         lora_step=share, reload_k1_loads=reload_k1["loads"],
         reload_k4_capture_ms=reload_k4["capture_ms"],
         reload_k4_lora_captures=reload_k4["lora_captures"],
@@ -6296,12 +6310,12 @@ def phase_serve_overlap(device, smi: str, sync_trace: dict) -> dict:
 TIER_TINY = dict(slots=2, max_len=64)
 TIER_TINY_POOL = dict(n_blocks=12, host_offload_blocks=64)
 TIER_TINY_FREE_BLOCKS = 160
-#: Phase 30's flagship traffic: 80 sessions of 2 turns, a 256-token first
-#: prompt, 32 new tokens a turn and 16 appended ones, every fourth request
-#: keyed sampled. The pool is 16 slots x 22 blocks + 1 (a fifth of the
-#: sessions' final 21 blocks each); the pressure-free engine holds them
-#: all.
-TIER_SESSIONS, TIER_PROMPT, TIER_NEW, TIER_APPEND = 80, 256, 32, 16
+#: Phase 30's flagship traffic: 32 sessions of 2 turns (80 before phase
+#: 33 took their time), a 256-token first prompt, 32 new tokens a turn and
+#: 16 appended ones, every fourth request keyed sampled. The pool is 16
+#: slots x 22 blocks + 1 (half the sessions' final 21 blocks each); the
+#: pressure-free engine holds them all.
+TIER_SESSIONS, TIER_PROMPT, TIER_NEW, TIER_APPEND = 32, 256, 32, 16
 TIER_BLOCKS = 16 * 22 + 1
 TIER_FREE_BLOCKS = TIER_SESSIONS * 21 + 1
 TIER_HOST_BLOCKS = 4096
@@ -6377,7 +6391,8 @@ def tier_parity_tiny(device) -> dict:
     """Leg (a): the tiny preset at fp32 through ``"cuda"``, ``"pipelined"``
     and the plain version at K 1 and 4, synchronous and overlapped, on the
     tiny soak from two bases in turn. Gates: every stream equal to the
-    pressure-free engine's, blocks demoted and promoted in both loops,
+    pressure-free engine's at that K (the plain route's, computed once a
+    K), blocks demoted and promoted in both loops,
     the launches those of the programs through the route alone, and in
     the overlapped engine's second pass (its first captured the carry
     graphs) every dispatch, demote pass, force and promotion checked by
@@ -6390,7 +6405,7 @@ def tier_parity_tiny(device) -> dict:
 
     base = build_engine("tiny", device=device)
     totals = {"cuda": 0, "pipelined": 0, "combine": 0}
-    failures = []
+    failures, wants = [], {}
     for impl in ("cuda", "pipelined", "reference"):
         for k in (1, 4):
             knobs = dict(SERVING_PRESETS["tiny"], **TIER_TINY,
@@ -6400,9 +6415,12 @@ def tier_parity_tiny(device) -> dict:
                 return ServingEngine(base.params, base.cfg, ServingConfig(
                     **{**knobs, **over}), device=device)
 
-            free = make(n_blocks=TIER_TINY_FREE_BLOCKS)
-            want = [tier_sessions(free, 1), tier_sessions(free, 40)]
-            del free
+            if k not in wants:
+                free = make(n_blocks=TIER_TINY_FREE_BLOCKS,
+                            decode_impl="reference")
+                wants[k] = [tier_sessions(free, 1), tier_sessions(free, 40)]
+                del free
+            want = wants[k]
             line = dict(kernel=impl, micro_k=k)
             for overlap in (False, True):
                 engine = make(**TIER_TINY_POOL, overlap=overlap)
@@ -7599,6 +7617,344 @@ def phase_serve_bucketed(device, smi: str) -> dict:
     return {"flagship": flagship, "parity": parity}
 
 
+# -- phase 33: tensor- and expert-parallel serving on a gang of ranks ---------
+
+#: Phase 33's gangs, (tp, ep): every rank a process of its own on the card.
+MESH_GANGS = ((2, 1), (1, 2), (2, 2))
+#: Phase 33's tiny legs, fp32 against the CPU's plain route: (name, preset,
+#: gang, ServingConfig overrides, sampled).
+MESH_TINY_LEGS = (
+    ("micro_tp2_cuda", "micro", (2, 1), {}, False),
+    ("micro_tp2_pipelined_int8", "micro", (2, 1),
+     {"decode_impl": "pipelined", "kv_dtype": "int8"}, False),
+    ("micro_tp2_k4", "micro", (2, 1), {"micro_k": 4}, False),
+    ("micro_tp2_spec2", "micro", (2, 1), {"spec_k": 2}, False),
+    ("micro_tp2_sampled", "micro", (2, 1), {}, True),
+    ("moe_ep2", "moe", (1, 2), {}, False),
+    ("moe_tp2_ep2", "moe", (2, 2), {}, True))
+#: Phase 33's flagship legs: (name, model, gang, ServingConfig overrides).
+MESH_FLAGSHIP_LEGS = (
+    ("flagship_tp2", FLAGSHIP, (2, 1), {}),
+    ("flagship_tp2_int8", FLAGSHIP, (2, 1),
+     {"kv_dtype": "int8", "decode_impl": "pipelined"}),
+    ("flagship_moe_ep2", FLAGSHIP_MOE, (1, 2), {}))
+#: A flagship leg's wave: the serve wave's 16 requests (every slot live),
+#: each prompt cut to its first MESH_PROMPT tokens, MESH_NEW new tokens.
+MESH_PROMPT, MESH_NEW = 64, 16
+
+
+def rank_counts() -> dict:
+    """This rank's paged launches in the engine's ``attention_launches``
+    shape, with the combine's beside them."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    counts = pa.launch_counts()
+    return {"cuda": counts["paged_decode_attention"],
+            "pipelined": counts["paged_decode_pipelined_attention"],
+            "reference": counts["paged_reference_attention"],
+            "combine": counts["paged_decode_combine"]
+            + counts["paged_decode_pipelined_combine"]}
+
+
+def rank_kernel_check(pools, heads: int, d_head: int, dtype, impl: str,
+                      mesh) -> dict:
+    """One call of this rank's kernel (``impl``) on its kv-head block of
+    layer 0's pools — four rows over blocks 1.., a seeded query at the
+    rank's ``heads`` query heads in ``dtype`` — against the plain version
+    on the same values: fp32 within FP32_ATOL, bf16 within its output's
+    rounding of the fp32 plain version. Run after the leg's launches are
+    read, so its own launches are not among them."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+
+    pool = pools[0]
+    n_blocks, bs = pool["k"].shape[:2]
+    dev = pool["k"].device
+    gen = torch.Generator(device=dev).manual_seed(33 + mesh.rank)
+    rows, max_blocks = 4, min(8, n_blocks - 1)
+    q = torch.randn((rows, 1, heads, d_head), generator=gen, device=dev,
+                    dtype=torch.float32).to(dtype)
+    tables = (1 + torch.arange(rows * max_blocks, device=dev,
+                               dtype=torch.int32) % (n_blocks - 1)
+              ).reshape(rows, max_blocks)
+    positions = torch.tensor([[max_blocks * bs - 1 - 3 * r]
+                              for r in range(rows)], device=dev,
+                             dtype=torch.int32)
+    args = (q, pool["k"], pool["v"], tables, positions) + (
+        (pool["k_scale"], pool["v_scale"]) if "k_scale" in pool else ())
+    got = pa.paged_attention(*args, impl=impl, mesh=mesh)
+    if dtype == torch.float32:
+        err = float((got - pa.paged_reference_attention(*args)).abs().max())
+        return {"rank": mesh.rank, "max_abs_err": err,
+                "ok": err <= FP32_ATOL, "tolerance": FP32_ATOL}
+    check = against_fp32_plain(got, args)
+    return {"rank": mesh.rank, "max_abs_err": check["max_abs_err_vs_fp32"],
+            "ok": check["ok"], "tolerance": check["tolerance_vs_fp32"]}
+
+
+def mesh_rank_gate(engine, per_rank: list, spec: bool) -> dict:
+    """Every rank's paged launches against the run's programs
+    (``launch_gate`` on each rank's counts: the route's kernel once a
+    layer a decode-shape call and chunk step, the combine wherever the
+    plan splits, nothing else): ranks equal, each gated."""
+    gates = [launch_gate(engine, {k: c[k] for k in ("cuda", "pipelined",
+                                                   "reference")},
+                         c["combine"], spec) for c in per_rank]
+    return dict(rank_launches=[g["kernel_launches"] for g in gates],
+                rank_combine_launches=[g["combine_launches"] for g in gates],
+                ranks_ok=all(g["launches_ok"] for g in gates)
+                and len({g["kernel_launches"] for g in gates}) == 1,
+                decode_splits=gates[0]["decode_splits"],
+                decode_calls=gates[0]["decode_calls"],
+                chunk_steps=gates[0]["chunk_steps"])
+
+
+def mesh_tiny_legs(mesh, legs, device) -> tuple:
+    """Leg (a) on one gang: each tiny leg's streams through the gang on
+    the card against one device's on the CPU's plain route, every rank's
+    launches gated, and each rank's kernel on its shard against the plain
+    version. Returns the launch totals by route and the failures."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.serving.cache import ServingConfig
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+    from tpu_task_torch.serve.replica import SERVING_PRESETS, build_engine
+
+    gang = mesh.gang
+    totals = {key: [0] * mesh.size
+              for key in ("cuda", "pipelined", "reference", "combine")}
+    failures, models = [], {}
+    for name, preset, _, over, sampled in legs:
+        if preset not in models:
+            base = build_engine(preset, device="cpu")
+            models[preset] = (base.cfg, base.params)
+            del base
+        cfg, params = models[preset]
+        spec = over.get("spec_k", 0) > 0
+        traffic = moe_traffic(cfg.vocab_size, sampled)
+        knobs = {**SERVING_PRESETS[preset], **over}
+        extra = dict(draft_params=params, draft_cfg=cfg) if spec else {}
+        cpu = ServingEngine(params, cfg, ServingConfig(
+            **{**knobs, "decode_impl": "reference"}),
+            device=torch.device("cpu"), **extra)
+        want = run_arrivals(cpu, traffic)
+        del cpu
+        engine = ServingEngine(params, cfg, ServingConfig(**knobs),
+                               mesh=mesh, **extra)
+        gang.query(pa.reset_launch_counts)
+        got = run_arrivals(engine, traffic)
+        torch.cuda.synchronize()
+        per_rank = gang.query(rank_counts)
+        gate = mesh_rank_gate(engine, per_rank, spec)
+        impl = engine.decode_impl
+        checks = gang.query(rank_kernel_check, engine.pools,
+                            cfg.n_heads // engine.tp, cfg.d_head, cfg.dtype,
+                            impl, mesh)
+        line = dict(leg=name, preset=preset, tp=engine.tp, ep=engine.ep,
+                    kernel=impl, kv_dtype=engine.scfg.kv_dtype or "float32",
+                    streams_equal_cpu_plain=got == want,
+                    requests=len(traffic), tokens=sum(map(len, got)),
+                    kernel_check=checks, **gate,
+                    graph_captures=engine.stats()["step_graph"]["captures"])
+        emit("serve_mesh_parity", **line)
+        for r, c in enumerate(per_rank):
+            totals[impl][r] += c[impl]
+            totals["combine"][r] += c["combine"]
+        if not (line["streams_equal_cpu_plain"] and gate["ranks_ok"]
+                and all(c["ok"] for c in checks)
+                and line["graph_captures"] == 0):
+            failures.append(f"(a) {line}")
+        del engine
+    return totals, failures
+
+
+def mesh_flagship_model(spec, device):
+    """A flagship-shaped bf16 model drawn on the card (the full tree once,
+    in rank 0; each follower receives only its block)."""
+    from tpu_task_torch.ml.models import transformer
+
+    cfg = transformer.TransformerConfig(dtype=torch.bfloat16, **spec)
+    params = transformer.init(
+        torch.Generator(device=device).manual_seed(0), cfg)
+    return cfg, params
+
+
+def _mesh_wave(engine):
+    """A flagship leg's wave (MESH_PROMPT, MESH_NEW) into ``engine``."""
+    wave = _wave_requests(engine.cfg.vocab_size, 0)
+    rids = [engine.submit(prompt[:MESH_PROMPT], MESH_NEW, **kw)
+            for prompt, kw in wave]
+    return rids, len(wave) * MESH_PROMPT
+
+
+def mesh_wave_run(engine) -> dict:
+    """One timed MESH wave through ``engine`` (``_timed_drain``), with its
+    streams."""
+    run = _timed_drain(engine, 0, max_new=MESH_NEW,
+                       load=lambda: _mesh_wave(engine))
+    run["streams"] = [engine.request(r).tokens for r in run["rids"]]
+    return run
+
+
+def mesh_flagship_leg(mesh, leg, device, smi: str) -> tuple:
+    """Leg (b) for one flagship leg: the MESH wave through one rank's
+    engine on the card, then through the gang's engine on the same
+    params, with every rank's launches gated; tokens/s and step ms
+    against the one rank's at that load, the collectives a step by kind
+    with their host ms, each rank's param and pool bytes against one
+    device's, and each rank's kernel against the plain version. Returns
+    the line and its failures."""
+    from tpu_task_torch.ml.ops import paged_attention as pa
+    from tpu_task_torch.ml.parallel import gang as gangs
+    from tpu_task_torch.ml.parallel.sharding import tree_nbytes
+    from tpu_task_torch.ml.serving.cache import (
+        ServingConfig,
+        paged_cache_bytes,
+    )
+    from tpu_task_torch.ml.serving.engine import ServingEngine
+
+    name, spec, _, over = leg
+    cfg, params = mesh_flagship_model(spec, device)
+    one_device_param_bytes = tree_nbytes(params)
+    scfg = ServingConfig(**SERVE_KNOBS, **over)
+    engine = ServingEngine(params, cfg, scfg, device=device)
+    warm_up(engine)
+    one = mesh_wave_run(engine)
+    del engine
+    torch.cuda.empty_cache()
+    t_build = time.perf_counter()
+    engine = ServingEngine(params, cfg, scfg, mesh=mesh)
+    build_s = time.perf_counter() - t_build
+    del params
+    torch.cuda.empty_cache()
+    warm_up(engine)
+    gang = mesh.gang
+    gang.query(pa.reset_launch_counts)
+    before = {k: list(v) for k, v in mesh.collectives.items()}
+    run = mesh_wave_run(engine)
+    per_rank = gang.query(rank_counts)
+    steps = run["decode_steps"] + run["chunk_steps"]
+    collectives = {
+        kind: {"per_step": (n - before.get(kind, [0, 0.0])[0]) / steps,
+               "host_ms_per_step": (s - before.get(kind, [0, 0.0])[1])
+               * 1e3 / steps}
+        for kind, (n, s) in mesh.collectives.items()}
+    impl = engine.decode_impl
+    gates = [dict(kernel=c[impl], combine=c["combine"],
+                  other=sum(c[k] for k in ("cuda", "pipelined", "reference")
+                            if k != impl)) for c in per_rank]
+    ranks_ok = all(g["kernel"] == run["expected_launches"] > 0
+                   and g["combine"] == run["expected_combine_launches"]
+                   and g["other"] == 0 for g in gates)
+    checks = gang.query(rank_kernel_check, engine.pools,
+                        cfg.n_heads // engine.tp, cfg.d_head, cfg.dtype,
+                        impl, mesh)
+    param_bytes = gang.query(tree_nbytes, engine.params)
+    pool_bytes = gang.query(tree_nbytes, engine.pools)
+
+    def over_one(key):
+        return run[key] / one[key] if run[key] and one[key] else None
+
+    line = dict(
+        leg=name, tp=engine.tp, ep=engine.ep, kernel=impl,
+        kv_dtype=scfg.kv_dtype or "bfloat16", requests=run["requests"],
+        prompt_tokens=run["prompt_tokens"],
+        generated_tokens=run["generated_tokens"],
+        tokens_per_s=run["tokens_per_s"],
+        one_rank_tokens_per_s=one["tokens_per_s"],
+        over_one_rank_tokens_per_s=over_one("tokens_per_s"),
+        mean_decode_step_ms=run["mean_decode_step_ms"],
+        one_rank_mean_decode_step_ms=one["mean_decode_step_ms"],
+        over_one_rank_decode_step_ms=over_one("mean_decode_step_ms"),
+        mean_chunk_step_ms=run["mean_chunk_step_ms"],
+        one_rank_mean_chunk_step_ms=one["mean_chunk_step_ms"],
+        over_one_rank_chunk_step_ms=over_one("mean_chunk_step_ms"),
+        decode_steps=run["decode_steps"], chunk_steps=run["chunk_steps"],
+        one_rank_steps=[one["decode_steps"], one["chunk_steps"]],
+        # rows live in a decode step: its tokens over the decode steps
+        decode_live_rows=run["decode_phase_tokens"] / run["decode_steps"]
+        if run["decode_steps"] else None,
+        one_rank_decode_live_rows=one["decode_phase_tokens"]
+        / one["decode_steps"] if one["decode_steps"] else None,
+        greedy_streams_equal_one_rank=sum(
+            a == b for i, (a, b) in enumerate(zip(run["streams"],
+                                                  one["streams"]))
+            if i % 4 != 3),
+        collectives=collectives, gang_messages=dict(gang.sent),
+        rank_launches=[g["kernel"] for g in gates],
+        rank_combine_launches=[g["combine"] for g in gates],
+        expected_launches=run["expected_launches"],
+        expected_combine_launches=run["expected_combine_launches"],
+        step_splits=run["step_splits"], kernel_check=checks,
+        rank_param_bytes=param_bytes,
+        one_device_param_bytes=one_device_param_bytes,
+        rank_pool_bytes=pool_bytes,
+        one_device_pool_bytes=paged_cache_bytes(cfg, scfg, scfg.n_blocks),
+        engine_build_s=build_s, all_finished=run["all_finished"],
+        one_rank_wave_ok=wave_ok(one),
+        graph_captures=run["graph_captures"],
+        collective_stats_rank0=gangs.collective_stats(mesh), gpu=smi)
+    emit("serve_mesh_flagship", **line)
+    failures = []
+    if not (run["all_finished"] and ranks_ok and wave_ok(one)
+            and run["step_splits"]["decode"] > 1
+            and all(c["ok"] for c in checks) and run["graph_captures"] == 0
+            and sum(pool_bytes) == line["one_device_pool_bytes"]
+            * engine.ep):
+        failures.append(f"(b) {line}")
+    del engine
+    torch.cuda.empty_cache()
+    return line, failures
+
+
+def phase_serve_mesh(device, smi: str) -> dict:
+    """Phase 33: tensor- and expert-parallel serving on gangs of ranks on
+    the one card, legs (a) (tiny fp32 gangs against the CPU's plain route)
+    and (b) (the flagship at tp 2 through each kernel, the MoE flagship at
+    ep 2, each against one rank at the same load). Each gang starts at its
+    turn (``gang.start``) and is closed after its legs; no follower may
+    outlive it. Returns each route's per-rank launches over the tiny legs
+    (``parity``) and the flagship legs (``flagship``)."""
+    from tpu_task_torch.ml.parallel import gang as gangs
+
+    t0 = time.perf_counter()
+    parity, flagship, failures, lines = {}, {}, [], {}
+    for shape in MESH_GANGS:
+        t_start = time.perf_counter()
+        mesh = gangs.start(*shape, device=device)
+        start_s = time.perf_counter() - t_start
+        procs = mesh.gang.procs
+        try:
+            legs = [leg for leg in MESH_TINY_LEGS if leg[2] == shape]
+            totals, more = mesh_tiny_legs(mesh, legs, device)
+            parity[f"tp{shape[0]}_ep{shape[1]}"] = totals
+            failures += more
+            for leg in MESH_FLAGSHIP_LEGS:
+                if leg[2] != shape:
+                    continue
+                line, more = mesh_flagship_leg(mesh, leg, device, smi)
+                lines[leg[0]] = line
+                flagship[leg[0]] = {
+                    "kernel": line["kernel"],
+                    "rank_launches": line["rank_launches"],
+                    "rank_combine_launches":
+                        line["rank_combine_launches"]}
+                failures += more
+        finally:
+            mesh.gang.close()
+        left = [p.pid for p in procs if p.poll() is None]
+        emit("serve_mesh_gang", tp=shape[0], ep=shape[1], start_s=start_s,
+             followers=[p.pid for p in procs], followers_left=left)
+        if left:
+            failures.append(f"followers outlived the gang: {left}")
+    emit("serve_mesh", parity_launches=parity, flagship_launches=flagship,
+         tokens_per_s={k: v["tokens_per_s"] for k, v in lines.items()},
+         over_one_rank_tokens_per_s={
+             k: v["over_one_rank_tokens_per_s"] for k, v in lines.items()},
+         seconds=time.perf_counter() - t0, failures=failures, gpu=smi)
+    if failures:
+        raise AssertionError(f"serve_mesh: {failures}")
+    return {"parity": parity, "flagship": flagship}
+
+
 def main() -> int:
     import shutil
 
@@ -7665,6 +8021,7 @@ def run_phases(bucket: str) -> int:
     tier = phase_serve_tier(device, smi)
     moe = phase_serve_moe(device, smi, serve_median)
     bucketed = phase_serve_bucketed(device, smi)
+    mesh = phase_serve_mesh(device, smi)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -7674,6 +8031,12 @@ def run_phases(bucket: str) -> int:
 
     def micro_launches(lines: dict, key: str) -> dict:
         return {f"micro_k_{k}": line[key] for k, line in lines.items()}
+
+    def mesh_ranks(route: str, key: str = "rank_launches") -> dict:
+        """Phase 33's per-rank launches: each flagship leg through
+        ``route`` and each gang's tiny legs."""
+        return {leg: line[key] for leg, line in mesh["flagship"].items()
+                if line["kernel"] == route or key != "rank_launches"}
 
     def by_storage(kernel: str) -> dict:
         return {storage: {key: rows[16][key] for key in (
@@ -7716,6 +8079,9 @@ def run_phases(bucket: str) -> int:
         "launches_parity_moe": moe["parity"]["cuda"],
         "launches_serve_bucketed": bucketed["flagship"]["cuda"],
         "launches_parity_bucketed": bucketed["parity"]["cuda"],
+        "launches_serve_mesh_by_rank": mesh_ranks("cuda"),
+        "launches_parity_mesh_by_rank": {
+            g: t["cuda"] for g, t in mesh["parity"].items()},
         **spec_scoring("paged_decode")}]
     for name, line in (("flash_fwd", 186), ("flash_bwd_dq", 344),
                        ("flash_bwd_dkv", 394)):
@@ -7771,6 +8137,9 @@ def run_phases(bucket: str) -> int:
         "launches_parity_moe": moe["parity"]["pipelined"],
         "launches_serve_bucketed_quant": bucketed["flagship"]["pipelined"],
         "launches_parity_bucketed": bucketed["parity"]["pipelined"],
+        "launches_serve_mesh_by_rank": mesh_ranks("pipelined"),
+        "launches_parity_mesh_by_rank": {
+            g: t["pipelined"] for g, t in mesh["parity"].items()},
         "spec_scoring_tensor_cores":
             spec_times["paged_decode_pipelined"]["tensor_cores"],
         **spec_scoring("paged_decode_pipelined")})
@@ -7815,6 +8184,10 @@ def run_phases(bucket: str) -> int:
         "launches_serve_bucketed_quant":
             bucketed["flagship"]["pipelined_combine"],
         "launches_parity_bucketed": bucketed["parity"]["combine"],
+        "launches_serve_mesh_by_rank": mesh_ranks(
+            "", "rank_combine_launches"),
+        "launches_parity_mesh_by_rank": {
+            g: t["combine"] for g, t in mesh["parity"].items()},
         "max_abs_err": max(combine_err, quant_err["paged_decode_combine"]),
         "ms": combine["ms"], "plain_ms": combine["plain_ms"],
         "bound_ms": combine["bound_ms"], "bound_by": combine["bound_by"],

@@ -51,7 +51,10 @@ def test_scan_covers_the_package_and_chip_smoke():
                    "obs/export.py", "ml/profiling.py", "ml/checkpoint.py",
                    "ml/data.py", "ml/models/mnist.py", "ml/tree.py",
                    "ml/__init__.py", "ml/serving/step_graph.py",
-                   "ml/serving/lora.py", "ml/serving/offload.py"):
+                   "ml/serving/lora.py", "ml/serving/offload.py",
+                   "ml/parallel/__init__.py", "ml/parallel/mesh.py",
+                   "ml/parallel/sharding.py", "ml/parallel/gang.py",
+                   "ml/parallel/follower.py"):
         assert f"tpu_task_torch/{module}" in names
     assert all((ROOT / n).exists() for n in names)
 

@@ -23,6 +23,7 @@ from tpu_task_torch.ml import random as R
 from tpu_task_torch.ml.models import moe as tmoe
 from tpu_task_torch.ml.models import transformer as ttf
 from tpu_task_torch.ml.ops.attention import expand_kv_heads, mha_reference
+from tpu_task_torch.ml.parallel.mesh import Mesh
 from tpu_task_torch.ml.serving.model import serving_moe_fn
 from tpu_task_torch.obs import goodput as tgoodput
 from torch_port_util import port_config, port_model
@@ -181,12 +182,6 @@ def test_init_matches_jax_shapes_scales_and_dtype():
                                    float(jnp.std(w)), rtol=0.1)
 
 
-def test_apply_sharded_names_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
-        tmoe.apply_sharded({}, tmoe.MoEConfig(), torch.zeros(1, 1, 64),
-                           mesh=object())
-
-
 # -- the transformer's MoE layers -------------------------------------------
 
 #: Every second layer MoE: 4 experts, top-2 (``moe_every`` 2 of 4 layers).
@@ -332,5 +327,8 @@ def test_serving_moe_fn_resolves_as_jax():
     assert serving_moe_fn(cfg, None) is None
     assert serving_moe_fn(port_config(jtf.TransformerConfig()), object()) \
         is None
-    with pytest.raises(NotImplementedError, match="A14"):
-        serving_moe_fn(cfg, object())
+    # JAX's rule over a mesh: nothing to dispatch at ep 1 (the dense
+    # dispatch, completed over tp), the expert-parallel one at ep > 1.
+    assert serving_moe_fn(cfg, Mesh((2, 1), ("tp", "ep"))) is None
+    assert callable(serving_moe_fn(cfg, Mesh((1, 2), ("tp", "ep"))))
+    assert callable(serving_moe_fn(cfg, Mesh((2, 2), ("tp", "ep"))))

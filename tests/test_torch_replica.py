@@ -8,12 +8,15 @@ same shape. Both replicas run the ``micro`` preset on the CPU, each on its
 own ephemeral port, torn down in ``finally``."""
 
 import json
+import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 
 from tpu_task.serve.replica import ReplicaServer as JaxReplicaServer
+from tpu_task.serve.replica import build_engine as jax_build_engine
 from tpu_task_torch.obs import SLA_HEADER, TRACE_HEADER
 from tpu_task_torch.serve.replica import ReplicaServer
 
@@ -254,13 +257,33 @@ def test_replica_profile_hands_the_step_loop_to_a_thread_it_traces(
 
 
 def test_replica_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A14"):
-        ReplicaServer(preset="micro", device="cpu", tp=2)
-    # The moe preset is ported at one device; its expert-parallel mesh is
-    # A14.
+    # Meshes are ported (ROADMAP A14's serving half): a tp gang and the moe
+    # preset's expert-parallel gang start, serve the JAX engine's streams
+    # and stop their followers with the replica.
     assert ReplicaServer(preset="moe", device="cpu").engine.cfg.n_experts == 4
-    with pytest.raises(NotImplementedError, match="A14"):
-        ReplicaServer(preset="moe", device="cpu", ep=2)
+    prompt = np.arange(1, 7)
+    for preset, tp, ep in (("micro", 2, 1), ("moe", 1, 2)):
+        server = ReplicaServer(preset=preset, device="cpu", tp=tp, ep=ep)
+        procs = server.engine.mesh.gang.procs
+        try:
+            server.start()
+            rid = call(server.url, "POST", "/submit",
+                       {"prompt": prompt.tolist(),
+                        "max_new_tokens": 5})[2]["rid"]
+            deadline = time.monotonic() + 60
+            while True:
+                done = call(server.url, "GET", f"/poll?rid={rid}")[2]
+                if done["status"] == "done" or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+            reference = jax_build_engine(preset)
+            want = reference.submit(prompt, 5)
+            assert done["tokens"] == reference.drain()[want]
+            stats = call(server.url, "GET", "/stats")[2]
+            assert (stats["tp"], stats["ep"]) == (tp, ep)
+        finally:
+            server.stop()
+        assert all(proc.poll() is not None for proc in procs)
 
 
 def test_replica_fair_lock_excludes_under_many_threads():

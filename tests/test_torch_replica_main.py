@@ -4,8 +4,9 @@ JAX replica's keys, serves over HTTP, drains on SIGTERM into
 ``inflight.json`` records that the JAX package's engine resumes with the
 uninterrupted JAX streams, exits 0, and leaves ``obs/`` files that the
 JAX package's ``read_spans``/``read_metrics`` read. What the port does not
-have (an object-store bucket, a mesh, the MoE preset) exits non-zero at
-argv time naming its ROADMAP item; ``--ckpt-dir`` is accepted."""
+have (an object-store bucket) exits non-zero at argv time naming its
+ROADMAP item; ``--ckpt-dir``, the ``moe`` preset and ``--tp``/``--ep``
+gangs are accepted."""
 
 import json
 import os
@@ -23,6 +24,7 @@ import pytest
 from tpu_task.obs import read_metrics, read_spans
 from tpu_task.serve.replica import build_engine as jax_build_engine
 from tpu_task.storage.backends import LocalBackend as JaxLocalBackend
+from torch_gang_util import alive, children
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -105,8 +107,10 @@ def test_replica_main_announces_drains_on_sigterm_and_exports_obs(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--kv-bucket", ":googlecloudstorage:bucket/kv"], "A11c"),
-    (["--tp", "2"], "A14"),
-    (["--preset", "moe", "--ep", "2"], "A14"),
+    # Ported: a tp x ep gang of ranks behind the one engine (ROADMAP A14's
+    # serving half).
+    (["--tp", "2"], None),
+    (["--preset", "moe", "--ep", "2"], None),
     # Ported: the moe preset at one device.
     (["--preset", "moe"], None),
     # Ported: JAX's argv, accepted (the roll itself:
@@ -124,9 +128,17 @@ def test_replica_main_refuses_what_is_not_ported(tmp_path, argv, item):
                 assert time.monotonic() < deadline
                 time.sleep(0.05)
             assert json.loads(endpoint.read_text())["generation"] == 0
+            # A gang replica's followers (one per rank past the first)
+            # stop with it.
+            followers = children(proc.pid)
+            width = int(argv[argv.index("--tp") + 1] if "--tp" in argv
+                        else argv[argv.index("--ep") + 1] if "--ep" in argv
+                        else 1)
+            assert len(followers) == width - 1
             proc.send_signal(signal.SIGTERM)
             proc.communicate(timeout=60)
             assert proc.returncode == 0
+            assert not any(alive(pid) for pid in followers)
         finally:
             if proc.poll() is None:
                 proc.kill()

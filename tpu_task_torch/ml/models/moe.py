@@ -1,7 +1,8 @@
 """The mixture-of-experts FFN in torch — the counterpart of
-``tpu_task/ml/models/moe.py``'s single-device half: :class:`MoEConfig`,
-:func:`init`, the top-k router (:func:`_route`), the load-balancing loss
-(:func:`_aux_from_stats`) and the dense dispatch (:func:`apply_dense`).
+``tpu_task/ml/models/moe.py``: :class:`MoEConfig`, :func:`init`, the top-k
+router (:func:`_route`), the load-balancing loss (:func:`_aux_from_stats`),
+the dense dispatch (:func:`apply_dense`) and the expert-parallel one
+(:func:`apply_sharded`).
 
 The dense dispatch is the JAX package's, einsum for einsum: a one-hot
 dispatch matrix places each token in its experts' rows of an (experts,
@@ -27,8 +28,11 @@ Three rules keep it equal to the JAX package's:
   for bit when the logits are float32 (other types draw in float32 and
   round). No single-device step passes one.
 
-The expert-parallel dispatch (``apply_sharded``: the all_to_all exchange
-over an ``ep`` mesh axis) needs a mesh, ROADMAP A14, and raises."""
+The expert-parallel dispatch runs on a gang's mesh
+(:mod:`~tpu_task_torch.ml.parallel.gang`): each rank routes its piece of
+the tokens, places them by capacity, exchanges them with one all_to_all
+over ``ep`` each way and runs its own experts between, the JAX package's
+``shard_map`` body written for one rank."""
 
 from __future__ import annotations
 
@@ -149,11 +153,115 @@ def apply_dense(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
     return combined.to(dt).reshape(b, s, d), aux
 
 
-def apply_sharded(*args, **kwargs):
-    """The expert-parallel dispatch needs an ``ep`` mesh axis."""
-    raise NotImplementedError(
-        "the expert-parallel MoE dispatch (apply_sharded over an ep mesh "
-        "axis) is not ported yet: ROADMAP A14")
+def param_logical_axes() -> Dict[str, Tuple]:
+    return {
+        "router": ("embed", None),
+        "w_in": ("expert", "embed", "mlp"),
+        "w_out": ("expert", "mlp", "embed"),
+    }
 
 
-__all__ = ["MoEConfig", "apply_dense", "apply_sharded", "init"]
+def _line(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """(pieces, this rank's piece) of a dim sharded over ``axes``,
+    row-major over them."""
+    pieces, index = 1, 0
+    for axis in axes:
+        n = int(dict(mesh.shape).get(axis, 1))
+        pieces, index = pieces * n, index * n + mesh.axis_index(axis)
+    return pieces, index
+
+
+def apply_sharded(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
+                  mesh, axis_name: str = "ep", rng=None, batch_axes=None,
+                  tp_axis=None, capacity=None):
+    """Expert-parallel forward on one rank of a gang: ``x`` (b, s, d) is
+    the whole batch (every rank holds it), ``params`` the rank's block
+    (``w_in`` (n_experts / ep, d, d_ff / tp), ``w_out`` (n_experts / ep,
+    d_ff / tp, d), the router whole). The rank takes its contiguous piece
+    of the batch dim over ``batch_axes`` (default ``(axis_name,)``), routes
+    it, places each assignment in its expert's capacity buffer in arrival
+    order (slot-major, so primary slots win), exchanges the buffers with
+    one all_to_all over ``axis_name``, runs its experts, completes their
+    partial sums over ``tp_axis`` (when given) with one all-reduce,
+    returns the tokens with a second all_to_all and combines them by
+    gate. The pieces are all-gathered back over ``batch_axes``, so every
+    rank returns the whole (b, s, d) output, and the load statistics are
+    averaged over those axes before their product: the aux loss is the
+    dense one. ``capacity`` overrides ``capacity_factor``: the serving
+    dispatch passes its per-rank token count, which makes it dropless.
+    An assignment past capacity contributes zero, or, with
+    ``dropped_identity``, its token."""
+    if batch_axes is None:
+        batch_axes = (axis_name,)
+    n_shards = int(dict(mesh.shape)[axis_name])
+    if cfg.n_experts % n_shards:
+        raise ValueError(f"n_experts {cfg.n_experts} not divisible by "
+                         f"ep={n_shards}")
+    if tp_axis is not None and cfg.d_ff % int(dict(mesh.shape)[tp_axis]):
+        raise ValueError(f"d_ff {cfg.d_ff} not divisible by "
+                         f"{tp_axis}={dict(mesh.shape)[tp_axis]}")
+    from tpu_task_torch.ml.parallel import gang
+
+    experts_per_shard = cfg.n_experts // n_shards
+    pieces, piece = _line(mesh, tuple(batch_axes))
+    if x.shape[0] % pieces:
+        raise ValueError(f"batch {x.shape[0]} does not divide over "
+                         f"{tuple(batch_axes)} ({pieces})")
+    step = x.shape[0] // pieces
+    x_local = x[piece * step:(piece + 1) * step]
+    b, s, d = x_local.shape
+    tokens = x_local.reshape(b * s, d)
+    n_tokens = tokens.shape[0]
+    shard_rng = rng
+    if shard_rng is not None:
+        for ax in batch_axes:
+            shard_rng = jrandom.fold_in(jrandom.as_key(shard_rng),
+                                        mesh.axis_index(ax))
+    expert_index, gate, stats = _route(tokens, params["router"], cfg,
+                                       shard_rng)
+    cap = capacity if capacity is not None else max(
+        1, int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts))
+    flat_expert = expert_index.t().reshape(-1)        # (k * n_tokens,)
+    flat_gate = gate.t().reshape(-1)
+    flat_tokens = tokens.repeat(cfg.top_k, 1)
+    one_hot = _one_hot(flat_expert, cfg.n_experts, torch.int64)
+    position = (torch.cumsum(one_hot, dim=0) * one_hot).sum(dim=-1) - 1
+    keep = position < cap
+    safe_pos = torch.where(keep, position, torch.zeros_like(position))
+    buffer = torch.zeros((cfg.n_experts, cap, d), dtype=x.dtype,
+                         device=x.device)
+    buffer.index_put_((flat_expert, safe_pos),
+                      flat_tokens * keep[:, None].to(tokens.dtype),
+                      accumulate=True)
+    grouped = buffer.reshape(n_shards, experts_per_shard, cap, d)
+    exchanged = gang.all_to_all(mesh, grouped, axis_name)
+    w_in, w_out = params["w_in"], params["w_out"]
+    dt = _promoted(exchanged, w_in)
+    hidden = F.silu(torch.einsum("xecd,edf->xecf", exchanged.to(dt),
+                                 w_in.to(dt)))
+    dt = _promoted(hidden, w_out)
+    out = torch.einsum("xecf,efd->xecd", hidden.to(dt), w_out.to(dt))
+    if tp_axis is not None:
+        out = gang.all_reduce(mesh, out, tp_axis)
+    returned = gang.all_to_all(mesh, out, axis_name).reshape(
+        cfg.n_experts, cap, d)
+    delivered = returned[flat_expert, safe_pos]
+    if cfg.dropped_identity:
+        slot_out = torch.where(keep[:, None], delivered,
+                               flat_tokens.to(delivered.dtype))
+    else:
+        slot_out = delivered * keep[:, None].to(tokens.dtype)
+    combined = (slot_out * flat_gate[:, None].to(tokens.dtype)).reshape(
+        cfg.top_k, n_tokens, d).sum(dim=0)
+    for ax in dict.fromkeys((*batch_axes, axis_name)):
+        size = int(dict(mesh.shape).get(ax, 1))
+        stats = tuple(gang.all_reduce(mesh, st, ax) / size for st in stats)
+    aux = _aux_from_stats(stats, cfg)
+    whole = combined.reshape(b, s, d)
+    for ax in reversed(tuple(batch_axes)):
+        whole = gang.all_gather(mesh, whole, ax, dim=0)
+    return whole, aux
+
+
+__all__ = ["MoEConfig", "apply_dense", "apply_sharded", "init",
+           "param_logical_axes"]

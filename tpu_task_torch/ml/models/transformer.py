@@ -15,9 +15,18 @@ Mixture-of-experts layers (``moe_every > 0``) hold ``router``, ``w_in``
 and ``w_out`` in place of the dense FFN's three weights and run the dense
 dispatch of :mod:`~tpu_task_torch.ml.models.moe` (an ``moe_fn`` may stand
 in for it, as in the JAX model); their load-balancing loss joins the
-training loss at ``moe_aux_weight``. The sharded loss (``activation_spec``,
-``token_shards > 1``) and the expert-parallel dispatch need a mesh,
-ROADMAP A14, and raise."""
+training loss at ``moe_aux_weight``.
+
+Over a mesh (the serving gang of :mod:`~tpu_task_torch.ml.parallel.gang`)
+each rank holds its block of every weight under :func:`param_pspecs`, the
+JAX package's logical axes through the shared rules: attention heads and
+the FFN's hidden dim over ``tp``, the vocab of ``embed`` and ``unembed``
+over ``tp``, experts over ``ep``. :func:`_block` then runs its rank's
+heads and hidden columns and completes ``wo`` and ``w_down`` (or the MoE
+FFN) with one all-reduce over ``tp`` each; :func:`sharded_embed` is a
+masked lookup plus an all-reduce and :func:`sharded_logits` all-gathers
+the logits. The sharded training loss (``activation_spec``,
+``token_shards > 1``) is ROADMAP A14's training half and raises."""
 
 from __future__ import annotations
 
@@ -33,6 +42,11 @@ from tpu_task_torch.ml.models import moe
 from tpu_task_torch.ml.ops.attention import (
     dot_product_attention,
     expand_kv_heads,
+)
+from tpu_task_torch.ml.parallel import gang
+from tpu_task_torch.ml.parallel.sharding import (
+    logical_tree_pspecs,
+    mesh_axis_size,
 )
 
 Params = Dict[str, Any]
@@ -237,6 +251,41 @@ def params_to_numpy(params: Params) -> Dict[str, Any]:
     }
 
 
+def param_logical_axes(cfg: TransformerConfig) -> Params:
+    """Each weight's logical axes, the JAX model's table."""
+    attn = {
+        "attn_norm": ("norm",),
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "heads"),
+        "wv": ("embed", "heads"),
+        "wo": ("heads", "embed"),
+        "mlp_norm": ("norm",),
+    }
+    dense_ffn = {
+        "w_gate": ("embed", "mlp"),
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
+    }
+    moe_ffn = moe.param_logical_axes()
+    return {
+        "embed": ("vocab", "embed"),
+        "unembed": ("embed", "vocab"),
+        "final_norm": ("norm",),
+        "layers": [
+            {**attn, **(moe_ffn if cfg.is_moe_layer(i) else dense_ffn)}
+            for i in range(cfg.n_layers)
+        ],
+    }
+
+
+def param_pspecs(cfg: TransformerConfig, mesh=None, rules=None) -> Params:
+    """PartitionSpecs for every parameter, resolved from the logical-axis
+    annotations through the shared partition rules: the serving engine's
+    weight placement reads THIS."""
+    return logical_tree_pspecs(param_logical_axes(cfg), mesh=mesh,
+                               rules=rules)
+
+
 def map_params(fn: Callable, params: Params) -> Params:
     """A params-shaped tree of ``fn`` over each leaf."""
     return {
@@ -277,6 +326,31 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     one-hot contraction sums in f32 (``preferred_element_type``); here an
     ``index_add_`` into f32 zeros."""
     return _EmbedLookup.apply(table, tokens)
+
+
+def sharded_embed(table: torch.Tensor, tokens: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
+    """:func:`embed_lookup` of a table whose vocab rows shard over the
+    mesh's ``tp`` axis: each rank looks up the tokens in its row range
+    (zeros elsewhere) and one all-reduce sums the ranks' rows, each token
+    found on exactly one rank, so the sum is exact."""
+    if mesh_axis_size(mesh, "tp") == 1:
+        return embed_lookup(table, tokens)
+    rows = table.shape[0]
+    local = tokens - mesh.axis_index("tp") * rows
+    mine = (local >= 0) & (local < rows)
+    found = table[local.clamp(0, rows - 1)]
+    found = torch.where(mine[..., None], found, torch.zeros_like(found))
+    return gang.all_reduce(mesh, found, "tp")
+
+
+def sharded_logits(features: torch.Tensor, unembed: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
+    """float32 logits ``features @ unembed`` over the whole vocab, from
+    an ``unembed`` whose vocab columns shard over ``tp``: each rank's
+    columns, all-gathered in rank order."""
+    logits = (features @ unembed).to(torch.float32)
+    return gang.all_gather(mesh, logits, "tp", dim=-1)
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -332,7 +406,7 @@ def default_moe_fn(cfg: TransformerConfig) -> MoeFn:
 
 def _block(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
            attn_fn: AttnFn, positions: Optional[torch.Tensor] = None,
-           moe_fn: Optional[MoeFn] = None):
+           moe_fn: Optional[MoeFn] = None, mesh=None):
     """One transformer block → (x, aux). ``attn_fn(q, k, v)`` receives k/v
     at kv-head width; the cached decode paths pass a closure that writes
     the cache and attends it, so every projection, norm and residual is
@@ -341,24 +415,41 @@ def _block(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
     a ``router``) runs ``moe_fn`` (default :func:`default_moe_fn`) on its
     stored weights and adds its output cast to the residual's type.
     ``aux`` is the layer's router loss, a float32 zero for a dense
-    layer."""
+    layer.
+
+    With a ``mesh`` whose ``tp`` axis is wider than 1 the layer holds its
+    rank's block (:func:`param_pspecs`): ``n_heads / tp`` query and
+    ``kv_heads / tp`` kv heads (a kv head's query group stays on its
+    rank) and ``d_ff / tp`` hidden columns, so ``wo`` and ``w_down`` give
+    partial sums that one all-reduce over ``tp`` completes. A MoE layer
+    on the dense dispatch is completed the same way; a given ``moe_fn``
+    (the expert-parallel dispatch) completes its own."""
     b, s, _ = x.shape
     dt = cfg.dtype
+    tp = mesh_axis_size(mesh, "tp")
+    heads, kv_heads = cfg.n_heads // tp, cfg.kv_heads // tp
     h = _rmsnorm(x, layer["attn_norm"])
-    q = (h @ layer["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (h @ layer["wk"].to(dt)).reshape(b, s, cfg.kv_heads, cfg.d_head)
-    v = (h @ layer["wv"].to(dt)).reshape(b, s, cfg.kv_heads, cfg.d_head)
+    q = (h @ layer["wq"].to(dt)).reshape(b, s, heads, cfg.d_head)
+    k = (h @ layer["wk"].to(dt)).reshape(b, s, kv_heads, cfg.d_head)
+    v = (h @ layer["wv"].to(dt)).reshape(b, s, kv_heads, cfg.d_head)
     q = _rope(q, cfg.rope_theta, positions)
     k = _rope(k, cfg.rope_theta, positions)
     attn = attn_fn(q, k, v)
-    x = x + attn.reshape(b, s, cfg.d_attn) @ layer["wo"].to(dt)
+    x = x + gang.all_reduce(
+        mesh, attn.reshape(b, s, heads * cfg.d_head) @ layer["wo"].to(dt),
+        "tp")
     h = _rmsnorm(x, layer["mlp_norm"])
     if "router" in layer:
-        out, aux = (moe_fn or default_moe_fn(cfg))(layer, h)
+        if moe_fn is None:
+            out, aux = default_moe_fn(cfg)(layer, h)
+            out = gang.all_reduce(mesh, out, "tp")
+        else:
+            out, aux = moe_fn(layer, h)
         return x + out.to(x.dtype), aux.to(torch.float32)
     gate = F.silu(h @ layer["w_gate"].to(dt))
     up = h @ layer["w_up"].to(dt)
-    return (x + (gate * up) @ layer["w_down"].to(dt),
+    return (x + gang.all_reduce(mesh, (gate * up) @ layer["w_down"].to(dt),
+                                "tp"),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -99,6 +99,31 @@ def gqa_cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, s, h, d)
 
 
+def gqa_cached_attention_tp(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, q_positions: torch.Tensor,
+                            mesh, axis_name: str = "tp") -> torch.Tensor:
+    """:func:`gqa_cached_attention` with the kv-head axis sharded over
+    ``axis_name``: the JAX package's shard_map spelling, run by each rank
+    of a gang on the whole arrays. The rank cuts its kv heads and their
+    query groups (each its own contiguous tensor), runs the core on them
+    and all-gathers the heads back in rank order. No reduction crosses
+    ranks — softmax and both products are per kv head — so the result is
+    BIT-EXACT against running the core on each head slice separately."""
+    from tpu_task_torch.ml.parallel import gang
+
+    kv = k_cache.shape[2]
+    tp = dict(mesh.shape)[axis_name]
+    if kv % tp:
+        raise ValueError(f"kv_heads {kv} not divisible by {axis_name}={tp}")
+    i, h = mesh.axis_index(axis_name), q.shape[2]
+    kv_l, h_l = kv // tp, h // tp
+    out = gqa_cached_attention(
+        q[:, :, i * h_l:(i + 1) * h_l].contiguous(),
+        k_cache[:, :, i * kv_l:(i + 1) * kv_l].contiguous(),
+        v_cache[:, :, i * kv_l:(i + 1) * kv_l].contiguous(), q_positions)
+    return gang.all_gather(mesh, out, axis_name, dim=2)
+
+
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True) -> torch.Tensor:
     """Plain attention over (b, s, h, d) — causal with the diagonal offset

@@ -571,6 +571,19 @@ paged_decode_pipelined_attention.launches = 0
 paged_decode_pipelined_attention.combine_launches = 0
 
 
+def launch_counts() -> dict:
+    """This process's launch counters by function name."""
+    return {
+        "paged_decode_attention": paged_decode_attention.launches,
+        "paged_decode_combine": paged_decode_attention.combine_launches,
+        "paged_decode_pipelined_attention":
+            paged_decode_pipelined_attention.launches,
+        "paged_decode_pipelined_combine":
+            paged_decode_pipelined_attention.combine_launches,
+        "paged_reference_attention": paged_reference_attention.launches,
+    }
+
+
 def reset_launch_counts() -> None:
     paged_decode_attention.launches = 0
     paged_decode_attention.combine_launches = 0
@@ -584,14 +597,35 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     q_positions: torch.Tensor,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None, *,
-                    impl: str = "reference") -> torch.Tensor:
+                    impl: str = "reference", mesh=None,
+                    axis_name: str = "tp") -> torch.Tensor:
     """The one paged-attention entry the serving model calls. ``impl``:
     ``"reference"`` = the plain gather + dense version, ``"cuda"`` =
     :func:`paged_decode_attention`, ``"pipelined"`` =
     :func:`paged_decode_pipelined_attention`. ``q_positions`` may be
-    (rows,) for width-1 queries; the scales come with a quantized pool."""
+    (rows,) for width-1 queries; the scales come with a quantized pool.
+
+    With a gang's ``mesh`` the kv-head axis is sharded over ``axis_name``
+    (the JAX package's ``_tp_kernel``): each rank passes its own block —
+    its query heads, its pools and scales at ``kv_heads / tp`` heads, the
+    tables and positions whole — and runs the chosen kernel, and the
+    combine on its own partials, on that block alone. No reduction
+    crosses ranks, so a rank's output is the unsharded call's over its
+    head slice. The block must be tensors of its own: a kernel takes no
+    strided view of a wider pool."""
     if impl not in IMPLS:
         raise ValueError(f"unknown paged-attention impl {impl!r}")
+    if mesh is not None and dict(mesh.shape).get(axis_name, 1) > 1:
+        shard = (q, k_pool, v_pool) + (
+            (k_scale, v_scale) if k_scale is not None else ())
+        if not all(t.is_contiguous() for t in shard):
+            raise ValueError(
+                "a kv-head shard must be its own contiguous tensor, not a "
+                "view of the whole pool")
+        if q.shape[2] % k_pool.shape[2]:
+            raise ValueError(
+                f"query heads {q.shape[2]} of the shard do not group over "
+                f"its kv heads {k_pool.shape[2]}")
     if q_positions.dim() == 1:
         q_positions = q_positions[:, None]
     fn = {"reference": paged_reference_attention,

@@ -45,6 +45,11 @@ import numpy as np
 import torch
 
 from tpu_task_torch.ml.models.transformer import TransformerConfig
+from tpu_task_torch.ml.parallel import gang
+from tpu_task_torch.ml.parallel.sharding import (
+    match_partition_rules,
+    shard_slices,
+)
 
 #: Physical block index reserved for masked writes / the "unallocated"
 #: block-table sentinel. Never handed out by the allocator.
@@ -295,8 +300,30 @@ def dense_cache_bytes(cfg: TransformerConfig, slots: int,
 def kv_shard_bytes(cfg: TransformerConfig, scfg: ServingConfig,
                    n_blocks: int, tp: int) -> int:
     """Per-device bytes of ``n_blocks`` physical blocks under a ``tp``-way
-    kv-head shard (the port serves at tp 1 until ROADMAP A14)."""
+    kv-head shard: each rank holds ``kv_heads / tp`` heads of every
+    block, so the pool cost divides by tp exactly (kv_heads % tp == 0 is
+    checked at engine construction)."""
     return paged_cache_bytes(cfg, scfg, n_blocks) // max(1, tp)
+
+
+#: Regex partition rules for the paged pools (the JAX package's): every
+#: ``<layer>/k`` and ``<layer>/v`` leaf is ``(n_blocks, block_size,
+#: kv_heads, d_head)`` and shards its KV-HEAD axis wherever the "heads"
+#: logical axis goes (tp). Paging stays along the token axis, so block
+#: accounting — tables, allocator, scratch block — is identical at every
+#: tp width. Scale sidecars are (n_blocks, kv_heads): the kv-head axis
+#: shards with the pool it scales.
+SERVING_POOL_RULES = (
+    (r"(^|/)[kv]_scale$", (None, "heads")),
+    (r"(^|/)[kv]$", (None, None, "heads", None)),
+)
+
+
+def pool_pspecs(pools, mesh) -> List[dict]:
+    """PartitionSpecs for the pool tree via the shared partition rules
+    (kv-heads over tp; block grid, block offset and head_dim
+    replicated)."""
+    return match_partition_rules(SERVING_POOL_RULES, pools, mesh=mesh)
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -304,33 +331,41 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 
 def init_pools(cfg: TransformerConfig, scfg: ServingConfig,
-               device) -> List[Dict[str, torch.Tensor]]:
+               device, mesh=None) -> List[Dict[str, torch.Tensor]]:
     """Per-layer zeroed k/v pools on ``device``: in the model dtype, or,
     with a quantized ``kv_dtype``, zero codes (int4: ``d_head / 2`` packed
     bytes) plus ``k_scale``/``v_scale`` (n_blocks, kv_heads) fp32 sidecars
     at :data:`INT8_SCALE_EPS`, so a fresh pool dequantizes to exact
-    zeros."""
+    zeros. With a ``mesh``, each leaf is this rank's block under
+    :func:`pool_pspecs` (``kv_heads / tp`` heads), allocated at that width
+    (its own tensor, never a view of a wider one)."""
     shape = (scfg.n_blocks, scfg.block_size, cfg.kv_heads, cfg.d_head)
-    if scfg.kv_dtype not in QUANT_DTYPES:
-        return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-                for _ in range(cfg.n_layers)]
     if scfg.kv_dtype == "int4":
         if cfg.d_head % 2:
             raise ValueError(
                 f"kv_dtype='int4' packs adjacent d_head pairs and needs an "
                 f"even d_head, got {cfg.d_head}")
         shape = shape[:-1] + (cfg.d_head // 2,)
-    code = kv_code_dtype(scfg.kv_dtype)
+    quant = scfg.kv_dtype in QUANT_DTYPES
+    code = kv_code_dtype(scfg.kv_dtype) if quant else cfg.dtype
+    pool = torch.empty(shape, dtype=code, device="meta")
+    layer = {"k": pool, "v": pool}
+    if quant:
+        scale = torch.empty((scfg.n_blocks, cfg.kv_heads),
+                            dtype=torch.float32, device="meta")
+        layer.update(k_scale=scale, v_scale=scale)
+    full = [layer] * cfg.n_layers
+    specs = pool_pspecs(full, mesh)
 
-    def scale():
-        return torch.full((scfg.n_blocks, cfg.kv_heads), INT8_SCALE_EPS,
-                          dtype=torch.float32, device=device)
+    def alloc(leaf: torch.Tensor, spec, name: str) -> torch.Tensor:
+        local = leaf.shape if mesh is None else tuple(
+            s.stop - s.start for s in shard_slices(leaf.shape, spec, mesh))
+        fill = INT8_SCALE_EPS if name.endswith("_scale") else 0
+        return torch.full(local, fill, dtype=leaf.dtype, device=device)
 
-    return [{"k": torch.zeros(shape, dtype=code, device=device),
-             "v": torch.zeros(shape, dtype=code, device=device),
-             "k_scale": scale(), "v_scale": scale()}
-            for _ in range(cfg.n_layers)]
+    return [{name: alloc(leaf, spec[name], name)
+             for name, leaf in layer.items()}
+            for spec in specs]
 
 
 def flat_pool(pool: torch.Tensor) -> torch.Tensor:
@@ -340,11 +375,13 @@ def flat_pool(pool: torch.Tensor) -> torch.Tensor:
     return pool.view(n * bs, *pool.shape[2:])
 
 
+@gang.program
 def copy_block(pools: List[Dict[str, torch.Tensor]], src: int,
-               dst: int) -> None:
+               dst: int, *, mesh=None) -> None:
     """Copy physical block ``src`` to ``dst`` in every layer's pools, in
     place — the device half of copy-on-write. Generic over the layer's
-    leaves, so a quantized block's scales copy with its codes."""
+    leaves, so a quantized block's scales copy with its codes. With a
+    gang's ``mesh``, every rank copies in its own pools."""
     for pool in pools:
         for arr in pool.values():
             arr[dst] = arr[src]

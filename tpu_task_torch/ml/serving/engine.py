@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine on one device — the counterpart of
-``tpu_task/ml/serving/engine.py``'s synchronous and overlapped loops.
+"""Continuous-batching serving engine on one device or over a mesh — the
+counterpart of ``tpu_task/ml/serving/engine.py``'s synchronous and
+overlapped loops.
 
 The engine owns a fixed slot array and runs one scheduler iteration per
 :meth:`ServingEngine.step`: admit queued requests into free slots, run ONE
@@ -140,8 +141,21 @@ for), the plain version on the CPU.
   step flush the pipeline to the synchronous edge first. Streams are the
   synchronous loop's.
 
-Not ported yet: meshes (ROADMAP A14); ``stats()`` carries their keys at
-the values of a one-device engine.
+- **Tensor- and expert-parallel serving** (``mesh=``, a gang's
+  :class:`~tpu_task_torch.ml.parallel.mesh.Mesh` from
+  :func:`tpu_task_torch.ml.parallel.gang.start`): this engine is rank 0
+  and keeps every host structure; each rank holds its block of the
+  weights (:func:`~tpu_task_torch.ml.models.transformer.param_pspecs`:
+  heads, hidden columns and vocab over ``tp``, experts over ``ep``) and
+  of the pools (:func:`~tpu_task_torch.ml.serving.cache.pool_pspecs`:
+  kv heads over ``tp``, allocated at that width), and every fused step is
+  a gang program each rank runs on its own block, the paged kernels on
+  its kv heads. Paging is along the token axis, so block accounting,
+  tables, the prefix cache and sampling are the one-device engine's at
+  every tp×ep width. The K-step loop runs uncaptured under a mesh (a
+  gloo collective cannot be captured in a CUDA graph). ``kv_fleet``, the
+  host tier, LoRA, ``overlap`` and :meth:`ServingEngine.adopt_params`
+  stay single-device, refused with the JAX engine's words.
 
 - **Observability** (``obs=``, a :class:`~tpu_task_torch.obs.Obs`): one
   span per request phase (``engine.queue`` → ``engine.prefill`` →
@@ -158,6 +172,7 @@ import collections
 import dataclasses
 import os
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -169,9 +184,14 @@ from tpu_task_torch.ml import random as jrandom
 from tpu_task_torch.ml.models.transformer import (
     Params,
     TransformerConfig,
+    param_pspecs,
     params_to,
 )
 from tpu_task_torch.ml.ops import paged_attention as pa
+from tpu_task_torch.ml.parallel.sharding import (
+    device_put_tree,
+    mesh_axis_size,
+)
 from tpu_task_torch.ml.serving.cache import (
     QUANT_DTYPES,
     SCRATCH_BLOCK,
@@ -210,6 +230,7 @@ from tpu_task_torch.ml.serving.model import (
     greedy_decode_step,
     paged_prefill,
     sample_tokens,
+    serving_moe_fn,
     spec_score_greedy,
     spec_score_probs,
 )
@@ -342,21 +363,43 @@ class ServingEngine:
     :class:`~tpu_task_torch.obs.Obs` whose tracer and registry the engine
     records into (None: nothing is recorded). ``param_loader(generation)``
     returns the params of a generation a resumed record pins (None when it
-    cannot); a replica sets it to restore checkpoint steps."""
+    cannot); a replica sets it to restore checkpoint steps. ``mesh`` (a
+    :class:`~tpu_task_torch.ml.parallel.mesh.Mesh`, rank 0's of a gang)
+    serves over its ``tp`` and ``ep`` axes on the mesh's device; the full
+    ``params`` (and ``draft_params``) stay where they are and each rank
+    receives only its block."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  scfg: Optional[ServingConfig] = None,
                  rng: Optional[jrandom.KeyLike] = None, device=None,
                  draft_params: Optional[Params] = None,
                  draft_cfg: Optional[TransformerConfig] = None,
-                 kv_fleet=None, obs=None, param_loader=None):
-        self.device = resolve_device(device)
+                 kv_fleet=None, obs=None, param_loader=None, mesh=None):
         self.cfg = cfg
         self.scfg = scfg = scfg or ServingConfig()
+        self.mesh = mesh
+        self.tp = mesh_axis_size(mesh, "tp")
+        self.ep = mesh_axis_size(mesh, "ep")
+        if mesh is not None:
+            self._check_mesh(kv_fleet, draft_params, draft_cfg)
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
+        #: The gang behind the mesh (None: one process), and the key
+        #: prefix of this engine's blocks on its ranks.
+        self._gang = getattr(mesh, "gang", None)
+        self._ns = self._gang.namespace() if self._gang else None
+        if self._gang is not None:
+            weakref.finalize(self, self._gang.release, self._ns)
         #: The params of every generation a stream is pinned to, and of
-        #: the active one (:attr:`params`).
+        #: the active one (:attr:`params`): under a mesh, this rank's
+        #: block of them.
         self._gen_params: Dict[int, Params] = {
-            0: params_to(params, self.device)}
+            0: self._place(params, cfg, "params/0")}
         self._quantized = scfg.kv_dtype in QUANT_DTYPES
         if scfg.kv_dtype == "fp8" and not fp8_supported():
             raise ValueError(
@@ -367,7 +410,7 @@ class ServingEngine:
         #: Debug mode: read back every quantized step's largest write
         #: error (one scalar sync per step, so off by default).
         self.debug = os.environ.get("TPU_TASK_CHECKIFY", "") == "1"
-        self.pools = init_pools(cfg, scfg, self.device)
+        self.pools = self._make_pools(cfg, scfg, "pools")
         self.allocator = BlockAllocator(scfg.n_blocks)
         self._pcache = (PrefixCache(self.allocator, scfg.block_size)
                         if scfg.prefix_cache else None)
@@ -488,6 +531,69 @@ class ServingEngine:
         #: Captures, capture time and replays of dropped generations.
         self._dropped_graph_stats = {"captures": 0, "lora_captures": 0,
                                      "capture_ms": 0.0, "replays": 0}
+
+    def _check_mesh(self, kv_fleet, draft_params, draft_cfg) -> None:
+        """The JAX engine's mesh checks, in its order and words, before
+        anything is placed."""
+        cfg, scfg, mesh = self.cfg, self.scfg, self.mesh
+        if cfg.kv_heads % self.tp:
+            raise ValueError(
+                f"kv_heads {cfg.kv_heads} not divisible by tp "
+                f"{self.tp} (mesh axes {tuple(mesh.axis_names)}): the "
+                "paged pools shard their kv-head axis over tp")
+        if self.ep > 1 and cfg.moe_every <= 0:
+            raise ValueError(
+                f"mesh carries ep={self.ep} but the model has no MoE "
+                "layers (moe_every=0): drop the ep axis or serve an "
+                "MoE config")
+        # Resolve the ep dispatch before any placement: an indivisible
+        # expert count fails with its own error.
+        serving_moe_fn(cfg, mesh)
+        if kv_fleet is not None:
+            raise ValueError(
+                "kv_fleet is single-chip for now: block payloads are "
+                "unsharded (attach it to a mesh=None engine)")
+        if scfg.host_offload_blocks > 0:
+            raise ValueError(
+                "host_offload_blocks is single-chip for now: tier "
+                "payloads are unsharded block bytes (attach the "
+                "host tier to a mesh=None engine)")
+        if scfg.lora_rank > 0:
+            raise ValueError(
+                "lora_rank > 0 is single-chip for now: the adapter pool "
+                "is unsharded (attach adapters to a mesh=None engine)")
+        if scfg.overlap:
+            raise ValueError(
+                "overlap=True is single-chip for now: run the overlapped "
+                "loop on a mesh=None engine (the sharded gangs keep the "
+                "synchronous loop)")
+        if scfg.spec_k > 0 and (draft_params is None or draft_cfg is None):
+            raise ValueError("spec_k > 0 needs draft_params and draft_cfg")
+        if scfg.spec_k > 0 and draft_cfg.kv_heads % self.tp:
+            raise ValueError(
+                f"draft kv_heads {draft_cfg.kv_heads} not divisible by tp "
+                f"{self.tp}: the draft pool shards its kv-head axis with "
+                "the same rules as the target's")
+
+    def _place(self, params: Params, cfg: TransformerConfig,
+               key: str) -> Params:
+        """``params`` on this engine's device: under a mesh, this rank's
+        block (every other rank receives its own, kept under ``key``)."""
+        if self.mesh is None:
+            return params_to(params, self.device)
+        specs = param_pspecs(cfg, mesh=self.mesh)
+        if self._gang is None:
+            return device_put_tree(params, specs, self.mesh)
+        return self._gang.scatter(f"{self._ns}/{key}", params, specs)
+
+    def _make_pools(self, cfg: TransformerConfig, scfg: ServingConfig,
+                    key: str):
+        """Zeroed pools on this engine's device: under a mesh, every rank
+        allocates its own kv-head block (kept under ``key``)."""
+        if self._gang is None:
+            return init_pools(cfg, scfg, self.device, mesh=self.mesh)
+        return self._gang.make(f"{self._ns}/{key}", init_pools, cfg, scfg,
+                               self.device, mesh=self.mesh)
 
     def _init_lora(self) -> None:
         """The adapter registry, the second allocator over the adapter
@@ -627,18 +733,19 @@ class ServingEngine:
                     ("the draft model", draft_cfg, draft_cfg.dtype, 1)):
                 try:
                     pa.require_geometry(
-                        c.dtype, pool_dtype, w, c.n_heads, c.kv_heads,
-                        c.d_head, scfg.block_size,
+                        c.dtype, pool_dtype, w, c.n_heads // self.tp,
+                        c.kv_heads // self.tp, c.d_head, scfg.block_size,
                         pipelined=self.decode_impl == "pipelined")
                 except ValueError as error:
                     raise ValueError(
                         f"spec_k={scfg.spec_k}: {what} cannot run through "
                         f"{self.decode_impl!r}: {error}") from None
         self.draft_decode_impl = self.decode_impl
-        self.draft_params = params_to(draft_params, self.device)
-        self._draft_pools = init_pools(
+        self.draft_params = self._place(draft_params, draft_cfg,
+                                        "draft_params")
+        self._draft_pools = self._make_pools(
             draft_cfg, dataclasses.replace(scfg, n_blocks=n * m + 1,
-                                           kv_dtype=None), self.device)
+                                           kv_dtype=None), "draft_pools")
         self._draft_tables = torch.as_tensor(
             1 + np.arange(n * m, dtype=np.int32).reshape(n, m),
             device=self.device)
@@ -1168,7 +1275,8 @@ class ServingEngine:
                 self.cfg, *runner.carry.values(), t["ctoks"], t["cpos"],
                 t["cvalid"], t["tables"], t["limits"], t["eos"], t["prow"],
                 t["ppos"], t["pngen"])
-        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
+        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug,
+                      mesh=self.mesh)
         if sampled:
             out = chunk_carry_sample(*head, t["temps"], t["tops"],
                                      t["rkeys"], t["cngen"], self.pools, qa,
@@ -1426,7 +1534,8 @@ class ServingEngine:
                 f"resume record pins param generation {gen} and the "
                 "param_loader returned nothing — refusing to decode the "
                 "stream under different weights")
-        self._gen_params[gen] = params_to(restored, self.device)
+        self._gen_params[gen] = self._place(restored, self.cfg,
+                                            f"params/{gen}")
 
     def adopt_params(self, params: Params,
                      generation: Optional[int] = None) -> int:
@@ -1438,8 +1547,12 @@ class ServingEngine:
         integer (a replica passes the checkpoint step) and must grow.
         The params move to the engine's device. Returns the installed
         generation. In overlap mode the in-flight program, dispatched under
-        the old generation, is swept first (:meth:`flush`). (A sharded
-        engine re-shards by building a new one, ROADMAP A14.)"""
+        the old generation, is swept first (:meth:`flush`). A sharded
+        engine refuses, as the JAX engine does."""
+        if self.mesh is not None:
+            raise ValueError(
+                "adopt_params is single-chip for now: sharded gangs "
+                "re-shard new params by building a fresh engine")
         gen = self.generation + 1 if generation is None else int(generation)
         if gen <= self.generation:
             raise ValueError(
@@ -1536,7 +1649,7 @@ class ServingEngine:
                 max_blocks=self.scfg.max_blocks_per_slot,
                 micro_k=self.scfg.micro_k, attn_impl=self.decode_impl,
                 measure_qerr=self.debug, device=self.device,
-                lora_pool=self._lora_pool)
+                lora_pool=self._lora_pool, mesh=self.mesh)
         return runner
 
     def _graph_stats(self) -> dict:
@@ -1851,7 +1964,7 @@ class ServingEngine:
             if cow:
                 src = int(table[cached_len // bs])
                 dst = got[need]
-                copy_block(self.pools, src, dst)
+                copy_block(self.pools, src, dst, mesh=self.mesh)
                 table[cached_len // bs] = dst
                 self.allocator.decref(src)
                 self.cow_copies += 1
@@ -1917,7 +2030,7 @@ class ServingEngine:
                     self.cfg, torch.as_tensor(padded, device=dev,
                                               dtype=torch.int64),
                     len(ctx), torch.as_tensor(table, device=dev),
-                    self.pools, measure_qerr=self.debug)
+                    self.pools, measure_qerr=self.debug, mesh=self.mesh)
             if self._quantized:
                 out, qerr = out
                 self._note_qerr(qerr)
@@ -2095,7 +2208,8 @@ class ServingEngine:
         args = (self._model_params(lora), self.cfg,
                 put(tokens, torch.int64), put(positions, torch.int32),
                 put(tables, torch.int32), put(active, torch.bool))
-        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
+        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug,
+                      mesh=self.mesh)
         if self._all_greedy():
             out = greedy_decode_step(*args, self.pools, qa, **kwargs)
         else:
@@ -2413,7 +2527,8 @@ class ServingEngine:
                 put(self._tables, torch.int32))
         qa = (tuple(put(a, torch.int64) for a in layout)
               if self._quantized else None)
-        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug)
+        kwargs = dict(attn_impl=self.decode_impl, measure_qerr=self.debug,
+                      mesh=self.mesh)
         sampled = not self._all_greedy()
         if sampled:
             temps, tops = self._temps_tops()
@@ -2545,7 +2660,8 @@ class ServingEngine:
                 torch.as_tensor(positions, device=dev),
                 torch.as_tensor(valid, device=dev),
                 torch.as_tensor(last_idx, device=dev), self._draft_tables,
-                self._draft_pools, attn_impl=self.draft_decode_impl).cpu()
+                self._draft_pools, attn_impl=self.draft_decode_impl,
+                mesh=self.mesh).cpu()
             self.goodput.program(time.perf_counter() - t0)
 
     def _draft_propose(self, k_eff: np.ndarray) -> np.ndarray:
@@ -2567,8 +2683,8 @@ class ServingEngine:
                 torch.as_tensor(np.where(act, dpos, 0), device=dev,
                                 dtype=torch.int32),
                 self._draft_tables, torch.as_tensor(act, device=dev),
-                self._draft_pools,
-                attn_impl=self.draft_decode_impl).cpu().numpy()
+                self._draft_pools, attn_impl=self.draft_decode_impl,
+                mesh=self.mesh).cpu().numpy()
             self.goodput.program(time.perf_counter() - t0)
             out[act, j] = toks[act]
             cur[act] = toks[act]
@@ -2800,9 +2916,9 @@ class ServingEngine:
     def stats(self) -> dict:
         """Scheduler counters, the KV cost model, and the process-wide
         paged-attention launch counts (both kernels and the plain
-        version). Every key of the JAX engine's ``stats()`` is here; the
-        groups of what the port does not run yet (tp/ep meshes) hold an
-        engine's values with them off."""
+        version). Every key of the JAX engine's ``stats()`` is here, the
+        mesh's widths and the per-rank pool bytes computed as it computes
+        them."""
         n_blocks, high = self.scfg.n_blocks, self.allocator.high_water
         out = {
             "decode_impl": self.decode_impl,
@@ -2825,9 +2941,8 @@ class ServingEngine:
             "prefills": self.prefills,
             "prefill_chunks": self.prefill_chunks,
             "recompute_preemptions": self.preemption_count,
-            # One device: meshes come with ROADMAP A14.
-            "tp": 1,
-            "ep": 1,
+            "tp": self.tp,
+            "ep": self.ep,
             "kv_quant": {
                 "kv_dtype": self.scfg.kv_dtype
                 or str(self.cfg.dtype).replace("torch.", ""),
@@ -2844,7 +2959,7 @@ class ServingEngine:
             "kv_pool_bytes": paged_cache_bytes(self.cfg, self.scfg,
                                                n_blocks),
             "kv_pool_bytes_per_shard": kv_shard_bytes(self.cfg, self.scfg,
-                                                      n_blocks, 1),
+                                                      n_blocks, self.tp),
             "kv_dense_worst_case_bytes": dense_cache_bytes(
                 self.cfg, self.scfg.slots, self.scfg.max_len),
             "prefix_cache": {

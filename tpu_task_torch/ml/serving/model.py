@@ -27,8 +27,18 @@ programs thread the loop state through: :func:`micro_carry_greedy` /
 completing prefills join the carry in the program).
 
 A config with mixture-of-experts layers serves through every one of these
-steps: ``_block`` runs their dense dispatch (:func:`serving_moe_fn` is None
-on one device) and the steps drop the router loss.
+steps: ``_block`` runs their dense dispatch, or over a mesh with an ``ep``
+axis the expert-parallel one (:func:`serving_moe_fn`), and the steps drop
+the router loss.
+
+Every step takes ``mesh=``: on a gang's mesh
+(:mod:`~tpu_task_torch.ml.parallel.gang`) each is a gang program, sent to
+every rank, which runs it on its own block of the params and pools (its
+kv heads, its hidden columns, its vocab rows and experts) and meets the
+others in the all-reduces of :func:`~tpu_task_torch.ml.models.
+transformer._block`, the embedding's all-reduce and the logits'
+all-gather. The logits, and so the sampled tokens, are whole and equal on
+every rank.
 
 Speculative decoding's steps (:func:`paged_multitoken_logits`,
 :func:`spec_score_greedy`, :func:`spec_score_probs`) run the same forward
@@ -50,15 +60,19 @@ import torch
 
 from tpu_task_torch.ml import random as jrandom
 from tpu_task_torch.ml.models.decoding import _top_p_filter
+from tpu_task_torch.ml.models import moe
 from tpu_task_torch.ml.models.transformer import (
     Params,
     TransformerConfig,
     _block,
     _rmsnorm,
-    embed_lookup,
+    sharded_embed,
+    sharded_logits,
 )
 from tpu_task_torch.ml.ops.attention import gqa_cached_attention
 from tpu_task_torch.ml.ops.paged_attention import paged_attention
+from tpu_task_torch.ml.parallel import gang
+from tpu_task_torch.ml.parallel.sharding import mesh_axis_size
 from tpu_task_torch.ml.serving.cache import flat_pool, quantized_append
 from tpu_task_torch.ml.serving.lora import apply_lora
 
@@ -76,21 +90,54 @@ def pool_is_quantized(pools: Pools) -> bool:
 
 
 def serving_moe_fn(cfg: TransformerConfig, mesh):
-    """The MoE dispatch of the fused serving steps, by the JAX package's
-    rule: None when there is nothing to dispatch over (no MoE layers, or
-    no mesh), and then ``_block`` runs the dense dispatch
-    (:func:`~tpu_task_torch.ml.models.moe.apply_dense`) on one device. The
-    expert-parallel dispatch over a mesh's ``ep`` axis is ROADMAP A14."""
+    """The expert-parallel MoE dispatch of the fused serving steps — or
+    None when there is nothing to dispatch over (no MoE layers, no mesh,
+    or no ``ep`` axis wider than 1), and then ``_block`` runs the dense
+    dispatch (:func:`~tpu_task_torch.ml.models.moe.apply_dense`, the
+    exact single-device arithmetic every sharded stream is held to),
+    completed over ``tp`` when the mesh has one.
+
+    The dispatch is :func:`~tpu_task_torch.ml.models.moe.apply_sharded`,
+    the JAX package's rule: a step's (rows, w, d) activations flatten to
+    (rows·w, 1, d) token rows, padded with zero rows to an ep multiple;
+    the capacity is the per-rank token count, so every row, pad and
+    masked rows too, holds a capacity slot and none can evict another
+    (dropless, hence the dense dispatch's tokens); with a ``tp`` axis the
+    experts' hidden dim shards over tp too and one all-reduce completes
+    it. The router loss is computed and dropped."""
     if mesh is None or cfg.moe_every <= 0:
         return None
-    raise NotImplementedError(
-        "the expert-parallel serving dispatch (a mesh with MoE layers) is "
-        "not ported yet: ROADMAP A14")
+    ep = mesh_axis_size(mesh, "ep")
+    if ep == 1:
+        return None
+    if cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts {cfg.n_experts} not divisible by ep={ep} "
+            f"(mesh axes {tuple(mesh.axis_names)}): expert weights shard "
+            "one group per ep shard")
+    mcfg = cfg.moe_cfg
+    tp_axis = "tp" if mesh_axis_size(mesh, "tp") > 1 else None
+
+    def fn(layer, h):
+        b, s, d = h.shape
+        rows = b * s
+        pad = (-rows) % ep
+        flat = h.reshape(rows, 1, d)
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad, 1, d))])
+        out, aux = moe.apply_sharded(
+            layer, mcfg, flat, mesh, batch_axes=("ep",), tp_axis=tp_axis,
+            capacity=(rows + pad) // ep)
+        return out[:rows].reshape(b, s, d), aux
+
+    return fn
 
 
-def _fold_qerr(qerrs: List[torch.Tensor]) -> torch.Tensor:
-    """Max write-quantization error across a step's layers."""
-    return functools.reduce(torch.maximum, qerrs)
+def _fold_qerr(qerrs: List[torch.Tensor], mesh=None) -> torch.Tensor:
+    """Max write-quantization error across a step's layers (and, given a
+    gang's ``mesh``, across its ``tp`` ranks' kv heads)."""
+    return gang.all_reduce(mesh, functools.reduce(torch.maximum, qerrs),
+                           "tp", op="max")
 
 
 def _multitoken_features(params: Params, cfg: TransformerConfig,
@@ -98,7 +145,7 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
                          valid: torch.Tensor, block_tables: torch.Tensor,
                          pools: Pools, qa: Optional[QuantLayout] = None, *,
                          attn_impl: str = "reference",
-                         measure_qerr: bool = False):
+                         measure_qerr: bool = False, mesh=None):
     """The paged forward of every step, the width-``w`` generalization of
     :func:`paged_decode_step`: ``tokens`` (rows, w) at PER-TOKEN absolute
     ``positions`` (rows, w) int32 with a ``valid`` mask (rows, w). Each
@@ -130,7 +177,8 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
         phys = torch.gather(block_tables.to(torch.int64), 1, block)
         write_idx = torch.where(valid, phys * block_size + qpos % block_size,
                                 0).reshape(-1)
-    x = embed_lookup(params["embed"], tokens)
+    x = sharded_embed(params["embed"], tokens, mesh)
+    moe_fn = serving_moe_fn(cfg, mesh)
     lora = params.get("lora")
     if lora is not None:
         # The engine's adapter pool and this step's per-row tables: block
@@ -149,26 +197,31 @@ def _multitoken_features(params: Params, cfg: TransformerConfig,
                                               measure_error=measure_qerr))
                 return paged_attention(q, pool["k"], pool["v"],
                                        block_tables, qpos, pool["k_scale"],
-                                       pool["v_scale"], impl=attn_impl)
+                                       pool["v_scale"], impl=attn_impl,
+                                       mesh=mesh)
             flat_pool(pool["k"]).index_copy_(0, write_idx, k)
             flat_pool(pool["v"]).index_copy_(0, write_idx, v)
             return paged_attention(q, pool["k"], pool["v"], block_tables,
-                                   qpos, impl=attn_impl)
+                                   qpos, impl=attn_impl, mesh=mesh)
 
         x_in = x
-        x, _aux = _block(x, layer, cfg, attn_fn, positions=qpos)
+        x, _aux = _block(x, layer, cfg, attn_fn, positions=qpos,
+                         moe_fn=moe_fn, mesh=mesh)
         if lora is not None:
             # The adapter branch around the unchanged block, gathered per
             # row; a scratch-block or scale-0 row adds an exact 0.0.
             x = x + apply_lora(x_in, lpool, lblocks[:, layer_i], lscales)
     x = _rmsnorm(x, params["final_norm"])
-    return (x, _fold_qerr(qerrs)) if quantized else x
+    if quantized:
+        return x, _fold_qerr(qerrs, mesh if measure_qerr else None)
+    return x
 
 
+@gang.program
 def paged_prefill(params: Params, cfg: TransformerConfig,
                   tokens: torch.Tensor, length: int,
                   block_table: torch.Tensor, pools: Pools, *,
-                  measure_qerr: bool = False, moe_fn=None):
+                  measure_qerr: bool = False, moe_fn=None, mesh=None):
     """One request's prompt through the model, writing its k/v into the
     paged pools in place: the bucketed admission's program. ``tokens``
     (1, bucket), right-padded to a prefill bucket; ``length`` the real
@@ -196,7 +249,7 @@ def paged_prefill(params: Params, cfg: TransformerConfig,
 
     ``params["lora"]`` is ``(adapter pool, block table (1, n_layers),
     scale (1,))`` as in :func:`_multitoken_features`; ``moe_fn`` is
-    ``_block``'s (None: the dense dispatch)."""
+    ``_block``'s (None: :func:`serving_moe_fn` of the ``mesh``)."""
     _, s = tokens.shape
     block_size = pools[0]["k"].shape[1]
     max_blocks = block_table.shape[0]
@@ -214,7 +267,9 @@ def paged_prefill(params: Params, cfg: TransformerConfig,
                   * block_size).clamp(0, block_size)
     else:
         write_idx = table[wt] * block_size + wo
-    x = embed_lookup(params["embed"], tokens)
+    if moe_fn is None:
+        moe_fn = serving_moe_fn(cfg, mesh)
+    x = sharded_embed(params["embed"], tokens, mesh)
     lora = params.get("lora")
     if lora is not None:
         lpool, lblocks, lscales = lora
@@ -233,20 +288,23 @@ def paged_prefill(params: Params, cfg: TransformerConfig,
 
         x_in = x
         x, _aux = _block(x, layer, cfg, attn_fn, positions=positions,
-                         moe_fn=moe_fn)
+                         moe_fn=moe_fn, mesh=mesh)
         if lora is not None:
             x = x + apply_lora(x_in, lpool, lblocks[:, layer_i], lscales)
     x = _rmsnorm(x, params["final_norm"])
-    logits = (x[:, length - 1] @ params["unembed"]).to(torch.float32)
-    return (logits, _fold_qerr(qerrs)) if quantized else logits
+    logits = sharded_logits(x[:, length - 1], params["unembed"], mesh)
+    if quantized:
+        return logits, _fold_qerr(qerrs, mesh if measure_qerr else None)
+    return logits
 
 
+@gang.program
 def paged_decode_step(params: Params, cfg: TransformerConfig,
                       tokens: torch.Tensor, positions: torch.Tensor,
                       block_tables: torch.Tensor, active: torch.Tensor,
                       pools: Pools, qa: Optional[QuantLayout] = None, *,
                       attn_impl: str = "reference",
-                      measure_qerr: bool = False):
+                      measure_qerr: bool = False, mesh=None):
     """ONE decode step across every row: each row's token in, its
     next-token logits (rows, vocab) float32 out. ``tokens`` (rows,);
     ``positions`` (rows,) int32, the absolute position each token takes;
@@ -257,22 +315,23 @@ def paged_decode_step(params: Params, cfg: TransformerConfig,
     out = _multitoken_features(
         params, cfg, tokens[:, None], positions[:, None], active[:, None],
         block_tables, pools, qa, attn_impl=attn_impl,
-        measure_qerr=measure_qerr)
+        measure_qerr=measure_qerr, mesh=mesh)
     feats = out[0] if isinstance(out, tuple) else out
-    logits = (feats[:, -1] @ params["unembed"]).to(torch.float32)
+    logits = sharded_logits(feats[:, -1], params["unembed"], mesh)
     return (logits, out[1]) if isinstance(out, tuple) else logits
 
 
+@gang.program
 def greedy_decode_step(params: Params, cfg: TransformerConfig, tokens,
                        positions, block_tables, active, pools: Pools,
                        qa: Optional[QuantLayout] = None, *,
                        attn_impl: str = "reference",
-                       measure_qerr: bool = False):
+                       measure_qerr: bool = False, mesh=None):
     """Decode step + argmax: (rows,) next tokens (and, for a quantized
     pool, the step's max quantization error beside them)."""
     out = paged_decode_step(params, cfg, tokens, positions, block_tables,
                             active, pools, qa, attn_impl=attn_impl,
-                            measure_qerr=measure_qerr)
+                            measure_qerr=measure_qerr, mesh=mesh)
     if isinstance(out, tuple):
         return torch.argmax(out[0], dim=-1), out[1]
     return torch.argmax(out, dim=-1)
@@ -293,19 +352,20 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     return torch.where(temperature > 0, sampled, greedy)
 
 
+@gang.program
 def decode_and_sample(params: Params, cfg: TransformerConfig, tokens,
                       positions, block_tables, active, temperature, top_p,
                       slot_keys, n_generated, pools: Pools,
                       qa: Optional[QuantLayout] = None, *,
                       attn_impl: str = "reference",
-                      measure_qerr: bool = False):
+                      measure_qerr: bool = False, mesh=None):
     """Decode step + sampler. Each row's key is ``fold_in(slot_keys[i],
     n_generated[i])``: a request's stream depends only on its key and the
     token's index. A quantized pool returns (tokens, max quantization
     error)."""
     out = paged_decode_step(params, cfg, tokens, positions, block_tables,
                             active, pools, qa, attn_impl=attn_impl,
-                            measure_qerr=measure_qerr)
+                            measure_qerr=measure_qerr, mesh=mesh)
     logits = out[0] if isinstance(out, tuple) else out
     keys = jrandom.fold_in(slot_keys, n_generated)
     toks = sample_tokens(logits, temperature, top_p, keys)
@@ -318,7 +378,7 @@ def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
                 block_tables, active, limits, eos, pools: Pools,
                 qa: Optional[QuantLayout], micro_k: int, sampler, *,
                 attn_impl: str, measure_qerr: bool, emitted0=None,
-                return_carry: bool = False):
+                return_carry: bool = False, mesh=None):
     """``micro_k`` SEQUENTIAL decode iterations, the body of the JAX
     package's ``_micro_scan`` line for line: iteration j samples slot i's
     next token while the slot is ``alive`` (it entered active and has hit
@@ -354,7 +414,7 @@ def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
         out = paged_decode_step(
             params, cfg, tok, torch.where(alive, pos, 0), block_tables,
             alive, pools, tuple(a[j] for a in qa) if quantized else None,
-            attn_impl=attn_impl, measure_qerr=measure_qerr)
+            attn_impl=attn_impl, measure_qerr=measure_qerr, mesh=mesh)
         logits = out[0] if quantized else out
         nxt = sampler(logits, alive, emitted)
         emitted = emitted + alive.to(emitted.dtype)
@@ -368,15 +428,16 @@ def _micro_scan(params: Params, cfg: TransformerConfig, tokens, positions,
     toks = torch.stack(ys)
     out = (toks, (tok, pos, alive, emitted)) if return_carry else (toks,)
     if quantized:
-        return out + (_fold_qerr(qerrs),)
+        return out + (functools.reduce(torch.maximum, qerrs),)
     return out if return_carry else toks
 
 
+@gang.program
 def micro_decode_greedy(params: Params, cfg: TransformerConfig, tokens,
                         positions, block_tables, active, limits, eos,
                         pools: Pools, qa: Optional[QuantLayout] = None, *,
                         micro_k: int, attn_impl: str = "reference",
-                        measure_qerr: bool = False):
+                        measure_qerr: bool = False, mesh=None):
     """Greedy K-token micro-step: ``micro_k`` decode + argmax iterations,
     tokens bit-identical to ``micro_k`` separate
     :func:`greedy_decode_step` calls."""
@@ -385,15 +446,17 @@ def micro_decode_greedy(params: Params, cfg: TransformerConfig, tokens,
 
     return _micro_scan(params, cfg, tokens, positions, block_tables, active,
                        limits, eos, pools, qa, micro_k, sampler,
-                       attn_impl=attn_impl, measure_qerr=measure_qerr)
+                       attn_impl=attn_impl, measure_qerr=measure_qerr,
+                       mesh=mesh)
 
 
+@gang.program
 def micro_decode_sample(params: Params, cfg: TransformerConfig, tokens,
                         positions, block_tables, active, limits, eos,
                         temperature, top_p, slot_keys, n_generated,
                         pools: Pools, qa: Optional[QuantLayout] = None, *,
                         micro_k: int, attn_impl: str = "reference",
-                        measure_qerr: bool = False):
+                        measure_qerr: bool = False, mesh=None):
     """Sampled K-token micro-step: iteration j's keys are
     ``fold_in(slot_keys[i], n_generated[i] + emitted[i])``, the same key
     stream :func:`decode_and_sample` draws one token at a time, so a
@@ -404,7 +467,8 @@ def micro_decode_sample(params: Params, cfg: TransformerConfig, tokens,
 
     return _micro_scan(params, cfg, tokens, positions, block_tables, active,
                        limits, eos, pools, qa, micro_k, sampler,
-                       attn_impl=attn_impl, measure_qerr=measure_qerr)
+                       attn_impl=attn_impl, measure_qerr=measure_qerr,
+                       mesh=mesh)
 
 
 # -- carry-threaded programs: the overlapped loop (A5) ------------------------
@@ -419,11 +483,12 @@ def micro_decode_sample(params: Params, cfg: TransformerConfig, tokens,
 # each program's returned carry back into them in place.
 
 
+@gang.program
 def micro_carry_greedy(params: Params, cfg: TransformerConfig, tok, pos,
                        alive, emitted, block_tables, limits, eos,
                        pools: Pools, qa: Optional[QuantLayout] = None, *,
                        micro_k: int, attn_impl: str = "reference",
-                       measure_qerr: bool = False):
+                       measure_qerr: bool = False, mesh=None):
     """Greedy K-token micro-step with the carry threaded in and out: the
     tokens of :func:`micro_decode_greedy` at absolute limits. Returns the
     (micro_k, rows) tokens and the final carry (and the max quantization
@@ -434,15 +499,16 @@ def micro_carry_greedy(params: Params, cfg: TransformerConfig, tok, pos,
     return _micro_scan(params, cfg, tok, pos, block_tables, alive, limits,
                        eos, pools, qa, micro_k, sampler, attn_impl=attn_impl,
                        measure_qerr=measure_qerr, emitted0=emitted,
-                       return_carry=True)
+                       return_carry=True, mesh=mesh)
 
 
+@gang.program
 def micro_carry_sample(params: Params, cfg: TransformerConfig, tok, pos,
                        alive, emitted, block_tables, limits, eos,
                        temperature, top_p, slot_keys, pools: Pools,
                        qa: Optional[QuantLayout] = None, *, micro_k: int,
                        attn_impl: str = "reference",
-                       measure_qerr: bool = False):
+                       measure_qerr: bool = False, mesh=None):
     """Sampled K-token micro-step with the carry threaded through. The
     carry's absolute ``emitted`` is each slot's token index, so iteration
     j's key is ``fold_in(slot_keys[i], emitted[i])`` straight from the
@@ -454,14 +520,14 @@ def micro_carry_sample(params: Params, cfg: TransformerConfig, tok, pos,
     return _micro_scan(params, cfg, tok, pos, block_tables, alive, limits,
                        eos, pools, qa, micro_k, sampler, attn_impl=attn_impl,
                        measure_qerr=measure_qerr, emitted0=emitted,
-                       return_carry=True)
+                       return_carry=True, mesh=mesh)
 
 
 def _chunk_carry(params: Params, cfg: TransformerConfig, tok, pos, alive,
                  emitted, ctoks, cpos, cvalid, block_tables, limits, eos,
                  promote_row, promote_pos, promote_ngen, pools: Pools,
                  qa: Optional[QuantLayout], sampler, *, attn_impl: str,
-                 measure_qerr: bool):
+                 measure_qerr: bool, mesh=None):
     """The carry-threaded token-packed chunk step: ONE pass at
     ``slots + chunk_tokens`` rows, where rows 0..slots-1 advance the carry
     (the K = 1 micro body: decode with in-program retirement) and rows
@@ -487,7 +553,7 @@ def _chunk_carry(params: Params, cfg: TransformerConfig, tok, pos, alive,
     active[n:] = cvalid
     out = paged_decode_step(params, cfg, tokens, positions, block_tables,
                             active, pools, qa, attn_impl=attn_impl,
-                            measure_qerr=measure_qerr)
+                            measure_qerr=measure_qerr, mesh=mesh)
     logits = out[0] if isinstance(out, tuple) else out
     nxt = sampler(logits, emitted)
     # Decode rows: the micro-step body at K = 1.
@@ -512,12 +578,13 @@ def _chunk_carry(params: Params, cfg: TransformerConfig, tok, pos, alive,
     return nxt, carry
 
 
+@gang.program
 def chunk_carry_greedy(params: Params, cfg: TransformerConfig, tok, pos,
                        alive, emitted, ctoks, cpos, cvalid, block_tables,
                        limits, eos, promote_row, promote_pos, promote_ngen,
                        pools: Pools, qa: Optional[QuantLayout] = None, *,
                        attn_impl: str = "reference",
-                       measure_qerr: bool = False):
+                       measure_qerr: bool = False, mesh=None):
     """Greedy carry chunk step: argmax over every packed row."""
     def sampler(logits, emitted_):
         return torch.argmax(logits, dim=-1)
@@ -525,16 +592,18 @@ def chunk_carry_greedy(params: Params, cfg: TransformerConfig, tok, pos,
     return _chunk_carry(params, cfg, tok, pos, alive, emitted, ctoks, cpos,
                         cvalid, block_tables, limits, eos, promote_row,
                         promote_pos, promote_ngen, pools, qa, sampler,
-                        attn_impl=attn_impl, measure_qerr=measure_qerr)
+                        attn_impl=attn_impl, measure_qerr=measure_qerr,
+                       mesh=mesh)
 
 
+@gang.program
 def chunk_carry_sample(params: Params, cfg: TransformerConfig, tok, pos,
                        alive, emitted, ctoks, cpos, cvalid, block_tables,
                        limits, eos, promote_row, promote_pos, promote_ngen,
                        temperature, top_p, row_keys, chunk_ngen,
                        pools: Pools, qa: Optional[QuantLayout] = None, *,
                        attn_impl: str = "reference",
-                       measure_qerr: bool = False):
+                       measure_qerr: bool = False, mesh=None):
     """Sampled carry chunk step: per-row (temperature, top_p, key) from
     the host; a decode row's token index is the carry's emitted count, a
     chunk row's the admission-time count ``chunk_ngen`` (constant through
@@ -553,49 +622,53 @@ def chunk_carry_sample(params: Params, cfg: TransformerConfig, tok, pos,
     return _chunk_carry(params, cfg, tok, pos, alive, emitted, ctoks, cpos,
                         cvalid, block_tables, limits, eos, promote_row,
                         promote_pos, promote_ngen, pools, qa, sampler,
-                        attn_impl=attn_impl, measure_qerr=measure_qerr)
+                        attn_impl=attn_impl, measure_qerr=measure_qerr,
+                       mesh=mesh)
 
 
 # -- multi-token steps: speculative scoring and the draft catch-up (A3) ------
 
+@gang.program
 def paged_multitoken_logits(params: Params, cfg: TransformerConfig, tokens,
                             positions, valid, block_tables, pools: Pools,
                             qa: Optional[QuantLayout] = None, *,
                             attn_impl: str = "reference",
-                            measure_qerr: bool = False):
+                            measure_qerr: bool = False, mesh=None):
     """Full-width logits (slots, w, vocab) float32 — the speculative
     scoring step: ONE fused target pass scores all k+1 positions of every
     slot's [last_token, draft_1..draft_k] row against the paged cache."""
     out = _multitoken_features(params, cfg, tokens, positions, valid,
                                block_tables, pools, qa, attn_impl=attn_impl,
-                               measure_qerr=measure_qerr)
+                               measure_qerr=measure_qerr, mesh=mesh)
     feats = out[0] if isinstance(out, tuple) else out
-    logits = (feats @ params["unembed"]).to(torch.float32)
+    logits = sharded_logits(feats, params["unembed"], mesh)
     return (logits, out[1]) if isinstance(out, tuple) else logits
 
 
+@gang.program
 def spec_score_greedy(params: Params, cfg: TransformerConfig, tokens,
                       positions, valid, block_tables, pools: Pools,
                       qa: Optional[QuantLayout] = None, *,
                       attn_impl: str = "reference",
-                      measure_qerr: bool = False):
+                      measure_qerr: bool = False, mesh=None):
     """Speculative scoring + argmax: the (slots, w) target tokens the
     host's greedy accept rule (longest agreeing prefix + one bonus token)
     runs on, bit-identical to non-speculative greedy decoding."""
     out = paged_multitoken_logits(params, cfg, tokens, positions, valid,
                                   block_tables, pools, qa,
                                   attn_impl=attn_impl,
-                                  measure_qerr=measure_qerr)
+                                  measure_qerr=measure_qerr, mesh=mesh)
     if isinstance(out, tuple):
         return torch.argmax(out[0], dim=-1), out[1]
     return torch.argmax(out, dim=-1)
 
 
+@gang.program
 def spec_score_probs(params: Params, cfg: TransformerConfig, tokens,
                      positions, valid, block_tables, temperature, top_p,
                      pools: Pools, qa: Optional[QuantLayout] = None, *,
                      attn_impl: str = "reference",
-                     measure_qerr: bool = False):
+                     measure_qerr: bool = False, mesh=None):
     """Speculative scoring for sampled requests: per-position target
     probabilities (slots, w, vocab) float32 after the SAME
     temper-then-``_top_p_filter`` order :func:`sample_tokens` applies, so
@@ -606,7 +679,7 @@ def spec_score_probs(params: Params, cfg: TransformerConfig, tokens,
     out = paged_multitoken_logits(params, cfg, tokens, positions, valid,
                                   block_tables, pools, qa,
                                   attn_impl=attn_impl,
-                                  measure_qerr=measure_qerr)
+                                  measure_qerr=measure_qerr, mesh=mesh)
     logits = out[0] if isinstance(out, tuple) else out
     slots, w, vocab = logits.shape
     safe_t = torch.where(temperature > 0, temperature,
@@ -618,11 +691,12 @@ def spec_score_probs(params: Params, cfg: TransformerConfig, tokens,
     return (probs, out[1]) if isinstance(out, tuple) else probs
 
 
+@gang.program
 def chunked_step_greedy(params: Params, cfg: TransformerConfig, tokens,
                         positions, valid, last_idx, block_tables,
                         pools: Pools, qa: Optional[QuantLayout] = None, *,
                         attn_impl: str = "reference",
-                        measure_qerr: bool = False):
+                        measure_qerr: bool = False, mesh=None):
     """Multi-row chunk ingestion, the draft cache's catch-up: every slot
     of ``tokens`` (slots, w) advances by its own ``valid`` span and emits
     the argmax at ``last_idx`` (slots,); a slot whose ``last_idx`` token
@@ -652,7 +726,7 @@ def chunked_step_greedy(params: Params, cfg: TransformerConfig, tokens,
         positions.reshape(-1)[idx][:, None],
         torch.ones((idx.numel(), 1), dtype=torch.bool, device=idx.device),
         block_tables[row_slot], pools, packed_qa, attn_impl=attn_impl,
-        measure_qerr=measure_qerr)
+        measure_qerr=measure_qerr, mesh=mesh)
     feats = out[0] if isinstance(out, tuple) else out
     # Each slot's last_idx token's packed row; a slot whose token is not
     # valid reads the zero row appended past the packed ones.
@@ -661,6 +735,6 @@ def chunked_step_greedy(params: Params, cfg: TransformerConfig, tokens,
         torch.int64)
     row = torch.where(flat_valid[last], rank[last], idx.numel())
     feats = torch.cat([feats[:, 0], feats.new_zeros((1, feats.shape[-1]))])
-    logits = (feats[row] @ params["unembed"]).to(torch.float32)
+    logits = sharded_logits(feats[row], params["unembed"], mesh)
     toks = torch.argmax(logits, dim=-1)
     return (toks, out[1]) if isinstance(out, tuple) else toks

@@ -6,8 +6,8 @@ The JAX package has no module like this one: there the engine wraps
 the ``lax.scan`` of K decode iterations into one program. The port runs
 eagerly, so its counterpart of that one program is one CUDA graph of the
 K-step loop (:func:`~tpu_task_torch.ml.serving.model._micro_scan`),
-captured at first use and replayed once per micro-step. On the CPU the
-same loop runs eagerly.
+captured at first use and replayed once per micro-step. On the CPU, and
+over a gang's mesh, the same loop runs eagerly.
 
 There is one graph per program at the engine's K, keyed by (sampled,
 lora): greedy or sampled, without or with the LoRA branch; and each has a
@@ -198,18 +198,21 @@ class MicroStepGraphs:
     host inputs and returns its (K, slots) tokens; :meth:`dispatch` runs
     the overlapped loop's carry program from :attr:`carry` and returns its
     :class:`Readback` without waiting. On a CUDA device each program is a
-    CUDA graph; on the CPU the loop runs eagerly."""
+    CUDA graph; on the CPU, and over a gang's ``mesh`` (whose gloo
+    collectives a graph cannot hold), the loop runs eagerly."""
 
     def __init__(self, params, cfg, pools, *, slots: int, max_blocks: int,
                  micro_k: int, attn_impl: str, measure_qerr: bool,
                  device: torch.device,
-                 lora_pool: Optional[torch.Tensor] = None):
+                 lora_pool: Optional[torch.Tensor] = None, mesh=None):
         self.params, self.cfg, self.pools = params, cfg, pools
         self.lora_pool = lora_pool
         self.micro_k, self.device = micro_k, device
         self.measure_qerr = measure_qerr
+        #: Whether the programs run as CUDA graphs.
+        self.graphed = device.type == "cuda" and mesh is None
         self.kwargs = dict(micro_k=micro_k, attn_impl=attn_impl,
-                           measure_qerr=measure_qerr)
+                           measure_qerr=measure_qerr, mesh=mesh)
         self.quantized = "k_scale" in pools[0]
         k, n = micro_k, slots
         #: name -> (shape, dtype, the value of an inactive slot)
@@ -296,11 +299,11 @@ class MicroStepGraphs:
         runner's ``lora_pool``). Returns the (K, slots) tokens, read back,
         and for a quantized pool its largest write error as a device
         scalar."""
-        if self.device.type != "cuda":
+        if not self.graphed:
             out = self._program(sampled, lora,
                                 self._inputs(sampled, lora, False, inputs))
             toks, qerr = out if self.quantized else (out, None)
-            return toks.numpy(), qerr
+            return toks.cpu().numpy(), qerr
         cap = self._replay(sampled, lora, False, inputs)
         return cap.toks.cpu().numpy(), cap.qerr
 
@@ -312,7 +315,7 @@ class MicroStepGraphs:
         ABSOLUTE ``limits`` (max_new_tokens). Waits for nothing: returns
         the (K, slots) tokens' :class:`Readback` (with the largest write
         error when the runner measures it)."""
-        if self.device.type != "cuda":
+        if not self.graphed:
             out = self._program(sampled, lora,
                                 self._inputs(sampled, lora, True, inputs),
                                 self.carry)

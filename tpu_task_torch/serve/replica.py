@@ -61,10 +61,14 @@ stream (the engine's, taken at construction), and each staged publish
 batch carries an event that the ship thread waits on before it reads the
 copies back.
 
-The ``moe`` preset serves on one device through the dense expert
-dispatch. Not ported, each refused at construction or argv time and naming
-its item: ``tp``/``ep`` meshes (A14, the ``moe`` preset at ``--ep 2``
-among them), object-store ``--kv-bucket`` strings (A11c).
+``--tp N --ep M`` make the replica a gang of ``N × M`` ranks sharing one
+engine (:mod:`tpu_task_torch.ml.parallel.gang`): this process is rank 0,
+owns the engine and the HTTP front end, and starts the ``N × M − 1``
+follower processes itself, on the same device; they exit when the
+replica stops or is killed. The ``moe`` preset serves on one device
+through the dense expert dispatch and at ``--ep`` > 1 through the
+expert-parallel one. Not ported, refused at argv time and naming its
+item: object-store ``--kv-bucket`` strings (A11c).
 """
 
 from __future__ import annotations
@@ -91,6 +95,7 @@ from tpu_task_torch.device import resolve_device
 from tpu_task_torch.ml import random as jrandom
 from tpu_task_torch.ml.checkpoint import latest_step, restore_checkpoint
 from tpu_task_torch.ml.models import transformer
+from tpu_task_torch.ml.parallel import gang
 from tpu_task_torch.ml.serving.cache import ServingConfig
 from tpu_task_torch.ml.serving.engine import ServingEngine
 from tpu_task_torch.obs import (
@@ -135,12 +140,11 @@ def build_engine(preset: str = "tiny", serving: Optional[dict] = None,
     — CUDA unless the caller passes ``device="cpu"``. ``obs`` the
     replica's tracer and registry (None = nothing recorded); ``kv_client``
     a :class:`~tpu_task_torch.serve.kvfleet.FleetKvClient` for fleet-wide
-    prefix-cache sharing (None = replica-local cache only). ``tp`` and
-    ``ep`` must be 1: meshes are ROADMAP A14."""
-    if tp * ep != 1:
-        raise NotImplementedError(
-            f"a tp x ep = {tp} x {ep} replica mesh is not ported to "
-            "tpu_task_torch yet: ROADMAP A14")
+    prefix-cache sharing (None = replica-local cache only). ``tp``/``ep``
+    > 1 make the engine rank 0 of a gang of ``tp × ep`` ranks over a
+    ``("tp", "ep")`` mesh (:func:`tpu_task_torch.ml.parallel.gang.start`,
+    the other ranks new processes on the same device); the engine's
+    ``mesh.gang`` is the handle that stops them."""
     if preset not in MODEL_PRESETS:
         raise ValueError(
             f"unknown model preset {preset!r}; have {sorted(MODEL_PRESETS)}")
@@ -151,9 +155,19 @@ def build_engine(preset: str = "tiny", serving: Optional[dict] = None,
     params = transformer.init_from_key(jrandom.PRNGKey(seed), cfg)
     knobs = dict(SERVING_PRESETS[preset])
     knobs.update(serving or {})
-    return ServingEngine(params, cfg, ServingConfig(**knobs),
-                         rng=jrandom.PRNGKey(rng_seed), device=device,
-                         kv_fleet=kv_client, obs=obs)
+    scfg = ServingConfig(**knobs)
+    if tp * ep == 1:
+        return ServingEngine(params, cfg, scfg,
+                             rng=jrandom.PRNGKey(rng_seed), device=device,
+                             kv_fleet=kv_client, obs=obs)
+    mesh = gang.start(tp, ep, device=device)
+    try:
+        return ServingEngine(params, cfg, scfg,
+                             rng=jrandom.PRNGKey(rng_seed),
+                             kv_fleet=kv_client, obs=obs, mesh=mesh)
+    except BaseException:
+        mesh.gang.close()
+        raise
 
 
 class FairLock:
@@ -471,6 +485,11 @@ class ReplicaServer:
             # shutdown() waits for serve_forever, which only start() runs.
             self._server.shutdown()
         self._server.server_close()
+        # A gang's followers stop with the replica.
+        gang_handle = getattr(getattr(self.engine, "mesh", None), "gang",
+                              None)
+        if gang_handle is not None:
+            gang_handle.close()
 
     def _on_engine_stream(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None
@@ -899,10 +918,11 @@ def main(argv=None) -> int:
     parser.add_argument("--drain-file", default="inflight.json",
                         help="graceful-drain export destination")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel width (1: meshes are "
-                             "ROADMAP A14)")
+                        help="tensor-parallel width of this replica's mesh "
+                             "(the gang's tp*ep ranks share ONE engine)")
     parser.add_argument("--ep", type=int, default=1,
-                        help="expert-parallel width (1: ROADMAP A14)")
+                        help="expert-parallel width (MoE presets: expert "
+                             "weights shard one group per ep shard)")
     parser.add_argument("--no-obs", action="store_true",
                         help="disable tracing and metrics")
     parser.add_argument("--kv-bucket", default="",
