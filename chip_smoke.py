@@ -7,7 +7,8 @@ K-token micro-steps, speculative decoding, drain and resume, blocks
 imported from the fleet KV plane, the HTTP replica, weight rolls, paged
 LoRA adapters, the overlapped loop, the host KV tier, mixture-of-experts
 layers, bucketed prefill, tensor- and expert-parallel gangs), and trains the flagship for a few steps, checkpointing, killing
-and restoring it, and its mixture-of-experts variant.
+and restoring it, and its mixture-of-experts variant, also sharded over
+SPMD ranks.
 
     python3 chip_smoke.py
 
@@ -164,8 +165,9 @@ start); any failed check raises and the script exits non-zero:
              as phase 6's does.
 15. serve micro — the flagship with bf16 pools through the tile kernel
              at ``micro_k`` 1, 4 and 8 (the K-step loop a CUDA graph at K >
-             1), each engine after phase 6's warm-up: two timed waves of
-             phase 6's traffic each (three before phase 33), with tokens/s, mean chunk-step and
+             1), each engine after phase 6's warm-up: one timed wave of
+             phase 6's traffic each (two before phase 34, three before
+             phase 33), with tokens/s, mean chunk-step and
              decode- or micro-step ms, micro-steps, graph captures and
              capture ms, host_gap_frac, dispatches per token and peak
              memory. Every request's stream at K = 4 and 8 must equal K =
@@ -396,7 +398,8 @@ start); any failed check raises and the script exits non-zero:
              the dispatch on the card against the CPU's (1e-5), then five
              legs (greedy K 1 and 4, sampled K 1, ``spec_k`` 2 with the
              model as its own draft, overlapped K 4 with the dispatch
-             region under the sync debug mode), each through ``cuda``
+             region under the sync debug mode), 5 requests each (8
+             before phase 34), through ``cuda``
              (fp32 pools) and ``pipelined`` (int8), equal to the plain
              route token for token, launches those of the programs. (b)
              ``FLAGSHIP_MOE`` (phase 6's flagship, 8 experts top-2 on
@@ -454,6 +457,28 @@ start); any failed check raises and the script exits non-zero:
              passes the serve waves' gates, every rank launched the
              kernel n_layers times a step with a combine in every split
              step, the rank's kernel against the plain version. No follower may outlive its gang.
+34. train_mesh — sharded training: one launch of 4 SPMD ranks on
+             ``cuda:0`` (``TRAIN_MESH_SCRIPT``, each started with
+             ``worker_env`` and ``distributed_init_from_env``, gloo), then
+             a second for the restart. (a) Tiny fp32 parity legs, (fsdp
+             2, tp 2) and the MoE step on (dp 2, ep 2): three sharded steps
+             through the flash kernels, each rank's blocks within 2e-5 of
+             the one-process step on the card through the plain route,
+             loss and grad norm within 1e-5 of it and of the same step on
+             the CPU (the params' gap to the CPU's reported); every rank's
+             launches alike. (b) ``TRAIN_FLAGSHIP`` (bf16, batch 8 x 1024)
+             on (dp 1, fsdp 2, tp 2): two warm-up steps, the first recorded
+             (layer 0's forward and the last layer's backward against the
+             plain versions on every rank), an async save of the sharded
+             state at step 2 published before three timed steps: step ms on
+             each rank, collectives by kind with their ms, bytes a rank
+             against one device, launches 8 a kernel a step and 0 plain,
+             losses falling. (c) ``TRAIN_FLAGSHIP_MOE`` on (dp 2, ep 2),
+             one warm-up and two timed steps, the same fields. (d) Every
+             rank SIGKILLed once all parked after (c); relaunched, each
+             restores its blocks of step 2 and runs to step 4 on (b)'s
+             batch, losses within ``RESUME_LOSS_RTOL`` of (b)'s, with the
+             seconds from the restart to its first step.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
@@ -461,7 +486,8 @@ their kernel and its registers, and add their launches in phases 10a-10c;
 the paged rows and the combine's add their launches in phases 15, 17, 19,
 20, 22, 24, 25, 26, 27, 28, 29, 30, 31 and 32, each rank's in phase 33,
 and the scoring step's timing,
-the flash rows theirs in phase 31's train steps),
+the flash rows theirs in phase 31's train steps and each rank's in
+phase 34's timed dense steps),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1670,11 +1696,11 @@ def serve_micro(device, smi: str, phase: str, ks, seeds,
 
 def phase_serve_micro(device, smi: str) -> tuple:
     """The micro-step path: the flagship with bf16 pools through the tile
-    kernel at K = 1, 4 and 8, two timed waves each (three before phase
-    33). Returns the K lines and the K = 8 engine (for the trace; the
-    K = 1 trace, about a minute of post-processing, made room for phase
-    30)."""
-    return serve_micro(device, smi, "serve_micro", MICRO_KS, (0, 1),
+    kernel at K = 1, 4 and 8, one timed wave each (two before phase 34,
+    three before phase 33). Returns the K lines and the K = 8 engine (for
+    the trace; the K = 1 trace, about a minute of post-processing, made
+    room for phase 30)."""
+    return serve_micro(device, smi, "serve_micro", MICRO_KS, (0,),
                        keep=(MICRO_KS[-1],))
 
 
@@ -6858,13 +6884,13 @@ MOE_TRAIN_STEPS = 6
 
 
 def moe_traffic(vocab: int, sampled: bool) -> list:
-    """Leg (a)'s 8 requests of 3-24 prompt tokens and 6-18 new tokens,
-    every second one keyed-sampled at temperature 0.8 / top_p 0.9 when
-    ``sampled``, each followed by 0-2 steps before the next arrives, as
-    ``run_arrivals`` takes them."""
+    """Leg (a)'s 5 requests (8 before phase 34) of 3-24 prompt tokens and
+    6-18 new tokens, every second one keyed-sampled at temperature 0.8 /
+    top_p 0.9 when ``sampled``, each followed by 0-2 steps before the next
+    arrives, as ``run_arrivals`` takes them."""
     rng = np.random.default_rng(31)
     out = []
-    for i in range(8):
+    for i in range(5):
         prompt = rng.integers(0, vocab, size=int(rng.integers(3, 25)))
         kw = ({"temperature": 0.8, "top_p": 0.9, "key": [31, i]}
               if sampled and i % 2 else {})
@@ -7955,9 +7981,612 @@ def phase_serve_mesh(device, smi: str) -> dict:
     return {"parity": parity, "flagship": flagship}
 
 
+# -- sharded training across SPMD ranks (phase 34) -------------------------------
+
+#: Phase 34's ranks: one process a mesh position, all on cuda:0.
+TRAIN_MESH_RANKS = 4
+#: (name, mesh axes, sizes, MoE) of the tiny fp32 parity legs. The
+#: config's sequence is a multiple of 128 so the flash kernels take it.
+TRAIN_MESH_PARITY = (("fsdp2_tp2", ("fsdp", "tp"), (2, 2), False),
+                     ("moe_dp2_ep2", ("dp", "ep"), (2, 2), True))
+TRAIN_MESH_TINY = dict(vocab_size=1024, d_model=256, n_layers=2, n_heads=8,
+                       d_head=32, d_ff=512, n_kv_heads=4)
+#: The MoE parity config: capacity for every token (capacity_factor =
+#: n_experts), so the one-process dense dispatch is its reference.
+TRAIN_MESH_TINY_MOE = dict(TRAIN_MESH_TINY, moe_every=2, n_experts=4,
+                           moe_top_k=2, moe_capacity_factor=4.0)
+#: How far the sharded card step's params may be from the CPU step's, as
+#: a multiple of the one-process card step's own gap to the CPU step (the
+#: sums' order on the card): above it the sharding adds a gap of its own.
+TRAIN_MESH_CPU_GAP_RATIO = 2.0
+TRAIN_MESH_DENSE = (("dp", "fsdp", "tp"), (1, 2, 2))
+TRAIN_MESH_MOE = (("dp", "ep"), (2, 2))
+#: The dense flagship's trainer saves at the second step and keeps
+#: stepping (to the third number at most) until killed; the restart runs
+#: from that save to the first.
+TRAIN_MESH_RESUME_STEPS, TRAIN_MESH_SAVE_AT, TRAIN_MESH_LOOP_STEPS = 4, 2, 8
+
+#: The rank script of phase 34 (and of ``tests/test_torch_train_mesh_resume
+#: .py`` on the CPU at a tiny size): every rank of an SPMD trainer runs it
+#: with the orchestrator's variables (``worker_env``), joins the gloo group
+#: through ``distributed_init_from_env`` and builds its mesh with
+#: ``make_mesh``; it imports only tpu_task_torch and this script's own
+#: checkout's ``chip_smoke`` helpers. Its one argument is a JSON config
+#: naming the legs; it prints one JSON line an event, each with the rank
+#: and its wall time.
+TRAIN_MESH_SCRIPT = r'''
+import json, os, sys, time
+
+config = json.loads(sys.argv[1])
+sys.path.insert(0, config["repo"])
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tpu_task_torch.ml import (AsyncCheckpointer, restore_checkpoint_sharded,
+                               train)
+from tpu_task_torch.ml.data import epoch_batches, prefetch_to_device
+from tpu_task_torch.ml.models import transformer
+from tpu_task_torch.ml.ops import attention
+from tpu_task_torch.ml.parallel import collectives
+from tpu_task_torch.ml.parallel.mesh import (batch_shard,
+                                             distributed_init_from_env,
+                                             local_batch, make_mesh)
+from tpu_task_torch.ml.parallel.sharding import (shard_slices, spec_leaves,
+                                                 tree_nbytes)
+from tpu_task_torch.ml.tree import leaves
+import chip_smoke
+
+T_START = time.time()
+
+
+def log(event, **fields):
+    print(json.dumps({"event": event, "rank": RANK, "t": time.time(),
+                      **fields}), flush=True)
+
+
+RANK = int(os.environ.get("TPU_TASK_WORKER_ID", "0"))
+log("imported")
+if not distributed_init_from_env():
+    raise SystemExit("train_mesh: not started as a rank of a trainer")
+RANK = dist.get_rank()
+device = torch.device(config["device"])
+torch.set_num_threads(2)
+if device.type == "cuda":
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.empty(1, device=device)
+    torch.cuda.synchronize()
+log("device_ready")
+
+
+def sync():
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def model_config(leg):
+    return transformer.TransformerConfig(dtype=getattr(torch, leg["dtype"]),
+                                         **leg["model"])
+
+
+def step_builder(cfg, mesh, moe):
+    if moe:
+        return train.make_moe_train_step(cfg, mesh)
+    return train.make_train_step(cfg, mesh=mesh)
+
+
+def one_process(cfg, tokens, steps, where):
+    """The one-process step through the plain route: the plain attention
+    on ``where`` (the CPU's wrappers take it; on the card, the plain
+    versions under ``FlashAttention``'s wiring). Its final state and
+    metrics."""
+    state = train.init_state(torch.Generator().manual_seed(6), cfg,
+                             device=where)
+    attn = None
+    if where.type == "cuda":
+        def attn(q, k, v):
+            return chip_smoke.PlainFlash.apply(
+                q, transformer.expand_kv(k, cfg.n_heads),
+                transformer.expand_kv(v, cfg.n_heads))
+    step, metrics = train.make_train_step(cfg, attn_fn=attn), []
+    tokens = tokens.to(where)
+    for _ in range(steps):
+        state, m = step(state, tokens)
+        metrics.append([m["loss"].item(), m["grad_norm"].item()])
+    return state, metrics
+
+
+def max_block_diff(blocks, ref, specs, mesh) -> float:
+    err = 0.0
+    for got, want, spec in zip(leaves(blocks), leaves(ref),
+                               spec_leaves(specs)):
+        if torch.is_tensor(got):
+            want = want[shard_slices(want.shape, spec, mesh)].to(got.device)
+            err = max(err, (got - want).abs().max().item())
+    return err
+
+
+def max_state_diff(a, b) -> float:
+    return max((x.cpu() - y.cpu()).abs().max().item()
+               for x, y in zip(leaves(a), leaves(b)) if torch.is_tensor(x))
+
+
+def parity(leg):
+    """Three sharded steps of a tiny fp32 config on the card against the
+    one-process step through the plain route: on the card (params and
+    metrics) and on the CPU (metrics; the params' gap may exceed
+    ``param_atol`` only as far as the one-process card step's own gap to
+    the CPU step, the witness, allows: ``cpu_gap_ratio`` times it)."""
+    mesh = make_mesh(axis_names=leg["axes"], axis_sizes=leg["sizes"],
+                     device=device)
+    cfg = model_config(leg)
+    tokens = torch.randint(0, cfg.vocab_size, (leg["batch"], leg["seq"] + 1),
+                           generator=torch.Generator().manual_seed(5))
+    full = train.init_state(torch.Generator().manual_seed(6), cfg,
+                            device="cpu")
+    blocks, specs = train.shard_state(full, cfg, mesh)
+    ref, ref_metrics = one_process(cfg, tokens, leg["steps"], device)
+    cpu, cpu_metrics = one_process(cfg, tokens, leg["steps"],
+                                   torch.device("cpu"))
+    step = step_builder(cfg, mesh, leg["moe"])(blocks)
+    rows = local_batch(tokens, mesh).to(device)
+    attention.reset_launch_counts()
+    metrics = []
+    for _ in range(leg["steps"]):
+        blocks, m = step(blocks, rows)
+        metrics.append([m["loss"].item(), m["grad_norm"].item()])
+    sync()
+    counts = chip_smoke.flash_counts()
+    err = max_block_diff(blocks, ref, specs, mesh)
+    cpu_err = max_block_diff(blocks, cpu, specs, mesh)
+    witness = max_state_diff(ref, cpu)
+    metric_err = max(abs(a - b) for ref_m in (ref_metrics, cpu_metrics)
+                     for x, y in zip(metrics, ref_m) for a, b in zip(x, y))
+    log("parity", name=leg["name"], metrics=metrics,
+        reference_metrics=ref_metrics, cpu_metrics=cpu_metrics,
+        max_param_abs_diff=err, max_param_abs_diff_cpu=cpu_err,
+        one_process_card_vs_cpu=witness,
+        max_metric_abs_diff=metric_err, launches=counts,
+        ok=(err <= leg["param_atol"] and metric_err <= leg["metric_atol"]
+            and cpu_err <= max(leg["param_atol"],
+                               leg["cpu_gap_ratio"] * witness)))
+
+
+def flagship(leg):
+    """The flagship sharded: warm-up steps (the first recorded and held
+    against the plain versions), then timed steps on one batch."""
+    mesh = make_mesh(axis_names=leg["axes"], axis_sizes=leg["sizes"],
+                     device=device)
+    cfg = model_config(leg)
+    full = train.init_state(torch.Generator(device=device).manual_seed(0),
+                            cfg, device=device)
+    one_device = tree_nbytes(full)
+    blocks, specs = train.shard_state(full, cfg, mesh)
+    del full
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    tokens = torch.randint(
+        0, cfg.vocab_size, (leg["batch"], leg["seq"] + 1), device=device,
+        generator=torch.Generator(device=device).manual_seed(1))
+    rows = local_batch(tokens, mesh)
+    step = step_builder(cfg, mesh, leg["moe"])(blocks)
+    losses = []
+    with chip_smoke.FlashRecorder(attention) as recorder:
+        blocks, m = step(blocks, rows)
+    losses.append(m["loss"].item())
+    recorded = chip_smoke.check_recorded(recorder.calls)
+    recorder.calls.clear()
+    for _ in range(leg["warmup"] - 1):
+        blocks, m = step(blocks, rows)
+        losses.append(m["loss"].item())
+    sync()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    mesh.collectives.clear()
+    step_ms, per_step = [], []
+    for _ in range(leg["timed"]):
+        before = chip_smoke.flash_counts()
+        t0 = time.perf_counter()
+        blocks, m = step(blocks, rows)
+        losses.append(m["loss"].item())
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = chip_smoke.flash_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    log("flagship", name=leg["name"], step_ms=step_ms, losses=losses,
+        collectives=collectives.collective_stats(mesh),
+        rank_bytes=tree_nbytes(blocks), one_device_bytes=one_device,
+        rows=list(rows.shape), launches_per_step=per_step,
+        launches=chip_smoke.flash_counts(), recorded=recorded,
+        peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                        if device.type == "cuda" else None))
+
+
+def resume(leg):
+    """A trainer's loop: restore the newest complete sharded checkpoint
+    when there is one, feed seeded batches (``data="epochs"``: this rank's
+    piece through ``epoch_batches``; ``"repeat"``: the flagship leg's one
+    batch), save asynchronously with the layout (each save's blocking ms
+    logged), and write its final blocks (``write_final``)."""
+    mesh = make_mesh(axis_names=leg["axes"], axis_sizes=leg["sizes"],
+                     device=device)
+    cfg = model_config(leg)
+    full = train.init_state(torch.Generator(device=device).manual_seed(0),
+                            cfg, device=device)
+    blocks, specs = train.shard_state(full, cfg, mesh)
+    del full
+    if os.path.exists(os.path.join("checkpoints", "LATEST_SHARDED")):
+        t0 = time.perf_counter()
+        blocks = restore_checkpoint_sharded("checkpoints", blocks,
+                                            specs=specs, mesh=mesh)
+        sync()
+        log("restored", step=blocks.step, read_s=time.perf_counter() - t0,
+            bytes=tree_nbytes(blocks))
+    if leg["data"] == "repeat":
+        tokens = torch.randint(
+            0, cfg.vocab_size, (leg["batch"], leg["seq"] + 1), device=device,
+            generator=torch.Generator(device=device).manual_seed(1))
+        rows = local_batch(tokens, mesh)
+        batches = iter(lambda: rows, None)
+    else:
+        tokens = np.random.default_rng(leg["seed"]).integers(
+            0, cfg.vocab_size,
+            size=(leg["batch"] * leg["steps"], leg["seq"] + 1))
+        piece, pieces = batch_shard(mesh)
+        batches = prefetch_to_device(
+            epoch_batches(tokens, None, leg["batch"], seed=leg["seed"],
+                          process_index=piece, process_count=pieces,
+                          start_step=blocks.step), device)
+    step = step_builder(cfg, mesh, False)(blocks)
+    attention.reset_launch_counts()
+    with AsyncCheckpointer("checkpoints", keep=2) as saver:
+        while blocks.step < leg["steps"]:
+            blocks, m = step(blocks, next(batches))
+            log("step", step=blocks.step, loss=m["loss"].item())
+            if (blocks.step % leg["save_every"] == 0
+                    and blocks.step < leg["steps"]):
+                t0 = time.perf_counter()
+                saver.save(blocks.step, blocks, specs=specs, mesh=mesh)
+                log("saved", step=blocks.step,
+                    blocked_ms=(time.perf_counter() - t0) * 1e3,
+                    pinned_bytes=saver.pinned_bytes)
+    if leg["write_final"]:
+        np.savez(f"final-{leg['tag']}-{RANK}.npz", **{
+            f"leaf_{i}": (x.detach().float().cpu().numpy()
+                          if torch.is_tensor(x) else np.asarray(x))
+            for i, x in enumerate(leaves(blocks))})
+    log("done", step=blocks.step, launches=chip_smoke.flash_counts())
+
+
+for name in config["legs"]:
+    for leg in config[name]:
+        globals()[name](leg)
+log("finished", seconds=time.time() - T_START)
+if config.get("park"):
+    log("parked")
+    while True:
+        time.sleep(1)
+'''
+
+
+def launch_mesh_ranks(workdir: Path, config: dict, n: int, tag: str, *,
+                      until=None,
+                      timeout_s: float = 600) -> dict:
+    """``TRAIN_MESH_SCRIPT`` as ``n`` rank processes in ``workdir``, each
+    started with ``worker_env(i, n, localhost:<free port>)``: (each rank's
+    events, the spawn's wall time). ``until="parked"`` SIGKILLs every rank
+    once all of them logged it; ``until="published"`` once the step
+    ``LATEST_SHARDED`` names has every rank's shard file (``t_until``:
+    when the launcher saw it). A rank that exits non-zero fails the launch
+    with its log; no rank outlives it."""
+    import signal
+    import socket
+
+    from tpu_task_torch.ml.parallel.mesh import worker_env
+
+    script = workdir / "train_mesh.py"
+    script.write_text(TRAIN_MESH_SCRIPT)
+    with socket.socket() as probe:
+        probe.bind(("localhost", 0))
+        port = probe.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    logs = [workdir / f"{tag}-{i}.log" for i in range(n)]
+    procs = []
+    t_spawn, t_until = time.time(), None
+
+    def events(i):
+        return trainer_events(logs[i]) if logs[i].exists() else []
+
+    def published() -> bool:
+        pointer = workdir / "checkpoints" / "LATEST_SHARDED"
+        if not pointer.exists():
+            return False
+        meta = json.loads(pointer.read_text())
+        return all((workdir / "checkpoints" /
+                    f"ckpt-{meta['step']}.shard-{r}.npz").exists()
+                   for r in range(int(meta["process_count"])))
+
+    try:
+        for i in range(n):
+            with open(logs[i], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(script), json.dumps(config)],
+                    cwd=workdir, stdout=out, stderr=subprocess.STDOUT,
+                    env={**env, **worker_env(i, n, f"localhost:{port}")}))
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            failed = [i for i, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed:
+                raise AssertionError(
+                    f"train_mesh rank {failed[0]} exited "
+                    f"{procs[failed[0]].returncode}: "
+                    f"{logs[failed[0]].read_text()[-4000:]}")
+            if until is None and all(p.poll() == 0 for p in procs):
+                break
+            if (until == "parked" and all(
+                    any(e["event"] == "parked" for e in events(i))
+                    for i in range(n))) or (until == "published"
+                                            and published()):
+                t_until = time.time()
+                for p in procs:
+                    p.send_signal(signal.SIGKILL)
+                break
+            time.sleep(0.02)
+        else:
+            raise AssertionError(f"train_mesh {tag}: ranks did not finish "
+                                 f"in {timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return {"events": [events(i) for i in range(n)], "t_spawn": t_spawn,
+            "t_until": t_until}
+
+
+def mesh_trainer_config(device: str, legs, *, resume_model: dict,
+                        resume_dtype: str, axes, sizes, batch: int, seq: int,
+                        steps: int, save_every: int, tag: str,
+                        data: str = "epochs", park: bool = False,
+                        write_final: bool = True, **extra) -> dict:
+    """``TRAIN_MESH_SCRIPT``'s argument: the legs to run, the ``resume``
+    leg's trainer, and whether the ranks park at the end to be killed."""
+    return dict(repo=str(HERE), device=device, legs=list(legs), park=park,
+                resume=[dict(axes=list(axes), sizes=list(sizes),
+                             model=resume_model, dtype=resume_dtype,
+                             batch=batch, seq=seq, steps=steps,
+                             save_every=save_every, seed=11, tag=tag,
+                             data=data, write_final=write_final)], **extra)
+
+
+def rank_timeline(run: dict) -> list:
+    """Rank 0's events of a launch: (event, leg, seconds since spawn)."""
+    return [[e["event"], e.get("name"), round(e["t"] - run["t_spawn"], 3)]
+            for e in run["events"][0] if e["event"] != "step"]
+
+
+def phase_train_mesh(device, smi: str) -> dict:
+    """Phase 34: sharded training as one launch of TRAIN_MESH_RANKS SPMD
+    ranks on the card, then a second for the restart. (a) The tiny fp32
+    parity legs against the one-process step through the plain route; (b)
+    the dense flagship on (dp 1, fsdp 2, tp 2), timed; (c) the MoE flagship
+    on (dp 2, ep 2); (d) the dense flagship's trainer loop on (b)'s batch,
+    saving asynchronously with its layout at step TRAIN_MESH_SAVE_AT and
+    stepping on: every rank SIGKILLed inside the loop once that save is
+    published, relaunched, each restores it and runs to
+    TRAIN_MESH_RESUME_STEPS, its losses against (b)'s. Returns each rank's
+    flash launches over (b)'s timed steps."""
+    import shutil
+
+    t0 = time.perf_counter()
+    workdir = Path(tempfile.mkdtemp(prefix="tpu-task-train-mesh-"))
+    n = TRAIN_MESH_RANKS
+    dense_axes, dense_sizes = TRAIN_MESH_DENSE
+    common = dict(resume_model=TRAIN_FLAGSHIP, resume_dtype="bfloat16",
+                  axes=dense_axes, sizes=dense_sizes, batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, data="repeat", write_final=False)
+    parity_legs = [dict(name=name, axes=list(axes), sizes=list(sizes),
+                        moe=moe, dtype="float32",
+                        model=TRAIN_MESH_TINY_MOE if moe else TRAIN_MESH_TINY,
+                        batch=8, seq=256, steps=3, param_atol=FP32_ATOL,
+                        metric_atol=1e-5,
+                        cpu_gap_ratio=TRAIN_MESH_CPU_GAP_RATIO)
+                   for name, axes, sizes, moe in TRAIN_MESH_PARITY]
+    flagship_legs = [
+        dict(name="dense", axes=list(dense_axes), sizes=list(dense_sizes),
+             model=TRAIN_FLAGSHIP, dtype="bfloat16", batch=TRAIN_BATCH,
+             seq=TRAIN_SEQ, warmup=2, timed=3, moe=False),
+        dict(name="moe", axes=list(TRAIN_MESH_MOE[0]),
+             sizes=list(TRAIN_MESH_MOE[1]), model=TRAIN_FLAGSHIP_MOE,
+             dtype="bfloat16", batch=TRAIN_BATCH, seq=TRAIN_SEQ, warmup=1,
+             timed=2, moe=True)]
+    try:
+        first = launch_mesh_ranks(workdir, mesh_trainer_config(
+            "cuda", ("parity", "flagship", "resume"), tag="first",
+            park=True, parity=parity_legs, flagship=flagship_legs,
+            steps=TRAIN_MESH_LOOP_STEPS, save_every=TRAIN_MESH_SAVE_AT,
+            **common), n, "first", until="published")
+        second = launch_mesh_ranks(workdir, mesh_trainer_config(
+            "cuda", ("resume",), tag="second",
+            steps=TRAIN_MESH_RESUME_STEPS,
+            save_every=TRAIN_MESH_RESUME_STEPS, **common), n, "second")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    failures = []
+
+    def by_rank(run, event, **match):
+        return [[e for e in ranks if e["event"] == event
+                 and all(e.get(k) == v for k, v in match.items())]
+                for ranks in run["events"]]
+
+    emit("train_mesh_start", ranks=n,
+         to_imported_s=max(r[0]["t"] for r in first["events"])
+         - first["t_spawn"],
+         to_device_ready_s=max(
+             e["t"] for r in first["events"] for e in r
+             if e["event"] == "device_ready") - first["t_spawn"],
+         gpu=smi)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for leg in parity_legs:
+        lines = [r[0] for r in by_rank(first, "parity", name=leg["name"])]
+        n_launch = leg["steps"] * leg["model"]["n_layers"]
+        launches = [line["launches"] for line in lines]
+        ok = (all(line["ok"] for line in lines)
+              and all(c == launches[0] for c in launches)
+              and all(launches[0][k] == n_launch for k in kernels)
+              and all(launches[0][k] == 0 for k in
+                      ("plain_fwd", "plain_bwd", "plain_mha")))
+        emit("train_mesh_parity", name=leg["name"], ok=ok, mesh=dict(
+            zip(leg["axes"], leg["sizes"])), model=leg["model"],
+             tokens=[leg["batch"], leg["seq"] + 1], steps=leg["steps"],
+             metrics_rank0=lines[0]["metrics"],
+             reference_metrics=lines[0]["reference_metrics"],
+             cpu_metrics=lines[0]["cpu_metrics"],
+             max_param_abs_diff=max(l["max_param_abs_diff"] for l in lines),
+             max_param_abs_diff_cpu=max(l["max_param_abs_diff_cpu"]
+                                        for l in lines),
+             one_process_card_vs_cpu=lines[0]["one_process_card_vs_cpu"],
+             max_metric_abs_diff=max(l["max_metric_abs_diff"]
+                                     for l in lines),
+             launches_by_rank=launches,
+             tolerance=f"params {leg['param_atol']} abs against the "
+                       "one-process step on the card through the plain "
+                       f"route; loss and grad norm {leg['metric_atol']} abs "
+                       "against it and against the same step on the CPU; "
+                       "params against the CPU step within the larger of "
+                       f"{leg['param_atol']} and {leg['cpu_gap_ratio']} "
+                       "times the one-process card step's gap to it")
+        if not ok:
+            failures.append(f"parity {leg['name']}")
+    out, dense_losses = {}, None
+    for leg in flagship_legs:
+        lines = [r[0] for r in by_rank(first, "flagship", name=leg["name"])]
+        want = {k: leg["model"]["n_layers"] for k in kernels}
+        want.update(plain_fwd=0, plain_bwd=0, plain_mha=0)
+        every = all(p == want for line in lines
+                    for p in line["launches_per_step"])
+        recorded = all(c["ok"] for line in lines
+                       for c in line["recorded"].values())
+        losses = lines[0]["losses"]
+        falling = (all(math.isfinite(x) for x in losses)
+                   and losses[-1] < losses[0]
+                   and all(line["losses"] == losses for line in lines))
+        step_ms = [float(np.median(line["step_ms"])) for line in lines]
+        coll = lines[0]["collectives"]
+        coll_ms = sum(v["ms"] for v in coll.values()) / leg["timed"]
+        emit(f"train_mesh_{leg['name']}", ok=every and recorded and falling,
+             mesh=dict(zip(leg["axes"], leg["sizes"])),
+             batch=leg["batch"], seq=leg["seq"], dtype="bfloat16",
+             master_weights="float32", warmup_steps=leg["warmup"],
+             timed_steps=leg["timed"],
+             step_ms_by_rank=[line["step_ms"] for line in lines],
+             step_ms_median=float(np.median(step_ms)),
+             tokens_per_s=leg["batch"] * leg["seq"]
+             / float(np.median(step_ms)) * 1e3,
+             collectives_rank0_per_step={
+                 k: {"calls": v["calls"] / leg["timed"],
+                     "ms": v["ms"] / leg["timed"]} for k, v in coll.items()},
+             collective_share_rank0=coll_ms / float(np.median(
+                 lines[0]["step_ms"])),
+             rank_bytes=[line["rank_bytes"] for line in lines],
+             one_device_bytes=lines[0]["one_device_bytes"],
+             rows_by_rank=[line["rows"] for line in lines],
+             launches_per_step_rank0=lines[0]["launches_per_step"][0],
+             launches_every_step_as_expected=every,
+             step_check=lines[0]["recorded"], step_check_all_ranks=recorded,
+             losses=losses, peak_memory_gb_by_rank=[
+                 line["peak_memory_gb"] for line in lines], gpu=smi)
+        if not (every and recorded and falling):
+            failures.append(f"flagship {leg['name']}")
+        out[leg["name"]] = {str(i): {k: line["launches"][k] for k in kernels}
+                            for i, line in enumerate(lines)}
+        if leg["name"] == "dense":
+            dense_losses = losses
+    restored = by_rank(second, "restored")
+    steps = by_rank(second, "step")
+
+    def rel_to_dense(events) -> float:
+        return max((abs(e["loss"] - dense_losses[e["step"] - 1])
+                    / abs(dense_losses[e["step"] - 1]) for e in events),
+                   default=math.inf)
+
+    rel = rel_to_dense(steps[0])
+    done = [r[0] for r in by_rank(second, "done")]
+    n_steps = TRAIN_MESH_RESUME_STEPS - TRAIN_MESH_SAVE_AT
+    # The first launch's loop: killed inside it (no rank done) once its
+    # first save was published, its steps (b)'s steps.
+    looped = by_rank(first, "step")
+    saves = by_rank(first, "saved")
+    killed_inside = (first["t_until"] is not None
+                     and not any(by_rank(first, "done"))
+                     and all(s and s[0]["step"] == TRAIN_MESH_SAVE_AT
+                             for s in saves))
+    loop_rel = max(rel_to_dense([e for e in r if e["step"] <= len(
+        dense_losses)]) for r in looped)
+    resumed_ok = (killed_inside and loop_rel <= RESUME_LOSS_RTOL
+                  and all(r and r[0]["step"] == TRAIN_MESH_SAVE_AT
+                          for r in restored)
+                  and all([e["step"] for e in s] == list(range(
+                      TRAIN_MESH_SAVE_AT + 1, TRAIN_MESH_RESUME_STEPS + 1))
+                      for s in steps)
+                  and rel <= RESUME_LOSS_RTOL
+                  and all(d["launches"][k] == n_steps
+                          * TRAIN_FLAGSHIP["n_layers"]
+                          for d in done for k in kernels))
+    emit("train_mesh_resume", ok=resumed_ok, saved_at=TRAIN_MESH_SAVE_AT,
+         run_to=TRAIN_MESH_RESUME_STEPS,
+         killed="every rank SIGKILLed inside its loop once the step "
+                f"{TRAIN_MESH_SAVE_AT} save was published",
+         killed_inside_loop=killed_inside,
+         last_step_logged_by_rank=[max((e["step"] for e in r), default=None)
+                                   for r in looped],
+         saves_started_by_rank=[[e["step"] for e in s] for s in saves],
+         save_blocked_ms_by_rank=[s[0]["blocked_ms"] if s else None
+                                  for s in saves],
+         pinned_bytes_by_rank=[s[0]["pinned_bytes"] if s else None
+                               for s in saves],
+         save_to_published_seen_s=first["t_until"] - max(
+             s[0]["t"] for s in saves) if killed_inside else None,
+         loop_losses=[e["loss"] for e in looped[0]],
+         loop_max_loss_rel_diff=loop_rel,
+         restored_from=[r[0]["step"] if r else None for r in restored],
+         losses=[e["loss"] for e in steps[0]],
+         uninterrupted_losses=dense_losses[TRAIN_MESH_SAVE_AT:
+                                           TRAIN_MESH_RESUME_STEPS],
+         max_loss_rel_diff=rel, tolerance=f"losses {RESUME_LOSS_RTOL} rel",
+         read_s_by_rank=[r[0]["read_s"] if r else None for r in restored],
+         restart_to_restored_s=max(r[0]["t"] for r in restored)
+         - second["t_spawn"] if all(restored) else None,
+         restart_to_first_step_s=max(s[0]["t"] for s in steps)
+         - second["t_spawn"] if all(steps) else None,
+         launches_by_rank=[d["launches"] for d in done], gpu=smi)
+    if not resumed_ok:
+        failures.append("resume")
+    emit("train_mesh", ranks=n, seconds=time.perf_counter() - t0,
+         timeline_rank0={"first": rank_timeline(first),
+                         "second": rank_timeline(second)},
+         failures=failures, gpu=smi)
+    if failures:
+        raise AssertionError(f"train_mesh: {failures}")
+    return out["dense"]
+
 def main() -> int:
     import shutil
 
+    # The processes this script starts (trainers, a gang's followers, the
+    # replica, the SPMD ranks) each import torch anew. The card's image sets
+    # PYTHONDONTWRITEBYTECODE, so each compiled torch's modules afresh
+    # (on an H100 host, 9.4 s an import with four at once against 6.2 s
+    # from compiled bytecode): they keep their bytecode under the
+    # checkout's build directory instead.
+    os.environ["PYTHONPYCACHEPREFIX"] = str(HERE / "build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     # The bucket phases 6 and 14 publish into and phase 24 imports from.
     bucket = tempfile.mkdtemp(prefix="tpu-task-kvfleet-")
     try:
@@ -8022,6 +8651,8 @@ def run_phases(bucket: str) -> int:
     moe = phase_serve_moe(device, smi, serve_median)
     bucketed = phase_serve_bucketed(device, smi)
     mesh = phase_serve_mesh(device, smi)
+    torch.cuda.empty_cache()
+    train_mesh = phase_train_mesh(device, smi)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -8098,7 +8729,9 @@ def run_phases(bucket: str) -> int:
             "launches_train_checkpoint": ckpt_counts[name],
             "launches_train_resume_process": resume_counts[name],
             "launches_train_profile_window": window_counts[name],
-            "launches_train_moe": moe["train"][name]})
+            "launches_train_moe": moe["train"][name],
+            "launches_train_mesh_by_rank": {
+                rank: counts[name] for rank, counts in train_mesh.items()}})
         # B1, B2 and B3 v3: wgmma fed by TMA rings
         build = fwd_build if name == "flash_fwd" else bwd_build[name]
         kernels[-1].update(version="v3", kernel=f"{name}_wgmma_kernel",

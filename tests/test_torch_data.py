@@ -1,8 +1,8 @@
 """The port's input pipeline (``tpu_task_torch.ml.data``) against the JAX
 package's (``tpu_task/ml/data.py``): ``epoch_batches`` yields the same
 batches for the same seed, process slice and ``start_step``;
-``prefetch_to_device`` keeps order, handles short iterators and refuses a
-mesh sharding (ROADMAP A14)."""
+``prefetch_to_device`` keeps order, handles short iterators and places a
+mesh rank's rows of each global batch."""
 
 import itertools
 
@@ -12,6 +12,7 @@ import torch
 
 from tpu_task.ml import data as jdata
 from tpu_task_torch.ml import data
+from tpu_task_torch.ml.parallel.mesh import Mesh
 
 
 @pytest.mark.parametrize("n,batch,procs", [(37, 8, 1), (64, 16, 4),
@@ -100,8 +101,16 @@ def test_prefetch_to_device_refusals(monkeypatch):
     with pytest.raises(ValueError, match="depth"):
         next(data.prefetch_to_device(iter([np.zeros(1)]), device="cpu",
                                      depth=0))
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="a device or a mesh"):
         next(data.prefetch_to_device(iter([np.zeros(1)]), device=object()))
+    # The mesh counterpart of JAX's batch sharding: this rank's rows of
+    # each global batch (the piece over the batch axes; tp shares it).
+    batch = {"x": np.arange(8), "y": np.arange(16).reshape(8, 2)}
+    for rank, rows in ((0, [0, 1]), (1, [0, 1]), (6, [6, 7])):
+        mesh = Mesh((2, 2, 2), ("dp", "fsdp", "tp"), rank=rank)
+        got = next(data.prefetch_to_device(iter([batch]), device=mesh))
+        assert got["x"].tolist() == rows
+        assert got["y"].tolist() == batch["y"][rows].tolist()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         next(data.prefetch_to_device(iter([np.zeros(1)])))

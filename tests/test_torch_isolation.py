@@ -54,7 +54,7 @@ def test_scan_covers_the_package_and_chip_smoke():
                    "ml/serving/lora.py", "ml/serving/offload.py",
                    "ml/parallel/__init__.py", "ml/parallel/mesh.py",
                    "ml/parallel/sharding.py", "ml/parallel/gang.py",
-                   "ml/parallel/follower.py"):
+                   "ml/parallel/follower.py", "ml/parallel/collectives.py"):
         assert f"tpu_task_torch/{module}" in names
     assert all((ROOT / n).exists() for n in names)
 
@@ -64,6 +64,28 @@ def test_scan_covers_the_package_and_chip_smoke():
 def test_no_jax_or_jax_package_import(path):
     bad = sorted(set(imported_roots(path.read_text())) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _rank_sources():
+    """What the ranks of an SPMD trainer run besides the package: the
+    trainer scripts chip_smoke writes out and runs, and the rank-side
+    helpers of the sharded-training tests."""
+    import chip_smoke
+
+    return {"chip_smoke.TRAIN_MESH_SCRIPT": chip_smoke.TRAIN_MESH_SCRIPT,
+            "chip_smoke.TRAINER_SCRIPT": chip_smoke.TRAINER_SCRIPT,
+            **{f"tests/{name}": (ROOT / "tests" / name).read_text()
+               for name in ("torch_spmd_util.py",
+                            "torch_train_mesh_cases.py")}}
+
+
+@pytest.mark.parametrize("name", sorted(_rank_sources()))
+def test_rank_scripts_import_no_jax(name):
+    source = _rank_sources()[name]
+    roots = set(imported_roots(source))
+    assert "tpu_task_torch" in roots or "torch_spmd_util" in roots \
+        or "torch" in roots
+    assert not roots & FORBIDDEN, f"{name} imports {roots & FORBIDDEN}"
 
 
 @pytest.mark.parametrize("source,found", [

@@ -23,6 +23,7 @@ from tpu_task.ml.ops.attention import _pallas_attention
 from tpu_task_torch.ml import checkpoint as ckpt
 from tpu_task_torch.ml import train as ttrain
 from tpu_task_torch.ml.models import transformer as ttf
+from tpu_task_torch.ml.parallel.mesh import Mesh
 from tpu_task_torch.ml.tree import leaves
 
 ATOL = 1e-5
@@ -124,8 +125,13 @@ def test_moe_fn_is_accepted_and_ep_step_names_a14():
     state, m = ttrain.make_train_step(CFG, moe_fn=moe_fn)(
         state, torch.tensor(_tokens(1)))
     assert calls == [(2, 64, 64)] and torch.isfinite(m["loss"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrain.make_moe_train_step(CFG, object())
+    # The expert-parallel step is ported (test_torch_train_moe_mesh.py):
+    # on a one-position ep mesh it runs in this process.
+    mesh = Mesh((1,), ("ep",))
+    blocks, _ = ttrain.shard_state(state, CFG, mesh)
+    blocks, m = ttrain.make_moe_train_step(CFG, mesh)(blocks)(
+        blocks, torch.tensor(_tokens(1)))
+    assert blocks.step == 2 and torch.isfinite(m["loss"])
 
 
 @pytest.mark.parametrize("sharded", [False, True], ids=["plain", "sharded"])

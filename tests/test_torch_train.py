@@ -22,6 +22,7 @@ from tpu_task.ml.models import transformer as jtf
 from tpu_task.ml.ops.attention import _pallas_attention
 from tpu_task_torch.ml import train as ttrain
 from tpu_task_torch.ml.models import transformer as ttf
+from tpu_task_torch.ml.parallel.sharding import PartitionSpec
 
 ATOL = 1e-5
 PARAM_ATOL = 2e-5
@@ -202,22 +203,36 @@ def test_master_weights_and_bf16_use_site_casts():
 
 
 def test_unported_training_paths_raise():
+    """Sequence and pipeline parallelism stay ROADMAP A14: their step
+    builders, and an ``activation_spec`` that shards the sequence. The
+    mesh step, a batch-axes ``activation_spec``, a ``moe_fn`` and
+    ``token_shards`` are ported (``test_torch_train_mesh.py``)."""
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrain.make_train_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrain.make_train_step(cfg, activation_spec=object())
-    # A moe_fn is accepted (MoE is ported; a dense config never calls it),
-    # and the expert-parallel step below stays A14.
-    assert callable(ttrain.make_train_step(cfg, moe_fn=lambda layer, h: h))
-    for fn in (ttrain.make_pp_train_step, ttrain.make_moe_train_step,
-               ttrain.make_sp_train_step):
+    for fn in (ttrain.make_pp_train_step, ttrain.make_sp_train_step):
         with pytest.raises(NotImplementedError, match="A14"):
             fn(cfg)
-    feats, unembed = torch.zeros((4, 8)), torch.zeros((8, 16))
+    seq = PartitionSpec(("dp",), "sp", None)
     with pytest.raises(NotImplementedError, match="A14"):
-        ttf.fused_xent(feats, unembed, torch.zeros(4, dtype=torch.int64),
-                       token_shards=2)
+        ttrain.make_train_step(cfg, activation_spec=seq)
+    tokens = torch.zeros((2, 9), dtype=torch.int64)
+    params = ttf.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="A14"):
+        ttf.loss_fn(params, cfg, tokens, activation_spec=seq)
+    with pytest.raises(ValueError, match="fused loss path"):
+        ttf.loss_fn(params, cfg, tokens, fused=False,
+                    activation_spec=PartitionSpec(("dp",), None, None))
+    assert callable(ttrain.make_train_step(cfg, moe_fn=lambda layer, h: h))
+    assert callable(ttrain.make_train_step(
+        cfg, activation_spec=PartitionSpec(("dp",), None, None)))
+    # token_shards sizes the tile for one shard's tokens, as JAX's does;
+    # the loss is the same.
+    rng = np.random.default_rng(2)
+    feats = torch.tensor(rng.normal(size=(16, 8)), dtype=torch.float32)
+    unembed = torch.tensor(rng.normal(size=(8, 16)), dtype=torch.float32)
+    targets = torch.tensor(rng.integers(0, 16, size=16))
+    assert torch.equal(ttf.fused_xent(feats, unembed, targets),
+                       ttf.fused_xent(feats, unembed, targets,
+                                      token_shards=2))
 
 
 def test_init_state_runs_on_cuda_unless_asked(monkeypatch):

@@ -24,9 +24,22 @@ module is the script's half of that for PyTorch state:
   the caller's stream, then copy-out, serialization and publish (and an
   optional upload into the bucket) on a background writer.
 
-The process index and count come from ``torch.distributed`` when a group is
-initialized, else 0 of 1. A tensor sharded across processes (a DTensor) is
-ROADMAP A14 and raises."""
+A state sharded over a mesh of ranks (``train.shard_state``: each rank
+holds its block of every leaf as a plain tensor) is saved and restored
+with its layout: ``specs=`` (the spec tree, ``train.state_pspecs``) and
+``mesh=``. Each rank then writes ``ckpt-N.shard-{rank}.npz`` with its
+blocks keyed by their global index range, as JAX writes a sharded
+``jax.Array``'s addressable shards; a block replicated over some axes is
+written by the rank at index 0 along each of them alone (JAX's
+``replica_id == 0``). Restore reads the ranges its blocks need from
+whichever files hold them, assembling a range from the pieces that
+cover it, so a save restores into another mesh, another rank count or
+one process, and across packages in both directions.
+
+Without a layout the process index and count come from
+``torch.distributed`` when a group is initialized, else 0 of 1, and
+process 0 writes every leaf whole. A DTensor, which the port never makes,
+raises."""
 
 from __future__ import annotations
 
@@ -45,6 +58,12 @@ import numpy as np
 import torch
 
 from tpu_task_torch.device import process_count, process_index
+from tpu_task_torch.ml.parallel.sharding import (
+    global_shape,
+    shard_slices,
+    spec_leaves,
+    writes_block,
+)
 from tpu_task_torch.ml.tree import leaves as tree_leaves, unflatten
 
 _STEP_RE = re.compile(r"^ckpt-(\d+)\.npz$")
@@ -59,8 +78,9 @@ _INT32 = np.iinfo(np.int32)
 def _refuse_dtensor(leaf: Any) -> None:
     if isinstance(leaf, torch.Tensor) and type(leaf).__name__ == "DTensor":
         raise NotImplementedError(
-            "checkpoints of tensors sharded across processes (DTensor) are "
-            "not ported yet: ROADMAP A14")
+            "DTensor leaves are not ported (ROADMAP A14): a sharded state "
+            "holds each rank's block as a plain tensor; save and restore it "
+            "with specs= and mesh=")
 
 
 # -- leaves ------------------------------------------------------------------
@@ -206,32 +226,82 @@ def restore_checkpoint(directory, template: Any,
 # Each process writes ckpt-{step}.shard-{process}.npz with entries keyed by a
 # leaf's GLOBAL index range, and restore reassembles from whichever files
 # hold the ranges, so a respawned job restores even if its process numbering
-# changed. The port holds no tensor sharded across processes (A14): every
-# leaf is a whole value, which process 0 writes, as JAX's process 0 writes
-# its plain host values.
+# changed. Without a layout every leaf is a whole value, which process 0
+# writes, as JAX's process 0 writes its plain host values; with one, each
+# rank writes the blocks it is the first copy of.
 
-def _index_key(leaf_index: int, shape) -> str:
-    """The key of a whole leaf: its global index range, dim by dim."""
-    return f"leaf_{leaf_index}|" + ",".join(f"0:{dim}" for dim in shape)
+def _range_key(leaf_index: int, index) -> str:
+    """The key of a block: its global index range, dim by dim (JAX's
+    ``_index_key``)."""
+    return f"leaf_{leaf_index}|" + ",".join(f"{s.start}:{s.stop}"
+                                           for s in index)
 
 
-def _snapshot_sharded(tree: Any, process: int) -> dict:
-    """This process's entries of ``tree``: every leaf on process 0, none
-    elsewhere."""
+def _shape(leaf: Any) -> tuple:
+    return (tuple(leaf.shape) if isinstance(leaf, torch.Tensor)
+            else np.shape(leaf))
+
+
+class _Layout:
+    """Who writes what: this process's index and count, and each leaf's
+    global index range on it — the whole leaf on process 0 without a
+    mesh; under ``specs`` on ``mesh``, the rank's block, written by the
+    first copy of it alone."""
+
+    def __init__(self, tree: Any, specs=None, mesh=None):
+        if (specs is None) != (mesh is None):
+            raise ValueError("a sharded layout needs both specs= and mesh=")
+        self.mesh = mesh
+        self.leaves = tree_leaves(tree)
+        self.specs = (spec_leaves(specs) if specs is not None
+                      else [None] * len(self.leaves))
+        if len(self.specs) != len(self.leaves):
+            raise ValueError(f"{len(self.specs)} specs for "
+                             f"{len(self.leaves)} leaves")
+        if mesh is None:
+            self.process, self.count = process_index(), process_count()
+        else:
+            self.process, self.count = mesh.rank, mesh.size
+
+    def index(self, i: int) -> tuple:
+        """Leaf ``i``'s global index range on this process."""
+        shape = _shape(self.leaves[i])
+        if self.mesh is None:
+            return tuple(slice(0, dim) for dim in shape)
+        spec = self.specs[i]
+        return shard_slices(global_shape(shape, spec, self.mesh), spec,
+                            self.mesh)
+
+    def writes(self, i: int) -> bool:
+        if self.mesh is None:
+            return self.process == 0
+        return writes_block(self.specs[i], self.mesh)
+
+    def key(self, i: int) -> str:
+        return _range_key(i, self.index(i))
+
+
+def _snapshot_sharded(layout: _Layout) -> dict:
+    """This process's entries: the blocks it writes, by their keys."""
     arrays = {}
-    for leaf_index, leaf in enumerate(tree_leaves(tree)):
+    for leaf_index, leaf in enumerate(layout.leaves):
         _refuse_dtensor(leaf)
-        if process == 0:
-            array = _host(leaf)
-            arrays[_index_key(leaf_index, array.shape)] = array
+        if layout.writes(leaf_index):
+            arrays[layout.key(leaf_index)] = _host(leaf)
     return arrays
 
 
 def save_checkpoint_sharded(directory, step: int, tree: Any,
-                            keep: Optional[int] = None) -> Path:
+                            keep: Optional[int] = None, *, specs=None,
+                            mesh=None) -> Path:
     """Write this process's shard of ``tree``; process 0 also writes the
     per-step manifest and the LATEST_SHARDED pointer naming the step and
     the shard-file count, which restore uses to reject partial sets.
+
+    ``specs`` and ``mesh``: ``tree`` is this rank's blocks of a state
+    sharded under the spec tree ``specs`` on ``mesh`` (every rank calls
+    this); the rank's index and the mesh's size stand for the process
+    index and count.
 
     ``keep``: retain the newest N steps (plus, always, the one just
     written); each process prunes its own old shard files, process 0 also
@@ -239,10 +309,10 @@ def save_checkpoint_sharded(directory, step: int, tree: Any,
     shard the moment it writes the new one, and during the inter-worker
     sync-skew window no step would have a complete shard set."""
     _validate_sharded_keep(keep)
-    process = process_index()
-    arrays = _snapshot_sharded(tree, process)
+    layout = _Layout(tree, specs, mesh)
+    arrays = _snapshot_sharded(layout)
     final, _pruned = _publish_sharded(
-        Path(directory), step, arrays, process, process_count(), keep)
+        Path(directory), step, arrays, layout.process, layout.count, keep)
     return final
 
 
@@ -305,17 +375,23 @@ def _publish_sharded(directory: Path, step: int, arrays: dict, process: int,
 
 
 def restore_checkpoint_sharded(directory, template: Any,
-                               step: Optional[int] = None) -> Any:
+                               step: Optional[int] = None, *, specs=None,
+                               mesh=None) -> Any:
     """Reassemble a sharded checkpoint into ``template``'s devices and
     dtypes. With no explicit ``step``, tries steps newest to oldest and
     falls back past incomplete sets: a preemption can land mid-upload, and
     the last complete step must still restore. A step is complete when it
     holds the shard files of its own save-time topology: its manifest's
     process count, the pointer's for the pointer's step, else (a step
-    saved before manifests existed) this job's."""
+    saved before manifests existed) this job's.
+
+    ``specs`` and ``mesh``: ``template`` is this rank's blocks under the
+    spec tree ``specs`` on ``mesh``, and each block is read from the
+    files that hold its global range, whatever mesh saved them."""
     directory = Path(directory)
+    layout = _Layout(template, specs, mesh)
     if step is not None:
-        return _restore_sharded_step(directory, template, step)
+        return _restore_sharded_step(directory, template, step, layout)
     steps = sorted({int(m.group(1))
                     for p in (directory.iterdir()
                               if directory.is_dir() else [])
@@ -348,14 +424,15 @@ def restore_checkpoint_sharded(directory, template: Any,
         if expected is None and candidate == pointer_step:
             expected = pointer_count
         if expected is None:
-            expected = process_count()
+            expected = layout.count
         if not indices or indices != set(range(expected)):
             last_error = FileNotFoundError(
                 f"step {candidate}: shard indices {sorted(indices)} != "
                 f"expected 0..{expected - 1}")
             continue
         try:
-            return _restore_sharded_step(directory, template, candidate)
+            return _restore_sharded_step(directory, template, candidate,
+                                         layout)
         except Exception as error:  # torn file (BadZipFile), missing entry…
             last_error = error
     raise FileNotFoundError(
@@ -363,29 +440,69 @@ def restore_checkpoint_sharded(directory, template: Any,
         f"(tried steps {steps}): {last_error}")
 
 
-def _restore_sharded_step(directory: Path, template: Any, step: int) -> Any:
+def _parse_range(key: str) -> tuple:
+    """A key's global index range as (start, stop) pairs."""
+    ranges = key.split("|", 1)[1]
+    return tuple(tuple(int(x) for x in part.split(":"))
+                 for part in ranges.split(",") if part)
+
+
+def _assemble(want: tuple, pieces: list, key: str, step: int):
+    """The block at ``want`` (slices) cut and pasted from the ``pieces``
+    ((ranges, loader)) that overlap it; every element must be covered."""
+    shape = tuple(s.stop - s.start for s in want)
+    out, covered = None, 0
+    for ranges, load in pieces:
+        if len(ranges) != len(want):
+            raise ValueError(f"{key}: a {len(ranges)}-d piece of a "
+                             f"{len(want)}-d leaf")
+        cut = tuple((max(a, s.start), min(b, s.stop))
+                    for (a, b), s in zip(ranges, want))
+        if any(lo >= hi for lo, hi in cut):
+            continue
+        array = load()
+        if out is None:
+            out = np.empty(shape, dtype=array.dtype)
+        out[tuple(slice(lo - s.start, hi - s.start)
+                  for (lo, hi), s in zip(cut, want))] = array[tuple(
+                      slice(lo - a, hi - a)
+                      for (lo, hi), (a, _) in zip(cut, ranges))]
+        covered += int(np.prod([hi - lo for lo, hi in cut]))
+    if out is None or covered != int(np.prod(shape)):
+        raise FileNotFoundError(
+            f"shard {key} missing at step {step} — incomplete checkpoint "
+            f"({covered} of {int(np.prod(shape))} elements present)")
+    return out
+
+
+def _restore_sharded_step(directory: Path, template: Any, step: int,
+                          layout: _Layout) -> Any:
     paths = sorted(directory.glob(f"ckpt-{step}.shard-*.npz"))
     handles = []
     try:
         index: dict = {}
+        pieces: dict = {}
         for path in paths:
             handle = np.load(path)
             handles.append(handle)
             for key in handle.files:
                 index[key] = handle
+                pieces.setdefault(key.split("|", 1)[0], []).append(
+                    (_parse_range(key),
+                     lambda key=key, handle=handle: handle[key]))
         if not index:
             raise FileNotFoundError(f"no shard files for step {step}")
         restored = []
-        for leaf_index, leaf in enumerate(tree_leaves(template)):
+        for leaf_index, leaf in enumerate(layout.leaves):
             _refuse_dtensor(leaf)
-            shape = (tuple(leaf.shape) if isinstance(leaf, torch.Tensor)
-                     else np.shape(leaf))
-            key = _index_key(leaf_index, shape)
-            if key not in index:
-                raise FileNotFoundError(
-                    f"shard {key} missing at step {step} — incomplete "
-                    f"checkpoint ({len(index)} entries present)")
-            restored.append(_restore_leaf(index[key][key], leaf, key))
+            key = layout.key(leaf_index)
+            if key in index:
+                array = index[key][key]
+            else:
+                array = _assemble(layout.index(leaf_index),
+                                  pieces.get(f"leaf_{leaf_index}", []), key,
+                                  step)
+            restored.append(_restore_leaf(array, leaf, key))
         return unflatten(template, iter(restored))
     finally:
         for handle in handles:
@@ -491,24 +608,26 @@ class AsyncCheckpointer:
         self._closed = False
 
     # -- train-loop side -----------------------------------------------------
-    def save(self, step: int, tree: Any) -> Path:
+    def save(self, step: int, tree: Any, *, specs=None, mesh=None) -> Path:
         """Snapshot ``tree`` and schedule the write; returns the path the
         writer will publish. Blocks for the snapshot (CUDA leaves: device
         clones on the current stream; CPU and Python leaves: host copies)
         and, with ``max_pending`` saves queued, until the writer takes
-        one."""
+        one. ``specs`` and ``mesh``: ``tree`` is this rank's blocks of a
+        sharded state, as in :func:`save_checkpoint_sharded`."""
         if self._closed:
             raise RuntimeError("AsyncCheckpointer is closed")
         self._raise_pending()
-        process = process_index()
-        snap = _Snapshot(step, process, process_count())
+        layout = _Layout(tree, specs, mesh)
+        process = layout.process
+        snap = _Snapshot(step, process, layout.count)
         staged = 0                       # staging bytes, 64-byte aligned
-        for leaf_index, leaf in enumerate(tree_leaves(tree)):
+        for leaf_index, leaf in enumerate(layout.leaves):
             _refuse_dtensor(leaf)
-            if process != 0:
+            if not layout.writes(leaf_index):
                 continue
+            key = layout.key(leaf_index)
             if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
-                key = _index_key(leaf_index, leaf.shape)
                 snap.clones.append((key, leaf.detach().clone(
                     memory_format=torch.contiguous_format), staged))
                 staged += -(-leaf.numel() * leaf.element_size() // 64) * 64
@@ -517,7 +636,7 @@ class AsyncCheckpointer:
                 array = _tensor_numpy(leaf.detach().clone())
             else:
                 array = np.array(_host(leaf), copy=True)
-            snap.arrays[_index_key(leaf_index, array.shape)] = array
+            snap.arrays[key] = array
         if snap.clones:
             snap.event = torch.cuda.Event()
             snap.event.record(torch.cuda.current_stream(

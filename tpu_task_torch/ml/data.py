@@ -89,20 +89,34 @@ def prefetch_to_device(iterable: Iterable, device=None, depth: int = 2):
     batches run under the current step. A batch's tensors are handed out
     after the consuming stream is made to wait on their copy's event, and
     are recorded on that stream, so the caching allocator never reuses
-    their memory while the consumer may still read it. JAX's ``sharding``
-    argument is a device here; a mesh sharding is ROADMAP A14."""
+    their memory while the consumer may still read it.
+
+    JAX's ``sharding`` argument is a device here, or a mesh
+    (:class:`~tpu_task_torch.ml.parallel.mesh.Mesh`), the counterpart of a
+    batch sharded over its batch axes: each batch is then the global one,
+    and this rank's rows of every array (``mesh.local_batch``) go to the
+    mesh's device."""
+    from tpu_task_torch.ml.parallel.mesh import Mesh, local_batch
+
     if depth < 1:
         raise ValueError("depth must be >= 1")
-    if not isinstance(device, (type(None), str, int, torch.device)):
+    rows = lambda a: a                              # noqa: E731
+    if isinstance(device, Mesh):
+        mesh = device
+        device = mesh.device
+
+        def rows(a):
+            return local_batch(a, mesh)
+    elif not isinstance(device, (type(None), str, int, torch.device)):
         raise NotImplementedError(
-            f"prefetch_to_device places batches on one device, not "
-            f"{type(device).__name__}: sharded input is ROADMAP A14")
+            f"prefetch_to_device places batches on a device or a mesh's "
+            f"rank, not {type(device).__name__}")
     device = resolve_device(device)
 
     if device.type != "cuda":
         def place(batch):
-            return tree_map(lambda a: torch.as_tensor(a, device=device),
-                            batch)
+            return tree_map(
+                lambda a: torch.as_tensor(rows(a), device=device), batch)
 
         def hand_out(staged):
             return staged
@@ -112,7 +126,7 @@ def prefetch_to_device(iterable: Iterable, device=None, depth: int = 2):
         def place(batch):
             with torch.cuda.stream(side):
                 staged = tree_map(
-                    lambda a: torch.as_tensor(a).pin_memory().to(
+                    lambda a: torch.as_tensor(rows(a)).pin_memory().to(
                         device, non_blocking=True), batch)
                 event = torch.cuda.Event()
                 event.record(side)

@@ -28,11 +28,16 @@ Three rules keep it equal to the JAX package's:
   for bit when the logits are float32 (other types draw in float32 and
   round). No single-device step passes one.
 
-The expert-parallel dispatch runs on a gang's mesh
-(:mod:`~tpu_task_torch.ml.parallel.gang`): each rank routes its piece of
-the tokens, places them by capacity, exchanges them with one all_to_all
-over ``ep`` each way and runs its own experts between, the JAX package's
-``shard_map`` body written for one rank."""
+The expert-parallel dispatch runs on a mesh of ranks (a serving gang's,
+:mod:`~tpu_task_torch.ml.parallel.gang`, or the sharded train step's):
+each rank routes its piece of the tokens, places them by capacity,
+exchanges them with one all_to_all over ``ep`` each way and runs its own
+experts between, the JAX package's ``shard_map`` body written for one
+rank. Its collectives carry gradients
+(:mod:`~tpu_task_torch.ml.parallel.collectives`): an all_to_all goes back
+as the reverse exchange and the statistics' all-reduces as all-reduces,
+so the train step back-propagates through it on each rank's own
+tokens."""
 
 from __future__ import annotations
 
@@ -173,8 +178,8 @@ def _line(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
 
 def apply_sharded(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
                   mesh, axis_name: str = "ep", rng=None, batch_axes=None,
-                  tp_axis=None, capacity=None):
-    """Expert-parallel forward on one rank of a gang: ``x`` (b, s, d) is
+                  tp_axis=None, capacity=None, whole: bool = True):
+    """Expert-parallel forward on one rank of a mesh: ``x`` (b, s, d) is
     the whole batch (every rank holds it), ``params`` the rank's block
     (``w_in`` (n_experts / ep, d, d_ff / tp), ``w_out`` (n_experts / ep,
     d_ff / tp, d), the router whole). The rank takes its contiguous piece
@@ -190,7 +195,12 @@ def apply_sharded(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
     dense one. ``capacity`` overrides ``capacity_factor``: the serving
     dispatch passes its per-rank token count, which makes it dropless.
     An assignment past capacity contributes zero, or, with
-    ``dropped_identity``, its token."""
+    ``dropped_identity``, its token.
+
+    ``whole=False`` (the train step): ``x`` is already this rank's piece
+    of the batch, and the output is that piece's, with no all-gather; the
+    capacity is sized for the piece's tokens, as JAX's ``shard_map`` body
+    sizes it."""
     if batch_axes is None:
         batch_axes = (axis_name,)
     n_shards = int(dict(mesh.shape)[axis_name])
@@ -200,15 +210,17 @@ def apply_sharded(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
     if tp_axis is not None and cfg.d_ff % int(dict(mesh.shape)[tp_axis]):
         raise ValueError(f"d_ff {cfg.d_ff} not divisible by "
                          f"{tp_axis}={dict(mesh.shape)[tp_axis]}")
-    from tpu_task_torch.ml.parallel import gang
+    from tpu_task_torch.ml.parallel import collectives
 
     experts_per_shard = cfg.n_experts // n_shards
-    pieces, piece = _line(mesh, tuple(batch_axes))
-    if x.shape[0] % pieces:
-        raise ValueError(f"batch {x.shape[0]} does not divide over "
-                         f"{tuple(batch_axes)} ({pieces})")
-    step = x.shape[0] // pieces
-    x_local = x[piece * step:(piece + 1) * step]
+    x_local = x
+    if whole:
+        pieces, piece = _line(mesh, tuple(batch_axes))
+        if x.shape[0] % pieces:
+            raise ValueError(f"batch {x.shape[0]} does not divide over "
+                             f"{tuple(batch_axes)} ({pieces})")
+        step = x.shape[0] // pieces
+        x_local = x[piece * step:(piece + 1) * step]
     b, s, d = x_local.shape
     tokens = x_local.reshape(b * s, d)
     n_tokens = tokens.shape[0]
@@ -234,7 +246,7 @@ def apply_sharded(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
                       flat_tokens * keep[:, None].to(tokens.dtype),
                       accumulate=True)
     grouped = buffer.reshape(n_shards, experts_per_shard, cap, d)
-    exchanged = gang.all_to_all(mesh, grouped, axis_name)
+    exchanged = collectives.all_to_all(mesh, grouped, axis_name)
     w_in, w_out = params["w_in"], params["w_out"]
     dt = _promoted(exchanged, w_in)
     hidden = F.silu(torch.einsum("xecd,edf->xecf", exchanged.to(dt),
@@ -242,8 +254,8 @@ def apply_sharded(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
     dt = _promoted(hidden, w_out)
     out = torch.einsum("xecf,efd->xecd", hidden.to(dt), w_out.to(dt))
     if tp_axis is not None:
-        out = gang.all_reduce(mesh, out, tp_axis)
-    returned = gang.all_to_all(mesh, out, axis_name).reshape(
+        out = collectives.all_reduce(mesh, out, tp_axis)
+    returned = collectives.all_to_all(mesh, out, axis_name).reshape(
         cfg.n_experts, cap, d)
     delivered = returned[flat_expert, safe_pos]
     if cfg.dropped_identity:
@@ -255,12 +267,14 @@ def apply_sharded(params: Dict[str, Any], cfg: MoEConfig, x: torch.Tensor,
         cfg.top_k, n_tokens, d).sum(dim=0)
     for ax in dict.fromkeys((*batch_axes, axis_name)):
         size = int(dict(mesh.shape).get(ax, 1))
-        stats = tuple(gang.all_reduce(mesh, st, ax) / size for st in stats)
+        stats = tuple(collectives.all_reduce(mesh, st, ax, conjugate=True)
+                      / size for st in stats)
     aux = _aux_from_stats(stats, cfg)
-    whole = combined.reshape(b, s, d)
-    for ax in reversed(tuple(batch_axes)):
-        whole = gang.all_gather(mesh, whole, ax, dim=0)
-    return whole, aux
+    out = combined.reshape(b, s, d)
+    if whole:
+        for ax in reversed(tuple(batch_axes)):
+            out = collectives.all_gather(mesh, out, ax, dim=0)
+    return out, aux
 
 
 __all__ = ["MoEConfig", "apply_dense", "apply_sharded", "init",

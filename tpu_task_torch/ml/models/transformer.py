@@ -25,8 +25,21 @@ over ``tp``, experts over ``ep``. :func:`_block` then runs its rank's
 heads and hidden columns and completes ``wo`` and ``w_down`` (or the MoE
 FFN) with one all-reduce over ``tp`` each; :func:`sharded_embed` is a
 masked lookup plus an all-reduce and :func:`sharded_logits` all-gathers
-the logits. The sharded training loss (``activation_spec``,
-``token_shards > 1``) is ROADMAP A14's training half and raises."""
+the logits.
+
+The sharded train step (``train.make_train_step(cfg, mesh=...)``) runs
+the same functions on each rank's rows of the batch, its params the
+rank's float32 blocks under the same specs (:func:`loss_fn` with
+``mesh`` and ``pspecs``). Just before a layer runs, each weight is cast
+and all-gathered over ``fsdp`` (ZeRO-3; the gradient comes back
+reduce-scattered in float32), the vocab-sharded ``unembed`` is gathered
+whole for the fused cross-entropy, and the ``tp`` products keep their
+own heads and columns: the replicated activation enters them through
+:func:`~tpu_task_torch.ml.parallel.collectives.sum_grads` and leaves
+through the all-reduce, Megatron-LM's pair. The collectives and their
+gradients are :mod:`~tpu_task_torch.ml.parallel.collectives`'.
+Sequence sharding (an ``activation_spec`` on the seq axis) is ROADMAP
+A14's sp item and raises."""
 
 from __future__ import annotations
 
@@ -43,10 +56,12 @@ from tpu_task_torch.ml.ops.attention import (
     dot_product_attention,
     expand_kv_heads,
 )
-from tpu_task_torch.ml.parallel import gang
+from tpu_task_torch.ml.parallel import collectives
 from tpu_task_torch.ml.parallel.sharding import (
     logical_tree_pspecs,
     mesh_axis_size,
+    entry_axes,
+    mesh_batch_axes,
 )
 
 Params = Dict[str, Any]
@@ -333,15 +348,16 @@ def sharded_embed(table: torch.Tensor, tokens: torch.Tensor,
     """:func:`embed_lookup` of a table whose vocab rows shard over the
     mesh's ``tp`` axis: each rank looks up the tokens in its row range
     (zeros elsewhere) and one all-reduce sums the ranks' rows, each token
-    found on exactly one rank, so the sum is exact."""
+    found on exactly one rank, so the sum is exact. The gradient reaches
+    each rank's rows alone, summed in float32 as :func:`embed_lookup`'s."""
     if mesh_axis_size(mesh, "tp") == 1:
         return embed_lookup(table, tokens)
     rows = table.shape[0]
     local = tokens - mesh.axis_index("tp") * rows
     mine = (local >= 0) & (local < rows)
-    found = table[local.clamp(0, rows - 1)]
+    found = embed_lookup(table, local.clamp(0, rows - 1))
     found = torch.where(mine[..., None], found, torch.zeros_like(found))
-    return gang.all_reduce(mesh, found, "tp")
+    return collectives.all_reduce(mesh, found, "tp")
 
 
 def sharded_logits(features: torch.Tensor, unembed: torch.Tensor,
@@ -350,7 +366,7 @@ def sharded_logits(features: torch.Tensor, unembed: torch.Tensor,
     an ``unembed`` whose vocab columns shard over ``tp``: each rank's
     columns, all-gathered in rank order."""
     logits = (features @ unembed).to(torch.float32)
-    return gang.all_gather(mesh, logits, "tp", dim=-1)
+    return collectives.all_gather(mesh, logits, "tp", dim=-1)
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -423,54 +439,118 @@ def _block(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
     rank) and ``d_ff / tp`` hidden columns, so ``wo`` and ``w_down`` give
     partial sums that one all-reduce over ``tp`` completes. A MoE layer
     on the dense dispatch is completed the same way; a given ``moe_fn``
-    (the expert-parallel dispatch) completes its own."""
+    (the expert-parallel dispatch, or the train step's over gathered
+    weights) completes its own. Under autograd the normed activation
+    enters the rank's products through ``sum_grads``, so its gradient sums
+    the ranks' heads and columns."""
     b, s, _ = x.shape
     dt = cfg.dtype
     tp = mesh_axis_size(mesh, "tp")
     heads, kv_heads = cfg.n_heads // tp, cfg.kv_heads // tp
-    h = _rmsnorm(x, layer["attn_norm"])
+    h = collectives.sum_grads(mesh, _rmsnorm(x, layer["attn_norm"]), "tp")
     q = (h @ layer["wq"].to(dt)).reshape(b, s, heads, cfg.d_head)
     k = (h @ layer["wk"].to(dt)).reshape(b, s, kv_heads, cfg.d_head)
     v = (h @ layer["wv"].to(dt)).reshape(b, s, kv_heads, cfg.d_head)
     q = _rope(q, cfg.rope_theta, positions)
     k = _rope(k, cfg.rope_theta, positions)
     attn = attn_fn(q, k, v)
-    x = x + gang.all_reduce(
+    x = x + collectives.all_reduce(
         mesh, attn.reshape(b, s, heads * cfg.d_head) @ layer["wo"].to(dt),
         "tp")
     h = _rmsnorm(x, layer["mlp_norm"])
     if "router" in layer:
         if moe_fn is None:
             out, aux = default_moe_fn(cfg)(layer, h)
-            out = gang.all_reduce(mesh, out, "tp")
+            out = collectives.all_reduce(mesh, out, "tp")
         else:
             out, aux = moe_fn(layer, h)
         return x + out.to(x.dtype), aux.to(torch.float32)
+    h = collectives.sum_grads(mesh, h, "tp")
     gate = F.silu(h @ layer["w_gate"].to(dt))
     up = h @ layer["w_up"].to(dt)
-    return (x + gang.all_reduce(mesh, (gate * up) @ layer["w_down"].to(dt),
-                                "tp"),
+    return (x + collectives.all_reduce(
+                mesh, (gate * up) @ layer["w_down"].to(dt), "tp"),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+#: A MoE layer's weights: used in their stored type (the MoE module's
+#: promotion rule), and by the expert-parallel dispatch on the rank's own
+#: experts.
+_MOE_WEIGHTS = ("router", "w_in", "w_out")
+
+
+def _used(w: torch.Tensor, spec, mesh, dtype: torch.dtype,
+          keep=()) -> torch.Tensor:
+    """``w``, this rank's block under ``spec``, as the sharded step uses
+    it: cast to ``dtype`` and all-gathered over every mesh axis of
+    ``spec`` outside ``keep``, just before its use. The gradient comes
+    back summed over the axes the batch shards over (``fsdp``: each rank
+    saw its own rows) and sliced over the others (``tp``: each rank saw
+    the same rows through the whole weight)."""
+    batch = mesh_batch_axes(mesh)
+    gathers = [(axis, dim, axis in batch)
+               for dim, entry in enumerate(spec or ())
+               for axis in reversed(entry_axes(entry)) if axis not in keep]
+    return collectives.gather_cast(mesh, w, gathers, dtype)
+
+
+def _layer_for_step(layer: Params, specs: Params, cfg: TransformerConfig,
+                    mesh, expert_axis: Optional[str]) -> Params:
+    """A layer's weights as the sharded step's :func:`_block` takes them:
+    the attention and dense-FFN weights in ``cfg.dtype`` gathered over
+    every axis but ``tp`` (the block runs its own heads and columns), the
+    MoE weights in their stored type gathered over every axis but
+    ``expert_axis`` (the expert-parallel dispatch runs its own experts;
+    without it the dense dispatch runs every expert, the same on each
+    ``tp`` rank)."""
+    out = {}
+    for name, w in layer.items():
+        if name in _MOE_WEIGHTS:
+            out[name] = _used(w, specs[name], mesh, w.dtype,
+                              keep=(expert_axis,) if expert_axis else ())
+        elif name.endswith("norm"):
+            out[name] = _used(w, specs[name], mesh, w.dtype)
+        else:
+            out[name] = _used(w, specs[name], mesh, cfg.dtype, keep=("tp",))
+    return out
 
 
 def apply_features_with_aux(params: Params, cfg: TransformerConfig,
                             tokens: torch.Tensor,
                             attn_fn: Optional[AttnFn] = None,
-                            moe_fn: Optional[MoeFn] = None):
+                            moe_fn: Optional[MoeFn] = None, *, mesh=None,
+                            pspecs: Optional[Params] = None,
+                            expert_axis: Optional[str] = None):
     """tokens (batch, seq) → (final-norm features (batch, seq, d_model),
     the mean router loss over the MoE layers, a float32 zero for an
     all-dense config). The default attention is
     :func:`dot_product_attention` over expanded kv heads: the flash
-    kernels wherever its routing rule admits the shape."""
+    kernels wherever its routing rule admits the shape.
+
+    With ``pspecs`` (the specs of ``params``, each leaf this rank's block
+    on ``mesh``) ``tokens`` are this rank's rows and each weight is
+    gathered just before its layer runs (:func:`_layer_for_step`); the
+    MoE layers take ``moe_fn``, or the dense dispatch over their gathered
+    weights."""
     if attn_fn is None:
         def attn_fn(q, k, v):
-            return dot_product_attention(q, expand_kv(k, cfg.n_heads),
-                                         expand_kv(v, cfg.n_heads), True)
-    x = embed_lookup(params["embed"].to(cfg.dtype), tokens)
+            heads = q.shape[2]
+            return dot_product_attention(q, expand_kv(k, heads),
+                                         expand_kv(v, heads), True)
+    if pspecs is None:
+        x = embed_lookup(params["embed"].to(cfg.dtype), tokens)
+    else:
+        x = sharded_embed(_used(params["embed"], pspecs["embed"], mesh,
+                                cfg.dtype, keep=("tp",)), tokens, mesh)
+        if moe_fn is None:
+            moe_fn = default_moe_fn(cfg)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
-    for layer in params["layers"]:
-        x, aux = _block(x, layer, cfg, attn_fn, moe_fn=moe_fn)
+    for i, layer in enumerate(params["layers"]):
+        if pspecs is not None:
+            layer = _layer_for_step(layer, pspecs["layers"][i], cfg, mesh,
+                                    expert_axis)
+        x, aux = _block(x, layer, cfg, attn_fn, moe_fn=moe_fn, mesh=mesh)
         if "router" in layer:
             aux_sum = aux_sum + aux
             n_moe += 1
@@ -614,42 +694,64 @@ def fused_xent(features: torch.Tensor, unembed: torch.Tensor,
     """Mean next-token cross-entropy without materializing (tokens,
     vocab) logits beyond one tile. features (T, d), unembed (d, V),
     targets (T,) int64. ``block=None`` sizes the tile to XENT_TILE_BYTES
-    (the whole vocab at the flagship's 8192 tokens)."""
-    if token_shards != 1:
-        raise NotImplementedError(
-            "token-sharded loss (token_shards > 1) is not ported yet: "
-            "ROADMAP A14")
+    (the whole vocab at the flagship's 8192 tokens). ``token_shards``:
+    the ways JAX's global token dim shards over a mesh; the tile is sized
+    for one shard's tokens, as JAX sizes it (the loss is unchanged)."""
     if block is None:
-        block = _auto_xent_block(features.shape[0], unembed.shape[1])
+        block = _auto_xent_block(
+            max(1, features.shape[0] // max(1, token_shards)),
+            unembed.shape[1])
     return _FusedXent.apply(features, unembed, targets, block)
+
+
+def activation_batch_axes(activation_spec) -> tuple:
+    """The batch axes an ``activation_spec`` (a PartitionSpec over
+    (batch, seq, d_model), or anything with a ``.spec``, as JAX's
+    NamedSharding) names: its first entry. On a rank the activations are
+    its own rows already, so that entry asks for nothing more; an entry on
+    the sequence or model dim is sequence parallelism, ROADMAP A14's sp
+    item, and raises."""
+    spec = tuple(getattr(activation_spec, "spec", activation_spec))
+    if any(entry is not None for entry in spec[1:]):
+        raise NotImplementedError(
+            f"activation_spec {spec} shards the sequence (sequence "
+            "parallelism) and is not ported yet: ROADMAP A14")
+    return entry_axes(spec[0]) if spec else ()
 
 
 def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             attn_fn: Optional[AttnFn] = None, fused: bool = True,
-            activation_spec=None, moe_fn=None,
-            token_shards: int = 1) -> torch.Tensor:
+            activation_spec=None, moe_fn=None, token_shards: int = 1, *,
+            mesh=None, pspecs: Optional[Params] = None,
+            expert_axis: Optional[str] = None) -> torch.Tensor:
     """Next-token cross-entropy over tokens (batch, seq). ``fused=True``
     streams the unembed and softmax over vocab blocks (:func:`fused_xent`);
     ``fused=False`` is the monolithic reference path. A config with MoE
     layers adds ``cfg.moe_aux_weight`` times their mean router loss;
-    ``moe_fn`` replaces their dense dispatch, as in the JAX model."""
+    ``moe_fn`` replaces their dense dispatch, as in the JAX model.
+
+    With ``pspecs`` it is one rank's loss of the sharded step: ``params``
+    the rank's blocks on ``mesh``, ``tokens`` its rows, the mean over its
+    own tokens (:func:`apply_features_with_aux`; the vocab-sharded
+    ``unembed`` is all-gathered whole for the fused cross-entropy)."""
     if activation_spec is not None:
-        raise NotImplementedError(
-            "activation_spec (sequence-parallel sharding) is not ported "
-            "yet: ROADMAP A14")
+        if not fused:
+            raise ValueError("activation_spec requires the fused loss path")
+        activation_batch_axes(activation_spec)
     tokens = tokens.long()
     targets = tokens[:, 1:]
-    features, aux = apply_features_with_aux(params, cfg, tokens[:, :-1],
-                                            attn_fn=attn_fn, moe_fn=moe_fn)
+    features, aux = apply_features_with_aux(
+        params, cfg, tokens[:, :-1], attn_fn=attn_fn, moe_fn=moe_fn,
+        mesh=mesh, pspecs=pspecs, expert_axis=expert_axis)
     b, s, d = features.shape
-    unembed = params["unembed"].to(cfg.dtype)
+    if pspecs is None:
+        unembed = params["unembed"].to(cfg.dtype)
+    else:
+        unembed = _used(params["unembed"], pspecs["unembed"], mesh,
+                        cfg.dtype)
     if fused:
         xent = fused_xent(features.reshape(b * s, d), unembed,
                           targets.reshape(-1), token_shards=token_shards)
-    elif token_shards != 1:
-        raise NotImplementedError(
-            "token-sharded loss (token_shards > 1) is not ported yet: "
-            "ROADMAP A14")
     else:
         logits = (features @ unembed).to(torch.float32)
         logp = F.log_softmax(logits, dim=-1)

@@ -1,0 +1,242 @@
+"""The collectives of a mesh's ranks, each with its gradient: the port's
+counterpart of the ``psum``, ``all_gather`` and ``all_to_all`` that JAX's
+SPMD partitioner inserts and differentiates.
+
+Every collective runs on the ``torch.distributed`` group of one mesh axis
+(:meth:`Mesh.group`), is counted on the mesh by kind as ``[calls,
+seconds]`` (:func:`collective_stats`), and is its own input at an axis of
+one. :func:`all_reduce`, :func:`all_to_all` and the weight gather
+:func:`gather_cast` are ``torch.autograd.Function``s (:func:`all_gather`
+carries no gradient); each backward is another collective, counted the
+same way. Which one depends on how the ranks of the axis use the result,
+and the caller says so:
+
+- **The ranks hold partial cotangents** (an axis the batch shards over:
+  each rank back-propagates its own rows' loss): the backward is the
+  conjugate. An all-reduce goes back as an all-reduce, an all-gather as a
+  reduce-scatter, an all-to-all as the reverse all-to-all.
+- **The ranks compute the same thing downstream** (``tp``, over which
+  activations are replicated: each rank's cotangent is already the whole
+  one): an all-reduce goes back as the identity and an all-gather as the
+  rank's slice. :func:`sum_grads` is the other half of that pair, the
+  identity forward and an all-reduce backward (Megatron-LM's ``f`` to the
+  all-reduce's ``g``).
+
+A reduce-scatter is an all-to-all of the rank's pieces and their sum
+(half an all-reduce's bytes): gloo's reduce_scatter was never checked with
+CUDA tensors. Only the collectives of :data:`GLOO_CUDA_COLLECTIVES` take a
+CUDA tensor."""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from tpu_task_torch.ml.parallel.sharding import mesh_axis_size as axis_size
+
+#: The collectives gloo was found to run on CUDA tensors itself (an H100,
+#: torch 2.11): each of the three, so none is staged by hand. A collective
+#: outside this set refuses a CUDA tensor (:func:`_counted`) until it is
+#: checked on the card or staged through pinned host memory.
+GLOO_CUDA_COLLECTIVES = frozenset({"all_reduce", "all_gather", "all_to_all"})
+
+
+class CollectiveError(RuntimeError):
+    """A collective that gloo is not known to run on a CUDA tensor."""
+
+
+@contextlib.contextmanager
+def _counted(mesh, kind: str, x: torch.Tensor):
+    if x.is_cuda and kind not in GLOO_CUDA_COLLECTIVES:
+        raise CollectiveError(
+            f"gloo's {kind} is not known to take CUDA tensors")
+    t0 = time.perf_counter()
+    yield
+    entry = mesh.collectives.setdefault(kind, [0, 0.0])
+    entry[0] += 1
+    entry[1] += time.perf_counter() - t0
+
+
+def collective_stats(mesh) -> Dict[str, Dict[str, float]]:
+    """This process's collectives by kind: calls and host ms."""
+    return {kind: {"calls": n, "ms": s * 1e3}
+            for kind, (n, s) in sorted(mesh.collectives.items())}
+
+
+# -- the plain collectives -----------------------------------------------------
+
+def _reduce(mesh, x: torch.Tensor, axis: str, op: str = "sum"):
+    out = x.contiguous().clone()
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    with _counted(mesh, "all_reduce", out):
+        dist.all_reduce(out, op=red, group=mesh.group(axis))
+    return out
+
+
+def _gather(mesh, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, axis))]
+    with _counted(mesh, "all_gather", x):
+        dist.all_gather(parts, x, group=mesh.group(axis))
+    return torch.cat(parts, dim=dim)
+
+
+def _exchange(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with _counted(mesh, "all_to_all", x):
+        dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return out
+
+
+def _reduce_scatter(mesh, x: torch.Tensor, axis: str,
+                    dim: int) -> torch.Tensor:
+    """This rank's piece along ``dim`` of ``x`` summed over the axis: each
+    rank sends piece i to rank i and sums the pieces it receives, in rank
+    order."""
+    n = axis_size(mesh, axis)
+    pieces = torch.stack(x.chunk(n, dim=dim))
+    return _exchange(mesh, pieces, axis).sum(dim=0)
+
+
+def _slice(mesh, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """This rank's piece of ``x`` along ``dim``, cut into the axis's
+    positions."""
+    return x.chunk(axis_size(mesh, axis), dim=dim)[
+        mesh.axis_index(axis)].contiguous()
+
+
+# -- with gradients ------------------------------------------------------------
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, op, conjugate):
+        ctx.mesh, ctx.axis, ctx.conjugate = mesh, axis, conjugate
+        return _reduce(mesh, x, axis, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.conjugate:
+            g = _reduce(ctx.mesh, g, ctx.axis)
+        return g, None, None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(ctx.mesh, g, ctx.axis), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Row i of the output is row (this rank) of rank i's input, so the
+        # cotangent goes back by the same exchange.
+        return _exchange(ctx.mesh, g, ctx.axis), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """``x`` cast to ``dtype`` and all-gathered along each ``(axis, dim,
+    conjugate)`` in turn. The backward takes the cotangent to float32,
+    reduces it over each conjugate axis and slices it, in reverse order,
+    and returns it in ``x``'s type: a float32 master weight gathered in
+    bf16 gets its gradient summed in float32."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, gathers, dtype):
+        ctx.mesh, ctx.gathers, ctx.dtype = mesh, gathers, x.dtype
+        out = x.to(dtype)
+        for axis, dim, _ in gathers:
+            out = _gather(mesh, out, axis, dim)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.float32)
+        for axis, dim, conjugate in reversed(ctx.gathers):
+            g = (_reduce_scatter if conjugate else _slice)(ctx.mesh, g,
+                                                           axis, dim)
+        return g.to(ctx.dtype), None, None, None
+
+
+def all_reduce(mesh, x: torch.Tensor, axis: str, op: str = "sum",
+               conjugate: bool = False) -> torch.Tensor:
+    """``x`` summed (or, ``op="max"``, maxed, without a gradient) over
+    mesh axis ``axis``: a new tensor; ``x`` itself at an axis of one. The
+    backward is the identity (the ranks of the axis hold the whole
+    cotangent: the ``tp`` products' partial sums) or, with ``conjugate``,
+    an all-reduce (each rank holds a part: statistics averaged over the
+    batch's shards)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    if op != "sum":
+        return _reduce(mesh, x, axis, op)
+    return _AllReduce.apply(x, mesh, axis, op, conjugate)
+
+
+def sum_grads(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``axis``: a replicated
+    activation entering products that each rank of the axis runs on its own
+    columns (the ``tp`` heads and hidden units)."""
+    if axis_size(mesh, axis) == 1 or not torch.is_grad_enabled():
+        return x
+    return _SumGrads.apply(x, mesh, axis)
+
+
+def all_gather(mesh, x: torch.Tensor, axis: str,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in axis
+    order, without a gradient (serving's pieces and token ids; a training
+    weight is gathered by :func:`gather_cast`)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("all_gather carries no gradient: use gather_cast")
+    return _gather(mesh, x, axis, dim)
+
+
+def gather_cast(mesh, x: torch.Tensor,
+                gathers: Sequence[Tuple[str, int, bool]],
+                dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to ``dtype`` and then all-gathered along each ``(axis,
+    dim, conjugate)`` of ``gathers`` in order (an axis of one is skipped);
+    the gradient comes back summed in float32 and in ``x``'s type
+    (:class:`_Gather`). The cast comes first, so a bf16 use of a float32
+    weight moves half the bytes."""
+    gathers = tuple(g for g in gathers if axis_size(mesh, g[0]) > 1)
+    if not gathers:
+        return x.to(dtype)
+    return _Gather.apply(x, mesh, gathers, dtype)
+
+
+def all_to_all(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+    tiled=False)``: ``x`` (n, ...) with n the axis size; row i of the
+    result is row (this rank's index) of rank i's ``x``. Its backward is
+    the same exchange of the cotangent."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all over {axis}={n} needs a leading "
+                         f"dim of {n}, got {tuple(x.shape)}")
+    return _AllToAll.apply(x, mesh, axis)
+
+
+__all__ = ["CollectiveError", "GLOO_CUDA_COLLECTIVES", "all_gather",
+           "all_reduce", "all_to_all", "collective_stats", "gather_cast",
+           "sum_grads"]

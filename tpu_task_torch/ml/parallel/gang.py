@@ -34,7 +34,9 @@ one communicator on one device, and a gang on one H100 runs every rank on
 ``cuda:0``, each in its own process and CUDA context. Gloo took each of
 the three collectives used here (all-reduce, all-gather, all-to-all) as
 CUDA tensors, float32 and bfloat16, on an H100 with torch 2.11 (cu128):
-:data:`GLOO_CUDA_COLLECTIVES`. Gloo moves a CUDA tensor through host
+:data:`GLOO_CUDA_COLLECTIVES`; they live in
+:mod:`~tpu_task_torch.ml.parallel.collectives`, with their gradients,
+which the sharded train step shares. Gloo moves a CUDA tensor through host
 memory itself, so the kernels run on the card on every rank and only the
 ring between ranks goes through the host. A gang on one shared card
 measures the gang's overhead, not tensor parallelism's speed."""
@@ -64,13 +66,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from tpu_task_torch.ml.parallel.collectives import (  # noqa: F401
+    GLOO_CUDA_COLLECTIVES,
+    all_gather,
+    all_reduce,
+    all_to_all,
+    collective_stats,
+)
 from tpu_task_torch.ml.parallel.mesh import Mesh, make_mesh
-
-#: The collectives gloo was found to run on CUDA tensors itself (an H100,
-#: torch 2.11): each of the three, so none is staged by hand. A collective
-#: outside this set refuses a CUDA tensor (:func:`_counted`) until it is
-#: checked on the card or staged through pinned host memory.
-GLOO_CUDA_COLLECTIVES = frozenset({"all_reduce", "all_gather", "all_to_all"})
 
 #: A gang's mesh axes: the engine, the model, the MoE layer and the pools
 #: look each one up by this name.
@@ -83,74 +86,6 @@ DEFAULT_TIMEOUT_S = 300.0
 class GangError(RuntimeError):
     """A follower failed (its traceback is in the message), or the gang
     is closed."""
-
-
-# -- the collectives -----------------------------------------------------------
-
-@contextlib.contextmanager
-def _counted(mesh: Mesh, kind: str, x: torch.Tensor):
-    if x.is_cuda and kind not in GLOO_CUDA_COLLECTIVES:
-        raise GangError(f"gloo's {kind} is not known to take CUDA tensors")
-    t0 = time.perf_counter()
-    yield
-    entry = mesh.collectives.setdefault(kind, [0, 0.0])
-    entry[0] += 1
-    entry[1] += time.perf_counter() - t0
-
-
-def _axis(mesh: Optional[Mesh], axis: str) -> int:
-    return 1 if mesh is None else int(dict(mesh.shape).get(axis, 1))
-
-
-def all_reduce(mesh: Optional[Mesh], x: torch.Tensor, axis: str,
-               op: str = "sum") -> torch.Tensor:
-    """``x`` summed (or, ``op="max"``, maxed) over mesh axis ``axis``: a
-    new tensor; ``x`` itself at an axis of one."""
-    if _axis(mesh, axis) == 1:
-        return x
-    out = x.contiguous().clone()
-    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-    with _counted(mesh, "all_reduce", out):
-        dist.all_reduce(out, op=red, group=mesh.group(axis))
-    return out
-
-
-def all_gather(mesh: Optional[Mesh], x: torch.Tensor, axis: str,
-               dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in axis
-    order."""
-    n = _axis(mesh, axis)
-    if n == 1:
-        return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    with _counted(mesh, "all_gather", x):
-        dist.all_gather(parts, x, group=mesh.group(axis))
-    return torch.cat(parts, dim=dim)
-
-
-def all_to_all(mesh: Optional[Mesh], x: torch.Tensor,
-               axis: str) -> torch.Tensor:
-    """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
-    tiled=False)``: ``x`` (n, ...) with n the axis size; row i of the
-    result is row (this rank's index) of rank i's ``x``."""
-    n = _axis(mesh, axis)
-    if n == 1:
-        return x
-    if x.shape[0] != n:
-        raise ValueError(f"all_to_all over {axis}={n} needs a leading "
-                         f"dim of {n}, got {tuple(x.shape)}")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    with _counted(mesh, "all_to_all", x):
-        dist.all_to_all_single(out, x, group=mesh.group(axis))
-    return out
-
-
-def collective_stats(mesh: Mesh) -> Dict[str, Dict[str, float]]:
-    """This process's collectives by kind: calls and host ms."""
-    return {kind: {"calls": n, "ms": s * 1e3}
-            for kind, (n, s) in sorted(mesh.collectives.items())}
 
 
 # -- the program broadcast -----------------------------------------------------

@@ -174,9 +174,42 @@ def distributed_init_from_env(environ=None, backend: str = "gloo") -> bool:
     return True
 
 
-def local_batch_slice(global_batch: int, mesh=None) -> int:
-    """Per-process batch size for a mesh whose batch axes span
-    processes."""
-    from tpu_task_torch.device import process_count
+def batch_shard(mesh=None) -> Tuple[int, int]:
+    """(this rank's piece, the number of pieces) of the batch dim: the
+    piece at its coordinates over the mesh's batch axes
+    (``sharding.mesh_batch_axes``: ``dp``, ``fsdp``, ``ep``), row-major,
+    as ``logical_to_mesh_axes(("batch", "seq"))`` shards JAX's batch.
+    Ranks that differ only in another axis (``tp``) read the same rows.
+    Without a mesh: this process's index and count."""
+    from tpu_task_torch.device import process_count, process_index
+    from tpu_task_torch.ml.parallel.sharding import mesh_batch_axes
 
-    return global_batch // process_count()
+    if mesh is None:
+        return process_index(), process_count()
+    pieces, index = 1, 0
+    for axis in mesh_batch_axes(mesh):
+        n = int(mesh.shape[axis])
+        pieces, index = pieces * n, index * n + mesh.axis_index(axis)
+    return index, pieces
+
+
+def local_batch_slice(global_batch: int, mesh=None) -> int:
+    """This rank's rows of a global batch: the batch divided by the
+    number of its pieces over the mesh's batch axes (:func:`batch_shard`).
+    JAX divides by its process count, a host holding several devices; a
+    process of the port is one mesh position, and the positions along
+    ``tp`` share their rows."""
+    index, pieces = batch_shard(mesh)
+    if global_batch % pieces:
+        raise ValueError(f"global batch {global_batch} does not divide "
+                         f"into {pieces} batch pieces")
+    return global_batch // pieces
+
+
+def local_batch(batch, mesh=None):
+    """This rank's rows of ``batch`` (an array or tensor whose leading dim
+    is the global batch): a contiguous block, :func:`batch_shard`'s
+    piece."""
+    index, pieces = batch_shard(mesh)
+    rows = local_batch_slice(len(batch), mesh)
+    return batch[index * rows:(index + 1) * rows]

@@ -135,6 +135,18 @@ def mesh_batch_axes(mesh) -> Tuple[str, ...]:
     return (resolved,)
 
 
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one PartitionSpec entry names, as a tuple."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a PartitionSpec shards over, in its order."""
+    return tuple(a for entry in (spec or ()) for a in entry_axes(entry))
+
+
 # -- regex-over-path rule resolution ------------------------------------------
 
 def tree_path_str(path) -> str:
@@ -228,8 +240,7 @@ def shard_slices(shape: Sequence[int], spec: Sequence, mesh,
     for dim, entry in enumerate(tuple(spec) + (None,) * (len(shape)
                                                         - len(spec))):
         size = int(shape[dim])
-        axes = () if entry is None else (
-            entry if isinstance(entry, tuple) else (entry,))
+        axes = entry_axes(entry)
         pieces, index = 1, 0
         for axis in axes:
             n = int(dict(mesh.shape).get(axis, 1))
@@ -254,6 +265,36 @@ def _zip_specs(fn: Callable, tree, pspec_tree):
         return type(tree)(_zip_specs(fn, v, s)
                           for v, s in zip(tree, pspec_tree))
     return fn(tree, pspec_tree)
+
+
+def spec_leaves(pspec_tree) -> List[PartitionSpec]:
+    """The PartitionSpecs of a spec tree in ``jax.tree.leaves`` order (a
+    PartitionSpec is one leaf, as in JAX, not a tuple to walk)."""
+    from tpu_task_torch.ml.tree import leaves
+
+    return leaves(pspec_tree, is_leaf=lambda x: isinstance(x,
+                                                           PartitionSpec))
+
+
+def global_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
+    """The whole array's shape of a block of ``shape`` that a rank holds
+    under ``spec``: each dimension times its pieces."""
+    entries = tuple(spec or ()) + (None,) * (len(shape) - len(spec or ()))
+    out = []
+    for size, entry in zip(shape, entries):
+        for axis in entry_axes(entry):
+            size *= int(dict(mesh.shape).get(axis, 1))
+        out.append(int(size))
+    return tuple(out)
+
+
+def writes_block(spec, mesh, rank: Optional[int] = None) -> bool:
+    """Whether ``rank`` (default: the mesh's own) is the one copy of its
+    block under ``spec``: index 0 along every mesh axis the spec does not
+    name, JAX's ``replica_id == 0``."""
+    named = set(spec_axes(spec))
+    return all(i == 0 for axis, i in mesh.coords(rank).items()
+               if axis not in named)
 
 
 def shard_leaf(leaf, spec, mesh, rank: Optional[int] = None,
@@ -291,8 +332,10 @@ def tree_nbytes(tree) -> int:
 
 
 __all__: List[str] = [
-    "DEFAULT_RULES", "PartitionSpec", "device_put_tree", "filter_spec",
+    "DEFAULT_RULES", "PartitionSpec", "device_put_tree", "entry_axes",
+    "filter_spec",
     "logical_to_mesh_axes", "logical_tree_pspecs", "match_partition_rules",
     "mesh_axis_size", "mesh_batch_axes", "shard_leaf", "shard_pytree",
-    "shard_slices", "tree_nbytes", "tree_path_str",
+    "global_shape", "shard_slices", "spec_axes", "spec_leaves",
+    "tree_nbytes", "tree_path_str", "writes_block",
 ]

@@ -1,6 +1,8 @@
-"""The single-device training step for the flagship transformer — the
-counterpart of ``tpu_task/ml/train.py``'s ``TrainState``,
-``make_optimizer``, ``init_state`` and ``make_train_step``.
+"""The training step for the flagship transformer, on one device and
+sharded over a mesh of ranks — the counterpart of
+``tpu_task/ml/train.py``'s ``TrainState``, ``make_optimizer``,
+``init_state``, ``state_pspecs``, ``shard_state``, ``make_train_step``
+and ``make_moe_train_step``.
 
 The JAX step is one jitted function that donates its state buffers, so
 XLA updates parameters and moments in place. PyTorch runs eagerly and the
@@ -15,19 +17,45 @@ restores into the other (``tpu_task_torch.ml.checkpoint``).
 
 A config with mixture-of-experts layers trains through the same step: its
 loss adds the router loss, and its MoE layers run the dense dispatch (or
-the ``moe_fn`` the caller passes). The sharded steps (a ``mesh``, pipeline,
-expert and sequence parallelism) are not ported yet (ROADMAP A14) and
+the ``moe_fn`` the caller passes).
+
+**Sharded over a mesh** (``dp``, ``fsdp``, ``tp``; ``ep`` for
+:func:`make_moe_train_step`) the step is SPMD: one process a mesh
+position, every rank running the same script after
+``distributed_init_from_env()`` and ``make_mesh``. Each rank holds its
+block of every leaf (:func:`shard_state`, under :func:`state_pspecs`,
+JAX's spec tree) and takes its rows of the batch (``mesh.local_batch``:
+the batch axes' piece; ``tp`` ranks share rows). It back-propagates its
+rows' mean loss over the number of batch pieces through the model's
+gathers and ``tp`` pair, all-reduces each gradient in float32 over the
+batch axes its leaf is not sharded on, and takes the global norm as the
+sum of each leaf's squares over the axes it is sharded on, and only
+those; every rank then applies the same elementwise AdamW to its blocks.
+The loss is the mean of the pieces' token means: JAX's global token mean.
+Sequence and pipeline parallelism are not ported yet (ROADMAP A14) and
 raise."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpu_task_torch.device import resolve_device
 from tpu_task_torch.ml.models import transformer
+from tpu_task_torch.ml.parallel import collectives
+from tpu_task_torch.ml.parallel.mesh import batch_shard
+from tpu_task_torch.ml.parallel.sharding import (
+    PartitionSpec,
+    _map,
+    logical_to_mesh_axes,
+    mesh_axis_size,
+    mesh_batch_axes,
+    shard_leaf,
+    spec_axes,
+    spec_leaves,
+)
 
 Params = transformer.Params
 
@@ -86,12 +114,16 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], opt_state: Dict[str, Any],
-               params: Params) -> torch.Tensor:
+               params: Params, norm: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """Apply one step to ``params`` and ``opt_state`` in place;
         ``grads`` in :func:`_leaves` order (they are clipped in place).
-        Returns their global norm before clipping."""
+        ``norm``: their global norm when the caller has it (a sharded
+        step's, over the whole arrays: :func:`sharded_global_norm`).
+        Returns the global norm before clipping."""
         leaves = _leaves(params)
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < MAX_NORM
         count = opt_state["count"] + 1
         opt_state["count"] = count
@@ -166,11 +198,149 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP A14")
 
 
+# -- sharded state -------------------------------------------------------------
+
+def _opt_specs_like(p_specs: Params, opt_state) -> Any:
+    """Each optimizer-state leaf's spec: the param spec whose tree path is
+    the longest suffix of the leaf's path (``mu/layers/0/wq`` takes
+    ``layers/0/wq``'s), when the leaf has at least that spec's dims; else
+    replicated (the count). JAX's suffix rule, so two same-shaped params
+    with other layouts never swap."""
+    param_paths = {}
+    _map(lambda path, spec: param_paths.setdefault(path, spec), p_specs,
+         lambda x: isinstance(x, PartitionSpec))
+
+    def spec_for(path, leaf):
+        for start in range(len(path)):
+            spec = param_paths.get(path[start:])
+            if spec is not None and np.ndim(leaf) >= len(spec):
+                return spec
+        return PartitionSpec()
+
+    return _map(spec_for, opt_state, lambda x: False)
+
+
+def state_pspecs(state: TrainState, cfg: transformer.TransformerConfig,
+                 mesh) -> TrainState:
+    """PartitionSpecs for a TrainState: ``step`` replicated, the params by
+    the model's rules, the AdamW moments following the params and the
+    count replicated. Its ``spec_leaves`` are ``jax.tree.leaves`` of JAX's
+    ``state_pspecs``, leaf for leaf."""
+    p_specs = transformer.param_pspecs(cfg, mesh=mesh)
+    return TrainState(step=PartitionSpec(), params=p_specs,
+                      opt_state=_opt_specs_like(p_specs, state.opt_state))
+
+
+def shard_state(state: TrainState, cfg: transformer.TransformerConfig,
+                mesh) -> Tuple[TrainState, TrainState]:
+    """(this rank's blocks of the whole ``state``, on the mesh's device;
+    the spec tree): JAX's ``shard_state`` for one mesh position. The
+    ints stay ints."""
+    specs = state_pspecs(state, cfg, mesh)
+
+    def cut(leaf, spec):
+        if isinstance(leaf, torch.Tensor):
+            return shard_leaf(leaf, spec, mesh)
+        return leaf
+
+    def walk(tree, spec_tree):
+        if isinstance(spec_tree, PartitionSpec):
+            return cut(tree, spec_tree)
+        if isinstance(tree, dict):
+            return {k: walk(v, spec_tree[k]) for k, v in tree.items()}
+        if isinstance(tree, TrainState):
+            return TrainState(*(walk(v, sp)
+                                for v, sp in zip(tree, spec_tree)))
+        return type(tree)(walk(v, sp) for v, sp in zip(tree, spec_tree))
+
+    return walk(state, specs), specs
+
+
+def _token_shard_factor(mesh, activation_spec) -> int:
+    """How many ways the (batch, seq) token grid shards on this mesh: from
+    the activation spec's first two entries when one is given, else from
+    the logical batch rule. JAX sizes the fused cross-entropy's tile with
+    it; a rank of the port holds that many times fewer tokens."""
+    if mesh is None:
+        return 1
+    if activation_spec is not None:
+        spec = getattr(activation_spec, "spec", activation_spec)
+    else:
+        spec = logical_to_mesh_axes(("batch", "seq"), mesh=mesh)
+    factor = 1
+    for entry in tuple(spec)[:2]:
+        for axis in spec_axes((entry,)):
+            factor *= int(mesh.shape[axis])
+    return factor
+
+
+@torch.no_grad()
+def _reduce_grads(grads: List[torch.Tensor], specs: List[PartitionSpec],
+                  mesh, batch_axes: Tuple[str, ...]) -> None:
+    """Sum each gradient over the batch axes its leaf is not sharded on,
+    in place: the ranks of such an axis saw other rows through the same
+    block. Leaves that reduce over the same axes go as one float32
+    buffer, one all-reduce an axis."""
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, spec in enumerate(specs):
+        named = set(spec_axes(spec))
+        over = tuple(a for a in batch_axes
+                     if a not in named and mesh_axis_size(mesh, a) > 1)
+        if over:
+            groups.setdefault(over, []).append(i)
+    for over, index in groups.items():
+        flat = torch.cat([grads[i].reshape(-1).to(torch.float32)
+                          for i in index])
+        for axis in over:
+            flat = collectives.all_reduce(mesh, flat, axis)
+        for i, part in zip(index, flat.split([grads[i].numel()
+                                              for i in index])):
+            grads[i].copy_(part.view_as(grads[i]))
+
+
+@torch.no_grad()
+def sharded_global_norm(grads: List[torch.Tensor],
+                        specs: List[PartitionSpec], mesh) -> torch.Tensor:
+    """``optax.global_norm`` over the whole arrays of which ``grads`` are
+    this rank's blocks: each leaf's sum of squares, summed over the mesh
+    axes its leaf is sharded on and only those (a replicated block counts
+    once), then added. The same float32 scalar on every rank."""
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, spec in zip(grads, specs):
+        over = tuple(a for a in spec_axes(spec)
+                     if mesh_axis_size(mesh, a) > 1)
+        sq = g.to(torch.float32).square().sum()
+        groups[over] = groups[over] + sq if over in groups else sq
+    total = None
+    for over, sq in groups.items():
+        for axis in over:
+            sq = collectives.all_reduce(mesh, sq, axis)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def _micro_pieces(mesh, tokens: torch.Tensor, batch_axes: Tuple[str, ...],
+                  accum_steps: int) -> Tuple[torch.Tensor, ...]:
+    """This rank's piece of each of the global batch's ``accum_steps``
+    microbatches, from its contiguous rows: JAX cuts the global batch into
+    microbatches and shards each over the batch axes, so rank ``i`` of
+    ``n`` runs rows ``[i * m, (i + 1) * m)`` of each, ``m`` the
+    microbatch over ``n``. The token ids are all-gathered over the batch
+    axes (least significant first, undoing :func:`mesh.batch_shard`'s
+    row-major cut) and cut again."""
+    whole = tokens
+    for axis in reversed(batch_axes):
+        whole = collectives.all_gather(mesh, whole, axis)
+    index, pieces = batch_shard(mesh)
+    rows = whole.shape[0] // (accum_steps * pieces)
+    return whole.reshape(accum_steps, pieces, rows,
+                         *whole.shape[1:])[:, index].unbind(0)
+
+
 def make_train_step(cfg: transformer.TransformerConfig, optimizer=None,
                     mesh=None, attn_fn=None, activation_spec=None,
-                    accum_steps: int = 1, moe_fn=None
-                    ) -> Callable[[TrainState, torch.Tensor],
-                                  Tuple[TrainState, Dict[str, torch.Tensor]]]:
+                    accum_steps: int = 1, moe_fn=None):
     """The (state, tokens) → (state, {"loss", "grad_norm"}) step: loss and
     gradients through :func:`transformer.loss_fn`, then one optimizer
     update, in place. ``grad_norm`` is the global norm before clipping.
@@ -184,14 +354,39 @@ def make_train_step(cfg: transformer.TransformerConfig, optimizer=None,
 
     A MoE config's loss includes ``cfg.moe_aux_weight`` times the router
     loss; ``moe_fn(layer, h) -> (out, aux)`` replaces the dense dispatch
-    of its MoE layers, as in the JAX step."""
-    if mesh is not None:
-        _not_ported("the sharded train step (mesh=...)")
-    if activation_spec is not None:
-        _not_ported("activation_spec (sequence-parallel sharding)")
+    of its MoE layers, as in the JAX step.
+
+    With a ``mesh`` it returns JAX's ``jit_with_state``: a function of
+    this rank's state (its blocks, from :func:`shard_state`) that returns
+    the sharded step, whose ``tokens`` are this rank's rows of the global
+    batch (``mesh.local_batch``); a microbatch is each rank's rows cut
+    ``accum_steps`` ways. ``activation_spec`` may name the batch axes
+    (its first entry); on the sequence it raises (ROADMAP A14)."""
+    return _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
+                      accum_steps, moe_fn)
+
+
+def _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
+               accum_steps: int, moe_fn, expert_axis: Optional[str] = None):
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     optimizer = optimizer or make_optimizer()
+    batch_axes: Tuple[str, ...] = ()
+    if mesh is not None:
+        batch_axes = mesh_batch_axes(mesh)
+    if activation_spec is not None:
+        named = transformer.activation_batch_axes(activation_spec)
+        if mesh is not None and set(named) != set(batch_axes):
+            _not_ported(f"activation_spec over batch axes {named} (the "
+                        f"mesh's rows are cut over {batch_axes})")
+    pieces = _token_shard_factor(mesh, activation_spec)
+    pspecs = (transformer.param_pspecs(cfg, mesh=mesh)
+              if mesh is not None else None)
+    leaf_specs = _leaves(pspecs) if pspecs is not None else None
+    # A microbatch's tokens share the MoE layers' capacity and router
+    # statistics, so which rows it holds matters there, not in a token mean.
+    coupled = (expert_axis is not None and accum_steps > 1
+               and len(batch_axes) > 0)
 
     def loss_and_grads(params: Params, tokens: torch.Tensor):
         leaves = _leaves(params)
@@ -203,13 +398,19 @@ def make_train_step(cfg: transformer.TransformerConfig, optimizer=None,
                 raise ValueError(f"batch {batch} not divisible by "
                                  f"accum_steps {accum_steps}")
             loss_sum, grad_sum = None, None
-            for micro in tokens.chunk(accum_steps):
-                loss = transformer.loss_fn(params, cfg, micro,
-                                           attn_fn=attn_fn, moe_fn=moe_fn)
+            micros = (_micro_pieces(mesh, tokens, batch_axes, accum_steps)
+                      if coupled else tokens.chunk(accum_steps))
+            for micro in micros:
+                loss = transformer.loss_fn(
+                    params, cfg, micro, attn_fn=attn_fn, moe_fn=moe_fn,
+                    mesh=mesh, pspecs=pspecs, expert_axis=expert_axis)
+                # Each rank's loss is its rows' mean: the pieces' mean is
+                # the global one, so each back-propagates its share.
+                scaled = loss if pieces == 1 else loss * (1.0 / pieces)
                 # A leaf the loss does not reach (a MoE layer's weights
                 # under a moe_fn that ignores them) gets a zero gradient,
                 # as under jax.grad.
-                grads = torch.autograd.grad(loss, leaves,
+                grads = torch.autograd.grad(scaled, leaves,
                                             materialize_grads=True)
                 loss = loss.detach()
                 if grad_sum is None:
@@ -230,20 +431,70 @@ def make_train_step(cfg: transformer.TransformerConfig, optimizer=None,
 
     def step(state: TrainState, tokens: torch.Tensor):
         loss, grads = loss_and_grads(state.params, tokens)
-        gnorm = optimizer.update(grads, state.opt_state, state.params)
+        norm = None
+        if mesh is not None:
+            _reduce_grads(grads, leaf_specs, mesh, batch_axes)
+            norm = sharded_global_norm(grads, leaf_specs, mesh)
+            with torch.no_grad():
+                for axis in batch_axes:
+                    loss = collectives.all_reduce(mesh, loss, axis)
+                loss = loss / pieces
+        gnorm = optimizer.update(grads, state.opt_state, state.params,
+                                 norm=norm)
         return (TrainState(step=state.step + 1, params=state.params,
                            opt_state=state.opt_state),
                 {"loss": loss.float(), "grad_norm": gnorm})
 
-    return step
+    if mesh is None:
+        return step
+
+    def with_state(state: TrainState):
+        for leaf, spec in zip(_leaves(state.params), leaf_specs):
+            if leaf.dim() != len(spec):
+                raise ValueError(f"a {leaf.dim()}-d param block under "
+                                 f"spec {spec}")
+        return step
+
+    return with_state
 
 
 def make_pp_train_step(*args, **kwargs):
     _not_ported("the pipeline-parallel train step")
 
 
-def make_moe_train_step(*args, **kwargs):
-    _not_ported("the expert-parallel MoE train step")
+def make_moe_train_step(cfg: transformer.TransformerConfig, mesh,
+                        optimizer=None, axis_name: str = "ep",
+                        accum_steps: int = 1):
+    """The expert-parallel train step of a MoE config: JAX's
+    ``make_moe_train_step``. Its MoE layers dispatch through
+    ``moe.apply_sharded`` on each rank's own tokens, two all_to_alls over
+    ``axis_name`` a layer each way (their gradients the reverse
+    exchanges), the experts one group a rank; the tokens shard over every
+    batch axis of the mesh plus ``axis_name``. Returns, as
+    :func:`make_train_step` with a mesh, a function of the rank's state
+    that returns the step. With ``accum_steps > 1`` each rank runs its
+    piece of each global microbatch, as JAX's step does (the capacity and
+    the router statistics are a microbatch's), not its own rows cut
+    ``accum_steps`` ways."""
+    from tpu_task_torch.ml.models import moe
+
+    if axis_name not in dict(mesh.shape):
+        raise ValueError(f"mesh has no {axis_name!r} axis: "
+                         f"{mesh.axis_names}")
+    if not any(cfg.is_moe_layer(i) for i in range(cfg.n_layers)):
+        raise ValueError("config has no MoE layers (set moe_every/n_experts)")
+    mcfg = cfg.moe_cfg
+    batch_axes = mesh_batch_axes(mesh)
+    if axis_name not in batch_axes:
+        batch_axes = (*batch_axes, axis_name)
+
+    def moe_fn(layer, h):
+        return moe.apply_sharded(layer, mcfg, h, mesh, axis_name=axis_name,
+                                 batch_axes=batch_axes, whole=False)
+
+    return _make_step(cfg, optimizer, mesh, None,
+                      PartitionSpec(batch_axes, None, None), accum_steps,
+                      moe_fn, expert_axis=axis_name)
 
 
 def make_sp_train_step(*args, **kwargs):

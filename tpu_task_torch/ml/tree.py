@@ -5,17 +5,23 @@ leaves by it, and the input pipeline places a batch's arrays with it."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 
-def leaves(tree: Any) -> List[Any]:
-    """The leaves of ``tree`` in ``jax.tree.leaves`` order."""
+def leaves(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None
+           ) -> List[Any]:
+    """The leaves of ``tree`` in ``jax.tree.leaves`` order; ``is_leaf``
+    marks containers that count as one leaf (a spec tree's
+    PartitionSpecs, which are tuples)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [leaf for key in sorted(tree) for leaf in leaves(tree[key])]
+        return [leaf for key in sorted(tree)
+                for leaf in leaves(tree[key], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [leaf for child in tree for leaf in leaves(child)]
+        return [leaf for child in tree for leaf in leaves(child, is_leaf)]
     return [tree]
 
 
