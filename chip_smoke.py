@@ -8,7 +8,7 @@ imported from the fleet KV plane, the HTTP replica, weight rolls, paged
 LoRA adapters, the overlapped loop, the host KV tier, mixture-of-experts
 layers, bucketed prefill, tensor- and expert-parallel gangs), and trains the flagship for a few steps, checkpointing, killing
 and restoring it, and its mixture-of-experts variant, also sharded over
-SPMD ranks.
+SPMD ranks and over the sequence.
 
     python3 chip_smoke.py
 
@@ -79,8 +79,13 @@ start); any failed check raises and the script exits non-zero:
              128, lengths 128 to 2048, the forward's 128-row tile edges
              (sq 1, 127, 129, 257, sk < sq, q_offset -130, d 64 at sq
              384) and the backward's 64-row q stage edges (sq 65 and 193,
-             q_offset -64). Each case also launches every kernel into
-             NaN-guarded buffers.
+             q_offset -64), and the zigzag ring's four block shapes at
+             8192 tokens over sp 4 (2048 against 1024 causal at q_offset
+             0, 1024 against 1024, and non-causal 2048 x 1024 and 1024 x
+             2048). Each case also launches every kernel into NaN-guarded
+             buffers. Then the backward fed a folded lse: the ring
+             diagonal's first block merged with a second block
+             (``flash_kernel_folded_lse``, fp32 and bf16).
 8. flash timing — each kernel at the flagship train shape (bf16, held
              against its plain version in phase 7): kernel, plain and bound
              ms, SDPA's forward and backward (``library_ms``, a yardstick
@@ -117,8 +122,9 @@ start); any failed check raises and the script exits non-zero:
              card (``epoch_batches`` + ``prefetch_to_device`` over seeded
              tokens, ``AsyncCheckpointer``), SIGKILLed once its first
              ``LATEST_SHARDED`` is published, before its last step, and
-             started again: it restores that step, runs the rest, and its
-             losses are the uninterrupted in-process run's within
+             started again: it restores that step, runs the rest (saving
+             nothing), and its losses are the uninterrupted in-process
+             run's within
              ``RESUME_LOSS_RTOL``; the steps lost at the kill and the
              recovery split (restart → imported → CUDA ready → npz read →
              host→device → first step done).
@@ -467,11 +473,10 @@ start); any failed check raises and the script exits non-zero:
              loss and grad norm within 1e-5 of it and of the same step on
              the CPU (the params' gap to the CPU's reported); every rank's
              launches alike. (b) ``TRAIN_FLAGSHIP`` (bf16, batch 8 x 1024)
-             on (dp 1, fsdp 2, tp 2): two warm-up steps, the first recorded
+             on (dp 1, fsdp 2, tp 2): one warm-up step, recorded
              (layer 0's forward and the last layer's backward against the
-             plain versions on every rank), an async save of the sharded
-             state at step 2 published before three timed steps: step ms on
-             each rank, collectives by kind with their ms, bytes a rank
+             plain versions on every rank), then three timed steps: step
+             ms on each rank, collectives by kind with their ms, bytes a rank
              against one device, launches 8 a kernel a step and 0 plain,
              losses falling. (c) ``TRAIN_FLAGSHIP_MOE`` on (dp 2, ep 2),
              one warm-up and two timed steps, the same fields. (d) Every
@@ -479,6 +484,21 @@ start); any failed check raises and the script exits non-zero:
              restores its blocks of step 2 and runs to step 4 on (b)'s
              batch, losses within ``RESUME_LOSS_RTOL`` of (b)'s, with the
              seconds from the restart to its first step.
+35. train_sp — sequence-parallel training, legs of phase 34's first
+             launch: ``make_sp_train_step`` on tiny fp32 legs (zigzag on sp
+             4, Ulysses on sp 4, zigzag on dp 2 x sp 2; tokens (2, 1025),
+             two steps, phase 34's parity gate with the card step held,
+             as the CPU one, to twice the one-process card step's own gap
+             to the CPU, B1-B3 (sp + 1) x n_layers a step for zigzag and
+             n_layers for Ulysses on every rank) and ``TRAIN_FLAGSHIP`` on
+             the JAX bench's long-context row, tokens (1, 8193) over sp 4,
+             zigzag and Ulysses, one warm-up (recorded as in (b)) and two
+             timed steps: step ms on each rank, collectives with calls, ms
+             and bytes (``ppermute`` among them), their share, peak memory;
+             gates: 40 / 8 launches a kernel a step on every rank, 0
+             plain, losses falling, and the first step's loss and grad norm
+             within ``TRAIN_SP_RTOL`` of the one-process step on the same
+             params and tokens. ``train_sp`` sums the legs' seconds.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
@@ -487,7 +507,7 @@ the paged rows and the combine's add their launches in phases 15, 17, 19,
 20, 22, 24, 25, 26, 27, 28, 29, 30, 31 and 32, each rank's in phase 33,
 and the scoring step's timing,
 the flash rows theirs in phase 31's train steps and each rank's in
-phase 34's timed dense steps),
+phase 34's timed dense steps and phase 35's timed flagship steps),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -1827,7 +1847,11 @@ def phase_serve_trace(engines: dict, smi: str) -> dict:
 #: and a non-causal pair), a q_offset of -130 (a whole tile that sees
 #: nothing) and d 64 at sq 384; then the backward's 64-row q stage edges:
 #: sq 65 and 193 (one row into a stage, at d 128 and 64) and a q_offset of
-#: -64 (a whole stage that sees nothing).
+#: -64 (a whole stage that sees nothing); last the train flagship's zigzag
+#: ring at sp 4 on 8192 tokens (stripes of c = 1024): the diagonal's first
+#: block, causal with 2c query rows against c keys at q_offset 0 (rows c..
+#: 2c-1 see every key), its second, a past chunk's block (2c against c)
+#: and a future one's (c against 2c).
 FLASH_CASES = (
     (8, 8, 1024, 1024, 128, True, None),
     (2, 4, 128, 128, 64, True, None),
@@ -1851,7 +1875,15 @@ FLASH_CASES = (
     (1, 2, 193, 193, 128, True, None),
     (1, 4, 193, 300, 64, True, None),
     (2, 2, 256, 256, 128, True, -64),
+    (1, 8, 2048, 1024, 128, True, 0),
+    (1, 8, 1024, 1024, 128, True, 0),
+    (1, 8, 2048, 1024, 128, False, None),
+    (1, 8, 1024, 2048, 128, False, None),
 )
+
+#: The folded-lse backward check: the zigzag diagonal's first block (b, h,
+#: sq, sk, d), its backward fed the lse and delta of the whole ring row.
+FOLDED_CASE = (1, 8, 2048, 1024, 128)
 
 
 def nan_guarded(launch, wants) -> bool:
@@ -1965,6 +1997,66 @@ def phase_flash_kernel(device) -> dict:
             emit("flash_kernel", ok=ok, **line)
             if not ok:
                 raise AssertionError(f"flash kernels disagree: {line}")
+    folded = flash_folded_lse(device, gen)
+    for name, err in folded.items():
+        worst[name] = max(worst[name], err)
+    return worst
+
+
+def flash_folded_lse(device, gen) -> dict:
+    """The backward pair fed an lse larger than the block's own, as every
+    ring block's backward is: the zigzag diagonal's first block (causal,
+    2c rows against c keys at q_offset 0) folded with a second,
+    non-causal block of c other keys (``ring_attention._fold``, the
+    port's), then dq and dk/dv of the first block from the folded lse and
+    the delta of the folded output, against the plain backward on the
+    same lse and delta, at fp32 and bf16. Returns each kernel's largest
+    error against the plain version."""
+    from tpu_task_torch.ml.ops import attention as fa
+    from tpu_task_torch.ml.parallel.ring_attention import _fold
+
+    b, h, sq, sk, d = FOLDED_CASE
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, k2, v2, do = (
+            torch.randn(shape, generator=gen).to(dtype).to(device)
+            for shape in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d),
+                          (b, sk, h, d), (b, sk, h, d), (b, sq, h, d)))
+        o1, lse1 = fa.flash_attention(q, k, v, True, q_offset=0,
+                                      return_lse=True)
+        o2, lse2 = fa.flash_attention(q, k2, v2, False, q_offset=0,
+                                      return_lse=True)
+        o, lse = _fold(o1.float(), lse1, o2, lse2)
+        delta = (do.float() * o.to(dtype).float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, q_offset=0)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, q_offset=0)
+        torch.cuda.synchronize()
+        same = fa.flash_bwd_reference(q, k, v, do, lse, delta, True, 0)
+        exact = fa.flash_bwd_reference(q.float(), k.float(), v.float(),
+                                       do.float(), lse, delta, True, 0)
+        above = bool((lse > lse1).all())
+        ok, errs = above, {}
+        for name, got, plain, ref in (("dq", dq, same[0], exact[0]),
+                                      ("dk", dk, same[1], exact[1]),
+                                      ("dv", dv, same[2], exact[2])):
+            errs[name] = (got.float() - plain.float()).abs().max().item()
+            errs[name + "_vs_fp32"] = (got.float() - ref).abs().max().item()
+            ok = ok and flash_gate(got, ref, FLASH_BWD_ATOL)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"],
+                                     errs["dv"])
+        line = dict(b=b, h=h, sq=sq, sk=sk, d=d, causal=True, q_offset=0,
+                    dtype=str(dtype).replace("torch.", ""),
+                    lse_above_block_own=above,
+                    mean_lse_gap=(lse - lse1).mean().item(),
+                    max_abs_err=errs,
+                    tolerance=(f"fp32: {FLASH_BWD_ATOL}" if dtype ==
+                               torch.float32 else "bf16: 2^-8*(|fp32 ref| "
+                               "+ max|fp32 ref|) + the fp32 tolerance"))
+        emit("flash_kernel_folded_lse", ok=ok, **line)
+        if not ok:
+            raise AssertionError(f"flash backward on a folded lse: {line}")
     return worst
 
 
@@ -2796,7 +2888,10 @@ def phase_train_resume_process(device, smi: str, root: Path) -> dict:
     torch.cuda.empty_cache()
     first, _, killed_at = run_trainer(workdir, config, "first.log",
                                       kill_after_publish=True)
-    second, t_spawn, _ = run_trainer(workdir, config, "second.log")
+    # The restarted trainer saves nothing: its loop and restore are what
+    # is checked, and four more 2.4 GB writes held its exit ~15 s.
+    second, t_spawn, _ = run_trainer(
+        workdir, dict(config, save_every=RESUME_STEPS + 1), "second.log")
     at = {e["event"]: e for e in reversed(second)}
     steps = [e for e in second if e["event"] == "step"]
     restored = at.get("restored", {})
@@ -7862,7 +7957,7 @@ def mesh_flagship_leg(mesh, leg, device, smi: str) -> tuple:
         kind: {"per_step": (n - before.get(kind, [0, 0.0])[0]) / steps,
                "host_ms_per_step": (s - before.get(kind, [0, 0.0])[1])
                * 1e3 / steps}
-        for kind, (n, s) in mesh.collectives.items()}
+        for kind, (n, s, _) in mesh.collectives.items()}
     impl = engine.decode_impl
     gates = [dict(kernel=c[impl], combine=c["combine"],
                   other=sum(c[k] for k in ("cuda", "pipelined", "reference")
@@ -8006,6 +8101,31 @@ TRAIN_MESH_MOE = (("dp", "ep"), (2, 2))
 #: from that save to the first.
 TRAIN_MESH_RESUME_STEPS, TRAIN_MESH_SAVE_AT, TRAIN_MESH_LOOP_STEPS = 4, 2, 8
 
+#: Phase 35, sequence-parallel training, run as legs of phase 34's rank
+#: launch. (name, mesh axes, sizes, context_parallel) of the tiny fp32
+#: parity legs on TRAIN_MESH_TINY (GQA, 4 kv heads), tokens (2, 1025),
+#: under phase 34's parity gate.
+TRAIN_SP_PARITY = (("zigzag_sp4", ("sp",), (4,), "zigzag"),
+                   ("ulysses_sp4", ("sp",), (4,), "ulysses"),
+                   ("zigzag_dp2_sp2", ("dp", "sp"), (2, 2), "zigzag"))
+#: The flagship legs: the JAX package's long-context row
+#: (``bench.py:3381``, ``bench_train_mfu(batch=1, seq=8192)``), tokens (1,
+#: 8193), over sp 4: zigzag (2048 tokens a rank in stripes of 1024) and
+#: Ulysses (2 heads a rank at 8192).
+TRAIN_SP_FLAGSHIP = (("zigzag", ("sp",), (4,)), ("ulysses", ("sp",), (4,)))
+TRAIN_SP_BATCH, TRAIN_SP_SEQ = 1, 8192
+#: The first sp step's loss and grad norm against the one-process step on
+#: the same params and tokens: phase 9's bf16 gate (an all-bf16 attention
+#: and an fp32 one differ by 3.3e-5 relative at its config).
+TRAIN_SP_RTOL = 2.0 ** -10
+
+
+def sp_blocks(mode: str, sp: int) -> int:
+    """Flash launches of each kernel a layer a step on every rank: the
+    zigzag diagonal's two blocks and one a remote chunk; Ulysses one
+    full-length call."""
+    return sp + 1 if mode == "zigzag" else 1
+
 #: The rank script of phase 34 (and of ``tests/test_torch_train_mesh_resume
 #: .py`` on the CPU at a tiny size): every rank of an SPMD trainer runs it
 #: with the orchestrator's variables (``worker_env``), joins the gloo group
@@ -8034,7 +8154,7 @@ from tpu_task_torch.ml.parallel.mesh import (batch_shard,
                                              local_batch, make_mesh)
 from tpu_task_torch.ml.parallel.sharding import (shard_slices, spec_leaves,
                                                  tree_nbytes)
-from tpu_task_torch.ml.tree import leaves
+from tpu_task_torch.ml.tree import leaves, tree_map
 import chip_smoke
 
 T_START = time.time()
@@ -8070,10 +8190,28 @@ def model_config(leg):
                                          **leg["model"])
 
 
-def step_builder(cfg, mesh, moe):
-    if moe:
+def step_builder(cfg, mesh, leg):
+    if leg.get("sp"):
+        return train.make_sp_train_step(cfg, mesh,
+                                        context_parallel=leg["sp"])
+    if leg.get("moe"):
         return train.make_moe_train_step(cfg, mesh)
     return train.make_train_step(cfg, mesh=mesh)
+
+
+REFERENCES = {}
+
+
+def references(cfg, leg, tokens):
+    """The one-process steps on the card and on the CPU of a parity leg,
+    once for every leg of the same config, tokens and steps."""
+    key = json.dumps([leg["model"], leg["dtype"], leg["batch"], leg["seq"],
+                      leg["steps"]])
+    if key not in REFERENCES:
+        REFERENCES[key] = (
+            one_process(cfg, tokens, leg["steps"], device),
+            one_process(cfg, tokens, leg["steps"], torch.device("cpu")))
+    return REFERENCES[key]
 
 
 def one_process(cfg, tokens, steps, where):
@@ -8126,10 +8264,8 @@ def parity(leg):
     full = train.init_state(torch.Generator().manual_seed(6), cfg,
                             device="cpu")
     blocks, specs = train.shard_state(full, cfg, mesh)
-    ref, ref_metrics = one_process(cfg, tokens, leg["steps"], device)
-    cpu, cpu_metrics = one_process(cfg, tokens, leg["steps"],
-                                   torch.device("cpu"))
-    step = step_builder(cfg, mesh, leg["moe"])(blocks)
+    (ref, ref_metrics), (cpu, cpu_metrics) = references(cfg, leg, tokens)
+    step = step_builder(cfg, mesh, leg)(blocks)
     rows = local_batch(tokens, mesh).to(device)
     attention.reset_launch_counts()
     metrics = []
@@ -8143,12 +8279,16 @@ def parity(leg):
     witness = max_state_diff(ref, cpu)
     metric_err = max(abs(a - b) for ref_m in (ref_metrics, cpu_metrics)
                      for x, y in zip(metrics, ref_m) for a, b in zip(x, y))
+    # The sp legs' gradients also sum over the sequence's chunks, so the
+    # card step is held, as the CPU one, to the witness's gap.
+    card_bound = (max(leg["param_atol"], leg["cpu_gap_ratio"] * witness)
+                  if leg.get("sp") else leg["param_atol"])
     log("parity", name=leg["name"], metrics=metrics,
         reference_metrics=ref_metrics, cpu_metrics=cpu_metrics,
         max_param_abs_diff=err, max_param_abs_diff_cpu=cpu_err,
         one_process_card_vs_cpu=witness,
         max_metric_abs_diff=metric_err, launches=counts,
-        ok=(err <= leg["param_atol"] and metric_err <= leg["metric_atol"]
+        ok=(err <= card_bound and metric_err <= leg["metric_atol"]
             and cpu_err <= max(leg["param_atol"],
                                leg["cpu_gap_ratio"] * witness)))
 
@@ -8170,11 +8310,24 @@ def flagship(leg):
         0, cfg.vocab_size, (leg["batch"], leg["seq"] + 1), device=device,
         generator=torch.Generator(device=device).manual_seed(1))
     rows = local_batch(tokens, mesh)
-    step = step_builder(cfg, mesh, leg["moe"])(blocks)
-    losses = []
+    reference = None
+    if leg.get("reference") and RANK == 0:
+        # The one-process step on the same params and tokens, through the
+        # kernels, on a copy (the blocks of a replicated leaf are the
+        # whole tensor).
+        alone = tree_map(lambda x: x.clone() if torch.is_tensor(x) else x,
+                         blocks)
+        _, m = train.make_train_step(cfg)(alone, tokens)
+        reference = [m["loss"].item(), m["grad_norm"].item()]
+        del alone, m
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    step = step_builder(cfg, mesh, leg)(blocks)
+    losses, norms = [], []
     with chip_smoke.FlashRecorder(attention) as recorder:
         blocks, m = step(blocks, rows)
     losses.append(m["loss"].item())
+    norms.append(m["grad_norm"].item())
     recorded = chip_smoke.check_recorded(recorder.calls)
     recorder.calls.clear()
     for _ in range(leg["warmup"] - 1):
@@ -8196,6 +8349,7 @@ def flagship(leg):
         after = chip_smoke.flash_counts()
         per_step.append({k: after[k] - before[k] for k in after})
     log("flagship", name=leg["name"], step_ms=step_ms, losses=losses,
+        first_grad_norm=norms[0], reference=reference,
         collectives=collectives.collective_stats(mesh),
         rank_bytes=tree_nbytes(blocks), one_device_bytes=one_device,
         rows=list(rows.shape), launches_per_step=per_step,
@@ -8239,7 +8393,7 @@ def resume(leg):
             epoch_batches(tokens, None, leg["batch"], seed=leg["seed"],
                           process_index=piece, process_count=pieces,
                           start_step=blocks.step), device)
-    step = step_builder(cfg, mesh, False)(blocks)
+    step = step_builder(cfg, mesh, leg)(blocks)
     attention.reset_launch_counts()
     with AsyncCheckpointer("checkpoints", keep=2) as saver:
         while blocks.step < leg["steps"]:
@@ -8371,7 +8525,7 @@ def rank_timeline(run: dict) -> list:
             for e in run["events"][0] if e["event"] != "step"]
 
 
-def phase_train_mesh(device, smi: str) -> dict:
+def phase_train_mesh(device, smi: str) -> tuple:
     """Phase 34: sharded training as one launch of TRAIN_MESH_RANKS SPMD
     ranks on the card, then a second for the restart. (a) The tiny fp32
     parity legs against the one-process step through the plain route; (b)
@@ -8380,8 +8534,12 @@ def phase_train_mesh(device, smi: str) -> dict:
     saving asynchronously with its layout at step TRAIN_MESH_SAVE_AT and
     stepping on: every rank SIGKILLed inside the loop once that save is
     published, relaunched, each restores it and runs to
-    TRAIN_MESH_RESUME_STEPS, its losses against (b)'s. Returns each rank's
-    flash launches over (b)'s timed steps."""
+    TRAIN_MESH_RESUME_STEPS, its losses against (b)'s. Phase 35 runs in
+    the same launch: the TRAIN_SP_PARITY legs beside (a) and the
+    TRAIN_SP_FLAGSHIP legs beside (b), each also held, on its first step,
+    to the one-process step on the same params and tokens. Returns each
+    rank's flash launches over (b)'s timed steps and over each sp
+    flagship leg's."""
     import shutil
 
     t0 = time.perf_counter()
@@ -8396,16 +8554,32 @@ def phase_train_mesh(device, smi: str) -> dict:
                         model=TRAIN_MESH_TINY_MOE if moe else TRAIN_MESH_TINY,
                         batch=8, seq=256, steps=3, param_atol=FP32_ATOL,
                         metric_atol=1e-5,
-                        cpu_gap_ratio=TRAIN_MESH_CPU_GAP_RATIO)
+                        cpu_gap_ratio=TRAIN_MESH_CPU_GAP_RATIO, blocks=1)
                    for name, axes, sizes, moe in TRAIN_MESH_PARITY]
+    parity_legs += [dict(name=name, axes=list(axes), sizes=list(sizes),
+                         sp=mode, dtype="float32", model=TRAIN_MESH_TINY,
+                         batch=2, seq=1024, steps=2, param_atol=FP32_ATOL,
+                         metric_atol=1e-5,
+                         cpu_gap_ratio=TRAIN_MESH_CPU_GAP_RATIO,
+                         blocks=sp_blocks(mode, dict(zip(axes, sizes))["sp"]))
+                    for name, axes, sizes, mode in TRAIN_SP_PARITY]
+    sp_flagship = [dict(name=f"sp_{mode}", axes=list(axes),
+                        sizes=list(sizes), sp=mode, model=TRAIN_FLAGSHIP,
+                        dtype="bfloat16", batch=TRAIN_SP_BATCH,
+                        seq=TRAIN_SP_SEQ, warmup=1, timed=2, reference=True,
+                        blocks=sp_blocks(mode, dict(zip(axes, sizes))["sp"]))
+                   for mode, axes, sizes in TRAIN_SP_FLAGSHIP]
     flagship_legs = [
         dict(name="dense", axes=list(dense_axes), sizes=list(dense_sizes),
              model=TRAIN_FLAGSHIP, dtype="bfloat16", batch=TRAIN_BATCH,
-             seq=TRAIN_SEQ, warmup=2, timed=3, moe=False),
+             seq=TRAIN_SEQ, warmup=1, timed=3, moe=False),
         dict(name="moe", axes=list(TRAIN_MESH_MOE[0]),
              sizes=list(TRAIN_MESH_MOE[1]), model=TRAIN_FLAGSHIP_MOE,
              dtype="bfloat16", batch=TRAIN_BATCH, seq=TRAIN_SEQ, warmup=1,
              timed=2, moe=True)]
+    for leg in flagship_legs:
+        leg["blocks"] = 1
+    flagship_legs += sp_flagship
     try:
         first = launch_mesh_ranks(workdir, mesh_trainer_config(
             "cuda", ("parity", "flagship", "resume"), tag="first",
@@ -8435,15 +8609,23 @@ def phase_train_mesh(device, smi: str) -> dict:
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     for leg in parity_legs:
         lines = [r[0] for r in by_rank(first, "parity", name=leg["name"])]
-        n_launch = leg["steps"] * leg["model"]["n_layers"]
+        n_launch = leg["steps"] * leg["model"]["n_layers"] * leg["blocks"]
         launches = [line["launches"] for line in lines]
         ok = (all(line["ok"] for line in lines)
               and all(c == launches[0] for c in launches)
               and all(launches[0][k] == n_launch for k in kernels)
               and all(launches[0][k] == 0 for k in
                       ("plain_fwd", "plain_bwd", "plain_mha")))
-        emit("train_mesh_parity", name=leg["name"], ok=ok, mesh=dict(
-            zip(leg["axes"], leg["sizes"])), model=leg["model"],
+        card_rule = (f"params {leg['param_atol']} abs against the "
+                     "one-process step on the card through the plain route")
+        if leg.get("sp"):
+            card_rule = ("params against the one-process step on the card "
+                         "through the plain route within the larger of "
+                         f"{leg['param_atol']} and {leg['cpu_gap_ratio']} "
+                         "times that step's gap to the CPU step")
+        emit("train_sp_parity" if leg.get("sp") else "train_mesh_parity",
+             name=leg["name"], ok=ok, context_parallel=leg.get("sp"),
+             mesh=dict(zip(leg["axes"], leg["sizes"])), model=leg["model"],
              tokens=[leg["batch"], leg["seq"] + 1], steps=leg["steps"],
              metrics_rank0=lines[0]["metrics"],
              reference_metrics=lines[0]["reference_metrics"],
@@ -8455,19 +8637,20 @@ def phase_train_mesh(device, smi: str) -> dict:
              max_metric_abs_diff=max(l["max_metric_abs_diff"]
                                      for l in lines),
              launches_by_rank=launches,
-             tolerance=f"params {leg['param_atol']} abs against the "
-                       "one-process step on the card through the plain "
-                       f"route; loss and grad norm {leg['metric_atol']} abs "
-                       "against it and against the same step on the CPU; "
-                       "params against the CPU step within the larger of "
-                       f"{leg['param_atol']} and {leg['cpu_gap_ratio']} "
-                       "times the one-process card step's gap to it")
+             launches_per_kernel_expected=n_launch,
+             tolerance=card_rule
+             + f"; loss and grad norm {leg['metric_atol']} abs "
+               "against it and against the same step on the CPU; "
+               "params against the CPU step within the larger of "
+               f"{leg['param_atol']} and {leg['cpu_gap_ratio']} "
+               "times the one-process card step's gap to it")
         if not ok:
             failures.append(f"parity {leg['name']}")
     out, dense_losses = {}, None
     for leg in flagship_legs:
         lines = [r[0] for r in by_rank(first, "flagship", name=leg["name"])]
-        want = {k: leg["model"]["n_layers"] for k in kernels}
+        want = {k: leg["model"]["n_layers"] * leg["blocks"]
+                for k in kernels}
         want.update(plain_fwd=0, plain_bwd=0, plain_mha=0)
         every = all(p == want for line in lines
                     for p in line["launches_per_step"])
@@ -8477,10 +8660,18 @@ def phase_train_mesh(device, smi: str) -> dict:
         falling = (all(math.isfinite(x) for x in losses)
                    and losses[-1] < losses[0]
                    and all(line["losses"] == losses for line in lines))
+        reference = lines[0]["reference"]
+        first_rel = None if reference is None else [
+            abs(a - b) / abs(b) for a, b in zip(
+                [losses[0], lines[0]["first_grad_norm"]], reference)]
+        matched = first_rel is None or max(first_rel) <= TRAIN_SP_RTOL
         step_ms = [float(np.median(line["step_ms"])) for line in lines]
         coll = lines[0]["collectives"]
         coll_ms = sum(v["ms"] for v in coll.values()) / leg["timed"]
-        emit(f"train_mesh_{leg['name']}", ok=every and recorded and falling,
+        ok = every and recorded and falling and matched
+        emit(f"train_{leg['name']}" if leg.get("sp")
+             else f"train_mesh_{leg['name']}", ok=ok,
+             context_parallel=leg.get("sp"),
              mesh=dict(zip(leg["axes"], leg["sizes"])),
              batch=leg["batch"], seq=leg["seq"], dtype="bfloat16",
              master_weights="float32", warmup_steps=leg["warmup"],
@@ -8491,7 +8682,9 @@ def phase_train_mesh(device, smi: str) -> dict:
              / float(np.median(step_ms)) * 1e3,
              collectives_rank0_per_step={
                  k: {"calls": v["calls"] / leg["timed"],
-                     "ms": v["ms"] / leg["timed"]} for k, v in coll.items()},
+                     "ms": v["ms"] / leg["timed"],
+                     "bytes": v["bytes"] / leg["timed"]}
+                 for k, v in coll.items()},
              collective_share_rank0=coll_ms / float(np.median(
                  lines[0]["step_ms"])),
              rank_bytes=[line["rank_bytes"] for line in lines],
@@ -8500,9 +8693,16 @@ def phase_train_mesh(device, smi: str) -> dict:
              launches_per_step_rank0=lines[0]["launches_per_step"][0],
              launches_every_step_as_expected=every,
              step_check=lines[0]["recorded"], step_check_all_ranks=recorded,
-             losses=losses, peak_memory_gb_by_rank=[
+             losses=losses, first_grad_norm=lines[0]["first_grad_norm"],
+             one_process_first_step=reference,
+             first_step_rel_diff=first_rel,
+             tolerance=(None if reference is None else
+                        f"the first step's loss and grad norm "
+                        f"{TRAIN_SP_RTOL} rel against the one-process step "
+                        "on the same params and tokens"),
+             peak_memory_gb_by_rank=[
                  line["peak_memory_gb"] for line in lines], gpu=smi)
-        if not (every and recorded and falling):
+        if not ok:
             failures.append(f"flagship {leg['name']}")
         out[leg["name"]] = {str(i): {k: line["launches"][k] for k in kernels}
                             for i, line in enumerate(lines)}
@@ -8568,13 +8768,26 @@ def phase_train_mesh(device, smi: str) -> dict:
          launches_by_rank=[d["launches"] for d in done], gpu=smi)
     if not resumed_ok:
         failures.append("resume")
+    # Each leg's seconds on rank 0: from the event before it to its own.
+    ends = [(e.get("name"), e["t"]) for e in first["events"][0]
+            if e["event"] in ("device_ready", "parity", "flagship")]
+    sp_names = {leg["name"] for leg in parity_legs + flagship_legs
+                if leg.get("sp")}
+    sp_seconds = {name: t - before for (_, before), (name, t)
+                  in zip(ends, ends[1:]) if name in sp_names}
+    emit("train_sp", legs=sorted(sp_names), seconds=sum(sp_seconds.values()),
+         seconds_by_leg=sp_seconds,
+         failures=[f for f in failures if f.split()[-1] in sp_names],
+         gpu=smi)
     emit("train_mesh", ranks=n, seconds=time.perf_counter() - t0,
+         sp_legs_seconds=sum(sp_seconds.values()),
          timeline_rank0={"first": rank_timeline(first),
                          "second": rank_timeline(second)},
          failures=failures, gpu=smi)
     if failures:
         raise AssertionError(f"train_mesh: {failures}")
-    return out["dense"]
+    return out["dense"], {leg["name"]: out[leg["name"]]
+                          for leg in flagship_legs if leg.get("sp")}
 
 def main() -> int:
     import shutil
@@ -8652,7 +8865,7 @@ def run_phases(bucket: str) -> int:
     bucketed = phase_serve_bucketed(device, smi)
     mesh = phase_serve_mesh(device, smi)
     torch.cuda.empty_cache()
-    train_mesh = phase_train_mesh(device, smi)
+    train_mesh, train_sp = phase_train_mesh(device, smi)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -8731,7 +8944,10 @@ def run_phases(bucket: str) -> int:
             "launches_train_profile_window": window_counts[name],
             "launches_train_moe": moe["train"][name],
             "launches_train_mesh_by_rank": {
-                rank: counts[name] for rank, counts in train_mesh.items()}})
+                rank: counts[name] for rank, counts in train_mesh.items()},
+            "launches_train_sp_by_rank": {
+                leg: {rank: counts[name] for rank, counts in ranks.items()}
+                for leg, ranks in train_sp.items()}})
         # B1, B2 and B3 v3: wgmma fed by TMA rings
         build = fwd_build if name == "flash_fwd" else bwd_build[name]
         kernels[-1].update(version="v3", kernel=f"{name}_wgmma_kernel",

@@ -203,21 +203,25 @@ def test_master_weights_and_bf16_use_site_casts():
 
 
 def test_unported_training_paths_raise():
-    """Sequence and pipeline parallelism stay ROADMAP A14: their step
-    builders, and an ``activation_spec`` that shards the sequence. The
-    mesh step, a batch-axes ``activation_spec``, a ``moe_fn`` and
-    ``token_shards`` are ported (``test_torch_train_mesh.py``)."""
+    """Pipeline parallelism stays ROADMAP A14. An ``activation_spec`` that
+    shards the sequence needs an attention that crosses the ranks'
+    windows, ``make_sp_train_step``'s (``test_torch_sp_train*.py``); one
+    on the model dim has no counterpart. The mesh step, a batch-axes
+    ``activation_spec``, a ``moe_fn`` and ``token_shards`` are ported
+    (``test_torch_train_mesh.py``)."""
     _, cfg = _configs()
-    for fn in (ttrain.make_pp_train_step, ttrain.make_sp_train_step):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn(cfg)
-    seq = PartitionSpec(("dp",), "sp", None)
     with pytest.raises(NotImplementedError, match="A14"):
+        ttrain.make_pp_train_step(cfg)
+    seq = PartitionSpec(("dp",), "sp", None)
+    with pytest.raises(ValueError, match="make_sp_train_step"):
         ttrain.make_train_step(cfg, activation_spec=seq)
     tokens = torch.zeros((2, 9), dtype=torch.int64)
     params = ttf.init(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttf.loss_fn(params, cfg, tokens, activation_spec=seq)
+    assert torch.equal(ttf.loss_fn(params, cfg, tokens, activation_spec=seq),
+                       ttf.loss_fn(params, cfg, tokens))
+    with pytest.raises(NotImplementedError, match="model dim"):
+        ttf.loss_fn(params, cfg, tokens,
+                    activation_spec=PartitionSpec(None, None, "tp"))
     with pytest.raises(ValueError, match="fused loss path"):
         ttf.loss_fn(params, cfg, tokens, fused=False,
                     activation_spec=PartitionSpec(("dp",), None, None))

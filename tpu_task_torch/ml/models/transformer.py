@@ -38,8 +38,12 @@ own heads and columns: the replicated activation enters them through
 :func:`~tpu_task_torch.ml.parallel.collectives.sum_grads` and leaves
 through the all-reduce, Megatron-LM's pair. The collectives and their
 gradients are :mod:`~tpu_task_torch.ml.parallel.collectives`'.
-Sequence sharding (an ``activation_spec`` on the seq axis) is ROADMAP
-A14's sp item and raises."""
+
+Sequence sharding (an ``activation_spec`` whose second entry names the
+``sp`` axis, ``train.make_sp_train_step``) gives each rank a contiguous
+chunk of every row: :func:`loss_fn` and :func:`apply_features_with_aux`
+take the chunk's global ``positions`` for the rotary embedding, and the
+step's ``attn_fn`` (a ring or Ulysses) crosses the chunks."""
 
 from __future__ import annotations
 
@@ -520,12 +524,15 @@ def apply_features_with_aux(params: Params, cfg: TransformerConfig,
                             attn_fn: Optional[AttnFn] = None,
                             moe_fn: Optional[MoeFn] = None, *, mesh=None,
                             pspecs: Optional[Params] = None,
-                            expert_axis: Optional[str] = None):
+                            expert_axis: Optional[str] = None,
+                            positions: Optional[torch.Tensor] = None):
     """tokens (batch, seq) → (final-norm features (batch, seq, d_model),
     the mean router loss over the MoE layers, a float32 zero for an
     all-dense config). The default attention is
     :func:`dot_product_attention` over expanded kv heads: the flash
-    kernels wherever its routing rule admits the shape.
+    kernels wherever its routing rule admits the shape. ``positions``
+    (seq,): the tokens' positions for the rotary embedding (default
+    0..seq-1; a rank's sequence chunk passes its global ones).
 
     With ``pspecs`` (the specs of ``params``, each leaf this rank's block
     on ``mesh``) ``tokens`` are this rank's rows and each weight is
@@ -550,7 +557,8 @@ def apply_features_with_aux(params: Params, cfg: TransformerConfig,
         if pspecs is not None:
             layer = _layer_for_step(layer, pspecs["layers"][i], cfg, mesh,
                                     expert_axis)
-        x, aux = _block(x, layer, cfg, attn_fn, moe_fn=moe_fn, mesh=mesh)
+        x, aux = _block(x, layer, cfg, attn_fn, positions=positions,
+                        moe_fn=moe_fn, mesh=mesh)
         if "router" in layer:
             aux_sum = aux_sum + aux
             n_moe += 1
@@ -708,14 +716,15 @@ def activation_batch_axes(activation_spec) -> tuple:
     """The batch axes an ``activation_spec`` (a PartitionSpec over
     (batch, seq, d_model), or anything with a ``.spec``, as JAX's
     NamedSharding) names: its first entry. On a rank the activations are
-    its own rows already, so that entry asks for nothing more; an entry on
-    the sequence or model dim is sequence parallelism, ROADMAP A14's sp
-    item, and raises."""
+    its own rows already, so that entry asks for nothing more, and a
+    second entry (the sequence axis: each rank its chunk, cut by
+    ``train.make_sp_train_step``) neither; an entry on the model dim has
+    no counterpart and raises."""
     spec = tuple(getattr(activation_spec, "spec", activation_spec))
-    if any(entry is not None for entry in spec[1:]):
+    if any(entry is not None for entry in spec[2:]):
         raise NotImplementedError(
-            f"activation_spec {spec} shards the sequence (sequence "
-            "parallelism) and is not ported yet: ROADMAP A14")
+            f"activation_spec {spec} shards the model dim, which the port "
+            "does not do")
     return entry_axes(spec[0]) if spec else ()
 
 
@@ -723,7 +732,8 @@ def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             attn_fn: Optional[AttnFn] = None, fused: bool = True,
             activation_spec=None, moe_fn=None, token_shards: int = 1, *,
             mesh=None, pspecs: Optional[Params] = None,
-            expert_axis: Optional[str] = None) -> torch.Tensor:
+            expert_axis: Optional[str] = None,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross-entropy over tokens (batch, seq). ``fused=True``
     streams the unembed and softmax over vocab blocks (:func:`fused_xent`);
     ``fused=False`` is the monolithic reference path. A config with MoE
@@ -733,7 +743,9 @@ def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     With ``pspecs`` it is one rank's loss of the sharded step: ``params``
     the rank's blocks on ``mesh``, ``tokens`` its rows, the mean over its
     own tokens (:func:`apply_features_with_aux`; the vocab-sharded
-    ``unembed`` is all-gathered whole for the fused cross-entropy)."""
+    ``unembed`` is all-gathered whole for the fused cross-entropy).
+    ``positions`` (seq - 1,): the input tokens' positions, a rank's
+    sequence chunk's global ones (default 0..seq-2)."""
     if activation_spec is not None:
         if not fused:
             raise ValueError("activation_spec requires the fused loss path")
@@ -742,7 +754,8 @@ def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     targets = tokens[:, 1:]
     features, aux = apply_features_with_aux(
         params, cfg, tokens[:, :-1], attn_fn=attn_fn, moe_fn=moe_fn,
-        mesh=mesh, pspecs=pspecs, expert_axis=expert_axis)
+        mesh=mesh, pspecs=pspecs, expert_axis=expert_axis,
+        positions=positions)
     b, s, d = features.shape
     if pspecs is None:
         unembed = params["unembed"].to(cfg.dtype)

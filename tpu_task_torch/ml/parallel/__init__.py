@@ -1,14 +1,19 @@
-"""Parallelism: device meshes, partition rules and the gang of ranks that
-serves one engine over a mesh — the names ``tpu_task/ml/parallel/
-__init__.py`` exports that have a counterpart here (``PartitionPlan``,
-``compile_step``, ``named_sharding`` and ``pspecs_to_shardings`` are XLA's
-compile seam; the gang's program broadcast takes its place)."""
+"""Parallelism: device meshes, partition rules, the gang of ranks that
+serves one engine over a mesh, and sequence-parallel attention — the names
+``tpu_task/ml/parallel/__init__.py`` exports that have a counterpart here
+(``PartitionPlan``, ``compile_step``, ``named_sharding`` and
+``pspecs_to_shardings`` are XLA's compile seam; the gang's program
+broadcast takes its place), plus the sequence cut ``sequence_piece`` and
+the context-parallel attention modules :mod:`.ring_attention` and
+:mod:`.ulysses` (as modules: ``ring_attention`` is also a function of the
+first)."""
 
 from tpu_task_torch.ml.parallel.mesh import (
     Mesh,
     balanced_mesh_shape,
     distributed_init_from_env,
     make_mesh,
+    sequence_piece,
 )
 from tpu_task_torch.ml.parallel.sharding import (
     PartitionSpec,
@@ -17,6 +22,7 @@ from tpu_task_torch.ml.parallel.sharding import (
     match_partition_rules,
     shard_pytree,
 )
+from tpu_task_torch.ml.parallel import ring_attention, ulysses
 
 __all__ = [
     "Mesh",
@@ -27,5 +33,8 @@ __all__ = [
     "logical_to_mesh_axes",
     "make_mesh",
     "match_partition_rules",
+    "ring_attention",
+    "sequence_piece",
     "shard_pytree",
+    "ulysses",
 ]

@@ -1,11 +1,11 @@
 """The collectives of a mesh's ranks, each with its gradient: the port's
-counterpart of the ``psum``, ``all_gather`` and ``all_to_all`` that JAX's
-SPMD partitioner inserts and differentiates.
+counterpart of the ``psum``, ``all_gather``, ``all_to_all`` and
+``ppermute`` that JAX's SPMD programs run and differentiate.
 
 Every collective runs on the ``torch.distributed`` group of one mesh axis
 (:meth:`Mesh.group`), is counted on the mesh by kind as ``[calls,
-seconds]`` (:func:`collective_stats`), and is its own input at an axis of
-one. :func:`all_reduce`, :func:`all_to_all` and the weight gather
+seconds, bytes]`` (:func:`collective_stats`; the bytes are the rank's
+input to the call), and is its own input at an axis of one. :func:`all_reduce`, :func:`all_to_all` and the weight gather
 :func:`gather_cast` are ``torch.autograd.Function``s (:func:`all_gather`
 carries no gradient); each backward is another collective, counted the
 same way. Which one depends on how the ranks of the axis use the result,
@@ -25,11 +25,25 @@ and the caller says so:
 A reduce-scatter is an all-to-all of the rank's pieces and their sum
 (half an all-reduce's bytes): gloo's reduce_scatter was never checked with
 CUDA tensors. Only the collectives of :data:`GLOO_CUDA_COLLECTIVES` take a
-CUDA tensor."""
+CUDA tensor.
+
+:func:`ppermute` (the ring's hop: send to the next position on the axis,
+receive from the previous one) and :func:`exchange` (uneven pieces to
+named positions: the zigzag ring's re-layout) are one call of
+``dist.all_to_all_single`` with uneven split sizes, zero for every rank
+but the ones that trade. On an H100 (torch 2.11, CUDA 12.8; ``chip_p2p.py``
+at the repository's root) gloo took CUDA tensors that way, 2 and 4 ranks
+on one card, and moved 8 MB of bf16 to the neighbour in 7.1-14.3 ms over
+two runs, within the spread of a copy through pinned host memory and
+gloo's send/recv (7.2-15.7 ms); gloo's send/recv itself refuses a CUDA
+tensor (``writev ... Bad address``). So every hop takes that one path, on
+either device, and moves only its own bytes (an even all_to_all with zero
+rows would move the axis size times as many)."""
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Dict, Sequence, Tuple
 
@@ -39,10 +53,13 @@ import torch.distributed as dist
 from tpu_task_torch.ml.parallel.sharding import mesh_axis_size as axis_size
 
 #: The collectives gloo was found to run on CUDA tensors itself (an H100,
-#: torch 2.11): each of the three, so none is staged by hand. A collective
-#: outside this set refuses a CUDA tensor (:func:`_counted`) until it is
+#: torch 2.11): all_reduce, all_gather and all_to_all (even and uneven
+#: split sizes), and ppermute, which is an uneven all_to_all; so none is
+#: staged by hand. A collective outside this set (send/recv,
+#: reduce_scatter) refuses a CUDA tensor (:func:`_counted`) until it is
 #: checked on the card or staged through pinned host memory.
-GLOO_CUDA_COLLECTIVES = frozenset({"all_reduce", "all_gather", "all_to_all"})
+GLOO_CUDA_COLLECTIVES = frozenset({"all_reduce", "all_gather", "all_to_all",
+                                   "ppermute"})
 
 
 class CollectiveError(RuntimeError):
@@ -56,15 +73,17 @@ def _counted(mesh, kind: str, x: torch.Tensor):
             f"gloo's {kind} is not known to take CUDA tensors")
     t0 = time.perf_counter()
     yield
-    entry = mesh.collectives.setdefault(kind, [0, 0.0])
+    entry = mesh.collectives.setdefault(kind, [0, 0.0, 0])
     entry[0] += 1
     entry[1] += time.perf_counter() - t0
+    entry[2] += x.numel() * x.element_size()
 
 
 def collective_stats(mesh) -> Dict[str, Dict[str, float]]:
-    """This process's collectives by kind: calls and host ms."""
-    return {kind: {"calls": n, "ms": s * 1e3}
-            for kind, (n, s) in sorted(mesh.collectives.items())}
+    """This process's collectives by kind: calls, host ms and the bytes
+    this rank handed them."""
+    return {kind: {"calls": n, "ms": s * 1e3, "bytes": b}
+            for kind, (n, s, b) in sorted(mesh.collectives.items())}
 
 
 # -- the plain collectives -----------------------------------------------------
@@ -90,6 +109,20 @@ def _exchange(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
     out = torch.empty_like(x)
     with _counted(mesh, "all_to_all", x):
         dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return out
+
+
+def _route(mesh, flat: torch.Tensor, axis: str, send: Sequence[int],
+           recv: Sequence[int], kind: str) -> torch.Tensor:
+    """One uneven all_to_all of the 1-d ``flat``: its first ``send[0]``
+    elements to axis position 0, the next ``send[1]`` to position 1, ...;
+    returns what each position sent here, concatenated in position order
+    (``recv[j]`` elements from position j)."""
+    out = flat.new_empty(sum(recv))
+    with _counted(mesh, kind, flat):
+        dist.all_to_all_single(out, flat, output_split_sizes=list(recv),
+                               input_split_sizes=list(send),
+                               group=mesh.group(axis))
     return out
 
 
@@ -147,6 +180,19 @@ class _AllToAll(torch.autograd.Function):
         # Row i of the output is row (this rank) of rank i's input, so the
         # cotangent goes back by the same exchange.
         return _exchange(ctx.mesh, g, ctx.axis), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, mesh, axis, send, recv):
+        ctx.mesh, ctx.axis, ctx.send, ctx.recv = mesh, axis, send, recv
+        return _route(mesh, flat, axis, send, recv, "all_to_all")
+
+    @staticmethod
+    def backward(ctx, g):
+        # Each piece's cotangent goes back to the position it came from.
+        return (_route(ctx.mesh, g.contiguous(), ctx.axis, ctx.recv,
+                       ctx.send, "all_to_all"), None, None, None, None)
 
 
 class _Gather(torch.autograd.Function):
@@ -237,6 +283,53 @@ def all_to_all(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
     return _AllToAll.apply(x, mesh, axis)
 
 
+def exchange(mesh, pieces: Sequence[Tuple[int, torch.Tensor]], axis: str,
+             incoming: Sequence[Tuple[int, Tuple[int, ...]]]
+             ) -> list:
+    """Uneven pieces to named positions of ``axis``, with a gradient: each
+    ``(position, tensor)`` of ``pieces`` goes to that position, and this
+    rank receives one tensor of each ``(position, shape)`` of
+    ``incoming``, from that position. Pieces between one pair of positions
+    arrive in the order they were listed, so every rank lists its pieces
+    by destination and its incoming ones by source, each pair's in an
+    order both sides know. One uneven all_to_all (counted as one), its
+    backward the reverse exchange; the tensors share one type. Returns the
+    received tensors in ``incoming``'s order."""
+    n = axis_size(mesh, axis)
+    order = sorted(range(len(pieces)), key=lambda j: pieces[j][0])
+    send, recv = [0] * n, [0] * n
+    for j in order:
+        send[pieces[j][0]] += pieces[j][1].numel()
+    sizes = [math.prod(shape) for _, shape in incoming]
+    for (src, _), size in zip(incoming, sizes):
+        recv[src] += size
+    if [src for src, _ in incoming] != sorted(src for src, _ in incoming):
+        raise ValueError("incoming pieces must be listed by source position")
+    flat = torch.cat([pieces[j][1].reshape(-1) for j in order])
+    out = _Exchange.apply(flat, mesh, axis, tuple(send), tuple(recv))
+    return [part.view(shape) for part, (_, shape) in
+            zip(out.split(sizes), incoming)]
+
+
+def ppermute(mesh, x: torch.Tensor, axis: str,
+             shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute(x, axis, [(i, (i + shift) % n)])``: ``x`` goes to the
+    position ``shift`` further along ``axis`` and the result is what the
+    position ``shift`` before sent, a tensor like ``x``. One uneven
+    all_to_all, counted as ``"ppermute"``; no gradient (the rings that use
+    it write their own backward)."""
+    n = axis_size(mesh, axis)
+    if n == 1 or shift % n == 0:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("ppermute carries no gradient")
+    i = mesh.axis_index(axis)
+    send, recv = [0] * n, [0] * n
+    send[(i + shift) % n] = recv[(i - shift) % n] = x.numel()
+    return _route(mesh, x.contiguous().reshape(-1), axis, send, recv,
+                  "ppermute").view(x.shape)
+
+
 __all__ = ["CollectiveError", "GLOO_CUDA_COLLECTIVES", "all_gather",
-           "all_reduce", "all_to_all", "collective_stats", "gather_cast",
-           "sum_grads"]
+           "all_reduce", "all_to_all", "collective_stats", "exchange",
+           "gather_cast", "ppermute", "sum_grads"]

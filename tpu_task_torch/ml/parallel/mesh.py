@@ -206,6 +206,22 @@ def local_batch_slice(global_batch: int, mesh=None) -> int:
     return global_batch // pieces
 
 
+def sequence_piece(length: int, mesh, axis: str = "sp"
+                   ) -> Tuple[int, int, int]:
+    """(this rank's index along ``axis``, the axis size, the first
+    position of its chunk) of a ``length``-token sequence cut into
+    contiguous chunks over ``axis``, as ``activation_spec``'s sequence
+    entry shards JAX's activations: rank ``i`` of ``n`` holds positions
+    ``[i * length / n, (i + 1) * length / n)``. Raises JAX's ValueError
+    when ``length`` does not divide."""
+    n = int(dict(mesh.shape).get(axis, 1))
+    if length % n:
+        raise ValueError(f"sequence ({length}) not divisible by {axis} "
+                         f"({n})")
+    index = mesh.axis_index(axis)
+    return index, n, index * (length // n)
+
+
 def local_batch(batch, mesh=None):
     """This rank's rows of ``batch`` (an array or tensor whose leading dim
     is the global batch): a contiguous block, :func:`batch_shard`'s

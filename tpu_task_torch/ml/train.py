@@ -32,8 +32,14 @@ batch axes its leaf is not sharded on, and takes the global norm as the
 sum of each leaf's squares over the axes it is sharded on, and only
 those; every rank then applies the same elementwise AdamW to its blocks.
 The loss is the mean of the pieces' token means: JAX's global token mean.
-Sequence and pipeline parallelism are not ported yet (ROADMAP A14) and
-raise."""
+
+**Sequence-parallel** (:func:`make_sp_train_step`, an ``sp`` axis beside
+any of those) each rank also cuts its contiguous window of every row's
+sequence (``mesh.sequence_piece``), rotated at its global positions, and
+attention crosses the windows through the zigzag ring or Ulysses
+(``ml/parallel``). The params replicate over ``sp``, so ``sp`` joins the
+axes that gradients and the loss reduce over. Pipeline parallelism is not
+ported yet (ROADMAP A14) and raises."""
 
 from __future__ import annotations
 
@@ -45,10 +51,11 @@ import torch
 from tpu_task_torch.device import resolve_device
 from tpu_task_torch.ml.models import transformer
 from tpu_task_torch.ml.parallel import collectives
-from tpu_task_torch.ml.parallel.mesh import batch_shard
+from tpu_task_torch.ml.parallel.mesh import batch_shard, sequence_piece
 from tpu_task_torch.ml.parallel.sharding import (
     PartitionSpec,
     _map,
+    entry_axes,
     logical_to_mesh_axes,
     mesh_axis_size,
     mesh_batch_axes,
@@ -277,10 +284,11 @@ def _token_shard_factor(mesh, activation_spec) -> int:
 @torch.no_grad()
 def _reduce_grads(grads: List[torch.Tensor], specs: List[PartitionSpec],
                   mesh, batch_axes: Tuple[str, ...]) -> None:
-    """Sum each gradient over the batch axes its leaf is not sharded on,
-    in place: the ranks of such an axis saw other rows through the same
-    block. Leaves that reduce over the same axes go as one float32
-    buffer, one all-reduce an axis."""
+    """Sum each gradient over the batch axes (and the sequence axis) its
+    leaf is not sharded on, in place: the ranks of such an axis saw other
+    rows, or other tokens of them, through the same block. Leaves that
+    reduce over the same axes go as one float32 buffer, one all-reduce an
+    axis."""
     groups: Dict[Tuple[str, ...], List[int]] = {}
     for i, spec in enumerate(specs):
         named = set(spec_axes(spec))
@@ -361,7 +369,9 @@ def make_train_step(cfg: transformer.TransformerConfig, optimizer=None,
     the sharded step, whose ``tokens`` are this rank's rows of the global
     batch (``mesh.local_batch``); a microbatch is each rank's rows cut
     ``accum_steps`` ways. ``activation_spec`` may name the batch axes
-    (its first entry); on the sequence it raises (ROADMAP A14)."""
+    (its first entry) and a sequence axis (its second: each rank cuts its
+    window of every row, as :func:`make_sp_train_step`'s step does, which
+    needs an ``attn_fn`` that crosses the windows)."""
     return _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
                       accum_steps, moe_fn)
 
@@ -374,11 +384,23 @@ def _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
     batch_axes: Tuple[str, ...] = ()
     if mesh is not None:
         batch_axes = mesh_batch_axes(mesh)
+    seq_axes: Tuple[str, ...] = ()
     if activation_spec is not None:
         named = transformer.activation_batch_axes(activation_spec)
         if mesh is not None and set(named) != set(batch_axes):
             _not_ported(f"activation_spec over batch axes {named} (the "
                         f"mesh's rows are cut over {batch_axes})")
+        spec = tuple(getattr(activation_spec, "spec", activation_spec))
+        seq_axes = entry_axes(spec[1]) if len(spec) > 1 else ()
+        if seq_axes and attn_fn is None:
+            raise ValueError("an activation_spec on the sequence needs an "
+                             "attn_fn that crosses the ranks' windows: use "
+                             "make_sp_train_step")
+        if len(seq_axes) > 1:
+            raise ValueError(f"the sequence shards over one axis, got "
+                             f"{seq_axes}")
+    seq_axis = seq_axes[0] if seq_axes and mesh is not None else None
+    reduce_axes = batch_axes + ((seq_axis,) if seq_axis else ())
     pieces = _token_shard_factor(mesh, activation_spec)
     pspecs = (transformer.param_pspecs(cfg, mesh=mesh)
               if mesh is not None else None)
@@ -388,7 +410,19 @@ def _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
     coupled = (expert_axis is not None and accum_steps > 1
                and len(batch_axes) > 0)
 
+    def window(tokens: torch.Tensor):
+        """This rank's window of every row over ``seq_axis`` (its chunk of
+        the S-token sequence and the next token, the last target) and the
+        chunk's global positions."""
+        if seq_axis is None:
+            return tokens, None
+        _, n, start = sequence_piece(tokens.shape[1] - 1, mesh, seq_axis)
+        chunk = (tokens.shape[1] - 1) // n
+        return (tokens[:, start:start + chunk + 1],
+                torch.arange(start, start + chunk, device=tokens.device))
+
     def loss_and_grads(params: Params, tokens: torch.Tensor):
+        tokens, positions = window(tokens)
         leaves = _leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -403,7 +437,8 @@ def _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
             for micro in micros:
                 loss = transformer.loss_fn(
                     params, cfg, micro, attn_fn=attn_fn, moe_fn=moe_fn,
-                    mesh=mesh, pspecs=pspecs, expert_axis=expert_axis)
+                    mesh=mesh, pspecs=pspecs, expert_axis=expert_axis,
+                    positions=positions)
                 # Each rank's loss is its rows' mean: the pieces' mean is
                 # the global one, so each back-propagates its share.
                 scaled = loss if pieces == 1 else loss * (1.0 / pieces)
@@ -433,10 +468,10 @@ def _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
         loss, grads = loss_and_grads(state.params, tokens)
         norm = None
         if mesh is not None:
-            _reduce_grads(grads, leaf_specs, mesh, batch_axes)
+            _reduce_grads(grads, leaf_specs, mesh, reduce_axes)
             norm = sharded_global_norm(grads, leaf_specs, mesh)
             with torch.no_grad():
-                for axis in batch_axes:
+                for axis in reduce_axes:
                     loss = collectives.all_reduce(mesh, loss, axis)
                 loss = loss / pieces
         gnorm = optimizer.update(grads, state.opt_state, state.params,
@@ -497,5 +532,46 @@ def make_moe_train_step(cfg: transformer.TransformerConfig, mesh,
                       moe_fn, expert_axis=axis_name)
 
 
-def make_sp_train_step(*args, **kwargs):
-    _not_ported("the sequence-parallel train step")
+def make_sp_train_step(cfg: transformer.TransformerConfig, mesh,
+                       optimizer=None, axis_name: str = "sp",
+                       context_parallel: str = "zigzag"):
+    """The sequence-parallel (long-context) train step: JAX's
+    ``make_sp_train_step``. Each row's activations shard over
+    ``axis_name`` in contiguous chunks; params and optimizer state
+    replicate over it and follow the usual rules on the mesh's other axes
+    (``dp``, ``fsdp``, ``tp``). Returns, as :func:`make_train_step` with a
+    mesh, a function of the rank's state that returns the step; the step
+    takes the rank's rows over the batch axes at full length, (b_local, S
+    + 1) as ``mesh.local_batch`` gives them, and each rank cuts its window
+    of S / sp + 1 tokens.
+
+    ``context_parallel`` picks how attention crosses the chunks:
+    ``"zigzag"`` (the balanced causal ring; 2 sp must divide S) or
+    ``"ulysses"`` (two all_to_alls around one full-length attention;
+    ``n_heads % sp == 0``). A MoE config raises: JAX's step averages the
+    router statistics over the whole sequence, a rank's dense dispatch
+    sees its chunk (ROADMAP A14)."""
+    from tpu_task_torch.ml.parallel.ring_attention import (
+        zigzag_ring_attention)
+    from tpu_task_torch.ml.parallel.ulysses import ulysses_attention
+
+    batch_axes = mesh_batch_axes(mesh) or None
+    if context_parallel == "zigzag":
+        def attn(q, k, v):
+            return zigzag_ring_attention(q, k, v, mesh, axis_name=axis_name,
+                                         batch_axes=batch_axes)
+    elif context_parallel == "ulysses":
+        def attn(q, k, v):
+            return ulysses_attention(q, k, v, mesh, axis_name=axis_name,
+                                     batch_axes=batch_axes)
+    else:
+        raise ValueError(f"unknown context_parallel {context_parallel!r} "
+                         "(use 'zigzag' or 'ulysses')")
+    if axis_name not in dict(mesh.shape):
+        raise ValueError(f"mesh has no {axis_name!r} axis: "
+                         f"{mesh.axis_names}")
+    if any(cfg.is_moe_layer(i) for i in range(cfg.n_layers)):
+        _not_ported("the sequence-parallel step of a MoE config (its "
+                    "router statistics span the whole sequence)")
+    return _make_step(cfg, optimizer, mesh, attn,
+                      PartitionSpec(batch_axes, axis_name, None), 1, None)
