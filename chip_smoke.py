@@ -8,7 +8,7 @@ imported from the fleet KV plane, the HTTP replica, weight rolls, paged
 LoRA adapters, the overlapped loop, the host KV tier, mixture-of-experts
 layers, bucketed prefill, tensor- and expert-parallel gangs), and trains the flagship for a few steps, checkpointing, killing
 and restoring it, and its mixture-of-experts variant, also sharded over
-SPMD ranks and over the sequence.
+SPMD ranks, over the sequence and over pipeline stages.
 
     python3 chip_smoke.py
 
@@ -499,6 +499,26 @@ start); any failed check raises and the script exits non-zero:
              plain, losses falling, and the first step's loss and grad norm
              within ``TRAIN_SP_RTOL`` of the one-process step on the same
              params and tokens. ``train_sp`` sums the legs' seconds.
+36. train_pp — pipeline-parallel training (1F1B), legs of phase 34's
+             first launch: ``make_pp_train_step`` on tiny fp32 legs
+             (``TRAIN_PP_TINY``: pp 4 at 4 microbatches, dp 2 x pp 2 at 2;
+             tokens (8, 257), two steps, phase 34's parity gate with the
+             card step held, as the CPU one, to twice the one-process card
+             step's own gap to the CPU; B1 2 M x layers a stage and B2, B3
+             M x layers a stage a step on every rank, 0 plain) and
+             ``TRAIN_FLAGSHIP`` on pp 4 at M 4 (bf16, tokens (8, 1025), 2
+             rows a microbatch, 2 layers a stage), one warm-up step
+             (recorded as in (b)), one step timed tick by tick (each
+             tick's stage compute and hand-off wait after a sync: the
+             measured idle share against the bubble's (P - 1) / (M + P -
+             1)), then two timed steps: step ms on each rank, collectives
+             by kind with calls, ms and bytes (``pipeline_hop``,
+             ``pipeline_dx``, ``pipeline_head``), bytes a rank against one
+             device, peak memory; gates: 16 / 8 / 8 launches a step on
+             every rank, 0 plain, M + 2P - 2 = 10 hops a step, losses
+             falling, and the first step's loss and grad norm within
+             ``TRAIN_SP_RTOL`` of the one-process step on the same params
+             and tokens. ``train_pp`` sums the legs' seconds.
 
 Then the kernel table as one JSON line (the five ported kernels and the
 split walk's combine kernel; the three flash rows name their version, v3,
@@ -507,7 +527,8 @@ the paged rows and the combine's add their launches in phases 15, 17, 19,
 20, 22, 24, 25, 26, 27, 28, 29, 30, 31 and 32, each rank's in phase 33,
 and the scoring step's timing,
 the flash rows theirs in phase 31's train steps and each rank's in
-phase 34's timed dense steps and phase 35's timed flagship steps),
+phase 34's timed dense steps and phases 35's and 36's timed flagship
+steps),
 the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, it exits non-zero before any result."""
@@ -8120,6 +8141,29 @@ TRAIN_SP_BATCH, TRAIN_SP_SEQ = 1, 8192
 TRAIN_SP_RTOL = 2.0 ** -10
 
 
+#: Phase 36, pipeline-parallel training, run as legs of phase 34's rank
+#: launch. (name, mesh axes, sizes, microbatches) of the tiny fp32 parity
+#: legs on TRAIN_PP_TINY (TRAIN_MESH_TINY with 4 layers, so that 4 stages
+#: divide it), tokens (8, 257), under phase 34's parity gate.
+TRAIN_PP_PARITY = (("pp4_m4", ("pp",), (4,), 4),
+                   ("dp2_pp2_m2", ("dp", "pp"), (2, 2), 2))
+TRAIN_PP_TINY = dict(TRAIN_MESH_TINY, n_layers=4)
+#: The flagship leg: TRAIN_FLAGSHIP's 8 layers on 4 stages (2 a stage) at
+#: 4 microbatches of 2 rows, the train phase's tokens (8, 1025).
+TRAIN_PP_FLAGSHIP = ("pp", ("pp",), (4,), 4)
+
+
+def pp_launches(leg: dict) -> dict:
+    """Flash launches of each kernel a step on every rank of a pp leg:
+    each of the stage's layers runs the forward of M microbatches twice
+    (the forward tick and the backward's recompute) and the backward
+    once."""
+    sizes = dict(zip(leg["axes"], leg["sizes"]))
+    per_stage = leg["model"]["n_layers"] // sizes["pp"] * leg["pp"]
+    return {"flash_fwd": 2 * per_stage, "flash_bwd_dq": per_stage,
+            "flash_bwd_dkv": per_stage}
+
+
 def sp_blocks(mode: str, sp: int) -> int:
     """Flash launches of each kernel a layer a step on every rank: the
     zigzag diagonal's two blocks and one a remote chunk; Ulysses one
@@ -8191,6 +8235,8 @@ def model_config(leg):
 
 
 def step_builder(cfg, mesh, leg):
+    if leg.get("pp"):
+        return train.make_pp_train_step(cfg, mesh, leg["pp"])
     if leg.get("sp"):
         return train.make_sp_train_step(cfg, mesh,
                                         context_parallel=leg["sp"])
@@ -8235,6 +8281,51 @@ def one_process(cfg, tokens, steps, where):
     return state, metrics
 
 
+def pp_layout(state, mesh):
+    """A one-process state in the pipeline layout of ``mesh``'s stages."""
+    n = dict(mesh.shape)["pp"]
+    opt = state.opt_state
+    return train.TrainState(
+        state.step, train.pp_stack_params(state.params, n),
+        {"count": opt["count"], "mu": train.pp_stack_params(opt["mu"], n),
+         "nu": train.pp_stack_params(opt["nu"], n)})
+
+
+def shard(state, cfg, mesh, leg):
+    """This rank's blocks of ``state`` and their specs: the pipeline
+    layout's for a pp leg."""
+    if leg.get("pp"):
+        return train.shard_pp_state(pp_layout(state, mesh), mesh)
+    return train.shard_state(state, cfg, mesh)
+
+
+class TickTimer:
+    """Stands in for ``collectives.pipeline_hop`` for one step: a sync
+    before and after each hand-off splits the step into each tick's stage
+    compute (since the last hand-off) and its hand-off wait, the bubble
+    included."""
+
+    def __enter__(self):
+        self.saved, self.ticks = collectives.pipeline_hop, []
+        self.last = time.perf_counter()
+
+        def hop(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = self.saved(*args, **kwargs)
+            sync()
+            t1 = time.perf_counter()
+            self.ticks.append([(t0 - self.last) * 1e3, (t1 - t0) * 1e3])
+            self.last = t1
+            return out
+
+        collectives.pipeline_hop = hop
+        return self
+
+    def __exit__(self, *exc):
+        collectives.pipeline_hop = self.saved
+
+
 def max_block_diff(blocks, ref, specs, mesh) -> float:
     err = 0.0
     for got, want, spec in zip(leaves(blocks), leaves(ref),
@@ -8263,15 +8354,21 @@ def parity(leg):
                            generator=torch.Generator().manual_seed(5))
     full = train.init_state(torch.Generator().manual_seed(6), cfg,
                             device="cpu")
-    blocks, specs = train.shard_state(full, cfg, mesh)
+    blocks, specs = shard(full, cfg, mesh, leg)
+    t0 = time.perf_counter()
     (ref, ref_metrics), (cpu, cpu_metrics) = references(cfg, leg, tokens)
+    reference_s = time.perf_counter() - t0
+    if leg.get("pp"):
+        ref, cpu = pp_layout(ref, mesh), pp_layout(cpu, mesh)
     step = step_builder(cfg, mesh, leg)(blocks)
     rows = local_batch(tokens, mesh).to(device)
     attention.reset_launch_counts()
-    metrics = []
+    metrics, step_s = [], []
     for _ in range(leg["steps"]):
+        t0 = time.perf_counter()
         blocks, m = step(blocks, rows)
         metrics.append([m["loss"].item(), m["grad_norm"].item()])
+        step_s.append(time.perf_counter() - t0)
     sync()
     counts = chip_smoke.flash_counts()
     err = max_block_diff(blocks, ref, specs, mesh)
@@ -8279,11 +8376,13 @@ def parity(leg):
     witness = max_state_diff(ref, cpu)
     metric_err = max(abs(a - b) for ref_m in (ref_metrics, cpu_metrics)
                      for x, y in zip(metrics, ref_m) for a, b in zip(x, y))
-    # The sp legs' gradients also sum over the sequence's chunks, so the
-    # card step is held, as the CPU one, to the witness's gap.
+    # The sp legs' gradients also sum over the sequence's chunks, and the
+    # pp legs' over the microbatches, so the card step is held, as the CPU
+    # one, to the witness's gap.
     card_bound = (max(leg["param_atol"], leg["cpu_gap_ratio"] * witness)
-                  if leg.get("sp") else leg["param_atol"])
-    log("parity", name=leg["name"], metrics=metrics,
+                  if leg.get("sp") or leg.get("pp") else leg["param_atol"])
+    log("parity", name=leg["name"], metrics=metrics, reference_s=reference_s,
+        step_s=step_s,
         reference_metrics=ref_metrics, cpu_metrics=cpu_metrics,
         max_param_abs_diff=err, max_param_abs_diff_cpu=cpu_err,
         one_process_card_vs_cpu=witness,
@@ -8302,10 +8401,7 @@ def flagship(leg):
     full = train.init_state(torch.Generator(device=device).manual_seed(0),
                             cfg, device=device)
     one_device = tree_nbytes(full)
-    blocks, specs = train.shard_state(full, cfg, mesh)
-    del full
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    blocks, specs = shard(full, cfg, mesh, leg)
     tokens = torch.randint(
         0, cfg.vocab_size, (leg["batch"], leg["seq"] + 1), device=device,
         generator=torch.Generator(device=device).manual_seed(1))
@@ -8313,15 +8409,15 @@ def flagship(leg):
     reference = None
     if leg.get("reference") and RANK == 0:
         # The one-process step on the same params and tokens, through the
-        # kernels, on a copy (the blocks of a replicated leaf are the
-        # whole tensor).
+        # kernels, on a copy.
         alone = tree_map(lambda x: x.clone() if torch.is_tensor(x) else x,
-                         blocks)
+                         full)
         _, m = train.make_train_step(cfg)(alone, tokens)
         reference = [m["loss"].item(), m["grad_norm"].item()]
         del alone, m
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+    del full
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     step = step_builder(cfg, mesh, leg)(blocks)
     losses, norms = [], []
     with chip_smoke.FlashRecorder(attention) as recorder:
@@ -8330,8 +8426,14 @@ def flagship(leg):
     norms.append(m["grad_norm"].item())
     recorded = chip_smoke.check_recorded(recorder.calls)
     recorder.calls.clear()
-    for _ in range(leg["warmup"] - 1):
-        blocks, m = step(blocks, rows)
+    ticks = None
+    for i in range(leg["warmup"] - 1):
+        if leg.get("pp") and i == 0:
+            with TickTimer() as timer:
+                blocks, m = step(blocks, rows)
+            ticks = timer.ticks
+        else:
+            blocks, m = step(blocks, rows)
         losses.append(m["loss"].item())
     sync()
     if device.type == "cuda":
@@ -8353,7 +8455,8 @@ def flagship(leg):
         collectives=collectives.collective_stats(mesh),
         rank_bytes=tree_nbytes(blocks), one_device_bytes=one_device,
         rows=list(rows.shape), launches_per_step=per_step,
-        launches=chip_smoke.flash_counts(), recorded=recorded,
+        launches=chip_smoke.flash_counts(), recorded=recorded, ticks=ticks,
+        stage=mesh.axis_index("pp"),
         peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
                         if device.type == "cuda" else None))
 
@@ -8537,9 +8640,10 @@ def phase_train_mesh(device, smi: str) -> tuple:
     TRAIN_MESH_RESUME_STEPS, its losses against (b)'s. Phase 35 runs in
     the same launch: the TRAIN_SP_PARITY legs beside (a) and the
     TRAIN_SP_FLAGSHIP legs beside (b), each also held, on its first step,
-    to the one-process step on the same params and tokens. Returns each
-    rank's flash launches over (b)'s timed steps and over each sp
-    flagship leg's."""
+    to the one-process step on the same params and tokens; so does phase
+    36, the TRAIN_PP_PARITY legs and the TRAIN_PP_FLAGSHIP leg. Returns
+    each rank's flash launches over (b)'s timed steps, over each sp
+    flagship leg's and over the pp flagship leg's."""
     import shutil
 
     t0 = time.perf_counter()
@@ -8563,6 +8667,21 @@ def phase_train_mesh(device, smi: str) -> tuple:
                          cpu_gap_ratio=TRAIN_MESH_CPU_GAP_RATIO,
                          blocks=sp_blocks(mode, dict(zip(axes, sizes))["sp"]))
                     for name, axes, sizes, mode in TRAIN_SP_PARITY]
+    parity_legs += [dict(name=name, axes=list(axes), sizes=list(sizes),
+                         pp=micro, dtype="float32", model=TRAIN_PP_TINY,
+                         batch=8, seq=256, steps=2, param_atol=FP32_ATOL,
+                         metric_atol=1e-5,
+                         cpu_gap_ratio=TRAIN_MESH_CPU_GAP_RATIO)
+                    for name, axes, sizes, micro in TRAIN_PP_PARITY]
+    pp_name, pp_axes, pp_sizes, pp_micro = TRAIN_PP_FLAGSHIP
+    pp_flagship = dict(name=pp_name, axes=list(pp_axes),
+                       sizes=list(pp_sizes), pp=pp_micro,
+                       model=TRAIN_FLAGSHIP, dtype="bfloat16",
+                       batch=TRAIN_BATCH, seq=TRAIN_SEQ, warmup=2, timed=2,
+                       reference=True)
+    for leg in parity_legs + [pp_flagship]:
+        if leg.get("pp"):
+            leg["launches"] = pp_launches(leg)
     sp_flagship = [dict(name=f"sp_{mode}", axes=list(axes),
                         sizes=list(sizes), sp=mode, model=TRAIN_FLAGSHIP,
                         dtype="bfloat16", batch=TRAIN_SP_BATCH,
@@ -8579,7 +8698,7 @@ def phase_train_mesh(device, smi: str) -> tuple:
              timed=2, moe=True)]
     for leg in flagship_legs:
         leg["blocks"] = 1
-    flagship_legs += sp_flagship
+    flagship_legs += sp_flagship + [pp_flagship]
     try:
         first = launch_mesh_ranks(workdir, mesh_trainer_config(
             "cuda", ("parity", "flagship", "resume"), tag="first",
@@ -8609,22 +8728,26 @@ def phase_train_mesh(device, smi: str) -> tuple:
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     for leg in parity_legs:
         lines = [r[0] for r in by_rank(first, "parity", name=leg["name"])]
-        n_launch = leg["steps"] * leg["model"]["n_layers"] * leg["blocks"]
+        per_step = leg.get("launches") or {
+            k: leg["model"]["n_layers"] * leg["blocks"] for k in kernels}
+        n_launch = {k: leg["steps"] * per_step[k] for k in kernels}
         launches = [line["launches"] for line in lines]
         ok = (all(line["ok"] for line in lines)
               and all(c == launches[0] for c in launches)
-              and all(launches[0][k] == n_launch for k in kernels)
+              and all(launches[0][k] == n_launch[k] for k in kernels)
               and all(launches[0][k] == 0 for k in
                       ("plain_fwd", "plain_bwd", "plain_mha")))
         card_rule = (f"params {leg['param_atol']} abs against the "
                      "one-process step on the card through the plain route")
-        if leg.get("sp"):
+        if leg.get("sp") or leg.get("pp"):
             card_rule = ("params against the one-process step on the card "
                          "through the plain route within the larger of "
                          f"{leg['param_atol']} and {leg['cpu_gap_ratio']} "
                          "times that step's gap to the CPU step")
-        emit("train_sp_parity" if leg.get("sp") else "train_mesh_parity",
+        emit("train_sp_parity" if leg.get("sp") else "train_pp_parity"
+             if leg.get("pp") else "train_mesh_parity",
              name=leg["name"], ok=ok, context_parallel=leg.get("sp"),
+             microbatches=leg.get("pp"),
              mesh=dict(zip(leg["axes"], leg["sizes"])), model=leg["model"],
              tokens=[leg["batch"], leg["seq"] + 1], steps=leg["steps"],
              metrics_rank0=lines[0]["metrics"],
@@ -8634,10 +8757,13 @@ def phase_train_mesh(device, smi: str) -> tuple:
              max_param_abs_diff_cpu=max(l["max_param_abs_diff_cpu"]
                                         for l in lines),
              one_process_card_vs_cpu=lines[0]["one_process_card_vs_cpu"],
+             reference_s_by_rank=[l["reference_s"] for l in lines],
+             step_s_by_rank=[l["step_s"] for l in lines],
              max_metric_abs_diff=max(l["max_metric_abs_diff"]
                                      for l in lines),
              launches_by_rank=launches,
-             launches_per_kernel_expected=n_launch,
+             launches_per_kernel_expected=(n_launch if leg.get("pp")
+                                           else n_launch["flash_fwd"]),
              tolerance=card_rule
              + f"; loss and grad norm {leg['metric_atol']} abs "
                "against it and against the same step on the CPU; "
@@ -8649,8 +8775,8 @@ def phase_train_mesh(device, smi: str) -> tuple:
     out, dense_losses = {}, None
     for leg in flagship_legs:
         lines = [r[0] for r in by_rank(first, "flagship", name=leg["name"])]
-        want = {k: leg["model"]["n_layers"] * leg["blocks"]
-                for k in kernels}
+        want = dict(leg.get("launches") or {
+            k: leg["model"]["n_layers"] * leg["blocks"] for k in kernels})
         want.update(plain_fwd=0, plain_bwd=0, plain_mha=0)
         every = all(p == want for line in lines
                     for p in line["launches_per_step"])
@@ -8668,10 +8794,12 @@ def phase_train_mesh(device, smi: str) -> tuple:
         step_ms = [float(np.median(line["step_ms"])) for line in lines]
         coll = lines[0]["collectives"]
         coll_ms = sum(v["ms"] for v in coll.values()) / leg["timed"]
-        ok = every and recorded and falling and matched
-        emit(f"train_{leg['name']}" if leg.get("sp")
-             else f"train_mesh_{leg['name']}", ok=ok,
-             context_parallel=leg.get("sp"),
+        pp = pp_report(leg, lines) if leg.get("pp") else {}
+        ok = (every and recorded and falling and matched
+              and pp.get("hops_as_expected", True))
+        emit(f"train_{leg['name']}" if leg.get("sp") else "train_pp_flagship"
+             if leg.get("pp") else f"train_mesh_{leg['name']}", ok=ok,
+             context_parallel=leg.get("sp"), **pp,
              mesh=dict(zip(leg["axes"], leg["sizes"])),
              batch=leg["batch"], seq=leg["seq"], dtype="bfloat16",
              master_weights="float32", warmup_steps=leg["warmup"],
@@ -8771,23 +8899,60 @@ def phase_train_mesh(device, smi: str) -> tuple:
     # Each leg's seconds on rank 0: from the event before it to its own.
     ends = [(e.get("name"), e["t"]) for e in first["events"][0]
             if e["event"] in ("device_ready", "parity", "flagship")]
-    sp_names = {leg["name"] for leg in parity_legs + flagship_legs
-                if leg.get("sp")}
-    sp_seconds = {name: t - before for (_, before), (name, t)
-                  in zip(ends, ends[1:]) if name in sp_names}
-    emit("train_sp", legs=sorted(sp_names), seconds=sum(sp_seconds.values()),
-         seconds_by_leg=sp_seconds,
-         failures=[f for f in failures if f.split()[-1] in sp_names],
-         gpu=smi)
+    leg_seconds = {name: t - before for (_, before), (name, t)
+                   in zip(ends, ends[1:])}
+    for phase, kind in (("train_sp", "sp"), ("train_pp", "pp")):
+        names = {leg["name"] for leg in parity_legs + flagship_legs
+                 if leg.get(kind)}
+        seconds = {name: leg_seconds[name] for name in sorted(names)}
+        emit(phase, legs=sorted(names), seconds=sum(seconds.values()),
+             seconds_by_leg=seconds,
+             failures=[f for f in failures if f.split()[-1] in names],
+             gpu=smi)
     emit("train_mesh", ranks=n, seconds=time.perf_counter() - t0,
-         sp_legs_seconds=sum(sp_seconds.values()),
+         sp_legs_seconds=sum(leg_seconds[leg["name"]] for leg in
+                             parity_legs + flagship_legs if leg.get("sp")),
+         pp_legs_seconds=sum(leg_seconds[leg["name"]] for leg in
+                             parity_legs + flagship_legs if leg.get("pp")),
          timeline_rank0={"first": rank_timeline(first),
                          "second": rank_timeline(second)},
          failures=failures, gpu=smi)
     if failures:
         raise AssertionError(f"train_mesh: {failures}")
-    return out["dense"], {leg["name"]: out[leg["name"]]
-                          for leg in flagship_legs if leg.get("sp")}
+    return (out["dense"], {leg["name"]: out[leg["name"]]
+                           for leg in flagship_legs if leg.get("sp")},
+            out[pp_flagship["name"]])
+
+
+def pp_report(leg: dict, lines: list) -> dict:
+    """Phase 36's flagship fields from its ranks' lines: the bubble's
+    share of the ticks in theory, (P - 1) / (M + P - 1), against each
+    rank's measured share of its profiled step spent waiting in hand-offs;
+    each rank's collectives a step by kind; whether every rank made M +
+    2P - 2 hops a step."""
+    n_stages = dict(zip(leg["axes"], leg["sizes"]))["pp"]
+    m = leg["pp"]
+    per_step = [{k: {"calls": v["calls"] / leg["timed"],
+                     "ms": v["ms"] / leg["timed"],
+                     "bytes": v["bytes"] / leg["timed"]}
+                 for k, v in line["collectives"].items()} for line in lines]
+    idle = []
+    for line in lines:
+        ticks = line["ticks"]
+        wait = sum(w for _, w in ticks)
+        idle.append(wait / (wait + sum(c for c, _ in ticks)))
+    return dict(
+        stages=n_stages, microbatches=m,
+        layers_per_stage=leg["model"]["n_layers"] // n_stages,
+        stage_by_rank=[line["stage"] for line in lines],
+        bubble_share_theory=(n_stages - 1) / (m + n_stages - 1),
+        idle_share_measured_by_rank=idle,
+        ticks_ms_by_rank=[line["ticks"] for line in lines],
+        collectives_per_step_by_rank=per_step,
+        hops_per_step_expected=m + 2 * n_stages - 2,
+        hops_as_expected=all(
+            s["pipeline_hop"]["calls"] == m + 2 * n_stages - 2
+            for s in per_step))
 
 def main() -> int:
     import shutil
@@ -8865,7 +9030,7 @@ def run_phases(bucket: str) -> int:
     bucketed = phase_serve_bucketed(device, smi)
     mesh = phase_serve_mesh(device, smi)
     torch.cuda.empty_cache()
-    train_mesh, train_sp = phase_train_mesh(device, smi)
+    train_mesh, train_sp, train_pp = phase_train_mesh(device, smi)
 
     def spec_scoring(kernel: str) -> dict:
         row = spec_times[kernel]
@@ -8947,7 +9112,9 @@ def run_phases(bucket: str) -> int:
                 rank: counts[name] for rank, counts in train_mesh.items()},
             "launches_train_sp_by_rank": {
                 leg: {rank: counts[name] for rank, counts in ranks.items()}
-                for leg, ranks in train_sp.items()}})
+                for leg, ranks in train_sp.items()},
+            "launches_train_pp_by_rank": {
+                rank: counts[name] for rank, counts in train_pp.items()}})
         # B1, B2 and B3 v3: wgmma fed by TMA rings
         build = fwd_build if name == "flash_fwd" else bwd_build[name]
         kernels[-1].update(version="v3", kernel=f"{name}_wgmma_kernel",

@@ -201,6 +201,18 @@ def _bf16_tokens_equal(got, logits, mask, atol):
                                   np.argmax(_f32(logits), -1)[clear])
 
 
+#: JAX's multi-token functions compiled, as its engine runs them (the
+#: config and ``attn_impl`` static). XLA folds the quantizer's ``amax /
+#: 127.0`` into a product with the float32 reciprocal, so an eager call's
+#: scales sit an ulp from the engine's in about half the blocks, and an
+#: int4 code at a rounding edge a step apart.
+JAX_FNS = {name: jax.jit(getattr(jmodel, name), static_argnums=1,
+                         static_argnames="attn_impl")
+           for name in ("_multitoken_features", "paged_multitoken_logits",
+                        "spec_score_greedy", "spec_score_probs",
+                        "chunked_step_greedy")}
+
+
 @pytest.mark.parametrize("jax_impl", ["xla", "interpret"])
 @pytest.mark.parametrize("w", [1, 3])
 @pytest.mark.parametrize("preset,kind", [
@@ -236,7 +248,7 @@ def test_multitoken_functions_match_jax(preset, kind, w, jax_impl):
     bf16_atol = 0.0
 
     with torch.no_grad():
-        feats = jmodel._multitoken_features(*jhead, jpools, jqa, **jkw)
+        feats = JAX_FNS["_multitoken_features"](*jhead, jpools, jqa, **jkw)
         pools = port_pools()
         got = tmodel._multitoken_features(*thead, pools, tqa)
         got = got[0] if quantized else got
@@ -246,13 +258,13 @@ def test_multitoken_functions_match_jax(preset, kind, w, jax_impl):
             for p in x["pools"] for n in ("k", "v")))
         _check_pools(kind, pools, feats[1], bf16_atol)
 
-        logits = jmodel.paged_multitoken_logits(*jhead, jpools, jqa, **jkw)
+        logits = JAX_FNS["paged_multitoken_logits"](*jhead, jpools, jqa, **jkw)
         got = tmodel.paged_multitoken_logits(*thead, port_pools(), tqa)
         got = got[0] if quantized else got
         assert got.shape == (4, w, jcfg.vocab_size)
         _close(kind, got, logits[0], valid)
 
-        greedy = jmodel.spec_score_greedy(*jhead, jpools, jqa, **jkw)
+        greedy = JAX_FNS["spec_score_greedy"](*jhead, jpools, jqa, **jkw)
         got = tmodel.spec_score_greedy(*thead, port_pools(), tqa)
         got = got[0] if quantized else got
         if kind == "bfloat16":
@@ -264,7 +276,7 @@ def test_multitoken_functions_match_jax(preset, kind, w, jax_impl):
                                           np.asarray(greedy[0])[valid])
 
         if kind != "bfloat16":
-            probs = jmodel.spec_score_probs(
+            probs = JAX_FNS["spec_score_probs"](
                 *jhead, jnp.asarray(x["temps"]), jnp.asarray(x["tops"]),
                 jpools, jqa, **jkw)
             got = tmodel.spec_score_probs(
@@ -275,7 +287,7 @@ def test_multitoken_functions_match_jax(preset, kind, w, jax_impl):
             np.testing.assert_allclose(got.numpy()[valid].sum(-1), 1.0,
                                        atol=1e-5)
 
-        chunk = jmodel.chunked_step_greedy(
+        chunk = JAX_FNS["chunked_step_greedy"](
             *jhead[:5], jnp.asarray(x["last_idx"]), jhead[5], jpools, jqa,
             **jkw)
         pools = port_pools()

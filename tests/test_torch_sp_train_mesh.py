@@ -102,7 +102,8 @@ def test_sp_checkpoint_crosses_packages(group, tmp_path):
 def test_sp_step_refusals():
     """JAX's ValueError for an unknown mode, word for word; a MoE config
     names ROADMAP A14 (its router statistics span the whole sequence);
-    no sp axis; and pp stays A14."""
+    no sp axis; and the pp step's refusals of a bad layer split and a MoE
+    config, JAX's word for word."""
     layout = tmesh.Mesh((4,), ("sp",))
     cfg = ttf.TransformerConfig(dtype=torch.float32, **SP_MODEL)
     jcfg = jtf.TransformerConfig(dtype=jnp.float32, **SP_MODEL)
@@ -118,8 +119,17 @@ def test_sp_step_refusals():
         ttrain.make_sp_train_step(moe, layout)
     with pytest.raises(ValueError, match="no 'sp' axis"):
         ttrain.make_sp_train_step(cfg, tmesh.Mesh((4,), ("dp",)))
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrain.make_pp_train_step(cfg, layout)
+    pp = tmesh.Mesh((4,), ("pp",))
+    for bad in (dict(SP_MODEL, n_layers=3),
+                dict(SP_MODEL, n_layers=4, moe_every=2, n_experts=4)):
+        with pytest.raises(ValueError) as jax_err:
+            jtrain.make_pp_train_step(
+                jtf.TransformerConfig(dtype=jnp.float32, **bad),
+                jmesh.make_mesh(4, axis_names=("pp",), axis_sizes=(4,)), 4)
+        with pytest.raises(ValueError) as port_err:
+            ttrain.make_pp_train_step(
+                ttf.TransformerConfig(dtype=torch.float32, **bad), pp, 4)
+        assert str(port_err.value) == str(jax_err.value)
     with pytest.raises(ValueError, match="make_sp_train_step"):
         ttrain.make_train_step(cfg, mesh=layout,
                                activation_spec=PartitionSpec(None, "sp",

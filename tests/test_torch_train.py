@@ -203,15 +203,27 @@ def test_master_weights_and_bf16_use_site_casts():
 
 
 def test_unported_training_paths_raise():
-    """Pipeline parallelism stays ROADMAP A14. An ``activation_spec`` that
-    shards the sequence needs an attention that crosses the ranks'
-    windows, ``make_sp_train_step``'s (``test_torch_sp_train*.py``); one
-    on the model dim has no counterpart. The mesh step, a batch-axes
+    """The pipeline step refuses what JAX's refuses, word for word: layers
+    that do not split into the stages and a MoE config (the step itself is
+    ``test_torch_pp_train.py``'s). An ``activation_spec`` that shards the
+    sequence needs an attention that crosses the ranks' windows,
+    ``make_sp_train_step``'s (``test_torch_sp_train*.py``); one on the
+    model dim has no counterpart. The mesh step, a batch-axes
     ``activation_spec``, a ``moe_fn`` and ``token_shards`` are ported
     (``test_torch_train_mesh.py``)."""
+    from tpu_task.ml.parallel import mesh as jmesh
+    from tpu_task_torch.ml.parallel.mesh import Mesh
+
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrain.make_pp_train_step(cfg)
+    jm = jmesh.make_mesh(4, axis_names=("pp",), axis_sizes=(4,))
+    for over in (dict(n_layers=3), dict(n_layers=4, moe_every=2,
+                                         n_experts=4)):
+        jbad, bad = _configs(**over)
+        with pytest.raises(ValueError) as jax_err:
+            jtrain.make_pp_train_step(jbad, jm, 4)
+        with pytest.raises(ValueError) as port_err:
+            ttrain.make_pp_train_step(bad, Mesh((4,), ("pp",)), 4)
+        assert str(port_err.value) == str(jax_err.value)
     seq = PartitionSpec(("dp",), "sp", None)
     with pytest.raises(ValueError, match="make_sp_train_step"):
         ttrain.make_train_step(cfg, activation_spec=seq)

@@ -3,10 +3,12 @@ serves one engine over a mesh, and sequence-parallel attention — the names
 ``tpu_task/ml/parallel/__init__.py`` exports that have a counterpart here
 (``PartitionPlan``, ``compile_step``, ``named_sharding`` and
 ``pspecs_to_shardings`` are XLA's compile seam; the gang's program
-broadcast takes its place), plus the sequence cut ``sequence_piece`` and
-the context-parallel attention modules :mod:`.ring_attention` and
+broadcast takes its place), plus the sequence cut ``sequence_piece``, the
+context-parallel attention modules :mod:`.ring_attention` and
 :mod:`.ulysses` (as modules: ``ring_attention`` is also a function of the
-first)."""
+first) and the pipeline schedules' module :mod:`.pipeline`
+(``pipeline_apply``, ``pipeline_train``), which the JAX package imports by
+its path."""
 
 from tpu_task_torch.ml.parallel.mesh import (
     Mesh,
@@ -22,7 +24,7 @@ from tpu_task_torch.ml.parallel.sharding import (
     match_partition_rules,
     shard_pytree,
 )
-from tpu_task_torch.ml.parallel import ring_attention, ulysses
+from tpu_task_torch.ml.parallel import pipeline, ring_attention, ulysses
 
 __all__ = [
     "Mesh",
@@ -33,6 +35,7 @@ __all__ = [
     "logical_to_mesh_axes",
     "make_mesh",
     "match_partition_rules",
+    "pipeline",
     "ring_attention",
     "sequence_piece",
     "shard_pytree",

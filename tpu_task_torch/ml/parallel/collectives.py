@@ -38,14 +38,17 @@ two runs, within the spread of a copy through pinned host memory and
 gloo's send/recv (7.2-15.7 ms); gloo's send/recv itself refuses a CUDA
 tensor (``writev ... Bad address``). So every hop takes that one path, on
 either device, and moves only its own bytes (an even all_to_all with zero
-rows would move the axis size times as many)."""
+rows would move the axis size times as many). :func:`pipeline_hop` (a
+pipeline tick's forward to the next position and gradient to the previous
+one, an open chain) is such a call too, counted as ``"pipeline_hop"``;
+:func:`all_reduce_as` is an all-reduce counted under a kind of its own."""
 
 from __future__ import annotations
 
 import contextlib
 import math
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -67,10 +70,13 @@ class CollectiveError(RuntimeError):
 
 
 @contextlib.contextmanager
-def _counted(mesh, kind: str, x: torch.Tensor):
-    if x.is_cuda and kind not in GLOO_CUDA_COLLECTIVES:
+def _counted(mesh, kind: str, x: torch.Tensor, op: str = None):
+    """Count one collective under ``kind``; ``op`` (default ``kind``) is
+    the gloo collective it runs."""
+    op = op or kind
+    if x.is_cuda and op not in GLOO_CUDA_COLLECTIVES:
         raise CollectiveError(
-            f"gloo's {kind} is not known to take CUDA tensors")
+            f"gloo's {op} is not known to take CUDA tensors")
     t0 = time.perf_counter()
     yield
     entry = mesh.collectives.setdefault(kind, [0, 0.0, 0])
@@ -88,10 +94,11 @@ def collective_stats(mesh) -> Dict[str, Dict[str, float]]:
 
 # -- the plain collectives -----------------------------------------------------
 
-def _reduce(mesh, x: torch.Tensor, axis: str, op: str = "sum"):
+def _reduce(mesh, x: torch.Tensor, axis: str, op: str = "sum",
+            kind: str = "all_reduce"):
     out = x.contiguous().clone()
     red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-    with _counted(mesh, "all_reduce", out):
+    with _counted(mesh, kind, out, "all_reduce"):
         dist.all_reduce(out, op=red, group=mesh.group(axis))
     return out
 
@@ -119,7 +126,7 @@ def _route(mesh, flat: torch.Tensor, axis: str, send: Sequence[int],
     returns what each position sent here, concatenated in position order
     (``recv[j]`` elements from position j)."""
     out = flat.new_empty(sum(recv))
-    with _counted(mesh, kind, flat):
+    with _counted(mesh, kind, flat, "all_to_all"):
         dist.all_to_all_single(out, flat, output_split_sizes=list(recv),
                                input_split_sizes=list(send),
                                group=mesh.group(axis))
@@ -234,6 +241,16 @@ def all_reduce(mesh, x: torch.Tensor, axis: str, op: str = "sum",
     return _AllReduce.apply(x, mesh, axis, op, conjugate)
 
 
+def all_reduce_as(mesh, x: torch.Tensor, axis: str,
+                  kind: str) -> torch.Tensor:
+    """``x`` summed over ``axis`` without a gradient, counted under
+    ``kind`` rather than ``"all_reduce"`` (the pipeline's end reductions,
+    each read on its own)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _reduce(mesh, x, axis, kind=kind)
+
+
 def sum_grads(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
     """``x`` itself, whose gradient is summed over ``axis``: a replicated
     activation entering products that each rank of the axis runs on its own
@@ -330,6 +347,58 @@ def ppermute(mesh, x: torch.Tensor, axis: str,
                   "ppermute").view(x.shape)
 
 
+def pipeline_hop(mesh, axis: str, like: torch.Tensor,
+                 forward: Optional[torch.Tensor] = None,
+                 backward: Optional[torch.Tensor] = None,
+                 receive_forward: bool = False,
+                 receive_backward: bool = False) -> tuple:
+    """One tick's two hand-offs of a pipeline over ``axis``, an open chain
+    (JAX's perms ``[(i, i + 1)]`` forward and ``[(i + 1, i)]`` backward):
+    ``forward`` goes to the next position, ``backward`` to the previous
+    one, and this rank receives the previous position's forward when
+    ``receive_forward`` and the next one's backward when
+    ``receive_backward``, each a tensor like ``like``. Which of the four
+    happen on every rank follows from the schedule, so a piece that
+    nobody sends is never waited for. One uneven all_to_all whose split
+    sizes are zero wherever nothing moves, counted as ``"pipeline_hop"``
+    (a bubble tick's call moves 0 bytes); no gradient. Returns (the
+    received forward, the received backward), None where nothing came."""
+    n = axis_size(mesh, axis)
+    i = mesh.axis_index(axis)
+    if (forward is not None or receive_backward) and i == n - 1:
+        raise ValueError(f"position {i} is the last on {axis}: nothing "
+                         "follows it")
+    if (backward is not None or receive_forward) and i == 0:
+        raise ValueError(f"position 0 is the first on {axis}: nothing "
+                         "precedes it")
+    pieces = [(i - 1, backward), (i + 1, forward)]   # by destination
+    pieces = [(j, t) for j, t in pieces if t is not None]
+    for _, t in pieces:
+        if t.dtype != like.dtype or t.shape != like.shape:
+            raise ValueError(f"a {t.dtype} {tuple(t.shape)} hand-off, the "
+                             f"pipeline moves {like.dtype} "
+                             f"{tuple(like.shape)}")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError("pipeline_hop carries no gradient")
+    if n == 1:
+        return None, None
+    send, recv = [0] * n, [0] * n
+    for j, t in pieces:
+        send[j] = t.numel()
+    if receive_forward:
+        recv[i - 1] = like.numel()
+    if receive_backward:
+        recv[i + 1] = like.numel()
+    flat = (torch.cat([t.reshape(-1) for _, t in pieces]) if pieces
+            else like.new_empty(0))
+    out = iter(_route(mesh, flat, axis, send, recv, "pipeline_hop").split(
+        [like.numel()] * (int(receive_forward) + int(receive_backward))))
+    got_forward = next(out).view(like.shape) if receive_forward else None
+    got_backward = next(out).view(like.shape) if receive_backward else None
+    return got_forward, got_backward
+
+
 __all__ = ["CollectiveError", "GLOO_CUDA_COLLECTIVES", "all_gather",
-           "all_reduce", "all_to_all", "collective_stats", "exchange",
-           "gather_cast", "ppermute", "sum_grads"]
+           "all_reduce", "all_reduce_as", "all_to_all", "collective_stats",
+           "exchange", "gather_cast", "pipeline_hop", "ppermute",
+           "sum_grads"]

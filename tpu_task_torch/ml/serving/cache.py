@@ -417,31 +417,45 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return signed.reshape(packed.shape[:-1] + (packed.shape[-1] * 2,))
 
 
+def _over(amax: torch.Tensor, constant: float) -> torch.Tensor:
+    """``amax / constant`` as XLA compiles it: ``amax`` times the
+    constant's float32 reciprocal (torch rounds a Python scalar to the
+    tensor's float32 before it multiplies)."""
+    return amax * (1.0 / constant)
+
+
 def quantize_blocks(x: torch.Tensor, code_dtype: torch.dtype = torch.int8):
     """(n, block_size, kv, d) values → (codes, (n, kv) float32 scales):
     symmetric per-(block, kv-head) quantization, the JAX package's
-    arithmetic step for step (so codes and scales are bit-identical).
+    arithmetic step for step as its serving engine's compiled programs
+    run it (so codes and scales are bit-identical).
 
     int8: ``scale = amax / 127`` floored at :data:`INT8_SCALE_EPS`, codes
     rounded half to even; error ≤ scale/2. fp8 (``float8_e4m3fn``):
     ``scale = amax / FP8_MAX``, the scaled value keeps fp8's own mantissa
     (relative error). uint8 (int4): ``scale = amax / INT4_MAX``, codes
-    clipped to ±7 and packed two per byte (trailing dim ``d/2``)."""
+    clipped to ±7 and packed two per byte (trailing dim ``d/2``).
+
+    Each scale is ``amax`` times the float32 reciprocal of its constant,
+    not a division by it: XLA folds JAX's ``amax / 127.0`` into that
+    product when it compiles the step, and the two differ by an ulp for
+    about half the blocks. An ulp of scale moves a value at an fp8 or
+    int4 rounding edge by a code."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=(1, 3))
     if code_dtype == torch.int8:
-        scale = torch.clamp_min(amax / 127.0, INT8_SCALE_EPS)
+        scale = torch.clamp_min(_over(amax, 127.0), INT8_SCALE_EPS)
         codes = torch.clamp(torch.round(xf / scale[:, None, :, None]),
                             -127, 127).to(torch.int8)
         return codes, scale
     if code_dtype == torch.uint8:
-        scale = torch.clamp_min(amax / float(INT4_MAX), INT8_SCALE_EPS)
+        scale = torch.clamp_min(_over(amax, INT4_MAX), INT8_SCALE_EPS)
         codes = torch.clamp(torch.round(xf / scale[:, None, :, None]),
                             -INT4_MAX, INT4_MAX).to(torch.int8)
         return pack_int4(codes), scale
     if code_dtype != torch.float8_e4m3fn:
         raise ValueError(f"no quantized code dtype {code_dtype}")
-    scale = torch.clamp_min(amax / FP8_MAX, INT8_SCALE_EPS)
+    scale = torch.clamp_min(_over(amax, FP8_MAX), INT8_SCALE_EPS)
     return (xf / scale[:, None, :, None]).to(code_dtype), scale
 
 

@@ -1,8 +1,9 @@
 """The training step for the flagship transformer, on one device and
 sharded over a mesh of ranks — the counterpart of
 ``tpu_task/ml/train.py``'s ``TrainState``, ``make_optimizer``,
-``init_state``, ``state_pspecs``, ``shard_state``, ``make_train_step``
-and ``make_moe_train_step``.
+``init_state``, ``state_pspecs``, ``shard_state``, ``make_train_step``,
+``make_moe_train_step``, ``make_sp_train_step`` and the pipeline half
+(``pp_stack_params`` to ``make_pp_train_step``).
 
 The JAX step is one jitted function that donates its state buffers, so
 XLA updates parameters and moments in place. PyTorch runs eagerly and the
@@ -38,8 +39,14 @@ any of those) each rank also cuts its contiguous window of every row's
 sequence (``mesh.sequence_piece``), rotated at its global positions, and
 attention crosses the windows through the zigzag ring or Ulysses
 (``ml/parallel``). The params replicate over ``sp``, so ``sp`` joins the
-axes that gradients and the loss reduce over. Pipeline parallelism is not
-ported yet (ROADMAP A14) and raises."""
+axes that gradients and the loss reduce over.
+
+**Pipeline-parallel** (:func:`make_pp_train_step`, a ``pp`` axis beside
+any batch axes) the layers stack into P stages (:func:`pp_stack_params`:
+``{"embed", "final_norm", "unembed", "stages"}``, each ``stages`` leaf
+``(P, layers_per_stage, ...)``), each rank holds its stage's block and
+the replicated embedding and head (:func:`shard_pp_state`), and the step
+runs the 1F1B schedule of ``ml/parallel/pipeline.py`` over its rows."""
 
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ import torch
 
 from tpu_task_torch.device import resolve_device
 from tpu_task_torch.ml.models import transformer
+from tpu_task_torch.ml.ops.attention import dot_product_attention
 from tpu_task_torch.ml.parallel import collectives
 from tpu_task_torch.ml.parallel.mesh import batch_shard, sequence_piece
 from tpu_task_torch.ml.parallel.sharding import (
@@ -63,6 +71,7 @@ from tpu_task_torch.ml.parallel.sharding import (
     spec_axes,
     spec_leaves,
 )
+from tpu_task_torch.ml.tree import leaves, tree_map
 
 Params = transformer.Params
 
@@ -115,20 +124,19 @@ class AdamW:
         self.lr, self.weight_decay = lr, weight_decay
 
     def init(self, params: Params) -> Dict[str, Any]:
-        return {"count": 0,
-                "mu": transformer.map_params(torch.zeros_like, params),
-                "nu": transformer.map_params(torch.zeros_like, params)}
+        return {"count": 0, "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], opt_state: Dict[str, Any],
                params: Params, norm: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
         """Apply one step to ``params`` and ``opt_state`` in place;
-        ``grads`` in :func:`_leaves` order (they are clipped in place).
+        ``grads`` in the order of ``params``' leaves (``jax.tree.leaves``
+        order; :func:`_leaves` for the model's tree), clipped in place.
         ``norm``: their global norm when the caller has it (a sharded
         step's, over the whole arrays: :func:`sharded_global_norm`).
         Returns the global norm before clipping."""
-        leaves = _leaves(params)
         if norm is None:
             norm = global_norm(grads)
         keep = norm < MAX_NORM
@@ -136,8 +144,9 @@ class AdamW:
         opt_state["count"] = count
         c1 = 1.0 - B1 ** count
         c2 = 1.0 - B2 ** count
-        for p, g, mu, nu in zip(leaves, grads, _leaves(opt_state["mu"]),
-                                _leaves(opt_state["nu"])):
+        for p, g, mu, nu in zip(leaves(params), grads,
+                                leaves(opt_state["mu"]),
+                                leaves(opt_state["nu"])):
             g.copy_(torch.where(keep, g, g / norm * MAX_NORM))
             mu.mul_(B1).add_((1.0 - B1) * g)
             nu.mul_(B2).add_((1.0 - B2) * g.square())
@@ -173,11 +182,16 @@ def state_from_jax(tree, cfg: transformer.TransformerConfig,
     on ``device`` (CUDA unless the caller passes ``device="cpu"``): step,
     float32 params, AdamW's count and both moments. The moments sit at
     ``opt_state[1][0]``, the ``ScaleByAdamState`` after the clip's empty
-    state."""
+    state. A pipeline state (params with ``stages``, JAX's
+    ``init_pp_state`` layout) stays in that layout."""
     device = resolve_device(device)
     adam = tree.opt_state[1][0]
 
     def tensors(value) -> Params:
+        if "stages" in value:
+            n_stages = len(next(iter(value["stages"].values())))
+            return pp_stack_params(tensors(pp_unstack_params(value)),
+                                   n_stages)
         return transformer.params_from_jax(value, cfg, device,
                                            param_dtype=torch.float32)
 
@@ -191,14 +205,19 @@ def state_to_numpy(state: TrainState) -> TrainState:
     """The state with numpy leaves, the ints as int32 0-d arrays:
     ``jax.tree.leaves`` of it are the JAX ``TrainState``'s leaves in their
     order, so ``jax.tree.unflatten(jax.tree.structure(jax_state),
-    jax.tree.leaves(state_to_numpy(state)))`` is a JAX state."""
+    jax.tree.leaves(state_to_numpy(state)))`` is a JAX state (a pipeline
+    state's too)."""
+    def arrays(params: Params):
+        if "stages" in params:
+            return tree_map(lambda t: t.detach().to(
+                "cpu", torch.float32).numpy(), params)
+        return transformer.params_to_numpy(params)
+
     opt = state.opt_state
     return TrainState(
-        step=np.asarray(state.step, np.int32),
-        params=transformer.params_to_numpy(state.params),
+        step=np.asarray(state.step, np.int32), params=arrays(state.params),
         opt_state={"count": np.asarray(opt["count"], np.int32),
-                   "mu": transformer.params_to_numpy(opt["mu"]),
-                   "nu": transformer.params_to_numpy(opt["nu"])})
+                   "mu": arrays(opt["mu"]), "nu": arrays(opt["nu"])})
 
 
 def _not_ported(what: str):
@@ -244,15 +263,16 @@ def shard_state(state: TrainState, cfg: transformer.TransformerConfig,
     the spec tree): JAX's ``shard_state`` for one mesh position. The
     ints stay ints."""
     specs = state_pspecs(state, cfg, mesh)
+    return _cut_state(state, specs, mesh), specs
 
-    def cut(leaf, spec):
-        if isinstance(leaf, torch.Tensor):
-            return shard_leaf(leaf, spec, mesh)
-        return leaf
 
+def _cut_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
+    """This rank's block of each tensor of ``state`` under ``specs``."""
     def walk(tree, spec_tree):
         if isinstance(spec_tree, PartitionSpec):
-            return cut(tree, spec_tree)
+            if isinstance(tree, torch.Tensor):
+                return shard_leaf(tree, spec_tree, mesh)
+            return tree
         if isinstance(tree, dict):
             return {k: walk(v, spec_tree[k]) for k, v in tree.items()}
         if isinstance(tree, TrainState):
@@ -260,7 +280,7 @@ def shard_state(state: TrainState, cfg: transformer.TransformerConfig,
                                 for v, sp in zip(tree, spec_tree)))
         return type(tree)(walk(v, sp) for v, sp in zip(tree, spec_tree))
 
-    return walk(state, specs), specs
+    return walk(state, specs)
 
 
 def _token_shard_factor(mesh, activation_spec) -> int:
@@ -493,8 +513,189 @@ def _make_step(cfg, optimizer, mesh, attn_fn, activation_spec,
     return with_state
 
 
-def make_pp_train_step(*args, **kwargs):
-    _not_ported("the pipeline-parallel train step")
+# -- pipeline parallelism ------------------------------------------------------
+
+def _stack(values):
+    if isinstance(values[0], torch.Tensor):
+        return torch.stack(values)
+    return np.stack([np.asarray(v) for v in values])
+
+
+def pp_stack_params(params: Params, n_stages: int) -> Params:
+    """The model's params in the pipeline layout: ``{"embed",
+    "final_norm", "unembed", "stages"}``, each ``stages`` leaf the layers'
+    leaf stacked to ``(n_stages, layers_per_stage, ...)``, stage s holding
+    a contiguous run of layers. Tensors or numpy arrays (JAX's leaves),
+    as JAX's ``pp_stack_params``."""
+    layers = params["layers"]
+    n_layers = len(layers)
+    if n_layers % n_stages:
+        raise ValueError(f"n_layers {n_layers} not divisible by "
+                         f"{n_stages} pipeline stages")
+    lps = n_layers // n_stages
+    return {
+        "embed": params["embed"],
+        "final_norm": params["final_norm"],
+        "unembed": params["unembed"],
+        "stages": {name: _stack([_stack([layers[s * lps + j][name]
+                                         for j in range(lps)])
+                                 for s in range(n_stages)])
+                   for name in layers[0]},
+    }
+
+
+def pp_unstack_params(pp_params: Params) -> Params:
+    """The inverse of :func:`pp_stack_params` (for checkpoint interchange
+    and the equivalence tests); tensors or numpy arrays."""
+    stages = pp_params["stages"]
+    first = next(iter(stages.values()))
+    n_stages, lps = first.shape[0], first.shape[1]
+    return {
+        "embed": pp_params["embed"],
+        "final_norm": pp_params["final_norm"],
+        "unembed": pp_params["unembed"],
+        "layers": [{name: leaf[s, j] for name, leaf in stages.items()}
+                   for s in range(n_stages) for j in range(lps)],
+    }
+
+
+def init_pp_state(rng, cfg: transformer.TransformerConfig, n_stages: int,
+                  optimizer=None, device=None) -> TrainState:
+    """A TrainState in the pipeline layout whose params are the sequential
+    init's, stacked (:func:`pp_stack_params`), with zeroed moments, on
+    ``device`` (CUDA unless the caller passes ``device="cpu"``). ``rng``:
+    a ``torch.Generator`` (:func:`init_state`'s draws), or a raw JAX key
+    (the ``uint32[2]`` words of ``jax.random.PRNGKey(seed)``), whose
+    params are JAX's ``init_pp_state``'s bit for bit
+    (``transformer.init_from_key``)."""
+    device = resolve_device(device)
+    optimizer = optimizer or make_optimizer()
+    if isinstance(rng, torch.Generator):
+        params = transformer.init(rng, cfg, param_dtype=torch.float32)
+    else:
+        params = transformer.init_from_key(rng, cfg)
+    params = tree_map(lambda t: t.to(device),
+                      pp_stack_params(params, n_stages))
+    return TrainState(step=0, params=params, opt_state=optimizer.init(params))
+
+
+def pp_state_pspecs(state: TrainState, mesh=None,
+                    axis_name: str = "pp") -> TrainState:
+    """PartitionSpecs for a pipeline TrainState, JAX's
+    ``pp_state_pspecs``: each stage-stacked leaf shards its leading stage
+    axis over ``axis_name``; the embedding and head replicate; the
+    moments follow the params and the count replicates."""
+    p_specs = _pp_param_specs(state.params, axis_name)
+    return TrainState(step=PartitionSpec(), params=p_specs,
+                      opt_state=_opt_specs_like(p_specs, state.opt_state))
+
+
+def _pp_param_specs(params: Params, axis_name: str) -> Params:
+    return {"embed": PartitionSpec(), "final_norm": PartitionSpec(),
+            "unembed": PartitionSpec(),
+            "stages": {name: PartitionSpec(axis_name)
+                       for name in params["stages"]}}
+
+
+def shard_pp_state(state: TrainState, mesh,
+                   axis_name: str = "pp") -> Tuple[TrainState, TrainState]:
+    """(this rank's blocks of the whole pipeline ``state``: its stage's
+    ``(1, layers_per_stage, ...)`` block of every stage leaf and moment,
+    the replicated leaves whole, on the mesh's device; the spec tree)."""
+    specs = pp_state_pspecs(state, mesh, axis_name)
+    return _cut_state(state, specs, mesh), specs
+
+
+def make_pp_train_step(cfg: transformer.TransformerConfig, mesh,
+                       n_microbatches: int, optimizer=None,
+                       axis_name: str = "pp"):
+    """The pipeline-parallel train step (1F1B): JAX's
+    ``make_pp_train_step``. The model's layers split into the ``pp``
+    stages (each rank its stage's ``layers_per_stage`` blocks, unrolled);
+    the embedding runs before the pipeline on the rank's rows and its
+    gradient comes back through the pipeline's ``dx``; the final norm,
+    the unembedding (cast to ``cfg.dtype``) and the fused cross-entropy
+    are the head, run by the last stage on each microbatch; each stage's
+    backward recomputes its forward. Then one AdamW update whose norm is
+    the whole model's (each stage's leaves once, the replicated ones
+    once). The batch axes of the mesh (``dp``, ``fsdp``, ``ep``) each
+    pipeline their own rows, the gradients averaged over them.
+
+    Returns, as :func:`make_train_step` with a mesh, a function of the
+    rank's state (:func:`shard_pp_state`'s blocks) that returns the step;
+    the step takes the rank's rows over the batch axes
+    (``mesh.local_batch``)."""
+    from tpu_task_torch.ml.parallel.pipeline import pipeline_train
+
+    optimizer = optimizer or make_optimizer()
+    if axis_name not in dict(mesh.shape):
+        raise ValueError(f"mesh has no {axis_name!r} axis: "
+                         f"{mesh.axis_names}")
+    n_stages = mesh_axis_size(mesh, axis_name)
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"{n_stages} pipeline stages")
+    if any(cfg.is_moe_layer(i) for i in range(cfg.n_layers)):
+        raise ValueError("pipeline step supports dense layers only "
+                         "(MoE layers go through make_moe_train_step)")
+    lps = cfg.n_layers // n_stages
+    batch_axes = mesh_batch_axes(mesh)
+
+    def attn(q, k, v):
+        return dot_product_attention(
+            q, transformer.expand_kv(k, cfg.n_heads),
+            transformer.expand_kv(v, cfg.n_heads), True)
+
+    def stage_fn(stage_layers, h):
+        for j in range(lps):
+            layer = {name: leaf[j] for name, leaf in stage_layers.items()}
+            h, _aux = transformer._block(h, layer, cfg, attn)
+        return h
+
+    def head_loss(head, out_mb, tgt_mb):
+        h = transformer._rmsnorm(out_mb, head["final_norm"])
+        b, s, d = h.shape
+        return transformer.fused_xent(
+            h.reshape(b * s, d), head["unembed"].to(cfg.dtype),
+            tgt_mb.reshape(-1))
+
+    def with_state(state: TrainState):
+        leaf_specs = spec_leaves(_pp_param_specs(state.params, axis_name))
+        for leaf, spec in zip(leaves(state.params), leaf_specs):
+            if spec and leaf.shape[0] != 1:
+                raise ValueError(f"a stage block of {leaf.shape[0]} stages:"
+                                 " shard_pp_state cuts each rank's one")
+
+        def step(state: TrainState, tokens: torch.Tensor):
+            params = state.params
+            tokens = tokens.long()
+            inp, tgt = tokens[:, :-1], tokens[:, 1:]
+            table = params["embed"].detach().requires_grad_(True)
+            with torch.enable_grad():
+                x = transformer.embed_lookup(table.to(cfg.dtype), inp)
+            head = {"final_norm": params["final_norm"],
+                    "unembed": params["unembed"]}
+            loss, stage_grads, head_grads, dx = pipeline_train(
+                stage_fn, params["stages"], x.detach(), tgt, head_loss,
+                mesh, n_microbatches, axis_name=axis_name, head_params=head,
+                batch_axes=batch_axes)
+            (d_embed,) = torch.autograd.grad(x, [table], dx.to(x.dtype))
+            # The replicated embedding saw this rank's rows: its gradient
+            # sums over the batch axes (dx carries the 1 / pieces of the
+            # mean).
+            _reduce_grads([d_embed], [PartitionSpec()], mesh, batch_axes)
+            grads = leaves({"embed": d_embed, **head_grads,
+                            "stages": stage_grads})
+            norm = sharded_global_norm(grads, leaf_specs, mesh)
+            gnorm = optimizer.update(grads, state.opt_state, params,
+                                     norm=norm)
+            return (TrainState(step=state.step + 1, params=params,
+                               opt_state=state.opt_state),
+                    {"loss": loss.float(), "grad_norm": gnorm})
+
+        return step
+
+    return with_state
 
 
 def make_moe_train_step(cfg: transformer.TransformerConfig, mesh,
